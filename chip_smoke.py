@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's main path once on one CUDA card and check it.
+"""Drive the PyTorch port's main paths once on one CUDA card and check them.
 
 Run from the repository root:
 
@@ -8,33 +8,63 @@ Phases, each of which exits non-zero on failure:
 1. device: a CUDA card must be present; prints ``nvidia-smi``'s name and
    power limit;
 2. build: compiles the CUDA sources of ``pseudo_3d_interpolation_torch``
-   with nvcc for sm_90a and prints the time;
-3. kernel against plain: the ``pocs_solve`` kernel against its plain
-   PyTorch version on the card: at 512² (batch 8, 10 iterations, regular
-   and fast, soft and hard thresholds), one 384x512 rectangle, and at the
-   shapes the main path gives the kernel (batch 32 and the cube's last
-   batch of 1, 50 iterations, hard/fast at 'high'); times both at batch 32;
-4. main path: ``pipeline.pocs.interpolate`` with its production defaults
-   on an in-memory 512x512 frequency cube of 513 slices (the north star's
-   rfft slice count), stored (iline, xline, freq) as users store it, of
-   plane waves under a 50% column mask; asserts that the kernel ran once
-   per batch, that the output is finite and that it is closer to the truth
-   than the masked input.
+   with nvcc for sm_90a, one nvcc per source, all started together, and
+   prints the time;
+3. kernels against plain, on the card:
+   a. ``pocs_solve`` (FFT basis) against its plain version at 512² (batch
+      8, 10 iterations, regular and fast, soft and hard thresholds), one
+      384x512 rectangle, and at the shapes the FFT main path gives it
+      (batch 32 and the cube's last batch of 1, 50 iterations, hard/fast
+      at 'high'); times both at batch 32;
+   b. ``subband_update`` at 512² (batch 8, all 48 full-size bands of the
+      plan) and on one 384x512 rectangle, and ``box_group_update`` on both
+      box groups of the 512² plan (16- and 40-side boxes), soft and hard,
+      on the thresholds of the SHEARLET main path's decay schedule; times
+      both kernels and their plain versions at the main path's batch of
+      32;
+4. FFT main path: ``pipeline.pocs.interpolate`` with its production
+   defaults on an in-memory 512x512 frequency cube of 513 slices (the
+   north star's rfft slice count), stored (iline, xline, freq) as users
+   store it, of plane waves under a 50% column mask; asserts one kernel
+   launch per batch, a finite output and an SNR better than the masked
+   input's;
+5. SHEARLET main path: the same entry point, defaults and cube with
+   ``transform_kind='SHEARLET'``; a first timed batch decides whether the
+   whole cube fits about ten minutes (otherwise the slice count is cut
+   and the cut printed); asserts one ``subband_update`` and two
+   ``box_group_update`` launches per batch per iteration, a finite output
+   and an SNR better than the masked input's.
+Phases 4 and 5 print the wall time, slice-iterations/s and device peak
+memory.
 
-``--trace DIR`` runs the main path once more under ``torch.profiler``,
-writes the Chrome trace to ``DIR/main_path_trace.json`` and prints the
-device's busy time (the union of kernel, memcpy and memset intervals),
-its idle share of the traced wall time, and the largest device and host
-entries.
+Tolerances, kernel against plain: soft thresholds max|Δ| ≤ 1e-4·max|plain|
+(fp32 sums in another order; for ``pocs_solve`` also √cost within 1e-6);
+hard thresholds flip coefficients at the threshold under reordered
+arithmetic, so kernel and plain are compared by SNR against the truth,
+within 0.1 dB (``pocs_solve`` after 50 iterations, where both sit at the
+float32 floor, by the elementwise bound instead). The subband kernels'
+SNR is that of one whole POCS iterate: the kernel's output combined with
+the other kernel's plain output, inverted and reinserted.
+
+``--trace DIR`` runs each main path once more under ``torch.profiler``
+(the SHEARLET path on its first two batches, 64 slices), writes the Chrome
+traces to ``DIR`` (gzipped) and prints the device's busy time (the union
+of kernel, memcpy and memset intervals), its idle share of the traced wall
+time, and the largest device and host entries.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
-the line before it lists each kernel with its launch count, error and
-times.
+the line before it lists each kernel with its launch count, error, times
+and bound (``bound_ms``: the larger of the bytes the call must move over
+3.35 TB/s and its operations over 67 TFLOP/s fp32, the H100 SXM data
+sheet's rates at 700 W).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import gzip
+import inspect
 import json
 import math
 import pathlib
@@ -44,15 +74,16 @@ import time
 
 import numpy as np
 
-SOURCE = "pseudo_3d_interpolation_torch/csrc/pocs_solve.cu"
-REPLACES = "pseudo_3d_interpolation_tpu/ops/pallas/pocs_iter.py:774"
-# soft thresholds: dense fp32 DFT products against cuFFT differ by rounding
+CSRC = "pseudo_3d_interpolation_torch/csrc/"
+PALLAS = "pseudo_3d_interpolation_tpu/ops/pallas/"
+# soft thresholds: fp32 sums in another order than the plain version's
 SOFT_TOL = 1e-4
 # hard thresholds flip coefficients at the threshold under reordered
 # arithmetic, so kernel and plain are compared by SNR against the truth;
-# after 50 iterations both reach the float32 rounding floor against the
-# truth, where the SNRs' difference measures rounding alone: there the
-# elementwise bound SOFT_TOL also passes the case
+# after 50 iterations pocs_solve and its plain version both reach the
+# float32 rounding floor against the truth, where the SNRs' difference
+# measures rounding alone: there the elementwise bound SOFT_TOL also
+# passes the case
 SNR_TOL_DB = 0.1
 # the cost is (d/s)² with d a small difference of two float32 slice sums:
 # sqrt(cost) carries their rounding directly
@@ -61,12 +92,30 @@ N = 512
 SLICES = 513  # rfft bins of a 1024-sample trace (BASELINE.md:24)
 MAIN_BATCH = 32  # the resident driver's batch (pipeline/pocs.py)
 NITER = 50  # the production default
+ALPHA = 0.75
+TAU_ITER = 10  # phase 3b thresholds: this iteration of the schedule
+WALL_LIMIT_S = 600  # the SHEARLET cube is cut to fit this
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# H100 SXM data sheet at 700 W
+FP32_FLOPS = 67e12
+HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """Least time in ms of a call and what sets it."""
+    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def fft2_flops(h: int, w: int) -> float:
+    """5·n·log2 n flops of one complex 2-D transform of n = h·w points."""
+    return 5.0 * h * w * math.log2(h * w)
 
 
 def plane_waves(torch, f, h, w, seed, device):
@@ -104,8 +153,8 @@ def snr_db(torch, ref, x) -> float:
 
 
 def decay_for(torch, obs, niter):
-    """The exponential schedule the solver derives (p_max 0.99, adaptive
-    p_min) for a batch of observed slices."""
+    """The exponential schedule the FFT solver derives (p_max 0.99,
+    adaptive p_min) for a batch of observed slices."""
     from pseudo_3d_interpolation_torch.ops import decay, dft
 
     return decay.threshold_decay(dft.fft2(obs).abs(), "exponential", niter,
@@ -123,16 +172,26 @@ def time_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def time_pair(torch, kernel, plain, reps):
+    """(kernel ms, plain ms), each the mean of two timings taken in the
+    order plain, kernel, kernel, plain; prints all four."""
+    p_a = time_ms(torch, plain, reps)
+    k_a = time_ms(torch, kernel, reps)
+    k_b = time_ms(torch, kernel, reps)
+    p_b = time_ms(torch, plain, reps)
+    return (k_a + k_b) / 2, (p_a + p_b) / 2, (k_a, k_b, p_a, p_b)
+
+
 def kernel_against_plain(torch, ks, Cplx, case, seed, dev):
-    """Run kernel and plain on one case, check them, print the comparison.
-    Returns the inputs and max|Δ|."""
+    """Run pocs_solve and its plain version on one case, check them, print
+    the comparison. Returns the inputs and max|Δ|."""
     b, h, w, op, ver, niter, precision = case
     truth, mask = plane_waves(torch, b, h, w, seed, dev)
     obs = truth * mask
     z = Cplx(obs.real.contiguous(), obs.imag.contiguous())
     tau = decay_for(torch, z, niter)
-    res, cost = ks.pocs_solve(z, mask, tau, 0.75, op, ver, precision)
-    ref, ref_cost = ks.pocs_solve_plain(z, mask, tau, 0.75, op, ver)
+    res, cost = ks.pocs_solve(z, mask, tau, ALPHA, op, ver, precision)
+    ref, ref_cost = ks.pocs_solve_plain(z, mask, tau, ALPHA, op, ver)
     got = torch.complex(res.re, res.im)
     want = torch.complex(ref.re, ref.im)
     label = f"{b}x{h}x{w} {op}/{ver} niter {niter} '{precision}'"
@@ -141,8 +200,9 @@ def kernel_against_plain(torch, ks, Cplx, case, seed, dev):
     err = float(torch.max(torch.abs(got - want)))
     scale = float(torch.max(torch.abs(want)))
     s_k, s_p = snr_db(torch, truth, got), snr_db(torch, truth, want)
-    print(f"kernel vs plain {label}: max|d|={err:.3e} ({err / scale:.2e} of "
-          f"max), SNR kernel {s_k:.3f} dB, plain {s_p:.3f} dB", flush=True)
+    print(f"pocs_solve vs plain {label}: max|d|={err:.3e} ({err / scale:.2e}"
+          f" of max), SNR kernel {s_k:.3f} dB, plain {s_p:.3f} dB",
+          flush=True)
     if op == "soft":
         if err > SOFT_TOL * scale:
             fail(f"soft {label}: max|d| {err:.3e} > {SOFT_TOL} of "
@@ -158,10 +218,114 @@ def kernel_against_plain(torch, ks, Cplx, case, seed, dev):
     return z, mask, tau, err
 
 
-def trace_main_path(torch, run, out_dir: pathlib.Path):
+class ShearletCase:
+    """Phase 3b inputs for one slice shape: plane waves under the column
+    mask, the plan's kernel packing, the spectrum and the thresholds of
+    iteration TAU_ITER of the main path's decay schedule."""
+
+    def __init__(self, torch, b, h, w, seed, dev):
+        from pseudo_3d_interpolation_torch.models.transforms import (
+            ShearletTransform)
+        from pseudo_3d_interpolation_torch.ops import shearlet as sh
+        from pseudo_3d_interpolation_torch.ops.cplx import Cplx
+
+        self.torch, self.h, self.w, self.b = torch, h, w, b
+        self.truth, self.mask = plane_waves(torch, b, h, w, seed, dev)
+        self.obs = self.truth * self.mask
+        z = Cplx(self.obs.real.contiguous(), self.obs.imag.contiguous())
+        tau = ShearletTransform(precision="high").decay_from_input(
+            z, "exponential", NITER, 0.99, "adaptive", "values")[TAU_ITER]
+        self.full, full_idx, self.boxes = sh._plan_kernel_pack(
+            sh.shearlet_plan(h, w), h, w)
+        self.psi = self.full.psi_on(dev)
+        self.tau_full = tau[:, torch.from_numpy(full_idx).to(dev)].contiguous()
+        self.tau = tau.contiguous()
+        self.zf = torch.fft.fft2(self.obs)
+        self.spec = Cplx(self.zf.real.contiguous(), self.zf.imag.contiguous())
+        self.dev = dev
+
+    def box_args(self, k, op):
+        from pseudo_3d_interpolation_torch.ops.cplx import Cplx
+
+        l0, lg, g = self.boxes[k]
+        ih, iw = g.index_on(self.dev)
+        sel = (slice(None), ih[:, None], iw[None, :])
+        box = self.zf[sel]
+        return sel, (Cplx(box.real.contiguous(), box.imag.contiguous()),
+                     g.psi_on(self.dev),
+                     self.tau[:, l0:l0 + lg].contiguous(),
+                     g.box_mats_on(self.h, self.w, self.dev), self.h, self.w,
+                     op)
+
+    def iterate_snr(self, acc, box_sums) -> float:
+        """SNR against the truth of the POCS iterate whose spectral
+        accumulator is ``acc`` plus the box groups' ``(sel, sum)``."""
+        torch = self.torch
+        acc = acc.clone()
+        for sel, m in box_sums:
+            acc[sel] += m
+        x = torch.fft.ifft2(acc) * (1.0 - ALPHA * self.mask) + ALPHA * self.obs
+        return snr_db(torch, self.truth, x)
+
+
+def compare(torch, label, op, got, want, snr_k, snr_p):
+    """Check one subband-kernel case; returns max|Δ|."""
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: kernel output not finite")
+    err = float(torch.max(torch.abs(got - want)))
+    scale = float(torch.max(torch.abs(want)))
+    print(f"{label} {op}: max|d|={err:.3e} ({err / scale:.2e} of max), "
+          f"iterate SNR kernel {snr_k:.3f} dB, plain {snr_p:.3f} dB",
+          flush=True)
+    if op == "soft" and err > SOFT_TOL * scale:
+        fail(f"{label} soft: max|d| {err:.3e} > {SOFT_TOL} of max|plain| "
+             f"{scale:.3e}")
+    if op == "hard" and abs(snr_k - snr_p) > SNR_TOL_DB:
+        fail(f"{label} hard: iterate SNR kernel {snr_k:.3f} dB vs plain "
+             f"{snr_p:.3f} dB")
+    return err
+
+
+def subband_kernels_against_plain(torch, ksb, case, ops, with_boxes):
+    """Phase 3b on one ShearletCase; returns (max|Δ| subband, box)."""
+    c = case
+    cplx = torch.complex
+    err_a = err_b = 0.0
+    for op in ops:
+        want_a = ksb.subband_update_plain(c.spec, c.psi, c.tau_full, op)
+        got_a = ksb.subband_update(c.spec, c.psi, c.tau_full, op, "high")
+        box_plain = []
+        for k in range(len(c.boxes)):
+            sel, args = c.box_args(k, op)
+            m = ksb.box_group_update_plain(*args)
+            box_plain.append((sel, cplx(m.re, m.im)))
+        want_a, got_a = cplx(want_a.re, want_a.im), cplx(got_a.re, got_a.im)
+        label = f"subband_update {c.b}x{c.h}x{c.w} ({c.psi.shape[0]} bands)"
+        err_a = max(err_a, compare(
+            torch, label, op, got_a, want_a, c.iterate_snr(got_a, box_plain),
+            c.iterate_snr(want_a, box_plain)))
+        if not with_boxes:
+            continue
+        for k in range(len(c.boxes)):
+            sel, args = c.box_args(k, op)
+            got_b = ksb.box_group_update(*args, "high")
+            got_b = cplx(got_b.re, got_b.im)
+            want_b = box_plain[k][1]
+            with_k = [(s, got_b if j == k else m)
+                      for j, (s, m) in enumerate(box_plain)]
+            label = (f"box_group_update {c.b}x{len(sel[1])}x"
+                     f"{sel[2].shape[1]} of {c.h}x{c.w}")
+            err_b = max(err_b, compare(
+                torch, label, op, got_b, want_b,
+                c.iterate_snr(want_a, with_k),
+                c.iterate_snr(want_a, box_plain)))
+    return err_a, err_b
+
+
+def trace_main_path(torch, run, out_dir: pathlib.Path, name: str):
     """Run ``run`` under torch.profiler; print the device's busy time, its
     idle share of the traced wall and the largest device and host
-    entries."""
+    entries; keep the Chrome trace as ``DIR/<name>.json.gz``."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -172,10 +336,13 @@ def trace_main_path(torch, run, out_dir: pathlib.Path):
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    path = out_dir / "main_path_trace.json"
-    prof.export_chrome_trace(str(path))
-    with open(path) as fh:
+    raw = out_dir / f"{name}.json"
+    prof.export_chrome_trace(str(raw))
+    with open(raw) as fh:
         events = json.load(fh)["traceEvents"]
+    with open(raw, "rb") as src, gzip.open(f"{raw}.gz", "wb") as dst:
+        dst.write(src.read())
+    raw.unlink()
     spans, by_name = [], {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
@@ -183,30 +350,86 @@ def trace_main_path(torch, run, out_dir: pathlib.Path):
             n, t = by_name.get(e["name"], (0, 0.0))
             by_name[e["name"]] = (n + 1, t + e["dur"])
     if not spans:
-        fail("the trace holds no device activity")
+        fail(f"the {name} trace holds no device activity")
     busy, end = 0.0, -math.inf
     for a, b in sorted(spans):  # union of the device intervals, in us
         if b > end:
             busy += b - max(a, end)
             end = b
     busy /= 1e6
-    print(f"trace -> {path}: traced wall {wall:.3f} s, device busy "
+    print(f"trace -> {raw}.gz: traced wall {wall:.3f} s, device busy "
           f"{busy:.3f} s (union of kernel, memcpy and memset intervals), "
           f"idle share {1 - busy / wall:.3f}")
-    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]:
-        print(f"  device {t / 1e3:9.1f} ms {n:5d}x  {name[:100]}")
+    for kname, (n, t) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][1])[:10]:
+        print(f"  device {t / 1e3:9.1f} ms {n:6d}x  {kname[:100]}")
     print(prof.key_averages().table(sort_by="self_cpu_time_total",
                                     row_limit=10, max_name_column_width=40))
+
+
+def make_cube(torch, Cube, truth, mask):
+    """The masked truth as a Cube stored (iline, xline, freq)."""
+    f = truth.shape[0]
+    obs = truth * mask
+    amp = obs.permute(1, 2, 0).contiguous().cpu().numpy()
+    return Cube(
+        coords={"iline": np.arange(N), "xline": np.arange(N),
+                "freq": np.arange(f, dtype=np.float64)},
+        data_vars={"amp": (("iline", "xline", "freq"), amp),
+                   "fold": (("iline", "xline"),
+                            mask.cpu().numpy().astype(np.int32))},
+    ), snr_db(torch, truth, obs)
+
+
+def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
+              counters, expected):
+    """Run ``interpolate`` once with every kernel count set to 0 just
+    before; check the launches, the output and the SNR; print the wall
+    time, the rate and the device peak. Returns (wall, launches)."""
+    f = truth.shape[0]
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = interpolate(cube, config=config, device=dev)
+    wall = time.perf_counter() - t0
+    launches = [fn.launches for fn in counters]
+    peak_gb = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+    if launches != expected:
+        fail(f"{label}: kernel launches {launches} != {expected} (one per "
+             "batch, or per batch and iteration, for each kernel)")
+    rec = out.data_vars["amp_interp"][1]
+    amp = cube.data_vars["amp"][1]
+    if rec.shape != amp.shape:
+        fail(f"{label}: output shape {rec.shape} != input {amp.shape}")
+    rec = torch.from_numpy(np.moveaxis(rec, -1, 0)).to(dev)
+    if not bool(torch.isfinite(rec).all()):
+        fail(f"{label}: output is not finite")
+    s_out = snr_db(torch, truth, rec)
+    del rec
+    cube_gb = f * N * N * 8 / 1e9
+    print(f"{label}: {f} slices of {N}x{N} stored (iline, xline, freq), "
+          f"niter {config.niter}, launches {launches}, {wall:.2f} s wall, "
+          f"{f * config.niter / wall:.1f} slice-iterations/s; SNR "
+          f"{s_in:.2f} dB masked -> {s_out:.2f} dB; device peak "
+          f"{peak_gb:.2f} GB = {peak_gb / cube_gb:.2f} x the {cube_gb:.2f} "
+          "GB cube pair", flush=True)
+    if not s_out > s_in:
+        fail(f"{label} did not improve SNR ({s_in:.2f} -> {s_out:.2f} dB)")
+    return wall, launches
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", type=pathlib.Path, default=None,
-                        metavar="DIR", help="trace the main path once more "
-                        "and write the Chrome trace to DIR")
+                        metavar="DIR", help="trace each main path once more "
+                        "and write the Chrome traces to DIR")
     args = parser.parse_args()
     import torch
 
+    t_start = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: no CUDA card")
@@ -219,6 +442,7 @@ def main():
     from pseudo_3d_interpolation_torch.ops.cplx import Cplx
     from pseudo_3d_interpolation_torch.ops.kernels import _build
     from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
+    from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
     from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
 
     smi = subprocess.run(
@@ -228,7 +452,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    # the plain versions run no float32 matmul, but state the mode anyway
+    # the plain versions' complex matmuls in full fp32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -236,104 +460,151 @@ def main():
 
     # phase 2: build
     t0 = time.perf_counter()
-    lib_path = _build.build()
+    libs = _build.build()
     ks._lib()
-    print(f"build: {time.perf_counter() - t0:.2f} s -> {lib_path.name}",
-          flush=True)
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  ptxas: {line.strip()}")
+    ksb._lib()
+    print(f"build: {time.perf_counter() - t0:.2f} s -> "
+          f"{sorted(p.name for p in libs.values())}", flush=True)
+    for lib in libs.values():
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line or "Function" in line:
+                print(f"  ptxas {lib.stem[:20]}: {line.strip()}")
 
-    # phase 3: kernel against plain, ending at the main path's shapes
+    # phase 3a: pocs_solve against plain, ending at the main path's shapes
     cases = [(8, N, N, op, ver, 10, "highest") for op in ("soft", "hard")
              for ver in ("regular", "fast")]
     cases += [(4, 384, N, "soft", "fast", 10, "highest"),
               (4, 384, N, "hard", "fast", 10, "highest"),
               (SLICES % MAIN_BATCH, N, N, "hard", "fast", NITER, "high"),
               (MAIN_BATCH, N, N, "hard", "fast", NITER, "high")]
-    max_abs_err = 0.0
+    err_solve = 0.0
     for i, case in enumerate(cases):
         z, mask, tau, err = kernel_against_plain(torch, ks, Cplx, case,
                                                  100 + i, dev)
-        max_abs_err = max(max_abs_err, err)
-
-    # timing on the last case's inputs: 32 slices of 512², 50 iterations
-    def run_kernel():
-        ks.pocs_solve(z, mask, tau, 0.75, "hard", "fast", "high")
-
-    def run_plain():
-        ks.pocs_solve_plain(z, mask, tau, 0.75, "hard", "fast")
-
-    plain_a = time_ms(torch, run_plain, 2)
-    kern_a = time_ms(torch, run_kernel, 2)
-    kern_b = time_ms(torch, run_kernel, 2)
-    plain_b = time_ms(torch, run_plain, 2)
-    kernel_ms = (kern_a + kern_b) / 2
-    plain_ms = (plain_a + plain_b) / 2
-    gflop = 16 * N * N * (N + N) * NITER * MAIN_BATCH / 1e9
+        err_solve = max(err_solve, err)
+    solve_ms, solve_plain_ms, four = time_pair(
+        torch, lambda: ks.pocs_solve(z, mask, tau, ALPHA, "hard", "fast",
+                                     "high"),
+        lambda: ks.pocs_solve_plain(z, mask, tau, ALPHA, "hard", "fast"), 2)
+    dense_tflop = 16 * N * N * (N + N) * NITER * MAIN_BATCH / 1e12
     print(f"pocs_solve {MAIN_BATCH}x{N}x{N}, {NITER} iterations: kernel "
-          f"{kern_a:.2f} / {kern_b:.2f} ms ({gflop / kernel_ms:.2f} TFLOP/s "
-          f"dense fp32), plain (torch.fft) {plain_a:.2f} / {plain_b:.2f} ms",
-          flush=True)
+          f"{four[0]:.2f} / {four[1]:.2f} ms ({dense_tflop / solve_ms * 1e3:.2f}"
+          f" TFLOP/s dense fp32), plain (torch.fft) {four[2]:.2f} / "
+          f"{four[3]:.2f} ms", flush=True)
+    solve_bound = bound(2 * fft2_flops(N, N) * NITER * MAIN_BATCH,
+                        MAIN_BATCH * N * N * 16 + N * N * 4
+                        + NITER * MAIN_BATCH * 4 + MAIN_BATCH * 4)
     del z, mask, tau
 
-    # phase 4: the main path, on a cube stored (iline, xline, freq)
-    f = SLICES
-    truth, mask = plane_waves(torch, f, N, N, 0, dev)
-    obs = truth * mask
-    s_in = snr_db(torch, truth, obs)
-    amp = obs.permute(1, 2, 0).contiguous().cpu().numpy()
-    del obs
-    cube = Cube(
-        coords={"iline": np.arange(N), "xline": np.arange(N),
-                "freq": np.arange(f, dtype=np.float64)},
-        data_vars={"amp": (("iline", "xline", "freq"), amp),
-                   "fold": (("iline", "xline"),
-                            mask.cpu().numpy().astype(np.int32))},
-    )
-    cube_gb = f * N * N * 8 / 1e9
-    torch.cuda.synchronize()
-    held = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    ks.pocs_solve.launches = 0
-    t0 = time.perf_counter()
-    out = interpolate(cube, device=dev)
-    wall = time.perf_counter() - t0
-    launches = ks.pocs_solve.launches
-    peak_gb = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
-    expected = math.ceil(f / MAIN_BATCH)
-    if launches != expected:
-        fail(f"the main path launched the pocs_solve kernel {launches} "
-             f"times, not once for each of its {expected} batches")
-    rec = out.data_vars["amp_interp"][1]
-    if rec.shape != amp.shape:
-        fail(f"output shape {rec.shape} != input {amp.shape}")
-    rec = torch.from_numpy(np.moveaxis(rec, -1, 0)).to(dev)
-    if not bool(torch.isfinite(rec).all()):
-        fail("main-path output is not finite")
-    s_out = snr_db(torch, truth, rec)
-    del rec
-    rate = f * NITER / wall
-    print(f"main path: {f} slices of {N}x{N} stored (iline, xline, freq), "
-          f"niter {NITER}, {launches} kernel launches, {wall:.2f} s wall, "
-          f"{rate:.1f} slice-iterations/s; SNR {s_in:.2f} dB masked -> "
-          f"{s_out:.2f} dB; device peak {peak_gb:.2f} GB = "
-          f"{peak_gb / cube_gb:.2f} x the {cube_gb:.2f} GB cube pair",
-          flush=True)
-    if not s_out > s_in:
-        fail(f"main path did not improve SNR ({s_in:.2f} -> {s_out:.2f} dB)")
+    # phase 3b: the subband kernels against plain
+    err_a = err_b = 0.0
+    for b, h, w, boxes in ((8, N, N, True), (4, 384, N, False)):
+        case = ShearletCase(torch, b, h, w, 200 + h, dev)
+        ea, eb = subband_kernels_against_plain(torch, ksb, case,
+                                               ("soft", "hard"), boxes)
+        err_a, err_b = max(err_a, ea), max(err_b, eb)
+        del case
+    case = ShearletCase(torch, MAIN_BATCH, N, N, 300, dev)
+    n_full = case.psi.shape[0]
+    sub_ms, sub_plain_ms, four = time_pair(
+        torch, lambda: ksb.subband_update(case.spec, case.psi, case.tau_full,
+                                          "hard", "high"),
+        lambda: ksb.subband_update_plain(case.spec, case.psi, case.tau_full,
+                                         "hard"), 3)
+    print(f"subband_update {MAIN_BATCH}x{N}x{N}, {n_full} bands: kernel "
+          f"{four[0]:.2f} / {four[1]:.2f} ms, plain (torch.fft) "
+          f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
+    sub_bound = bound(2 * fft2_flops(N, N) * MAIN_BATCH * n_full,
+                      MAIN_BATCH * N * N * 16 + n_full * N * N * 4
+                      + MAIN_BATCH * n_full * 4)
+    box_times, box_bounds = [], []
+    for k, (_, lg, g) in enumerate(case.boxes):
+        _, bargs = case.box_args(k, "hard")
+        t_k, t_p, four = time_pair(
+            torch, lambda: ksb.box_group_update(*bargs, "high"),
+            lambda: ksb.box_group_update_plain(*bargs), 5)
+        side = len(g.idx_h)
+        print(f"box_group_update {MAIN_BATCH}x{side}x{side} ({lg} bands) of "
+              f"{N}x{N}: kernel {four[0]:.3f} / {four[1]:.3f} ms, plain "
+              f"(torch.matmul) {four[2]:.3f} / {four[3]:.3f} ms", flush=True)
+        box_times.append((t_k, t_p))
+        # a pruned FFT: the field from the box's `side` nonzero columns,
+        # then along every row; the same back to the box
+        flops = 2 * MAIN_BATCH * lg * 5.0 * (side * N * math.log2(N)
+                                             + N * N * math.log2(N))
+        box_bounds.append(bound(flops, MAIN_BATCH * side * side * 16
+                                + lg * side * side * 4 + MAIN_BATCH * lg * 4
+                                + 2 * side * N * 8))
+    box_ms = sum(t for t, _ in box_times) / len(box_times)
+    box_plain_ms = sum(t for _, t in box_times) / len(box_times)
+    box_bound = (sum(b for b, _ in box_bounds) / len(box_bounds),
+                 box_bounds[0][1])
+    del case
+    torch.cuda.empty_cache()
+    print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    # phase 4: the FFT main path, on a cube stored (iline, xline, freq)
+    production = inspect.signature(interpolate).parameters["config"].default
+    truth, mask = plane_waves(torch, SLICES, N, N, 0, dev)
+    cube, s_in = make_cube(torch, Cube, truth, mask)
+    n_batches = math.ceil(SLICES / MAIN_BATCH)
+    _, (solve_launches,) = main_path(
+        torch, interpolate, cube, production, dev, truth, s_in,
+        "FFT main path", [ks.pocs_solve], [n_batches])
     if args.trace is not None:
-        del truth, out
-        trace_main_path(torch, lambda: interpolate(cube, device=dev),
-                        args.trace)
+        trace_main_path(torch, lambda: interpolate(cube, config=production,
+                                                   device=dev),
+                        args.trace, "fft_main_path_trace")
+
+    # phase 5: the SHEARLET main path on the same cube
+    shearlet = dataclasses.replace(production, transform_kind="SHEARLET")
+    first, _ = make_cube(torch, Cube, truth[:MAIN_BATCH], mask)
+    t0 = time.perf_counter()
+    interpolate(first, config=shearlet, device=dev)
+    torch.cuda.synchronize()
+    per_batch = time.perf_counter() - t0
+    slices = SLICES
+    if per_batch * n_batches > WALL_LIMIT_S:
+        slices = max(1, int(WALL_LIMIT_S / 2 / per_batch)) * MAIN_BATCH + 1
+        print(f"CUT: the first batch took {per_batch:.1f} s, so the "
+              f"{SLICES}-slice SHEARLET cube would take about "
+              f"{per_batch * n_batches:.0f} s; it runs {slices} slices",
+              flush=True)
+        truth = truth[:slices]
+        cube, s_in = make_cube(torch, Cube, truth, mask)
+    print(f"SHEARLET first batch of {MAIN_BATCH}: {per_batch:.2f} s",
+          flush=True)
+    n_batches = math.ceil(slices / MAIN_BATCH)
+    _, (sub_launches, box_launches) = main_path(
+        torch, interpolate, cube, shearlet, dev, truth, s_in,
+        "SHEARLET main path", [ksb.subband_update, ksb.box_group_update],
+        [n_batches * NITER, 2 * n_batches * NITER])
+    if args.trace is not None:
+        del cube
+        part, _ = make_cube(torch, Cube, truth[:2 * MAIN_BATCH], mask)
+        trace_main_path(torch, lambda: interpolate(part, config=shearlet,
+                                                   device=dev),
+                        args.trace, "shearlet_main_path_trace")
+    print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     print(smi)
-    print(json.dumps({"kernels": [{
-        "name": "pocs_solve", "route": "cuda", "source": SOURCE,
-        "replaces": REPLACES, "launches": launches,
-        "max_abs_err": max_abs_err, "ms": kernel_ms, "plain_ms": plain_ms,
-    }]}))
+    print(json.dumps({"kernels": [
+        entry("pocs_solve", CSRC + "pocs_solve.cu",
+              PALLAS + "pocs_iter.py:774", solve_launches, err_solve,
+              solve_ms, solve_plain_ms, solve_bound),
+        entry("subband_update", CSRC + "subband.cu",
+              PALLAS + "subband.py:392", sub_launches, err_a, sub_ms,
+              sub_plain_ms, sub_bound),
+        entry("box_group_update", CSRC + "subband.cu",
+              PALLAS + "subband.py:316", box_launches, err_b, box_ms,
+              box_plain_ms, box_bound),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

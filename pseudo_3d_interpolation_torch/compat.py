@@ -2,10 +2,11 @@
 
 The system has no learned weights: what defines a solve is the solver
 configuration and the plan constants (the DFT matrices, built bit-equal in
-``ops/dft.py``). These helpers turn the JAX package's configuration, as
-plain Python and numpy values (``dataclasses.asdict(jax_config)``, or a
-transform's kind and options), into this package's objects, so both run
-the same solve.
+``ops/dft.py``, and the shearlet windows and their support-cropped plan,
+built bit-equal in ``ops/shearlet.py``). These helpers turn the JAX
+package's configuration and plan, as plain Python and numpy values
+(``dataclasses.asdict(jax_config)``, a transform's kind and options, a
+plan's arrays), into this package's objects, so both run the same solve.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ import numpy as np
 
 from .models.pocs import TPU_ONLY_FIELDS, POCSConfig
 from .models.transforms import get_transform
+from .ops.shearlet import Plan, _ScaleGroup
 
 
 def _plain(value):
@@ -39,3 +41,26 @@ def transform_from_reference(kind: str, kwargs: dict | None = None):
     ``get_transform`` takes them -> this package's transform."""
     return get_transform(kind, **{k: _plain(v)
                                   for k, v in (kwargs or {}).items()})
+
+
+def plan_from_reference(groups, perm) -> Plan:
+    """A JAX shearlet plan's arrays -> this package's :class:`Plan`.
+
+    ``groups``: one ``(idx_h, idx_w, psi)`` per plan group, as numpy
+    (``(g.idx_h, g.idx_w, g.psi) for g in jax_plan``; the indices are None
+    for a full-size group); ``perm``: ``jax_plan.perm``. The arrays are
+    copied, so the plan owns them."""
+    out = []
+    for idx_h, idx_w, psi in groups:
+        if (idx_h is None) != (idx_w is None):
+            raise ValueError("a group's idx_h and idx_w must both be None "
+                             "(full size) or both be given")
+        psi = np.array(psi, np.float32)
+        if idx_h is not None:
+            idx_h = np.array(idx_h, np.int32)
+            idx_w = np.array(idx_w, np.int32)
+            if psi.shape[1:] != (len(idx_h), len(idx_w)):
+                raise ValueError(f"psi {psi.shape} does not match the box "
+                                 f"({len(idx_h)}, {len(idx_w)})")
+        out.append(_ScaleGroup(idx_h, idx_w, psi))
+    return Plan(out, np.array(perm, np.int64))

@@ -37,6 +37,8 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "shrink.cuh"
+
 namespace {
 
 constexpr int BM = 64;   // output rows per block
@@ -49,7 +51,6 @@ constexpr int A_PAD = 2; // keeps the transposed A stores free of bank conflicts
 constexpr int STATE_THREADS = 256;
 
 enum Epilogue { EPI_STORE = 0, EPI_SHRINK = 1, EPI_REINSERT = 2 };
-enum ThreshOp { OP_HARD = 0, OP_SOFT = 1, OP_GARROTE = 2 };
 
 // C[b] = A[b] @ B[b] for row-major complex planes; a batch stride of 0
 // shares an operand (the DFT matrix) across the batch. sign_* = -1
@@ -73,19 +74,6 @@ struct ReinsertArgs {
   float alpha, scale;
   float* psum; float* pdiff;         // (B, blocks per slice) partial sums
 };
-
-__device__ __forceinline__ float shrink_factor(float mag2, float tau, int op) {
-  if (op == OP_SOFT) {
-    float mag = sqrtf(mag2);
-    float denom = mag == 0.0f ? 1.0f : mag;
-    return fmaxf(1.0f - tau / denom, 0.0f);
-  }
-  if (op == OP_GARROTE) {
-    float denom = mag2 == 0.0f ? 1.0f : mag2;
-    return fmaxf(1.0f - (tau * tau) / denom, 0.0f);
-  }
-  return mag2 >= tau * tau ? 1.0f : 0.0f;
-}
 
 template <int EPI>
 __global__ void __launch_bounds__(NT)

@@ -1,18 +1,23 @@
-"""Sparse-transform protocol for the POCS solver: the FFT basis.
+"""Sparse-transform protocol for the POCS solver: the FFT and SHEARLET
+bases.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/models/transforms.py``. A
 transform is a small frozen object with ``forward``, ``inverse``, ``decay``
-and ``threshold`` over ``Cplx`` pairs, batch first. Only the FFT basis is
-ported; the other kinds raise :class:`NotImplementedError` naming their
-ROADMAP queue item.
+and ``threshold`` over ``Cplx`` pairs, batch first; the spectral-stack basis
+(SHEARLET) adds the fused ``apply_threshold`` and ``decay_from_input`` the
+solver's directional route uses. The other kinds raise
+:class:`NotImplementedError` naming their ROADMAP queue item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 from ..ops import decay as decay_ops
 from ..ops import dft
+from ..ops import shearlet as sh
 from ..ops import threshold as threshold_ops
 from ..ops.cplx import Cplx
 
@@ -58,6 +63,102 @@ class FFTTransform:
                                             kind=op)
 
 
+class _SpectralStackMixin:
+    """The streamed POCS surface of the spectral-stack bases: the fused
+    ``inverse(threshold(forward(z)))`` and the decay schedule from
+    per-subband statistics, neither of which materialises the
+    (B, L, H, W) coefficient stack (ops/shearlet.py)."""
+
+    def apply_threshold(self, z: Cplx, t, op: str) -> Cplx:
+        """``inverse(threshold(forward(z), t))`` through
+        :func:`ops.shearlet.pocs_subband_apply`; ``t``: (B, L)."""
+        return sh.pocs_subband_apply(
+            z, self._plan(z.shape[-2], z.shape[-1]), t, op,
+            precision=_resolve_precision(self.precision),
+            box_precision=_resolve_precision(self.box_precision
+                                             or self.precision))
+
+    def _streamed_stats(self, z: Cplx):
+        return sh.subband_stats(z, self._plan(z.shape[-2], z.shape[-1]))
+
+    @staticmethod
+    def _needs_full_forward(model, decay_kind) -> bool:
+        """Whether the decay model needs the coefficients themselves, not
+        just their per-subband maximum and energy."""
+        return (model == "data-driven" or decay_kind != "values"
+                or "inverse" in model)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShearletTransform(_SpectralStackMixin):
+    """Cone-adapted Meyer shearlet basis (reference SHEARLET kind via
+    FFST); coefficients carry subbands on axis -3, (..., L, H, W), with one
+    threshold per subband. ``box_precision`` (default ``precision``) is the
+    precision of the support-cropped box groups."""
+
+    n_scales: int | None = None
+    precision: str = "highest"
+    box_precision: str | None = None
+    kind: str = "SHEARLET"
+
+    def __post_init__(self):
+        _resolve_precision(self.precision)
+        if self.box_precision is not None:
+            _resolve_precision(self.box_precision)
+
+    def _plan(self, h, w):
+        return sh.shearlet_plan(h, w, self.n_scales)
+
+    def forward(self, z: Cplx) -> Cplx:
+        return sh.shearlet_transform_planned(
+            z, self._plan(z.shape[-2], z.shape[-1]))
+
+    def inverse(self, coeffs: Cplx) -> Cplx:
+        return sh.inverse_shearlet_transform_planned(
+            coeffs, self._plan(coeffs.shape[-2], coeffs.shape[-1]))
+
+    def decay(self, coeffs: Cplx, model, niter, p_max, p_min, decay_kind):
+        mag = coeffs.abs()  # (..., L, H, W): L batches -> per-subband tau
+        tau_min_override = None
+        if isinstance(p_min, str) and p_min == "adaptive":
+            n_scales = self.n_scales or sh.default_scales(
+                coeffs.shape[-2], coeffs.shape[-1])
+            # one value per slice, shared by all subbands
+            tau_min_override = decay_ops.shearlet_adaptive_tau_min(
+                mag, n_scales)[..., None]
+            p_min = 1e-3  # placeholder, overridden
+        return decay_ops.threshold_decay(
+            mag, model, niter, p_max=p_max, p_min=p_min, kind=decay_kind,
+            tau_min_override=tau_min_override)
+
+    def threshold(self, coeffs: Cplx, t, op: str) -> Cplx:
+        # t: (..., L) per-subband thresholds
+        return threshold_ops.threshold_pair(coeffs, t[..., None, None],
+                                            kind=op)
+
+    def decay_from_input(self, z: Cplx, model, niter, p_max, p_min,
+                         decay_kind):
+        """The decay schedule (niter, B, L) straight from the input slices,
+        from the streamed per-subband statistics."""
+        if self._needs_full_forward(model, decay_kind):
+            return self.decay(self.forward(z), model, niter, p_max, p_min,
+                              decay_kind)
+        h, w = z.shape[-2], z.shape[-1]
+        amax, sumsq = self._streamed_stats(z)
+        tau_max = p_max * amax
+        if isinstance(p_min, str):
+            if p_min != "adaptive":
+                raise ValueError(f"unknown p_min {p_min!r}")
+            n_scales = self.n_scales or sh.default_scales(h, w)
+            norms = torch.sqrt(sumsq / (amax.shape[-1] * h * w))
+            tau_min = decay_ops.shearlet_adaptive_tau_min_from_norms(
+                norms, n_scales)[..., None]
+            tau_min = torch.broadcast_to(tau_min, tau_max.shape)
+        else:
+            tau_min = p_min * amax
+        return decay_ops.schedule(model, niter, tau_max, tau_min)
+
+
 _REGISTRY = {}
 
 
@@ -78,8 +179,11 @@ register_transform("FFT", lambda precision="highest", **kw:
 register_transform("DCT", _not_ported("DCT", "ROADMAP queue 1 #5, queue 2 #6"))
 register_transform("WAVELET", _not_ported("WAVELET",
                                           "ROADMAP queue 1 #13, queue 2 #7"))
-register_transform("SHEARLET", _not_ported(
-    "SHEARLET", "ROADMAP queue 1 #11, queue 2 #3-#5 and #8"))
+register_transform(
+    "SHEARLET",
+    lambda n_scales=None, precision="highest", box_precision=None,
+    **kw: ShearletTransform(n_scales=n_scales, precision=precision,
+                            box_precision=box_precision))
 register_transform("CURVELET", _not_ported(
     "CURVELET", "ROADMAP queue 1 #12, queue 2 #3-#5"))
 

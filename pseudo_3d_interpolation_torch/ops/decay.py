@@ -5,11 +5,13 @@ models of the reference's functions/POCS.py:169-368): linear,
 exponential[-q], data-driven (Gao et al. 2013), inverse_proportional[-q]
 (Ge et al. 2015) and the adaptive minimum ``p_min='adaptive'`` (Zhao et al.
 2021). Coefficients arrive as ``(..., H, W)`` magnitudes; every schedule
-returns ``(niter, ...)`` float32. The shearlet helpers are not ported yet
-(ROADMAP queue 1 #11).
+returns ``(niter, ...)`` float32. The shearlet helpers give the adaptive
+minimum shared by all subbands of a slice.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -141,9 +143,12 @@ def data_driven(niter: int, coeff_abs: torch.Tensor, tau_max,
 
 def threshold_decay(coeff_abs: torch.Tensor, model: str = "exponential",
                     niter: int = 50, p_max: float = 0.99, p_min=1e-3,
-                    kind: str = "values") -> torch.Tensor:
+                    kind: str = "values",
+                    tau_min_override=None) -> torch.Tensor:
     """Batched equivalent of the reference's ``get_threshold_decay``:
-    ``(niter,) + coeff_abs.shape[:-2]`` thresholds."""
+    ``(niter,) + coeff_abs.shape[:-2]`` thresholds. ``tau_min_override``
+    replaces the minimum (broadcast to the maximum's shape), as the
+    shearlet basis does with its adaptive minimum."""
     if "inverse" in model and "proportional" in model:
         if kind != "values":
             raise ValueError(
@@ -151,8 +156,44 @@ def threshold_decay(coeff_abs: torch.Tensor, model: str = "exponential",
         return inverse_proportional(model, niter, coeff_abs)
     tau_max, tau_min = tau_bounds(coeff_abs, p_max=p_max, p_min=p_min,
                                   kind=kind)
+    if tau_min_override is not None:
+        tau_min = torch.broadcast_to(
+            torch.as_tensor(tau_min_override, dtype=tau_max.dtype,
+                            device=tau_max.device), tau_max.shape)
     if model == "data-driven":
         if kind != "values":
             raise ValueError("data-driven decay requires kind='values'")
         return data_driven(niter, coeff_abs, tau_max, tau_min)
     return schedule(model, niter, tau_max, tau_min)
+
+
+def shearlet_adaptive_tau_min_from_norms(norm_per_band: torch.Tensor,
+                                         n_scales: int) -> torch.Tensor:
+    """Zhao et al. (2021) adaptive minimum from per-subband norms.
+
+    ``norm_per_band``: (..., L) = sqrt(Σ|c_l|² / (L·H·W)) in subband order
+    [lowpass, scale 1 x 4, scale 2 x 8, ...]; the reference combines them
+    through a median into one value per slice. ``torch.median`` takes the
+    lower of the two middle values where ``jnp.median`` averages them; L =
+    1 + Σ 2^(j+2) is always odd, so both take the one middle value."""
+    counts = [1] + [2 ** (j + 2) for j in range(n_scales)]
+    j_of_band = torch.tensor(sum(([float(j)] * c for j, c in
+                                  enumerate(counts)), []),
+                             dtype=torch.float32, device=norm_per_band.device)
+    weighted = torch.log10(j_of_band + 1.0) * norm_per_band
+    return (1.0 / 3.0) * torch.median(weighted, dim=-1).values
+
+
+def shearlet_adaptive_tau_min(coeff_abs: torch.Tensor,
+                              n_scales: int) -> torch.Tensor:
+    """The adaptive minimum of a materialised (..., L, H, W) coefficient
+    stack (see :func:`shearlet_adaptive_tau_min_from_norms`)."""
+    size = coeff_abs.shape[-3] * coeff_abs.shape[-2] * coeff_abs.shape[-1]
+    norm_per_band = torch.sqrt(torch.sum(coeff_abs**2, dim=(-2, -1)) / size)
+    return shearlet_adaptive_tau_min_from_norms(norm_per_band, n_scales)
+
+
+def n_shearlet_scales(shape) -> int:
+    """Number of shearlet scales for a slice shape (reference
+    POCS.py:21-31)."""
+    return max(int(math.floor(0.5 * math.log2(max(shape)))), 1)

@@ -1,11 +1,13 @@
-"""Build the package's CUDA sources into one shared library, at first use.
+"""Build the package's CUDA sources into shared libraries, at first use.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into a shared library with a plain C interface, loaded through ``ctypes``.
-No PyTorch header is included, so a build takes seconds. The library lands
-in ``_build/`` inside the package (listed in ``.gitignore``), named by a hash
-of the sources and flags, so a changed source is rebuilt and an unchanged
-one is reused. A missing ``nvcc`` or a failed compile raises
+Each ``csrc/*.cu`` file is compiled by ``nvcc`` for Hopper (``sm_90a``) into
+a shared library of its own with a plain C interface, loaded through
+``ctypes``. The first :func:`load` starts one ``nvcc`` per source, all
+together, and waits for them all. No PyTorch header is included, so a
+build takes seconds. The libraries land in ``_build/`` inside the package
+(listed in ``.gitignore``), each named by a hash of its source, the shared
+headers (``csrc/*.cuh``) and the flags, so a changed source is rebuilt and
+an unchanged one is reused. A missing ``nvcc`` or a failed compile raises
 :class:`KernelBuildError`: there is no fallback.
 """
 
@@ -53,39 +55,60 @@ def sources() -> list[Path]:
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def nvcc_command(nvcc: str, srcs, out: Path) -> list[str]:
-    return [nvcc, *NVCC_FLAGS, "-o", str(out), *map(str, srcs)]
+def nvcc_command(nvcc: str, src: Path, out: Path) -> list[str]:
+    return [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out), str(src)]
 
 
-def build() -> Path:
-    """Compile the sources unless this exact build exists; return the
-    library's path. The compiler's output (``-Xptxas -v``: registers,
-    shared memory, spills) is kept beside it as ``.log``."""
+def _library_path(src: Path) -> Path:
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in [src, *sorted(CSRC_DIR.glob("*.cuh"))]:
+        digest.update(f.name.encode())
+        digest.update(f.read_bytes())
+    return BUILD_DIR / f"libp3d_{src.stem}_{digest.hexdigest()[:16]}.so"
+
+
+def build() -> dict[str, Path]:
+    """Compile every source whose exact build does not exist yet, one
+    ``nvcc`` per source, all started together; return ``{source stem:
+    library path}``. Each compiler's output (``-Xptxas -v``: registers,
+    shared memory, spills) is kept beside its library as ``.log``."""
     srcs = sources()
     if not srcs:
         raise KernelBuildError(f"no CUDA sources under {CSRC_DIR}")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in srcs:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    out = BUILD_DIR / f"libp3d_kernels_{digest.hexdigest()[:16]}.so"
-    if out.exists():
-        return out
+    libs = {src.stem: _library_path(src) for src in srcs}
+    todo = [src for src in srcs if not libs[src.stem].exists()]
+    if not todo:
+        return libs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    proc = subprocess.run(nvcc_command(nvcc, srcs, tmp), capture_output=True,
-                          text=True, check=False)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise KernelBuildError(
-            f"nvcc exited {proc.returncode}:\n{proc.stdout}{proc.stderr}")
-    out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+    jobs = []
+    for src in todo:
+        out = libs[src.stem]
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(nvcc_command(nvcc, src, tmp),
+                                stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((src, out, tmp, proc))
+    failures = []
+    for src, out, tmp, proc in jobs:
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc exited {proc.returncode} on {src.name}:"
+                            f"\n{log}")
+            continue
+        out.with_suffix(".log").write_text(log)
+        os.replace(tmp, out)
+    if failures:
+        raise KernelBuildError("\n".join(failures))
+    return libs
 
 
-@functools.lru_cache(maxsize=1)
-def load() -> ctypes.CDLL:
-    """Build if needed and load the kernels' library (once per process)."""
-    return ctypes.CDLL(str(build()))
+@functools.lru_cache(maxsize=None)
+def load(name: str) -> ctypes.CDLL:
+    """Build if needed and load the library of ``csrc/<name>.cu`` (once per
+    process)."""
+    libs = build()
+    if name not in libs:
+        raise KernelBuildError(f"no CUDA source {name}.cu under {CSRC_DIR}")
+    return ctypes.CDLL(str(libs[name]))

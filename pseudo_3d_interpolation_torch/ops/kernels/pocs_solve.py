@@ -121,7 +121,7 @@ def pocs_solve_plain(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
 
 @functools.lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = _build.load()
+    lib = _build.load("pocs_solve")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.p3d_pocs_solve_work_floats.argtypes = [i, i, i]
     lib.p3d_pocs_solve_work_floats.restype = ctypes.c_size_t

@@ -20,29 +20,39 @@ from ..ops.cplx import Cplx, from_complex, to_complex
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as given, else the first CUDA device when there is one,
-    else the CPU."""
+    """``device`` as given; by default the first CUDA device. Without a
+    card that raises: the host runs the plain PyTorch versions only when
+    the caller asks for them with ``device='cpu'``."""
     if device is not None:
         return torch.device(device)
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: torch.cuda.is_available() is false. Pass "
+            "device='cpu' to run the plain PyTorch versions on the host")
+    return torch.device("cuda")
 
 
-def fits_resident(device, n_slices: int, batch: int, h: int, w: int) -> bool:
+def fits_resident(device, n_slices: int, batch: int, h: int, w: int,
+                  expansion: int = 1, extra_bytes: int = 0) -> bool:
     """Whether :func:`interpolate_cube_resident` fits in ``device``'s free
     memory. Its peak is two cube-sized float32 pairs (the input and the
     result; the complex staging copy of the upload and of the download
-    replaces one of them while it lives) and one batch's solve buffers
-    (the kernel's work, its output and the decay's spectrum: about six
-    pairs per slice). The rule asks for three cubes and eight batches. A
-    CPU "device" is the host memory that already holds the cube: it always
-    fits."""
+    replaces one of them while it lives) and one batch's solve buffers.
+    The FFT solve's are about six pairs per slice (the kernel's work, its
+    output and the decay's spectrum); ``expansion`` scales that for other
+    bases, and ``extra_bytes`` adds what does not scale with the slices
+    (a directional basis's windows and kernel scratch). The rule asks for
+    three cubes and eight pairs per slice of the batch times
+    ``expansion``. A CPU "device" is the host memory that already holds
+    the cube: it always fits."""
     device = torch.device(device)
     if device.type != "cuda":
         return True
     free, _ = torch.cuda.mem_get_info(device)
     free += torch.cuda.memory_reserved(device) - torch.cuda.memory_allocated(
         device)
-    return (3 * n_slices + 8 * batch) * h * w * 8 <= free
+    return ((3 * n_slices + 8 * batch * expansion) * h * w * 8 + extra_bytes
+            <= free)
 
 
 def _to_host(rec: Cplx, was_complex: bool) -> np.ndarray:

@@ -25,6 +25,8 @@ from ..io.cube import Cube
 from ..models.pocs import (TPU_ONLY_FIELDS, POCSConfig, describe_route,
                            solver_route)
 from ..models.transforms import TRANSFORM_OPTION_KEYS, get_transform
+from ..ops import shearlet as sh
+from ..ops.kernels import subband
 from ..parallel.solver import (fits_resident, interpolate_cube,
                                interpolate_cube_resident, resolve_device)
 
@@ -35,10 +37,11 @@ _DASK_KEYS = ("n_workers", "processes", "threads_per_worker", "memory_limit",
 
 # Driver-level precision default per basis, applied only when the user
 # leaves ``precision`` unset. 'high' was chosen on the TPU (bf16x3, cube-SNR
-# neutral there); here the kernel computes it in full fp32, so it equals
+# neutral there); here the kernels compute it in full fp32, so it equals
 # 'highest' until the Hopper mapping is chosen (open ROADMAP item). The
 # other bases' entries arrive with those bases.
-_PRODUCTION_PRECISION = {"FFT": {"precision": "high"}}
+_PRODUCTION_PRECISION = {"FFT": {"precision": "high"},
+                         "SHEARLET": {"precision": "high"}}
 
 
 def _production_transform(config: POCSConfig, extra: dict):
@@ -48,6 +51,37 @@ def _production_transform(config: POCSConfig, extra: dict):
     if "precision" not in kw:
         kw.update(_PRODUCTION_PRECISION.get(config.transform_kind, {}))
     return get_transform(config.transform_kind, **kw)
+
+
+def _transform_subbands(transform, slice_shape, config: POCSConfig) -> int:
+    """Per-batch working-set expansion of a basis against the FFT solve's
+    (``fits_resident``'s ``expansion``). FFT: 1. A spectral-stack basis
+    with the streamed iteration and the streamed decay never holds the
+    (B, L, H, W) stack: its scan keeps about sixteen pairs per slice (the
+    iterates, the spectrum, the accumulator, the inverse and the cost's
+    temporaries), 2. When the decay model needs the coefficients
+    themselves (data-driven, non-'values' kinds, inverse-proportional) the
+    forward stack is materialised once per batch: L."""
+    kind = getattr(transform, "kind", "FFT")
+    if kind != "SHEARLET":
+        return 1
+    if not transform._needs_full_forward(
+            config.thresh_model, config.decay_kind):
+        return 2
+    h, w = int(slice_shape[-2]), int(slice_shape[-1])
+    return sh.n_subbands(transform.n_scales or sh.default_scales(h, w))
+
+
+def _transform_device_bytes(transform, batch: int, h: int, w: int) -> int:
+    """Device memory a basis holds or allocates for one batch beyond its
+    slice buffers: a spectral-stack basis's windows, twice (the plan's
+    groups and the kernels' full-size pack), and ``subband_update``'s
+    scratch."""
+    if getattr(transform, "kind", "FFT") != "SHEARLET":
+        return 0
+    n_bands = sh.n_subbands(transform.n_scales or sh.default_scales(h, w))
+    return (2 * n_bands * h * w * 4
+            + subband.scratch_bytes(batch, h, w, n_bands))
 
 
 def config_from_yaml(path_or_dict) -> tuple[POCSConfig, dict]:
@@ -92,8 +126,9 @@ def interpolate(
     device=None,
 ) -> Cube:
     """Interpolate all slices of a cube; the mask derives from the fold
-    (fold > 0 -> 1). ``device`` defaults to the first CUDA device when
-    there is one. Returns a new :class:`Cube` with ``<var>_interp``."""
+    (fold > 0 -> 1). ``device`` defaults to the first CUDA device and
+    raises without one; ``device='cpu'`` runs the plain PyTorch versions on
+    the host. Returns a new :class:`Cube` with ``<var>_interp``."""
     if not isinstance(cube, Cube):
         raise NotImplementedError(
             "interpolate takes an in-memory Cube; netCDF file input is not "
@@ -117,7 +152,10 @@ def interpolate(
     h, w = moved.shape[-2], moved.shape[-1]
     # device-resident driver when the cube fits the device's free memory
     resident_batch = min(batch, 32)
-    resident = fits_resident(device, moved.shape[0], resident_batch, h, w)
+    resident = fits_resident(
+        device, moved.shape[0], resident_batch, h, w,
+        expansion=_transform_subbands(transform, (h, w), config),
+        extra_bytes=_transform_device_bytes(transform, resident_batch, h, w))
     rt = solver_route((resident_batch, h, w), (h, w), config, transform)
     level = logging.INFO if verbose else logging.DEBUG
     log.log(level, "POCS: %d slices of %dx%d, %s/%s, niter=%d on %s",

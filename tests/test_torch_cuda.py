@@ -1,8 +1,8 @@
-"""The CUDA solve kernel (pseudo_3d_interpolation_torch/csrc/pocs_solve.cu)
-held against its plain PyTorch version on the card.
+"""The CUDA kernels (pseudo_3d_interpolation_torch/csrc/pocs_solve.cu and
+csrc/subband.cu) held against their plain PyTorch versions on the card.
 
-Every test here needs a CUDA card and skips without one; the kernel has no
-CPU mode. The file imports no JAX, so on the machine with the card (which
+Every test here needs a CUDA card and skips without one; the kernels have
+no CPU mode. The file imports no JAX, so on the machine with the card (which
 has no jax) it runs without the repository's conftest:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda \
@@ -12,9 +12,12 @@ has no jax) it runs without the repository's conftest:
 import numpy as np
 import pytest
 import torch
+from torch_helpers import gap_taus
 
+from pseudo_3d_interpolation_torch.ops import shearlet as sh
 from pseudo_3d_interpolation_torch.ops.cplx import Cplx
 from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
+from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
 
 # soft thresholds are continuous in the coefficients: dense fp32 DFT
 # products against cuFFT differ by rounding only
@@ -124,3 +127,158 @@ def test_kernel_runs_zero_iterations_and_empty_batches(device):
     empty = Cplx(z.re[:0], z.im[:0])
     res, cost = ks.pocs_solve(empty, mask, decay[:, :0])
     assert res.re.shape == (0, 64, 64) and cost.shape == (0,)
+
+
+def _slices(b, h, w, device, seed):
+    """Random (b, h, w) slices on the card and their spectra."""
+    rng = np.random.default_rng(seed)
+    x = Cplx(*(torch.from_numpy(rng.normal(size=(b, h, w)).astype(
+        np.float32)).to(device) for _ in range(2)))
+    xf = torch.fft.fft2(torch.complex(x.re, x.im))
+    return x, Cplx(xf.real.contiguous(), xf.imag.contiguous())
+
+
+def _taus(z: Cplx, plan):
+    """Per-subband thresholds at 30% of each subband's largest
+    coefficient, from the streamed statistics of the slices."""
+    amax, _ = sh.subband_stats(z, plan)
+    return (0.3 * amax).contiguous()
+
+
+def _tau_for(op, plain_taus, mags):
+    if op != "hard":
+        return plain_taus
+    return torch.from_numpy(gap_taus(mags())).to(plain_taus.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
+@pytest.mark.parametrize("h,w", [(128, 128), (384, 512), (96, 80)])
+def test_subband_kernel_matches_plain(device, h, w, op):
+    """Kernel A on power-of-two and other sides, within 1e-4 of max (fp32
+    FFTs in another order); the hard threshold on taus away from every
+    coefficient (``gap_taus``)."""
+    plan = sh.shearlet_plan(h, w)
+    full, full_idx, _ = sh._plan_kernel_pack(plan, h, w)
+    x, spec = _slices(3, h, w, device, 4)
+    psi = full.psi_on(device)
+
+    def mags():
+        xf = _host(spec).astype(np.complex128)
+        c = np.fft.ifft2(xf[:, None] * full.psi.astype(np.float64)[None])
+        return np.abs(c).reshape(c.shape[0], c.shape[1], -1)
+
+    tau = _tau_for(op, _taus(x, plan)[:, torch.from_numpy(full_idx).to(
+        device)].contiguous(), mags)
+    before = ksb.subband_update.launches
+    got = ksb.subband_update(spec, psi, tau, op)
+    want = ksb.subband_update_plain(spec, psi, tau, op)
+    torch.cuda.synchronize()
+    assert ksb.subband_update.launches == before + 1
+    got, want = _host(got), _host(want)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "hard"])
+@pytest.mark.parametrize("n", [256, 512])
+def test_box_kernel_matches_plain(device, n, op):
+    """Kernel B on both box groups of the plan (16- and 40-side boxes),
+    within 1e-4 of max; the hard threshold on taus away from every
+    coefficient."""
+    plan = sh.shearlet_plan(n, n)
+    _, _, boxes = sh._plan_kernel_pack(plan, n, n)
+    assert [len(g.idx_h) for _, _, g in boxes] == [16, 40]
+    x, spec = _slices(4, n, n, device, 5)
+    tau = _taus(x, plan)
+    for l0, lg, g in boxes:
+        ih, iw = g.index_on(device)
+        xbox = Cplx(spec.re[:, ih[:, None], iw[None, :]].contiguous(),
+                    spec.im[:, ih[:, None], iw[None, :]].contiguous())
+        mats = g.box_mats_on(n, n, device)
+
+        def mags():
+            ah, aw = (np.asarray(m.cpu(), np.float64) for m in mats[::2])
+            ah = ah + 1j * np.asarray(mats[1].cpu(), np.float64)
+            aw = aw + 1j * np.asarray(mats[3].cpu(), np.float64)
+            v = _host(xbox)[:, None] * g.psi.astype(np.float64)[None]
+            c = ah.conj().T @ v @ aw.conj() / (n * n)
+            return np.abs(c).reshape(c.shape[0], c.shape[1], -1)
+
+        group_tau = _tau_for(op, tau[:, l0:l0 + lg].contiguous(), mags)
+        args = (xbox, g.psi_on(device), group_tau, mats, n, n, op)
+        before = ksb.box_group_update.launches
+        got = ksb.box_group_update(*args)
+        want = ksb.box_group_update_plain(*args)
+        torch.cuda.synchronize()
+        assert ksb.box_group_update.launches == before + 1
+        got, want = _host(got), _host(want)
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_subband_apply_kernel_route_matches_streamed(device):
+    """The kernel route of the fused apply against the plain streamed
+    route on the same slices (soft thresholds)."""
+    n = 256
+    plan = sh.shearlet_plan(n, n)
+    z, _ = _slices(2, n, n, device, 6)
+    tau = _taus(z, plan)
+    a = ksb.subband_update.launches, ksb.box_group_update.launches
+    got = sh.pocs_subband_apply(z, plan, tau, "soft")
+    want = sh._pocs_subband_apply_streamed(z, plan, tau, "soft")
+    torch.cuda.synchronize()
+    assert (ksb.subband_update.launches - a[0],
+            ksb.box_group_update.launches - a[1]) == (1, 2)
+    got, want = _host(got), _host(want)
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_subband_kernels_take_empty_batches(device):
+    n = 128
+    plan = sh.shearlet_plan(n, n)
+    full, _, boxes = sh._plan_kernel_pack(plan, n, n)
+    empty = Cplx(torch.empty(0, n, n, device=device),
+                 torch.empty(0, n, n, device=device))
+    out = ksb.subband_update(empty, full.psi_on(device),
+                             torch.empty(0, full.psi.shape[0], device=device))
+    assert out.re.shape == (0, n, n)
+    _, lg, g = boxes[0]
+    sr = len(g.idx_h)
+    out = ksb.box_group_update(
+        Cplx(torch.empty(0, sr, sr, device=device),
+             torch.empty(0, sr, sr, device=device)), g.psi_on(device),
+        torch.empty(0, lg, device=device), g.box_mats_on(n, n, device), n, n)
+    assert out.re.shape == (0, sr, sr)
+
+
+@pytest.mark.cuda
+def test_shearlet_cube_drivers_agree_on_the_card(device):
+    """On a SHEARLET cube the host-chunked driver gives the resident
+    driver's result bit for bit, through one subband and two box launches
+    per batch and iteration."""
+    from pseudo_3d_interpolation_torch.models.pocs import POCSConfig
+    from pseudo_3d_interpolation_torch.models.transforms import (
+        ShearletTransform)
+    from pseudo_3d_interpolation_torch.parallel import solver
+
+    truth, _, mask, _ = _inputs(5, 256, 256, 4, device)
+    m = mask.cpu().numpy()
+    view = np.moveaxis(np.ascontiguousarray(np.moveaxis(truth * m, 0, -1)),
+                       -1, 0)
+    cfg = POCSConfig(niter=4, p_min="adaptive", version="fast", alpha=0.75,
+                     transform_kind="SHEARLET")
+    tr = ShearletTransform(precision="high")
+    a = ksb.subband_update.launches, ksb.box_group_update.launches
+    res = solver.interpolate_cube_resident(view, m, cfg, tr, batch=2,
+                                           device=device)
+    chunked = solver.interpolate_cube(view, m, cfg, tr, batch=2,
+                                      device=device)
+    assert (ksb.subband_update.launches - a[0],
+            ksb.box_group_update.launches - a[1]) == (2 * 3 * 4, 4 * 3 * 4)
+    for x, y in zip(res, chunked):
+        np.testing.assert_array_equal(x, y)
+    assert _snr(truth, res[0]) > _snr(truth, view)

@@ -181,9 +181,13 @@ def test_build_targets_sm90a_and_reuses_an_unchanged_build(monkeypatch,
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     first = _build.build()
     second = _build.build()
-    assert first == second and first.exists()
+    srcs = _build.sources()
+    assert first == second and set(first) == {s.stem for s in srcs}
+    assert all(p.exists() for p in first.values())
+    # one nvcc per source, each a library of its own
     calls = (home / "bin" / "calls").read_text().splitlines()
-    assert len(calls) == 1
-    assert "arch=compute_90a,code=sm_90a" in calls[0]
-    assert "-shared" in calls[0] and "pocs_solve.cu" in calls[0]
-    assert os.path.exists(first.with_suffix(".log"))
+    assert len(calls) == len(srcs) >= 2
+    for src in srcs:
+        call = next(c for c in calls if c.endswith(src.name))
+        assert "arch=compute_90a,code=sm_90a" in call and "-shared" in call
+        assert os.path.exists(first[src.stem].with_suffix(".log"))

@@ -212,7 +212,7 @@ def test_unported_mask_and_basis_raise():
     z = Cplx(torch.ones(shape), torch.zeros(shape))
     with pytest.raises(NotImplementedError, match="exact 2-D"):
         pocs.pocs_interpolate(z, torch.ones(shape), config=cfg)
-    for kind in ("DCT", "WAVELET", "SHEARLET", "CURVELET"):
+    for kind in ("DCT", "WAVELET", "CURVELET"):
         with pytest.raises(NotImplementedError, match="ROADMAP queue"):
             pocs.pocs_interpolate(z, torch.ones(shape[1:]), config=
                                   dataclasses.replace(cfg,
@@ -276,13 +276,35 @@ def test_cube_drivers_agree_and_handle_edges():
     np.testing.assert_allclose(a[2], b[2], rtol=1e-5)
     real = solver.interpolate_cube(obs.real.copy(), mask, cfg, device="cpu")
     assert real[0].dtype == np.float32
-    empty = solver.interpolate_cube_resident(obs[:0], mask, cfg)
+    empty = solver.interpolate_cube_resident(obs[:0], mask, cfg,
+                                             device="cpu")
     assert empty[0].shape == (0, 64, 96) and empty[1].shape == (0,)
     # the host already holds the cube: the CPU always takes the resident
     # driver
     assert solver.fits_resident("cpu", 10**6, 32, 512, 512)
     with pytest.raises(NotImplementedError, match="netCDF"):
         pipe.interpolate("cube.nc")
+
+
+def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
+    """Without a CUDA card the entry points raise when no device is
+    given; only device='cpu' runs the plain versions on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    truth, mask = _truth(f=2, h=32, w=32)
+    obs = truth * mask
+    cfg = pocs.POCSConfig(niter=2)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        solver.resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solver.interpolate_cube(obs, mask, cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solver.interpolate_cube_resident(obs, mask, cfg)
+    _, cube = _cubes(obs, mask)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        pipe.interpolate(cube, config=cfg)
+    assert solver.resolve_device("cpu") == torch.device("cpu")
+    rec, n_iter, _ = solver.interpolate_cube(obs, mask, cfg, device="cpu")
+    assert rec.shape == obs.shape and n_iter.tolist() == [2, 2]
 
 
 def test_port_imports_no_jax():
