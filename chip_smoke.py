@@ -22,6 +22,14 @@ Phases, each of which exits non-zero on failure:
       on the thresholds of the SHEARLET main path's decay schedule; times
       both kernels and their plain versions at the main path's batch of
       32;
+   c. ``pocs_iteration`` (one FFT-basis iteration) at 512² (batch 8, soft
+      and hard) and on one 384x512 rectangle; times both at batch 32;
+   d. ``pocs_solve(basis='dct')`` at 512² (batch 8, 10 iterations, regular
+      and fast, soft and hard) and on one 384x512 rectangle; times both at
+      batch 32 over 50 iterations;
+   e. ``pocs_solve(basis='wavelet')`` at 512² (batch 8, 10 iterations, db4
+      and coif5 at level 3, soft and hard); times both at batch 32 over 50
+      iterations (db4);
 4. FFT main path: ``pipeline.pocs.interpolate`` with its production
    defaults on an in-memory 512x512 frequency cube of 513 slices (the
    north star's rfft slice count), stored (iline, xline, freq) as users
@@ -33,9 +41,22 @@ Phases, each of which exits non-zero on failure:
    whole cube fits about ten minutes (otherwise the slice count is cut
    and the cut printed); asserts one ``subband_update`` and two
    ``box_group_update`` launches per batch per iteration, a finite output
-   and an SNR better than the masked input's.
-Phases 4 and 5 print the wall time, slice-iterations/s and device peak
-memory.
+   and an SNR better than the masked input's;
+6. FFT per-iteration main path: the same cube with the reference's
+   recommended configuration (production defaults with eps 1e-16), route
+   ``fused-periter[fft]``; asserts one ``pocs_iteration`` launch per batch
+   and iteration and the output and SNR checks; prints the mean
+   effective iteration count;
+7. DCT main path: production defaults with ``transform_kind='DCT'``;
+   asserts one ``pocs_solve[dct]`` launch per batch and the same checks;
+8. WAVELET main path: production defaults with ``transform_kind=
+   'WAVELET'`` (db4, level 3) and p_min 1e-5 (the adaptive minimum is
+   undefined for wavelets); asserts one ``pocs_solve[wavelet]`` launch
+   per batch and the same checks.
+Phases 4 to 8 print the wall time, slice-iterations/s and device peak
+memory. Before each, every kernel's launch count is set to 0; after it,
+the counts of all six kernels must be the path's own (zero for the
+others).
 
 Tolerances, kernel against plain: soft thresholds max|Δ| ≤ 1e-4·max|plain|
 (fp32 sums in another order; for ``pocs_solve`` also √cost within 1e-6);
@@ -47,7 +68,8 @@ SNR is that of one whole POCS iterate: the kernel's output combined with
 the other kernel's plain output, inverted and reinserted.
 
 ``--trace DIR`` runs each main path once more under ``torch.profiler``
-(the SHEARLET path on its first two batches, 64 slices), writes the Chrome
+(the SHEARLET and per-iteration paths on their first two batches, 64
+slices), writes the Chrome
 traces to ``DIR`` (gzipped) and prints the device's busy time (the union
 of kernel, memcpy and memset intervals), its idle share of the traced wall
 time, and the largest device and host entries.
@@ -56,7 +78,12 @@ The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists each kernel with its launch count, error, times
 and bound (``bound_ms``: the larger of the bytes the call must move over
 3.35 TB/s and its operations over 67 TFLOP/s fp32, the H100 SXM data
-sheet's rates at 700 W).
+sheet's rates at 700 W). Operations are counted as a fast transform does
+the work: 5·n·log2 n flops per complex 2-D FFT of n points (the FFT
+solve and iteration); 2.5·n·log2 n per real 2-D DCT of n points, four per
+slice-iteration (re and im, forward and inverse: the DCT solve); 2·L
+flops per output of each 1-D filter pass of a length-L wavelet, two
+passes per level, forward and inverse, re and im (the wavelet solve).
 """
 
 from __future__ import annotations
@@ -152,13 +179,34 @@ def snr_db(torch, ref, x) -> float:
     return float(10 * torch.log10(num / den))
 
 
-def decay_for(torch, obs, niter):
-    """The exponential schedule the FFT solver derives (p_max 0.99,
-    adaptive p_min) for a batch of observed slices."""
+def decay_for(torch, obs, niter, basis="fft", wavelet=None):
+    """The exponential schedule the solver derives for a batch of observed
+    slices (p_max 0.99; adaptive p_min, or 1e-5 for the wavelet, where it
+    is undefined): (niter, B), or (niter, B, 3·level) per wavelet band,
+    deepest level first."""
+    from pseudo_3d_interpolation_torch.models.transforms import get_transform
     from pseudo_3d_interpolation_torch.ops import decay, dft
 
-    return decay.threshold_decay(dft.fft2(obs).abs(), "exponential", niter,
-                                 p_max=0.99, p_min="adaptive").contiguous()
+    if basis == "fft":
+        return decay.threshold_decay(dft.fft2(obs).abs(), "exponential",
+                                     niter, p_max=0.99,
+                                     p_min="adaptive").contiguous()
+    if basis == "dct":
+        tr = get_transform("DCT")
+        return tr.decay(tr.forward(obs), "exponential", niter, 0.99,
+                        "adaptive", "values").contiguous()
+    tr = get_transform("WAVELET", wavelet=wavelet, level=3).with_shape(
+        obs.shape)
+    tree = tr.decay(tr.forward(obs), "exponential", niter, 0.99, 1e-5,
+                    "values")
+    return torch.stack([leaf for det in tree[1:] for leaf in det],
+                       dim=-1).contiguous()
+
+
+def wavelet_mats(n, name):
+    from pseudo_3d_interpolation_torch.ops import wavelet as wv
+
+    return [wv.dwt_matrix(n >> j, name) for j in range(3)]
 
 
 def time_ms(torch, fn, reps):
@@ -182,39 +230,72 @@ def time_pair(torch, kernel, plain, reps):
     return (k_a + k_b) / 2, (p_a + p_b) / 2, (k_a, k_b, p_a, p_b)
 
 
-def kernel_against_plain(torch, ks, Cplx, case, seed, dev):
-    """Run pocs_solve and its plain version on one case, check them, print
-    the comparison. Returns the inputs and max|Δ|."""
+def kernel_against_plain(torch, ks, Cplx, case, seed, dev, basis="fft",
+                         wavelet=None):
+    """Run pocs_solve and its plain version on one case of a basis, check
+    them, print the comparison. Returns the inputs and max|Δ|."""
     b, h, w, op, ver, niter, precision = case
     truth, mask = plane_waves(torch, b, h, w, seed, dev)
     obs = truth * mask
     z = Cplx(obs.real.contiguous(), obs.imag.contiguous())
-    tau = decay_for(torch, z, niter)
-    res, cost = ks.pocs_solve(z, mask, tau, ALPHA, op, ver, precision)
-    ref, ref_cost = ks.pocs_solve_plain(z, mask, tau, ALPHA, op, ver)
+    tau = decay_for(torch, z, niter, basis, wavelet)
+    kw = {"basis": basis}
+    if wavelet:
+        kw["wavelet_mats"] = wavelet_mats(h, wavelet)
+    res, cost = ks.pocs_solve(z, mask, tau, ALPHA, op, ver, precision, **kw)
+    ref, ref_cost = ks.pocs_solve_plain(z, mask, tau, ALPHA, op, ver, **kw)
     got = torch.complex(res.re, res.im)
     want = torch.complex(ref.re, ref.im)
+    name = f"pocs_solve[{basis}]" + (f" {wavelet}" if wavelet else "")
     label = f"{b}x{h}x{w} {op}/{ver} niter {niter} '{precision}'"
     if not bool(torch.isfinite(got).all()):
-        fail(f"kernel output not finite at {label}")
+        fail(f"{name} output not finite at {label}")
     err = float(torch.max(torch.abs(got - want)))
     scale = float(torch.max(torch.abs(want)))
     s_k, s_p = snr_db(torch, truth, got), snr_db(torch, truth, want)
-    print(f"pocs_solve vs plain {label}: max|d|={err:.3e} ({err / scale:.2e}"
+    print(f"{name} vs plain {label}: max|d|={err:.3e} ({err / scale:.2e}"
           f" of max), SNR kernel {s_k:.3f} dB, plain {s_p:.3f} dB",
           flush=True)
     if op == "soft":
         if err > SOFT_TOL * scale:
-            fail(f"soft {label}: max|d| {err:.3e} > {SOFT_TOL} of "
+            fail(f"{name} soft {label}: max|d| {err:.3e} > {SOFT_TOL} of "
                  f"max|plain| {scale:.3e}")
         c_err = float(torch.max(torch.abs(torch.sqrt(cost)
                                           - torch.sqrt(ref_cost))))
         if c_err > SQRT_COST_ATOL:
-            fail(f"soft {label}: sqrt(final cost) differs by {c_err:.2e}")
+            fail(f"{name} soft {label}: sqrt(final cost) differs by "
+                 f"{c_err:.2e}")
     elif abs(s_k - s_p) > SNR_TOL_DB and not (
             niter == NITER and err <= SOFT_TOL * scale):
-        fail(f"hard {label}: SNR kernel {s_k:.3f} dB vs plain {s_p:.3f} dB, "
-             f"max|d| {err / scale:.2e} of max")
+        fail(f"{name} hard {label}: SNR kernel {s_k:.3f} dB vs plain "
+             f"{s_p:.3f} dB, max|d| {err / scale:.2e} of max")
+    return z, mask, tau, err
+
+
+def iteration_against_plain(torch, ks, Cplx, b, h, w, op, seed, dev):
+    """Run pocs_iteration and its plain version on the first iterate of
+    the main path (x = obs, iteration TAU_ITER's thresholds), check them
+    like a solve. Returns the inputs and max|Δ|."""
+    truth, mask = plane_waves(torch, b, h, w, seed, dev)
+    obs = truth * mask
+    z = Cplx(obs.real.contiguous(), obs.imag.contiguous())
+    tau = decay_for(torch, z, NITER)[TAU_ITER].contiguous()
+    got = ks.pocs_iteration(z, z, mask, tau, ALPHA, op, "high")
+    want = ks.pocs_iteration_plain(z, z, mask, tau, ALPHA, op)
+    got, want = torch.complex(got.re, got.im), torch.complex(want.re,
+                                                             want.im)
+    label = f"pocs_iteration {b}x{h}x{w} {op}"
+    if not bool(torch.isfinite(got).all()):
+        fail(f"{label}: output not finite")
+    err = float(torch.max(torch.abs(got - want)))
+    scale = float(torch.max(torch.abs(want)))
+    s_k, s_p = snr_db(torch, truth, got), snr_db(torch, truth, want)
+    print(f"{label} vs plain: max|d|={err:.3e} ({err / scale:.2e} of max),"
+          f" SNR kernel {s_k:.3f} dB, plain {s_p:.3f} dB", flush=True)
+    if op == "soft" and err > SOFT_TOL * scale:
+        fail(f"{label}: max|d| {err:.3e} > {SOFT_TOL} of max|plain|")
+    if op == "hard" and abs(s_k - s_p) > SNR_TOL_DB:
+        fail(f"{label}: SNR kernel {s_k:.3f} dB vs plain {s_p:.3f} dB")
     return z, mask, tau, err
 
 
@@ -381,25 +462,49 @@ def make_cube(torch, Cube, truth, mask):
     ), snr_db(torch, truth, obs)
 
 
+KERNELS = ("pocs_solve[fft]", "pocs_solve[dct]", "pocs_solve[wavelet]",
+           "pocs_iteration", "subband_update", "box_group_update")
+
+
+def launch_counts(ks, ksb) -> dict:
+    """Every kernel's launch count, by the names of the ``kernels`` line."""
+    by_basis = ks.pocs_solve.launches_by_basis
+    return {"pocs_solve[fft]": by_basis["fft"],
+            "pocs_solve[dct]": by_basis["dct"],
+            "pocs_solve[wavelet]": by_basis["wavelet"],
+            "pocs_iteration": ks.pocs_iteration.launches,
+            "subband_update": ksb.subband_update.launches,
+            "box_group_update": ksb.box_group_update.launches}
+
+
+def reset_counts(ks, ksb):
+    ks.reset_launches()
+    ksb.subband_update.launches = 0
+    ksb.box_group_update.launches = 0
+
+
 def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
-              counters, expected):
+              modules, expected):
     """Run ``interpolate`` once with every kernel count set to 0 just
-    before; check the launches, the output and the SNR; print the wall
-    time, the rate and the device peak. Returns (wall, launches)."""
+    before; check that the counts just after are ``expected`` (zero for
+    every other kernel), the output and the SNR; print the wall time, the
+    rate, the mean effective iterations and the device peak. Returns
+    (wall, counts, SNR, mean iterations)."""
     f = truth.shape[0]
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    for fn in counters:
-        fn.launches = 0
+    reset_counts(*modules)
     t0 = time.perf_counter()
     out = interpolate(cube, config=config, device=dev)
     wall = time.perf_counter() - t0
-    launches = [fn.launches for fn in counters]
+    counts = launch_counts(*modules)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(expected)
     peak_gb = (torch.cuda.max_memory_allocated(dev) - held) / 1e9
-    if launches != expected:
-        fail(f"{label}: kernel launches {launches} != {expected} (one per "
-             "batch, or per batch and iteration, for each kernel)")
+    if counts != want:
+        fail(f"{label}: kernel launches {counts} != {want} (one per batch, "
+             "or per batch and iteration, for each kernel of the path)")
     rec = out.data_vars["amp_interp"][1]
     amp = cube.data_vars["amp"][1]
     if rec.shape != amp.shape:
@@ -410,15 +515,18 @@ def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
     s_out = snr_db(torch, truth, rec)
     del rec
     cube_gb = f * N * N * 8 / 1e9
+    iters = out.attrs["pocs_mean_iterations"]
+    path = {k: v for k, v in counts.items() if v}
     print(f"{label}: {f} slices of {N}x{N} stored (iline, xline, freq), "
-          f"niter {config.niter}, launches {launches}, {wall:.2f} s wall, "
-          f"{f * config.niter / wall:.1f} slice-iterations/s; SNR "
-          f"{s_in:.2f} dB masked -> {s_out:.2f} dB; device peak "
-          f"{peak_gb:.2f} GB = {peak_gb / cube_gb:.2f} x the {cube_gb:.2f} "
-          "GB cube pair", flush=True)
+          f"niter {config.niter}, launches {path}, {wall:.2f} s wall, "
+          f"{f * config.niter / wall:.1f} slice-iterations/s; mean "
+          f"iterations {iters:.2f}; SNR {s_in:.2f} dB masked -> "
+          f"{s_out:.2f} dB; device peak {peak_gb:.2f} GB = "
+          f"{peak_gb / cube_gb:.2f} x the {cube_gb:.2f} GB cube pair",
+          flush=True)
     if not s_out > s_in:
         fail(f"{label} did not improve SNR ({s_in:.2f} -> {s_out:.2f} dB)")
-    return wall, launches
+    return wall, counts, s_out, iters
 
 
 def main():
@@ -439,6 +547,9 @@ def main():
         fail(f"the port is not importable from here ({e}); run from the "
              "repository root")
     from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.models.pocs import (describe_route,
+                                                           solver_route)
+    from pseudo_3d_interpolation_torch.models.transforms import get_transform
     from pseudo_3d_interpolation_torch.ops.cplx import Cplx
     from pseudo_3d_interpolation_torch.ops.kernels import _build
     from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
@@ -491,9 +602,12 @@ def main():
           f"{four[0]:.2f} / {four[1]:.2f} ms ({dense_tflop / solve_ms * 1e3:.2f}"
           f" TFLOP/s dense fp32), plain (torch.fft) {four[2]:.2f} / "
           f"{four[3]:.2f} ms", flush=True)
+    # the compulsory bytes of a solve: the observed pair in, the result
+    # pair out, the mask, the thresholds, the costs
+    solve_bytes = (MAIN_BATCH * N * N * 16 + N * N * 4
+                   + NITER * MAIN_BATCH * 4 + MAIN_BATCH * 4)
     solve_bound = bound(2 * fft2_flops(N, N) * NITER * MAIN_BATCH,
-                        MAIN_BATCH * N * N * 16 + N * N * 4
-                        + NITER * MAIN_BATCH * 4 + MAIN_BATCH * 4)
+                        solve_bytes)
     del z, mask, tau
 
     # phase 3b: the subband kernels against plain
@@ -540,17 +654,96 @@ def main():
     box_bound = (sum(b for b, _ in box_bounds) / len(box_bounds),
                  box_bounds[0][1])
     del case
+
+    # phase 3c: pocs_iteration against plain, ending at the main path's
+    # two batch sizes
+    err_iter = 0.0
+    for i, (b, h, op) in enumerate(((8, N, "soft"), (8, N, "hard"),
+                                    (4, 384, "soft"), (4, 384, "hard"),
+                                    (SLICES % MAIN_BATCH, N, "hard"),
+                                    (MAIN_BATCH, N, "hard"))):
+        z, mask, tau, err = iteration_against_plain(torch, ks, Cplx, b, h, N,
+                                                    op, 400 + i, dev)
+        err_iter = max(err_iter, err)
+    iter_ms, iter_plain_ms, four = time_pair(
+        torch, lambda: ks.pocs_iteration(z, z, mask, tau, ALPHA, "hard",
+                                         "high"),
+        lambda: ks.pocs_iteration_plain(z, z, mask, tau, ALPHA, "hard"), 20)
+    print(f"pocs_iteration {MAIN_BATCH}x{N}x{N}: kernel {four[0]:.3f} / "
+          f"{four[1]:.3f} ms, plain (torch.fft) {four[2]:.3f} / "
+          f"{four[3]:.3f} ms", flush=True)
+    # x and obs pairs in, the result pair out, the mask, the thresholds
+    iter_bound = bound(2 * fft2_flops(N, N) * MAIN_BATCH,
+                       MAIN_BATCH * N * N * 24 + N * N * 4 + MAIN_BATCH * 4)
+    del z, mask, tau
+
+    # phase 3d: the DCT solve against plain, ending at the main path's
+    # shapes
+    cases = [(8, N, N, op, ver, 10, "highest") for op in ("soft", "hard")
+             for ver in ("regular", "fast")]
+    cases += [(4, 384, N, "soft", "fast", 10, "highest"),
+              (4, 384, N, "hard", "fast", 10, "highest"),
+              (SLICES % MAIN_BATCH, N, N, "hard", "fast", NITER, "high"),
+              (MAIN_BATCH, N, N, "hard", "fast", NITER, "high")]
+    err_dct = 0.0
+    for i, case in enumerate(cases):
+        z, mask, tau, err = kernel_against_plain(torch, ks, Cplx, case,
+                                                 500 + i, dev, "dct")
+        err_dct = max(err_dct, err)
+    dct_ms, dct_plain_ms, four = time_pair(
+        torch, lambda: ks.pocs_solve(z, mask, tau, ALPHA, "hard", "fast",
+                                     "high", basis="dct"),
+        lambda: ks.pocs_solve_plain(z, mask, tau, ALPHA, "hard", "fast",
+                                    basis="dct"), 2)
+    print(f"pocs_solve[dct] {MAIN_BATCH}x{N}x{N}, {NITER} iterations: "
+          f"kernel {four[0]:.2f} / {four[1]:.2f} ms, plain (torch.matmul) "
+          f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
+    # four real 2-D DCTs per slice-iteration at 2.5·n·log2 n each
+    dct_bound = bound(4 * 2.5 * N * N * math.log2(N * N) * NITER
+                      * MAIN_BATCH, solve_bytes)
+    del z, mask, tau
+
+    # phase 3e: the wavelet solve against plain, ending at the main path's
+    # shapes
+    cases = [((8, N, N, op, "fast", 10, "highest"), name)
+             for name in ("db4", "coif5") for op in ("soft", "hard")]
+    cases += [((SLICES % MAIN_BATCH, N, N, "hard", "fast", NITER, "high"),
+               "db4"),
+              ((MAIN_BATCH, N, N, "hard", "fast", NITER, "high"), "db4")]
+    err_wv = 0.0
+    for i, (case, name) in enumerate(cases):
+        z, mask, tau, err = kernel_against_plain(torch, ks, Cplx, case,
+                                                 600 + i, dev, "wavelet",
+                                                 name)
+        err_wv = max(err_wv, err)
+    mats = wavelet_mats(N, "db4")
+    wv_ms, wv_plain_ms, four = time_pair(
+        torch, lambda: ks.pocs_solve(z, mask, tau, ALPHA, "hard", "fast",
+                                     "high", basis="wavelet",
+                                     wavelet_mats=mats),
+        lambda: ks.pocs_solve_plain(z, mask, tau, ALPHA, "hard", "fast",
+                                    basis="wavelet", wavelet_mats=mats), 2)
+    print(f"pocs_solve[wavelet] db4 level 3 {MAIN_BATCH}x{N}x{N}, {NITER} "
+          f"iterations: kernel {four[0]:.2f} / {four[1]:.2f} ms, plain "
+          f"(torch.matmul) {four[2]:.2f} / {four[3]:.2f} ms", flush=True)
+    # db4's filter length 8: 2·8 flops per output per 1-D pass, two passes
+    # per level, forward and inverse, re and im
+    wv_flops = sum(16 * 8 * (N >> lv) ** 2 for lv in range(3))
+    wv_bound = bound(wv_flops * NITER * MAIN_BATCH,
+                     solve_bytes + NITER * MAIN_BATCH * 8 * 4)
+    del z, mask, tau
     torch.cuda.empty_cache()
     print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 4: the FFT main path, on a cube stored (iline, xline, freq)
+    modules = (ks, ksb)
     production = inspect.signature(interpolate).parameters["config"].default
     truth, mask = plane_waves(torch, SLICES, N, N, 0, dev)
     cube, s_in = make_cube(torch, Cube, truth, mask)
     n_batches = math.ceil(SLICES / MAIN_BATCH)
-    _, (solve_launches,) = main_path(
+    _, counts_fft, snr_fft, _ = main_path(
         torch, interpolate, cube, production, dev, truth, s_in,
-        "FFT main path", [ks.pocs_solve], [n_batches])
+        "FFT main path", modules, {"pocs_solve[fft]": n_batches})
     if args.trace is not None:
         trace_main_path(torch, lambda: interpolate(cube, config=production,
                                                    device=dev),
@@ -563,47 +756,99 @@ def main():
     interpolate(first, config=shearlet, device=dev)
     torch.cuda.synchronize()
     per_batch = time.perf_counter() - t0
-    slices = SLICES
+    slices, sh_truth, sh_cube, sh_in = SLICES, truth, cube, s_in
     if per_batch * n_batches > WALL_LIMIT_S:
         slices = max(1, int(WALL_LIMIT_S / 2 / per_batch)) * MAIN_BATCH + 1
         print(f"CUT: the first batch took {per_batch:.1f} s, so the "
               f"{SLICES}-slice SHEARLET cube would take about "
               f"{per_batch * n_batches:.0f} s; it runs {slices} slices",
               flush=True)
-        truth = truth[:slices]
-        cube, s_in = make_cube(torch, Cube, truth, mask)
+        sh_truth = truth[:slices]
+        sh_cube, sh_in = make_cube(torch, Cube, sh_truth, mask)
     print(f"SHEARLET first batch of {MAIN_BATCH}: {per_batch:.2f} s",
           flush=True)
-    n_batches = math.ceil(slices / MAIN_BATCH)
-    _, (sub_launches, box_launches) = main_path(
-        torch, interpolate, cube, shearlet, dev, truth, s_in,
-        "SHEARLET main path", [ksb.subband_update, ksb.box_group_update],
-        [n_batches * NITER, 2 * n_batches * NITER])
+    sh_batches = math.ceil(slices / MAIN_BATCH)
+    _, counts_sh, _, _ = main_path(
+        torch, interpolate, sh_cube, shearlet, dev, sh_truth, sh_in,
+        "SHEARLET main path", modules,
+        {"subband_update": sh_batches * NITER,
+         "box_group_update": 2 * sh_batches * NITER})
+    del sh_cube, sh_truth
+    part, _ = make_cube(torch, Cube, truth[:2 * MAIN_BATCH], mask)
     if args.trace is not None:
-        del cube
-        part, _ = make_cube(torch, Cube, truth[:2 * MAIN_BATCH], mask)
         trace_main_path(torch, lambda: interpolate(part, config=shearlet,
                                                    device=dev),
                         args.trace, "shearlet_main_path_trace")
+
+    # phase 6: the FFT basis with the reference's recommended eps = 1e-16,
+    # through the scan over pocs_iteration
+    recommended = dataclasses.replace(production, eps=1e-16)
+    route = solver_route((MAIN_BATCH, N, N), (N, N), recommended,
+                         get_transform("FFT"))
+    if describe_route(route).split(" ")[0] != "fused-periter[fft]":
+        fail(f"the recommended configuration takes {describe_route(route)}"
+             ", not fused-periter[fft]")
+    _, counts_it, snr_it, iters_it = main_path(
+        torch, interpolate, cube, recommended, dev, truth, s_in,
+        "FFT per-iteration main path (eps 1e-16)", modules,
+        {"pocs_iteration": n_batches * NITER})
+    print(f"recommended configuration (eps 1e-16, fused-periter[fft]): "
+          f"mean iterations {iters_it:.2f}, SNR {snr_it:.2f} dB; production "
+          f"defaults (eps 0, fused-folded[fft], phase 4): {NITER} "
+          f"iterations, SNR {snr_fft:.2f} dB", flush=True)
+    if args.trace is not None:
+        trace_main_path(torch, lambda: interpolate(part, config=recommended,
+                                                   device=dev),
+                        args.trace, "periter_main_path_trace")
+
+    # phases 7 and 8: the DCT and WAVELET folded solves on the same cube
+    dct = dataclasses.replace(production, transform_kind="DCT")
+    _, counts_dct, _, _ = main_path(
+        torch, interpolate, cube, dct, dev, truth, s_in, "DCT main path",
+        modules, {"pocs_solve[dct]": n_batches})
+    if args.trace is not None:
+        trace_main_path(torch, lambda: interpolate(cube, config=dct,
+                                                   device=dev),
+                        args.trace, "dct_main_path_trace")
+    wavelet = dataclasses.replace(production, transform_kind="WAVELET",
+                                  p_min=1e-5)
+    _, counts_wv, _, _ = main_path(
+        torch, interpolate, cube, wavelet, dev, truth, s_in,
+        "WAVELET main path (db4, level 3)", modules,
+        {"pocs_solve[wavelet]": n_batches})
+    if args.trace is not None:
+        trace_main_path(torch, lambda: interpolate(cube, config=wavelet,
+                                                   device=dev),
+                        args.trace, "wavelet_main_path_trace")
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, bnd):
-        return {"name": name, "route": "cuda", "source": source,
-                "replaces": replaces, "launches": launches,
+    def entry(name, replaces, launches, err, ms, plain_ms, bnd,
+              source="pocs_solve.cu"):
+        return {"name": name, "route": "cuda", "source": CSRC + source,
+                "replaces": PALLAS + replaces, "launches": launches,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
 
     print(smi)
     print(json.dumps({"kernels": [
-        entry("pocs_solve", CSRC + "pocs_solve.cu",
-              PALLAS + "pocs_iter.py:774", solve_launches, err_solve,
-              solve_ms, solve_plain_ms, solve_bound),
-        entry("subband_update", CSRC + "subband.cu",
-              PALLAS + "subband.py:392", sub_launches, err_a, sub_ms,
-              sub_plain_ms, sub_bound),
-        entry("box_group_update", CSRC + "subband.cu",
-              PALLAS + "subband.py:316", box_launches, err_b, box_ms,
-              box_plain_ms, box_bound),
+        entry("pocs_solve[fft]", "pocs_iter.py:774",
+              counts_fft["pocs_solve[fft]"], err_solve, solve_ms,
+              solve_plain_ms, solve_bound),
+        entry("pocs_solve[dct]", "pocs_iter.py:708",
+              counts_dct["pocs_solve[dct]"], err_dct, dct_ms, dct_plain_ms,
+              dct_bound),
+        entry("pocs_solve[wavelet]", "pocs_iter.py:676",
+              counts_wv["pocs_solve[wavelet]"], err_wv, wv_ms, wv_plain_ms,
+              wv_bound),
+        entry("pocs_iteration", "pocs_iter.py:242",
+              counts_it["pocs_iteration"], err_iter, iter_ms, iter_plain_ms,
+              iter_bound),
+        entry("subband_update", "subband.py:392",
+              counts_sh["subband_update"], err_a, sub_ms, sub_plain_ms,
+              sub_bound, "subband.cu"),
+        entry("box_group_update", "subband.py:316",
+              counts_sh["box_group_update"], err_b, box_ms, box_plain_ms,
+              box_bound, "subband.cu"),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

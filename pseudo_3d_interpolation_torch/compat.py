@@ -1,9 +1,12 @@
 """Carry the JAX package's solver state across to this package.
 
 The system has no learned weights: what defines a solve is the solver
-configuration and the plan constants (the DFT matrices, built bit-equal in
-``ops/dft.py``, and the shearlet windows and their support-cropped plan,
-built bit-equal in ``ops/shearlet.py``). These helpers turn the JAX
+configuration and the plan constants: the DFT and DCT matrices (built
+bit-equal in ``ops/dft.py``), the wavelet filters and their periodized DWT
+matrices (bit-equal in ``ops/wavelet.py``), and the shearlet windows and
+their support-cropped plan (bit-equal in ``ops/shearlet.py``). Each is
+rebuilt here from the transform's kind and options, so a transform carries
+across by those alone. These helpers turn the JAX
 package's configuration and plan, as plain Python and numpy values
 (``dataclasses.asdict(jax_config)``, a transform's kind and options, a
 plan's arrays), into this package's objects, so both run the same solve.
@@ -38,7 +41,9 @@ def config_from_reference(d: dict) -> POCSConfig:
 
 def transform_from_reference(kind: str, kwargs: dict | None = None):
     """A transform kind and its options, as the JAX package's
-    ``get_transform`` takes them -> this package's transform."""
+    ``get_transform`` takes them (FFT, DCT, WAVELET with ``wavelet`` and
+    ``level``, SHEARLET; ``precision`` for each) -> this package's
+    transform."""
     return get_transform(kind, **{k: _plain(v)
                                   for k, v in (kwargs or {}).items()})
 

@@ -1,36 +1,62 @@
-// Fixed-iteration POCS solve (FFT basis) for a batch of complex slices, for
-// Hopper (sm_90a), with a plain C interface loaded through ctypes
+// Fixed-iteration POCS solves (FFT, DCT and WAVELET bases) and the single
+// FFT-basis POCS iteration, for a batch of complex slices, for Hopper
+// (sm_90a), with a plain C interface loaded through ctypes
 // (ops/kernels/pocs_solve.py).
 //
 // Replaces pseudo_3d_interpolation_tpu/ops/pallas/pocs_iter.py ::
-// pocs_solve_fused (basis='fft', body _solve_kernel). Per iteration j and
-// slice b, with F the dense DFT matrices of ops/dft.py::dft_matrices:
+// pocs_solve_fused (body _solve_kernel, bases 'fft', 'dct' and 'wavelet')
+// and pocs_iteration_fused (body _kernel). Per iteration j and slice b of
+// a solve, with the basis' dense transform matrices:
 //
-//   X   = F_H @ y @ F_W                         forward 2D DFT
-//   X^  = X · shrink(|X|², tau[j, b])           hard / soft / garrote
-//   new = (conj(F_H) @ X^ @ conj(F_W)) / (H·W) · (1 − α·mask) + α·obs
+//   X   = T(y)                                  forward transform
+//   X^  = X · shrink(|X|², tau)                 hard / soft / garrote
+//   new = T⁻¹(X^) · scale · (1 − α·mask) + α·obs
 //   cost = (Σ|new| − Σ|x|)² / (Σ|new|)²         (Gao et al. 2013)
 //   FPOCS: restart on cost increase, Nesterov extrapolation
 //   y' = new + f·(new − x_prev')
 //
-// Design. The TPU kernel keeps one whole slice in VMEM for all iterations;
-// a 512² complex slice is 2 MB and a block here has at most 227 KB of shared
-// memory, so the solve is a chain of launches over the whole batch instead:
-// four batched complex GEMMs and one per-slice state kernel per iteration,
-// all on the caller's stream, with no host synchronisation inside the solve
-// (the restart decision is taken on the device).
+//   FFT:     T(y) = F_H @ y @ F_W, T⁻¹ = conj(F_H) @ · @ conj(F_W),
+//            scale 1/(H·W); tau[j, b]
+//   DCT:     T(y) = C_H @ y @ C_Wᵀ, T⁻¹ = C_Hᵀ @ · @ C_W, scale 1 (the
+//            orthonormal DCT-II is real: re and im transform alone);
+//            tau[j, b]
+//   WAVELET: per level lv < L, nj = n >> lv, the top-left nj×nj block
+//            becomes A_lv @ block @ A_lvᵀ (A_lv the orthogonal periodized
+//            analysis matrix, real), the rest of the plane passes through;
+//            the inverse runs A_lvᵀ @ block @ A_lv deepest first; scale 1;
+//            tau per Mallat quadrant, tau[j, b, 3·d + band] with d the
+//            level counted deepest first and band cH (high rows, low
+//            columns), cV (low rows, high columns), cD (both high); the
+//            approximation block keeps everything.
 //
-// What bounds it: the dense DFT products, 16·H·W·(H+W) real flops per
-// slice-iteration (4.3 GFLOP at 512²), run in full fp32 FMA on the CUDA
-// cores (67 TFLOP/s peak on an H100 SXM). Each GEMM tile is 64×64 complex
-// outputs per 256-thread block, 4×4 complex accumulators in registers per
-// thread, 16-deep K tiles staged in shared memory. The threshold lives in
-// the forward right-product's epilogue and the scale, reinsertion and the
-// cost's partial sums in the inverse right-product's epilogue, so the
-// spectrum and the unscaled inverse never make an extra pass through device
-// memory. The partial sums are per block, reduced in a fixed order: the
-// result does not depend on scheduling. A radix split or an FFT, and tensor
-// cores (3xTF32 / bf16x3 wgmma), are later work.
+// The single iteration (pocs_iteration_fused) is the FFT chain once, from
+// a given iterate x to the reinserted result, with tau[b] and no cost.
+//
+// Design. The TPU kernels keep one whole slice in VMEM; a 512² complex
+// slice is 2 MB and a block here has at most 227 KB of shared memory, so a
+// solve is a chain of launches over the whole batch instead: batched
+// complex GEMMs and one per-slice state kernel per iteration, all on the
+// caller's stream, with no host synchronisation inside the solve (the
+// restart decision is taken on the device).
+//
+// What bounds them: the dense transform products, in full fp32 FMA on the
+// CUDA cores (67 TFLOP/s peak on an H100 SXM). The FFT products are
+// complex × complex, 16·H·W·(H+W) real flops per slice-iteration; the DCT
+// and wavelet matrices are real, so their products take a real operand
+// and do two FMAs per complex output element and depth step, not four:
+// 8·H·W·(H+W) for the DCT, 16·n³·Σ_lv 8^-lv for the wavelet cascade. Each
+// GEMM tile is 64×64 complex outputs per 256-thread block, 4×4 complex
+// accumulators in registers per thread, 16-deep K tiles staged in shared
+// memory; row strides let a product work on the top-left block of a plane.
+// The FFT and DCT thresholds live in the forward right-product's epilogue;
+// the wavelet's in one elementwise pass over the finished coefficient
+// plane (its bands are finished level by level). Scale, reinsertion and
+// the cost's partial sums live in the last inverse product's epilogue, so
+// the unscaled inverse never makes an extra pass through device memory.
+// The partial sums are per block, reduced in a fixed order: the result
+// does not depend on scheduling. A radix split or an FFT, a fast DCT or
+// the filter cascade as convolutions, and tensor cores (3xTF32 / bf16x3
+// wgmma), are later work.
 
 #include <cuda_runtime.h>
 
@@ -50,15 +76,21 @@ constexpr int NT = 256;  // threads per GEMM block
 constexpr int A_PAD = 2; // keeps the transposed A stores free of bank conflicts
 constexpr int STATE_THREADS = 256;
 
-enum Epilogue { EPI_STORE = 0, EPI_SHRINK = 1, EPI_REINSERT = 2 };
+// EPI_REINSERT also writes each block's cost sums; EPI_REINSERT_ONLY
+// (the single iteration) does not
+enum Epilogue {
+  EPI_STORE = 0, EPI_SHRINK = 1, EPI_REINSERT = 2, EPI_REINSERT_ONLY = 3
+};
+// which operand is a real matrix (its imaginary pointer is unused)
+enum Operands { CPLX = 0, REAL_A = 1, REAL_B = 2 };
 
-// C[b] = A[b] @ B[b] for row-major complex planes; a batch stride of 0
-// shares an operand (the DFT matrix) across the batch. sign_* = -1
-// conjugates that operand.
+// C[b] = A[b] @ B[b] for row-major complex planes with row strides
+// ld*; a batch stride of 0 shares an operand (a transform matrix) across
+// the batch. sign_* = -1 conjugates that operand.
 struct Gemm {
-  const float* ar; const float* ai; long long sa; float sign_a;  // M x K
-  const float* br; const float* bi; long long sb; float sign_b;  // K x N
-  float* cr; float* ci; long long sc;                            // M x N
+  const float* ar; const float* ai; long long sa; int lda; float sign_a;
+  const float* br; const float* bi; long long sb; int ldb; float sign_b;
+  float* cr; float* ci; long long sc; int ldc;
   int m, n, k;
 };
 
@@ -67,15 +99,20 @@ struct ShrinkArgs {
   int op;
 };
 
+// Reinsertion on whole planes (ldc == n): new = v·scale·(1 − α·mask) +
+// α·obs; under EPI_REINSERT also each block's Σ|new| and Σ(|new| − |x|).
 struct ReinsertArgs {
-  const float* mask;                 // (M, N)
+  const float* mask;                   // (M, N)
   const float* obr; const float* obi;  // (B, M, N) observed slices
   const float* xr; const float* xi;    // (B, M, N) current iterate
   float alpha, scale;
-  float* psum; float* pdiff;         // (B, blocks per slice) partial sums
+  float* psum; float* pdiff;           // (B, blocks per slice)
 };
 
-template <int EPI>
+// STRIDED reads the row strides from ld*; otherwise every plane is whole
+// (lda = k, ldb = ldc = n): whole-plane products index with their own
+// widths, since the row strides cost the FFT solve about 0.4% (PERF.md).
+template <int EPI, int OPS, bool STRIDED>
 __global__ void __launch_bounds__(NT)
 cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
   __shared__ float as_r[BK][BM + A_PAD];
@@ -85,6 +122,9 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
   __shared__ float red_s[NT / 32];
   __shared__ float red_d[NT / 32];
 
+  const int lda = STRIDED ? g.lda : g.k;
+  const int ldb = STRIDED ? g.ldb : g.n;
+  const int ldc = STRIDED ? g.ldc : g.n;
   const int b = blockIdx.z;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
@@ -93,9 +133,9 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
   const int ty = t / 16;
 
   const float* ar = g.ar + b * g.sa;
-  const float* ai = g.ai + b * g.sa;
+  const float* ai = OPS == REAL_A ? nullptr : g.ai + b * g.sa;
   const float* br = g.br + b * g.sb;
-  const float* bi = g.bi + b * g.sb;
+  const float* bi = OPS == REAL_B ? nullptr : g.bi + b * g.sb;
 
   // tile-load coordinates: A as 16 rows x 16 k per pass (4 passes),
   // B as 4 k-rows x 64 columns per pass (4 passes)
@@ -116,12 +156,12 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
       const int k = k0 + a_k;
       float vr = 0.0f, vi = 0.0f;
       if (m < g.m && k < g.k) {
-        const long long off = (long long)m * g.k + k;
+        const long long off = (long long)m * lda + k;
         vr = ar[off];
-        vi = g.sign_a * ai[off];
+        if (OPS != REAL_A) vi = g.sign_a * ai[off];
       }
       as_r[a_k][a_m + 16 * p] = vr;
-      as_i[a_k][a_m + 16 * p] = vi;
+      if (OPS != REAL_A) as_i[a_k][a_m + 16 * p] = vi;
     }
 #pragma unroll
     for (int p = 0; p < BK / 4; ++p) {
@@ -129,12 +169,12 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
       const int n = n0 + b_n;
       float vr = 0.0f, vi = 0.0f;
       if (k < g.k && n < g.n) {
-        const long long off = (long long)k * g.n + n;
+        const long long off = (long long)k * ldb + n;
         vr = br[off];
-        vi = g.sign_b * bi[off];
+        if (OPS != REAL_B) vi = g.sign_b * bi[off];
       }
       bs_r[b_k + 4 * p][b_n] = vr;
-      bs_i[b_k + 4 * p][b_n] = vi;
+      if (OPS != REAL_B) bs_i[b_k + 4 * p][b_n] = vi;
     }
     __syncthreads();
 
@@ -144,21 +184,29 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
         a_r[i] = as_r[kk][ty + 16 * i];
-        a_i[i] = as_i[kk][ty + 16 * i];
+        a_i[i] = OPS == REAL_A ? 0.0f : as_i[kk][ty + 16 * i];
       }
 #pragma unroll
       for (int j = 0; j < TN; ++j) {
         b_r[j] = bs_r[kk][tx + 16 * j];
-        b_i[j] = bs_i[kk][tx + 16 * j];
+        b_i[j] = OPS == REAL_B ? 0.0f : bs_i[kk][tx + 16 * j];
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          acc_r[i][j] = fmaf(a_r[i], b_r[j], acc_r[i][j]);
-          acc_r[i][j] = fmaf(-a_i[i], b_i[j], acc_r[i][j]);
-          acc_i[i][j] = fmaf(a_r[i], b_i[j], acc_i[i][j]);
-          acc_i[i][j] = fmaf(a_i[i], b_r[j], acc_i[i][j]);
+          if (OPS == CPLX) {
+            acc_r[i][j] = fmaf(a_r[i], b_r[j], acc_r[i][j]);
+            acc_r[i][j] = fmaf(-a_i[i], b_i[j], acc_r[i][j]);
+            acc_i[i][j] = fmaf(a_r[i], b_i[j], acc_i[i][j]);
+            acc_i[i][j] = fmaf(a_i[i], b_r[j], acc_i[i][j]);
+          } else if (OPS == REAL_A) {  // real A times complex B
+            acc_r[i][j] = fmaf(a_r[i], b_r[j], acc_r[i][j]);
+            acc_i[i][j] = fmaf(a_r[i], b_i[j], acc_i[i][j]);
+          } else {  // complex A times real B
+            acc_r[i][j] = fmaf(a_r[i], b_r[j], acc_r[i][j]);
+            acc_i[i][j] = fmaf(a_i[i], b_r[j], acc_i[i][j]);
+          }
         }
     }
     __syncthreads();
@@ -174,21 +222,23 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
       if (m >= g.m || n >= g.n) continue;
-      const long long off = (long long)m * g.n + n;
+      const long long off = (long long)m * ldc + n;
       float vr = acc_r[i][j], vi = acc_i[i][j];
       if (EPI == EPI_SHRINK) {
         const float s = shrink_factor(vr * vr + vi * vi, sh.tau[b], sh.op);
         vr *= s;
         vi *= s;
-      } else if (EPI == EPI_REINSERT) {
+      } else if (EPI == EPI_REINSERT || EPI == EPI_REINSERT_ONLY) {
         const long long boff = b * g.sc + off;
         const float keep = 1.0f - ri.alpha * ri.mask[off];
         vr = vr * ri.scale * keep + ri.alpha * ri.obr[boff];
         vi = vi * ri.scale * keep + ri.alpha * ri.obi[boff];
-        const float xr = ri.xr[boff], xi = ri.xi[boff];
-        const float mag_new = sqrtf(vr * vr + vi * vi);
-        local_s += mag_new;
-        local_d += mag_new - sqrtf(xr * xr + xi * xi);
+        if (EPI == EPI_REINSERT) {
+          const float xr = ri.xr[boff], xi = ri.xi[boff];
+          const float mag_new = sqrtf(vr * vr + vi * vi);
+          local_s += mag_new;
+          local_d += mag_new - sqrtf(xr * xr + xi * xi);
+        }
       }
       cr[off] = vr;
       ci[off] = vi;
@@ -294,24 +344,154 @@ state_kernel(float* xr, float* xi, float* yr, float* yi,
   }
 }
 
+// The wavelet threshold over finished n×n coefficient planes: the band of
+// (r, c) follows from m = max(r, c) (pocs_iter.py:654-666). tau: this
+// iteration's (batch, 3·level) thresholds, deepest level first.
+__global__ void __launch_bounds__(STATE_THREADS)
+wavelet_shrink_kernel(float* sr, float* si, const float* __restrict__ tau,
+                      int n, int level, int op, long long plane) {
+  const int b = blockIdx.y;
+  const float* tb = tau + (long long)b * 3 * level;
+  const long long base = b * plane;
+  const int s0 = n >> level;  // side of the approximation block
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < plane; e += stride) {
+    const int r = (int)(e / n), c = (int)(e % n);
+    const int m = r > c ? r : c;
+    if (m < s0) continue;  // approximation: tau 0 keeps every coefficient
+    int d = 0, s = s0;
+    while (m >= 2 * s) {
+      s <<= 1;
+      ++d;
+    }
+    const int band = r >= s ? (c >= s ? 2 : 0) : 1;  // cH 0, cV 1, cD 2
+    const long long o = base + e;
+    const float vr = sr[o], vi = si[o];
+    const float f = shrink_factor(vr * vr + vi * vi, tb[3 * d + band], op);
+    sr[o] = vr * f;
+    si[o] = vi * f;
+  }
+}
+
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
 inline int blocks_per_slice(int h, int w) { return ceil_div(w, BN) * ceil_div(h, BM); }
 
-template <int EPI>
+inline int plane_chunks(long long plane) {
+  const int c = ceil_div(plane, (long long)STATE_THREADS * 8);
+  return c < 64 ? c : 64;
+}
+
+template <int EPI, int OPS, bool STRIDED = false>
 cudaError_t launch_gemm(const Gemm& g, const ShrinkArgs& sh,
                         const ReinsertArgs& ri, int batch, cudaStream_t stream) {
   dim3 grid(ceil_div(g.n, BN), ceil_div(g.m, BM), batch);
-  cgemm_kernel<EPI><<<grid, NT, 0, stream>>>(g, sh, ri);
+  cgemm_kernel<EPI, OPS, STRIDED><<<grid, NT, 0, stream>>>(g, sh, ri);
   return cudaGetLastError();
+}
+
+const ShrinkArgs kNoShrink{nullptr, 0};
+const ReinsertArgs kNoReinsert{};
+
+// Complex plane pairs of the batch; plane = rows·columns of one slice.
+struct Planes {
+  float* re; float* im;
+};
+
+// One FFT-basis pass: out = reinsert(ifft2(shrink(fft2(in), tau))),
+// through t and s; tau holds one threshold per slice. REINSERT is the last
+// product's epilogue: with or without the cost sums.
+template <int REINSERT>
+cudaError_t fft_chain(const float* in_re, const float* in_im, Planes t,
+                      Planes s, float* out_re, float* out_im,
+                      const float* fh_re, const float* fh_im,
+                      const float* fw_re, const float* fw_im,
+                      const ShrinkArgs& shrink, const ReinsertArgs& ri,
+                      int batch, int h, int w, cudaStream_t stream) {
+  const long long plane = (long long)h * w;
+  cudaError_t err;
+  // forward: t = F_H @ in, then s = shrink(t @ F_W)
+  const Gemm fwd_left{fh_re, fh_im, 0, h, 1.0f, in_re, in_im, plane, w, 1.0f,
+                      t.re, t.im, plane, w, h, w, h};
+  if ((err = launch_gemm<EPI_STORE, CPLX>(fwd_left, kNoShrink, kNoReinsert,
+                                          batch, stream)) != cudaSuccess)
+    return err;
+  const Gemm fwd_right{t.re, t.im, plane, w, 1.0f, fw_re, fw_im, 0, w, 1.0f,
+                       s.re, s.im, plane, w, h, w, w};
+  if ((err = launch_gemm<EPI_SHRINK, CPLX>(fwd_right, shrink, kNoReinsert,
+                                           batch, stream)) != cudaSuccess)
+    return err;
+  // inverse: t = conj(F_H) @ s, then out = reinsert((t @ conj(F_W)) / HW)
+  const Gemm inv_left{fh_re, fh_im, 0, h, -1.0f, s.re, s.im, plane, w, 1.0f,
+                      t.re, t.im, plane, w, h, w, h};
+  if ((err = launch_gemm<EPI_STORE, CPLX>(inv_left, kNoShrink, kNoReinsert,
+                                          batch, stream)) != cudaSuccess)
+    return err;
+  const Gemm inv_right{t.re, t.im, plane, w, 1.0f, fw_re, fw_im, 0, w, -1.0f,
+                       out_re, out_im, plane, w, h, w, w};
+  return launch_gemm<REINSERT, CPLX>(inv_right, kNoShrink, ri, batch, stream);
+}
+
+// Solve workspace, carved from the caller's float buffer.
+struct Work {
+  Planes y, t, s;
+  float* psum; float* pdiff; float* v; float* cprev;
+};
+
+Work carve(float* work, int batch, long long plane, int nblk) {
+  const long long total = plane * batch;
+  Work k;
+  k.y = {work, work + total};
+  k.t = {work + 2 * total, work + 3 * total};
+  k.s = {work + 4 * total, work + 5 * total};
+  k.psum = work + 6 * total;
+  k.pdiff = k.psum + (long long)batch * nblk;
+  k.v = k.pdiff + (long long)batch * nblk;   // [2][batch]
+  k.cprev = k.v + 2 * batch;                 // [2][batch]
+  return k;
+}
+
+// The FPOCS loop around a basis' chain. chain(j, work, reinsert) enqueues
+// iteration j's forward transform of y, threshold, and inverse with the
+// reinsertion and cost epilogue back into y.
+template <class Chain>
+int run_solve(const float* obs_re, const float* obs_im, const float* mask,
+              float* out_re, float* out_im, float* cost, float* work,
+              int batch, int h, int w, int niter, float alpha, float scale,
+              int fast, cudaStream_t stream, Chain chain) {
+  const long long plane = (long long)h * w;
+  const long long total = plane * batch;
+  const int nblk = blocks_per_slice(h, w);
+  const Work k = carve(work, batch, plane, nblk);
+
+  const int ew_blocks = ceil_div(total, STATE_THREADS) < 4096
+                            ? ceil_div(total, STATE_THREADS) : 4096;
+  init_kernel<<<ew_blocks, STATE_THREADS, 0, stream>>>(
+      obs_re, obs_im, out_re, out_im, k.y.re, k.y.im, k.v, k.cprev, cost,
+      total, batch);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  const ReinsertArgs reinsert{mask, obs_re, obs_im, out_re, out_im, alpha,
+                              scale, k.psum, k.pdiff};
+  const dim3 state_grid(plane_chunks(plane), batch);
+  for (int j = 0; j < niter; ++j) {
+    if ((err = chain(j, k, reinsert)) != cudaSuccess) return (int)err;
+    state_kernel<<<state_grid, STATE_THREADS, 0, stream>>>(
+        out_re, out_im, k.y.re, k.y.im, k.psum, k.pdiff, nblk, k.v, k.cprev,
+        cost, j & 1, fast, batch, plane);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch the solve needs: y, t, s planes (pairs), the per-block
-// partial sums, and the double-buffered v / cost_prev.
+// Floats of scratch every solve needs: y, t, s planes (pairs), the
+// per-block partial sums, and the double-buffered v / cost_prev.
 size_t p3d_pocs_solve_work_floats(int batch, int h, int w) {
   const size_t plane = (size_t)h * w;
   return 6 * (size_t)batch * plane
@@ -319,8 +499,8 @@ size_t p3d_pocs_solve_work_floats(int batch, int h, int w) {
          + 4 * (size_t)batch;
 }
 
-// Returns 0 or the first CUDA error met while enqueuing. Nothing is
-// synchronised; every launch goes to `stream`.
+// FFT basis. Returns 0 or the first CUDA error met while enqueuing.
+// Nothing is synchronised; every launch goes to `stream`.
 int p3d_pocs_solve(const float* obs_re, const float* obs_im, const float* mask,
                    const float* decay,  // (niter, batch)
                    const float* fh_re, const float* fh_im,  // (h, h)
@@ -329,65 +509,171 @@ int p3d_pocs_solve(const float* obs_re, const float* obs_im, const float* mask,
                    int batch, int h, int w, int niter, float alpha, int op,
                    int fast, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const float scale = 1.0f / (float)((double)h * (double)w);
+  return run_solve(
+      obs_re, obs_im, mask, out_re, out_im, cost, work, batch, h, w, niter,
+      alpha, scale, fast, stream,
+      [=](int j, const Work& k, const ReinsertArgs& ri) {
+        const ShrinkArgs shrink{decay + (long long)j * batch, op};
+        return fft_chain<EPI_REINSERT>(k.y.re, k.y.im, k.t, k.s, k.y.re,
+                                       k.y.im, fh_re, fh_im, fw_re, fw_im,
+                                       shrink, ri, batch, h, w, stream);
+      });
+}
+
+// DCT basis: ch = C_H, cht = C_Hᵀ (h, h); cw = C_W, cwt = C_Wᵀ (w, w).
+int p3d_pocs_solve_dct(const float* obs_re, const float* obs_im,
+                       const float* mask, const float* decay,  // (niter, batch)
+                       const float* ch, const float* cht, const float* cw,
+                       const float* cwt, float* out_re, float* out_im,
+                       float* cost, float* work, int batch, int h, int w,
+                       int niter, float alpha, int op, int fast,
+                       void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const long long plane = (long long)h * w;
-  const long long total = plane * batch;
-  const int nblk = blocks_per_slice(h, w);
-  float* y_re = work;
-  float* y_im = y_re + total;
-  float* t_re = y_im + total;
-  float* t_im = t_re + total;
-  float* s_re = t_im + total;
-  float* s_im = s_re + total;
-  float* psum = s_im + total;
-  float* pdiff = psum + (long long)batch * nblk;
-  float* v = pdiff + (long long)batch * nblk;   // [2][batch]
-  float* cprev = v + 2 * batch;                 // [2][batch]
+  return run_solve(
+      obs_re, obs_im, mask, out_re, out_im, cost, work, batch, h, w, niter,
+      alpha, 1.0f, fast, stream,
+      [=](int j, const Work& k, const ReinsertArgs& ri) {
+        cudaError_t err;
+        // forward: t = C_H @ y, then s = shrink(t @ C_Wᵀ)
+        const Gemm fwd_left{ch, nullptr, 0, h, 1.0f, k.y.re, k.y.im, plane,
+                            w, 1.0f, k.t.re, k.t.im, plane, w, h, w, h};
+        if ((err = launch_gemm<EPI_STORE, REAL_A>(
+                 fwd_left, kNoShrink, kNoReinsert, batch, stream))
+            != cudaSuccess)
+          return err;
+        const Gemm fwd_right{k.t.re, k.t.im, plane, w, 1.0f, cwt, nullptr, 0,
+                             w, 1.0f, k.s.re, k.s.im, plane, w, h, w, w};
+        const ShrinkArgs shrink{decay + (long long)j * batch, op};
+        if ((err = launch_gemm<EPI_SHRINK, REAL_B>(
+                 fwd_right, shrink, kNoReinsert, batch, stream))
+            != cudaSuccess)
+          return err;
+        // inverse: t = C_Hᵀ @ s, then y = reinsert(t @ C_W), scale 1
+        const Gemm inv_left{cht, nullptr, 0, h, 1.0f, k.s.re, k.s.im, plane,
+                            w, 1.0f, k.t.re, k.t.im, plane, w, h, w, h};
+        if ((err = launch_gemm<EPI_STORE, REAL_A>(
+                 inv_left, kNoShrink, kNoReinsert, batch, stream))
+            != cudaSuccess)
+          return err;
+        const Gemm inv_right{k.t.re, k.t.im, plane, w, 1.0f, cw, nullptr, 0,
+                             w, 1.0f, k.y.re, k.y.im, plane, w, h, w, w};
+        return launch_gemm<EPI_REINSERT, REAL_B>(inv_right, kNoShrink, ri,
+                                                 batch, stream);
+      });
+}
 
-  const int ew_blocks = ceil_div(total, STATE_THREADS) < 4096
-                            ? ceil_div(total, STATE_THREADS) : 4096;
-  init_kernel<<<ew_blocks, STATE_THREADS, 0, stream>>>(
-      obs_re, obs_im, out_re, out_im, y_re, y_im, v, cprev, cost, total, batch);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  const ShrinkArgs no_shrink{nullptr, 0};
-  const ReinsertArgs no_reinsert{};
-  ReinsertArgs reinsert{mask, obs_re, obs_im, out_re, out_im, alpha,
-                        1.0f / (float)((double)h * (double)w), psum, pdiff};
-  const int chunks = ceil_div(plane, (long long)STATE_THREADS * 8) < 64
-                         ? ceil_div(plane, (long long)STATE_THREADS * 8) : 64;
-  const dim3 state_grid(chunks, batch);
-
-  for (int j = 0; j < niter; ++j) {
-    // forward: t = F_H @ y, then s = shrink(t @ F_W)
-    const Gemm fwd_left{fh_re, fh_im, 0, 1.0f, y_re, y_im, plane, 1.0f,
-                        t_re, t_im, plane, h, w, h};
-    if ((err = launch_gemm<EPI_STORE>(fwd_left, no_shrink, no_reinsert, batch,
-                                      stream)) != cudaSuccess)
-      return (int)err;
-    const Gemm fwd_right{t_re, t_im, plane, 1.0f, fw_re, fw_im, 0, 1.0f,
-                         s_re, s_im, plane, h, w, w};
-    const ShrinkArgs shrink{decay + (long long)j * batch, op};
-    if ((err = launch_gemm<EPI_SHRINK>(fwd_right, shrink, no_reinsert, batch,
-                                       stream)) != cudaSuccess)
-      return (int)err;
-    // inverse: t = conj(F_H) @ s, then y = reinsert((t @ conj(F_W)) / HW)
-    const Gemm inv_left{fh_re, fh_im, 0, -1.0f, s_re, s_im, plane, 1.0f,
-                        t_re, t_im, plane, h, w, h};
-    if ((err = launch_gemm<EPI_STORE>(inv_left, no_shrink, no_reinsert, batch,
-                                      stream)) != cudaSuccess)
-      return (int)err;
-    const Gemm inv_right{t_re, t_im, plane, 1.0f, fw_re, fw_im, 0, -1.0f,
-                         y_re, y_im, plane, h, w, w};
-    if ((err = launch_gemm<EPI_REINSERT>(inv_right, no_shrink, reinsert, batch,
-                                         stream)) != cudaSuccess)
-      return (int)err;
-    state_kernel<<<state_grid, STATE_THREADS, 0, stream>>>(
-        out_re, out_im, y_re, y_im, psum, pdiff, nblk, v, cprev, cost,
-        j & 1, fast, batch, plane);
-    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+// WAVELET basis on square n×n slices, n divisible by 2^level. mats holds,
+// level by level from the finest, A_lv then A_lvᵀ, each (n >> lv)².
+// decay: (niter, batch, 3·level).
+int p3d_pocs_solve_wavelet(const float* obs_re, const float* obs_im,
+                           const float* mask, const float* decay,
+                           const float* mats, float* out_re, float* out_im,
+                           float* cost, float* work, int batch, int n,
+                           int level, int niter, float alpha, int op, int fast,
+                           void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const long long plane = (long long)n * n;
+  const float* a[32];
+  const float* at[32];
+  if (level < 1 || level > 31) return (int)cudaErrorInvalidValue;
+  long long off = 0;
+  for (int lv = 0; lv < level; ++lv) {
+    const long long nj = n >> lv;
+    a[lv] = mats + off;
+    at[lv] = mats + off + nj * nj;
+    off += 2 * nj * nj;
   }
-  return 0;
+  const dim3 shrink_grid(plane_chunks(plane), batch);
+  return run_solve(
+      obs_re, obs_im, mask, out_re, out_im, cost, work, batch, n, n, niter,
+      alpha, 1.0f, fast, stream,
+      [=](int j, const Work& k, const ReinsertArgs& ri) {
+        cudaError_t err;
+        // forward, finest level first: t = A @ block, block = t @ Aᵀ; level
+        // 0 reads y, deeper levels the top-left block of s, in place
+        for (int lv = 0; lv < level; ++lv) {
+          const int nj = n >> lv;
+          const Planes src = lv == 0 ? k.y : k.s;
+          const Gemm left{a[lv], nullptr, 0, nj, 1.0f, src.re, src.im, plane,
+                          n, 1.0f, k.t.re, k.t.im, plane, n, nj, nj, nj};
+          const Gemm right{k.t.re, k.t.im, plane, n, 1.0f, at[lv], nullptr, 0,
+                           nj, 1.0f, k.s.re, k.s.im, plane, n, nj, nj, nj};
+          if ((err = lv == 0 ? launch_gemm<EPI_STORE, REAL_A>(
+                                   left, kNoShrink, kNoReinsert, batch,
+                                   stream)
+                             : launch_gemm<EPI_STORE, REAL_A, true>(
+                                   left, kNoShrink, kNoReinsert, batch,
+                                   stream)) != cudaSuccess)
+            return err;
+          if ((err = lv == 0 ? launch_gemm<EPI_STORE, REAL_B>(
+                                   right, kNoShrink, kNoReinsert, batch,
+                                   stream)
+                             : launch_gemm<EPI_STORE, REAL_B, true>(
+                                   right, kNoShrink, kNoReinsert, batch,
+                                   stream)) != cudaSuccess)
+            return err;
+        }
+        wavelet_shrink_kernel<<<shrink_grid, STATE_THREADS, 0, stream>>>(
+            k.s.re, k.s.im, decay + (long long)j * batch * 3 * level, n,
+            level, op, plane);
+        if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        // inverse, deepest level first: t = Aᵀ @ block, block = t @ A; the
+        // level-0 right product reinserts into y
+        for (int lv = level - 1; lv >= 0; --lv) {
+          const int nj = n >> lv;
+          const Gemm left{at[lv], nullptr, 0, nj, 1.0f, k.s.re, k.s.im, plane,
+                          n, 1.0f, k.t.re, k.t.im, plane, n, nj, nj, nj};
+          const Planes dst = lv == 0 ? k.y : k.s;
+          const Gemm right{k.t.re, k.t.im, plane, n, 1.0f, a[lv], nullptr, 0,
+                           nj, 1.0f, dst.re, dst.im, plane, n, nj, nj, nj};
+          if (lv == 0) {
+            if ((err = launch_gemm<EPI_STORE, REAL_A>(
+                     left, kNoShrink, kNoReinsert, batch, stream))
+                != cudaSuccess)
+              return err;
+            err = launch_gemm<EPI_REINSERT, REAL_B>(right, kNoShrink, ri,
+                                                    batch, stream);
+          } else {
+            if ((err = launch_gemm<EPI_STORE, REAL_A, true>(
+                     left, kNoShrink, kNoReinsert, batch, stream))
+                != cudaSuccess)
+              return err;
+            err = launch_gemm<EPI_STORE, REAL_B, true>(
+                right, kNoShrink, kNoReinsert, batch, stream);
+          }
+          if (err != cudaSuccess) return err;
+        }
+        return cudaSuccess;
+      });
+}
+
+// Floats of scratch one FFT-basis iteration needs: the t and s planes.
+size_t p3d_pocs_iteration_work_floats(int batch, int h, int w) {
+  return 4 * (size_t)batch * h * w;
+}
+
+// One FFT-basis POCS iteration: out = ifft2(shrink(fft2(x), tau[b])) ·
+// (1 − α·mask) + α·obs, no cost. out must not alias x.
+int p3d_pocs_iteration(const float* x_re, const float* x_im,
+                       const float* obs_re, const float* obs_im,
+                       const float* mask, const float* tau,  // (batch,)
+                       const float* fh_re, const float* fh_im,  // (h, h)
+                       const float* fw_re, const float* fw_im,  // (w, w)
+                       float* out_re, float* out_im, float* work, int batch,
+                       int h, int w, float alpha, int op,
+                       void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const long long total = (long long)batch * h * w;
+  const Planes t{work, work + total};
+  const Planes s{work + 2 * total, work + 3 * total};
+  const ReinsertArgs ri{mask, obs_re, obs_im, nullptr, nullptr, alpha,
+                        1.0f / (float)((double)h * (double)w), nullptr,
+                        nullptr};
+  return (int)fft_chain<EPI_REINSERT_ONLY>(
+      x_re, x_im, t, s, out_re, out_im, fh_re, fh_im, fw_re, fw_im,
+      ShrinkArgs{tau, op}, ri, batch, h, w, stream);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-"""POCS sparse-inversion solver: the FFT and SHEARLET bases.
+"""POCS sparse-inversion solver: the FFT, DCT, WAVELET and SHEARLET bases.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/models/pocs.py``. Per
 iteration: forward transform -> threshold(decay_i) -> inverse transform ->
@@ -6,20 +6,23 @@ reinsertion ``x = x_rec·(1 − α·mask) + α·x_obs``; ``version='fast'`` is
 FPOCS (Nesterov with O'Donoghue & Candès adaptive restart). Zero slices
 short-circuit like the reference (POCS.py:515-521).
 
-Two routes are ported:
-- ``fused-folded[fft]``: the whole FFT-basis solve per batch in the CUDA
-  kernel of ``ops/kernels/pocs_solve.py``;
-- ``streamed-subband``: the spectral-stack bases (SHEARLET), one Python
-  loop over the iterations with the state on the device, each iteration's
-  ``inverse(threshold(forward(·)))`` fused in the transform's
-  ``apply_threshold`` (the subband kernels on the card). It carries the
-  scan's options: regular / fast / adaptive, lane freezing for eps > 0,
-  cost history and ``global_early_stop`` (the one host synchronisation per
-  iteration, taken only when asked for).
-A configuration the JAX package sends elsewhere (the per-iteration kernel
-or the XLA scan of the FFT basis: eps ≠ 0, cost history, global early
-stop, ``version='adaptive'``, a mask other than the exact 2-D slice mask, a
-threshold without a kernel) raises :class:`NotImplementedError` with that
+Three routes are ported:
+- ``fused-folded[fft|dct|wavelet]``: the whole fixed-iteration solve per
+  batch in the CUDA kernel of ``ops/kernels/pocs_solve.py``;
+- ``fused-periter[fft]``: the FFT basis when the configuration needs the
+  scan (eps ≠ 0, cost history, global early stop, ``version='adaptive'``),
+  each iteration one ``pocs_iteration`` kernel launch;
+- ``streamed-subband``: the spectral-stack bases (SHEARLET), each
+  iteration's ``inverse(threshold(forward(·)))`` fused in the transform's
+  ``apply_threshold`` (the subband kernels on the card).
+The last two share one scan, a Python loop over the iterations with the
+state on the device. It carries the scan's options: regular / fast /
+adaptive, lane freezing for eps > 0, cost history and ``global_early_stop``
+(the one host synchronisation per iteration, taken only when asked for).
+A configuration the JAX package sends to its XLA scan (the DCT or WAVELET
+basis with eps ≠ 0, cost history, global early stop or 'adaptive'; a
+padded or non-square WAVELET; a mask other than the exact 2-D slice mask;
+a threshold without a kernel) raises :class:`NotImplementedError` with that
 route's reason; nothing falls back.
 """
 
@@ -30,9 +33,11 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..ops import wavelet as wv
 from ..ops.cplx import Cplx
-from ..ops.kernels.pocs_solve import THRESH_OPS, pocs_solve
-from .transforms import FFTTransform, _resolve_precision, get_transform
+from ..ops.kernels.pocs_solve import THRESH_OPS, pocs_iteration, pocs_solve
+from .transforms import (DCTTransform, FFTTransform, WaveletTransform,
+                         _resolve_precision, get_transform)
 
 # fields of the JAX package's POCSConfig that steer the TPU kernels only
 # (Pallas on/off, interpret mode, the %128 padding policy); they have no
@@ -43,7 +48,7 @@ TPU_ONLY_FIELDS = ("use_pallas", "pallas_interpret", "pad_to_tile")
 @dataclasses.dataclass(frozen=True)
 class POCSConfig:
     """Solver parameters: the JAX package's POCSConfig without
-    :data:`TPU_ONLY_FIELDS` (the kernel is the only route and takes any
+    :data:`TPU_ONLY_FIELDS` (the kernels are the only routes and take any
     slice shape)."""
 
     niter: int = 50
@@ -71,26 +76,50 @@ class POCSResult(NamedTuple):
 class SolverRoute(NamedTuple):
     """Solver path for a (shape, mask, config, transform) combination.
 
-    ``route`` is ``'fused-folded'`` (the FFT solve kernel),
-    ``'streamed-subband'`` (the directional scan over the subband kernels),
-    or the name of the JAX package's route that the configuration needs and
-    that is not ported yet (``'fused-periter'``, ``'xla-scan'``);
-    ``reason`` is then the first failed condition, worded as in the JAX
-    package."""
+    ``route`` is ``'fused-folded'`` (a solve kernel), ``'fused-periter'``
+    (the FFT basis' scan over the iteration kernel), ``'streamed-subband'``
+    (the directional scan over the subband kernels) or ``'xla-scan'`` (the
+    JAX package's plain scan, not ported); ``basis`` the folded kernel's
+    basis ('fft'/'dct'/'wavelet', '' otherwise); ``reason`` the first failed
+    folded-kernel condition, worded as in the JAX package ('' when the
+    folded kernel runs). :func:`runs` says whether the route is ported."""
 
     route: str
     basis: str
     reason: str
 
 
+def runs(route: SolverRoute) -> bool:
+    """Whether :func:`pocs_interpolate` runs ``route``: the per-iteration
+    route always, the folded and directional routes when no gate failed."""
+    return (route.route == "fused-periter"
+            or (route.route in ("fused-folded", "streamed-subband")
+                and not route.reason))
+
+
+def _wavelet_kernel_ok(transform: WaveletTransform, h: int, w: int) -> bool:
+    """The wavelet solve kernel's gate: square slices with no padding
+    target, n divisible by 2**level, the last level at least the filter
+    long. (The JAX gate also asked for 128-aligned cascade boundaries, a
+    TPU lane rule.)"""
+    n, level = w, transform.level
+    return (transform.target is None and h == w and level >= 1
+            and n % (1 << level) == 0
+            and (n >> (level - 1)) >= wv.filter_length(transform.wavelet))
+
+
 def solver_route(shape, mask_shape, config: POCSConfig,
                  transform=None) -> SolverRoute:
     """The solver-path decision for :func:`pocs_interpolate`, in the JAX
-    package's gate order."""
+    package's gate order (JAX models/pocs.py:145-255) without its TPU-only
+    gates (Pallas on/off, the Mosaic backend, the %128 tiles)."""
     cfg = config
     if transform is None:
         transform = get_transform(cfg.transform_kind)
+    if hasattr(transform, "with_shape"):
+        transform = transform.with_shape(tuple(shape))
     op = "garrote" if cfg.thresh_op == "garotte" else cfg.thresh_op
+    h, w = int(shape[-2]), int(shape[-1])
     if hasattr(transform, "apply_threshold"):
         # the subband kernels take any slice shape; the threshold is their
         # one gate
@@ -99,7 +128,11 @@ def solver_route(shape, mask_shape, config: POCSConfig,
                 "streamed-subband", "", f"threshold {cfg.thresh_op!r} has "
                 "no kernel (hard/soft/garrote only)")
         return SolverRoute("streamed-subband", "", "")
-    if not isinstance(transform, FFTTransform):
+    if isinstance(transform, (FFTTransform, DCTTransform)):
+        basis = "dct" if isinstance(transform, DCTTransform) else "fft"
+    elif isinstance(transform, WaveletTransform):
+        basis = "wavelet"
+    else:
         kind = getattr(transform, "kind", type(transform).__name__)
         return SolverRoute("xla-scan", "",
                            f"transform {kind!r} has no fused kernel")
@@ -107,33 +140,47 @@ def solver_route(shape, mask_shape, config: POCSConfig,
     full_mask = (len(mask_shape) == 2
                  and tuple(mask_shape) == tuple(shape[-2:]))
     if not full_mask:
-        return SolverRoute("xla-scan", "fft",
+        return SolverRoute("xla-scan", basis,
                            "mask must be the exact 2-D (H, W) slice mask")
     if batch_ndim != 1:
-        return SolverRoute("xla-scan", "fft", f"batch must be 1-D (got "
+        return SolverRoute("xla-scan", basis, f"batch must be 1-D (got "
                            f"{batch_ndim}-D leading axes)")
     if op not in THRESH_OPS:
-        return SolverRoute("xla-scan", "fft", f"threshold {cfg.thresh_op!r} "
+        return SolverRoute("xla-scan", basis, f"threshold {cfg.thresh_op!r} "
                            "has no kernel (hard/soft/garrote only)")
+    if basis == "wavelet" and not _wavelet_kernel_ok(transform, h, w):
+        return SolverRoute(
+            "xla-scan", basis, "wavelet cascade not kernel-eligible (needs "
+            "square slices, no resize target, and the last level at least "
+            f"the filter long — {h}x{w}, level={transform.level})")
+
+    # folded-solve-only conditions; the FFT basis that fails them still
+    # rides the per-iteration kernel inside the scan
+    def _periter(reason: str) -> SolverRoute:
+        return SolverRoute("fused-periter" if basis == "fft" else "xla-scan",
+                           basis, reason)
+
     if cfg.eps != 0.0:
-        return SolverRoute("fused-periter", "fft", f"eps={cfg.eps!r} != 0.0 "
-                           "(early stopping needs the scan)")
+        return _periter(f"eps={cfg.eps!r} != 0.0 (early stopping needs the "
+                        "scan)")
     if cfg.keep_cost_history:
-        return SolverRoute("fused-periter", "fft", "keep_cost_history=True")
+        return _periter("keep_cost_history=True")
     if cfg.global_early_stop:
-        return SolverRoute("fused-periter", "fft", "global_early_stop=True")
+        return _periter("global_early_stop=True")
     if cfg.version not in ("regular", "fast"):
-        return SolverRoute("fused-periter", "fft", f"version={cfg.version!r} "
-                           "(folded kernel supports regular/fast)")
-    return SolverRoute("fused-folded", "fft", "")
+        return _periter(f"version={cfg.version!r} (folded kernel supports "
+                        "regular/fast)")
+    return SolverRoute("fused-folded", basis, "")
 
 
 def describe_route(route: SolverRoute) -> str:
     """One-line description of a :class:`SolverRoute` for driver logs."""
     name = route.route + (f"[{route.basis}]" if route.basis else "")
-    if route.reason:
-        return f"{name} — not ported: {route.reason}"
-    return name
+    if not route.reason:
+        return name
+    if runs(route):
+        return f"{name} — {route.reason}"
+    return f"{name} — not ported: {route.reason}"
 
 
 def pocs_interpolate(z: Cplx, mask: torch.Tensor, transform=None,
@@ -149,23 +196,34 @@ def pocs_interpolate(z: Cplx, mask: torch.Tensor, transform=None,
     cfg = config
     if transform is None:
         transform = get_transform(cfg.transform_kind)
+    if hasattr(transform, "with_shape"):
+        transform = transform.with_shape(z.shape)
     mask = mask.to(device=z.re.device, dtype=torch.float32).contiguous()
     route = solver_route(z.shape, mask.shape, cfg, transform)
-    if route.reason or route.route not in ("fused-folded",
-                                           "streamed-subband"):
+    if not runs(route):
         raise NotImplementedError(describe_route(route))
-    if route.route == "streamed-subband":
-        return _streamed_scan(z, mask, transform, cfg)
+    if route.route != "fused-folded":
+        return _scan(z, mask, transform, cfg, route)
 
     # one-time decay schedule from the initial forward transform
     decay = transform.decay(transform.forward(z), cfg.thresh_model,
                             cfg.niter, cfg.p_max, cfg.p_min, cfg.decay_kind)
+    mats = None
+    if route.basis == "wavelet":
+        n = z.shape[-1]
+        mats = [wv.dwt_matrix_on(n >> j, transform.wavelet, str(z.re.device))
+                for j in range(transform.level)]
+        # the decay tree [zero, det_L, ..., det_1] with (niter, B) leaves
+        # -> (niter, B, 3·level), deepest level first, each (cH, cV, cD)
+        decay = torch.stack([leaf for det in decay[1:] for leaf in det],
+                            dim=-1)
     if cfg.sqrt_decay:
         decay = torch.sqrt(decay)
     result, cost = pocs_solve(
         z, mask, decay.to(torch.float32).contiguous(), alpha=cfg.alpha,
         thresh_op=cfg.thresh_op, version=cfg.version,
-        precision=_resolve_precision(transform.precision))
+        precision=_resolve_precision(transform.precision),
+        basis=route.basis, wavelet_mats=mats)
 
     # zero-input short-circuit (reference POCS.py:515-521)
     nonzero = torch.sum(z.abs2(), dim=(-2, -1)) > 0
@@ -177,25 +235,47 @@ def pocs_interpolate(z: Cplx, mask: torch.Tensor, transform=None,
     return POCSResult(x_out, n_eff, cost, None)
 
 
-def _streamed_scan(z: Cplx, mask: torch.Tensor, transform,
-                   cfg: POCSConfig) -> POCSResult:
-    """The scan of the directional route (JAX models/pocs.py:392-534) as a
-    Python loop; the state stays on the device."""
+def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
+          route: SolverRoute) -> POCSResult:
+    """The scan of the JAX package (models/pocs.py:392-534) as a Python
+    loop with the state on the device. Each step is one
+    ``pocs_iteration`` launch on ``fused-periter``, or the transform's
+    fused ``apply_threshold`` and the reinsertion on
+    ``streamed-subband``."""
     if z.re.dim() != 3:
         raise ValueError(f"z must be a (B, H, W) pair, got "
                          f"{tuple(z.re.shape)}")
+    z = Cplx(z.re.contiguous(), z.im.contiguous())
     op = "garrote" if cfg.thresh_op == "garotte" else cfg.thresh_op
     b = z.re.shape[0]
     device = z.re.device
     alpha = cfg.alpha
-    # one-time decay schedule (niter, B, L) from streamed statistics
-    decay = transform.decay_from_input(z, cfg.thresh_model, cfg.niter,
-                                       cfg.p_max, cfg.p_min, cfg.decay_kind)
+    # one-time decay schedule, (niter, B) or (niter, B, L): spectral-stack
+    # bases take it from streamed statistics
+    if hasattr(transform, "decay_from_input"):
+        decay = transform.decay_from_input(
+            z, cfg.thresh_model, cfg.niter, cfg.p_max, cfg.p_min,
+            cfg.decay_kind)
+    else:
+        decay = transform.decay(transform.forward(z), cfg.thresh_model,
+                                cfg.niter, cfg.p_max, cfg.p_min,
+                                cfg.decay_kind)
     if cfg.sqrt_decay:
         decay = torch.sqrt(decay)
     decay = decay.to(torch.float32)
     keep = 1.0 - alpha * mask  # reinsertion weights
     a_re, a_im = alpha * z.re, alpha * z.im
+
+    if route.route == "fused-periter":
+        precision = _resolve_precision(transform.precision)
+
+        def step(x_in: Cplx, tau: torch.Tensor) -> Cplx:
+            return pocs_iteration(x_in, z, mask, tau.contiguous(), alpha, op,
+                                  precision)
+    else:
+        def step(x_in: Cplx, tau: torch.Tensor) -> Cplx:
+            rec = transform.apply_threshold(x_in, tau, op)
+            return Cplx(rec.re * keep + a_re, rec.im * keep + a_im)
 
     def abs_(x: Cplx) -> torch.Tensor:
         return torch.sqrt(x.re * x.re + x.im * x.im)
@@ -228,8 +308,7 @@ def _streamed_scan(z: Cplx, mask: torch.Tensor, transform,
                 + (1 - alpha) * (z.im - mask * x_curr.im))
         else:
             raise ValueError(f"unknown POCS version {cfg.version!r}")
-        rec = transform.apply_threshold(x_in, decay[i], op)
-        x_rec = Cplx(rec.re * keep + a_re, rec.im * keep + a_im)
+        x_rec = step(x_in, decay[i])
 
         # cost (Gao et al. 2013): (Σ(|x_new| − |x_curr|))² / (Σ|x_new|)²
         mag_rec = abs_(x_rec)

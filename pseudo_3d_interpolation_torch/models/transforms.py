@@ -1,24 +1,28 @@
-"""Sparse-transform protocol for the POCS solver: the FFT and SHEARLET
-bases.
+"""Sparse-transform protocol for the POCS solver: the FFT, DCT, WAVELET and
+SHEARLET bases.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/models/transforms.py``. A
 transform is a small frozen object with ``forward``, ``inverse``, ``decay``
-and ``threshold`` over ``Cplx`` pairs, batch first; the spectral-stack basis
-(SHEARLET) adds the fused ``apply_threshold`` and ``decay_from_input`` the
-solver's directional route uses. The other kinds raise
-:class:`NotImplementedError` naming their ROADMAP queue item.
+and ``threshold`` over ``Cplx`` pairs, batch first (WAVELET's coefficients
+and decay are pywt-style lists); the spectral-stack basis (SHEARLET) adds
+the fused ``apply_threshold`` and ``decay_from_input`` the solver's
+directional route uses. CURVELET raises :class:`NotImplementedError` naming
+its ROADMAP queue item.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Any
 
 import torch
+import torch.nn.functional as F
 
 from ..ops import decay as decay_ops
 from ..ops import dft
 from ..ops import shearlet as sh
 from ..ops import threshold as threshold_ops
+from ..ops import wavelet as wv
 from ..ops.cplx import Cplx
 
 _PRECISIONS = ("highest", "high", "default")
@@ -61,6 +65,119 @@ class FFTTransform:
         # t: (*batch,) per-slice threshold -> broadcast over the slice
         return threshold_ops.threshold_pair(coeffs, t[..., None, None],
                                             kind=op)
+
+
+@dataclasses.dataclass(frozen=True)
+class DCTTransform:
+    """2D orthonormal DCT basis (reference DCT kind). The DCT is real and
+    linear, so re and im transform independently; thresholds act on the
+    joint magnitude."""
+
+    precision: str = "highest"
+    kind: str = "DCT"
+
+    def forward(self, z: Cplx) -> Cplx:
+        return Cplx(dft.dct2_2d(z.re), dft.dct2_2d(z.im))
+
+    def inverse(self, coeffs: Cplx) -> Cplx:
+        return Cplx(dft.idct2_2d(coeffs.re), dft.idct2_2d(coeffs.im))
+
+    def decay(self, coeffs: Cplx, model, niter, p_max, p_min, decay_kind):
+        return decay_ops.threshold_decay(
+            coeffs.abs(), model, niter, p_max=p_max, p_min=p_min,
+            kind=decay_kind)
+
+    def threshold(self, coeffs: Cplx, t, op: str) -> Cplx:
+        return threshold_ops.threshold_pair(coeffs, t[..., None, None],
+                                            kind=op)
+
+
+@dataclasses.dataclass(frozen=True)
+class WaveletTransform:
+    """Multilevel periodized 2D DWT basis (reference WAVELET kind,
+    ops/wavelet.py). The approximation band is never thresholded, as the
+    reference excludes ``coeffs[0]`` (functions/POCS.py:524, 585-609).
+    ``with_shape`` binds a slice shape: it resolves the level and records
+    the zero-padded target where the slice needs one."""
+
+    wavelet: str = "db4"
+    level: int | None = None
+    kind: str = "WAVELET"
+    crop: tuple | None = None
+    target: tuple | None = None
+    precision: Any = None
+
+    def with_shape(self, shape):
+        """Bind to a slice shape: the level (at most 3, at least 1) and the
+        padded target (a 2**level multiple, at least the filter length at
+        the last level), as the JAX package's ``with_shape``."""
+        h, w = int(shape[-2]), int(shape[-1])
+        level = self.level
+        if level is None:
+            level = min(max(wv.max_level(h, self.wavelet), 1),
+                        max(wv.max_level(w, self.wavelet), 1), 3)
+        m = 2 ** level
+        filt_len = wv.filter_length(self.wavelet)
+        # the axis entering the final level is target / 2**(level-1); it
+        # must hold the whole filter for the periodized transform
+        min_size = -(-(filt_len * 2 ** (level - 1)) // m) * m
+        th = max(-(-h // m) * m, min_size)
+        tw = max(-(-w // m) * m, min_size)
+        if (th, tw) == (h, w):
+            return dataclasses.replace(self, level=level, crop=None,
+                                       target=None)
+        return dataclasses.replace(self, level=level, crop=(h, w),
+                                   target=(th, tw))
+
+    def _pad(self, a: torch.Tensor) -> torch.Tensor:
+        if self.target is None:
+            return a
+        th, tw = self.target
+        return F.pad(a, (0, tw - a.shape[-1], 0, th - a.shape[-2]))
+
+    def forward(self, z: Cplx):
+        re = wv.wavedec2(self._pad(z.re), self.wavelet, self.level)
+        im = wv.wavedec2(self._pad(z.im), self.wavelet, self.level)
+        out = [Cplx(re[0], im[0])]
+        for (rh, rv, rd), (ih, iv, id_) in zip(re[1:], im[1:]):
+            out.append((Cplx(rh, ih), Cplx(rv, iv), Cplx(rd, id_)))
+        return out
+
+    def inverse(self, coeffs) -> Cplx:
+        re = [coeffs[0].re] + [tuple(c.re for c in det)
+                               for det in coeffs[1:]]
+        im = [coeffs[0].im] + [tuple(c.im for c in det)
+                               for det in coeffs[1:]]
+        out = Cplx(wv.waverec2(re, self.wavelet),
+                   wv.waverec2(im, self.wavelet))
+        if self.crop is not None:
+            h, w = self.crop
+            out = Cplx(out.re[..., :h, :w], out.im[..., :h, :w])
+        return out
+
+    def decay(self, coeffs, model, niter, p_max, p_min, decay_kind):
+        """``[zero, (cH, cV, cD)_L, ..., (cH, cV, cD)_1]`` schedules, each
+        (niter, *batch); the approximation band's is zero (keep all)."""
+        if isinstance(p_min, str):
+            raise ValueError(
+                "p_min='adaptive' is not defined for the WAVELET transform "
+                "(reference functions/POCS.py:321-324)")
+        approx = coeffs[0].re
+        out = [torch.zeros((niter,) + tuple(approx.shape[:-2]),
+                           dtype=torch.float32, device=approx.device)]
+        for det in coeffs[1:]:
+            out.append(tuple(decay_ops.threshold_decay(
+                c.abs(), model, niter, p_max=p_max, p_min=p_min,
+                kind=decay_kind) for c in det))
+        return out
+
+    def threshold(self, coeffs, t, op: str):
+        out = [coeffs[0]]  # the approximation passes through (t[0] is zero)
+        for det, t_det in zip(coeffs[1:], t[1:]):
+            out.append(tuple(
+                threshold_ops.threshold_pair(c, tc[..., None, None], kind=op)
+                for c, tc in zip(det, t_det)))
+        return out
 
 
 class _SpectralStackMixin:
@@ -176,9 +293,12 @@ def _not_ported(kind: str, queue: str):
 
 register_transform("FFT", lambda precision="highest", **kw:
                    FFTTransform(precision=precision))
-register_transform("DCT", _not_ported("DCT", "ROADMAP queue 1 #5, queue 2 #6"))
-register_transform("WAVELET", _not_ported("WAVELET",
-                                          "ROADMAP queue 1 #13, queue 2 #7"))
+register_transform("DCT", lambda precision="highest", **kw:
+                   DCTTransform(precision=precision))
+register_transform(
+    "WAVELET",
+    lambda wavelet="db4", level=None, precision=None, **kw:
+    WaveletTransform(wavelet=wavelet, level=level, precision=precision))
 register_transform(
     "SHEARLET",
     lambda n_scales=None, precision="highest", box_precision=None,

@@ -1,13 +1,15 @@
-"""2D DFT on ``Cplx`` pairs, and the dense DFT matrices the kernels use.
+"""2D DFT and DCT on ``Cplx`` pairs, and the dense matrices the kernels use.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/ops/dft.py``. Conventions
-match ``numpy.fft``: forward unnormalized, inverse scaled by ``1/(H·W)``.
+match ``numpy.fft``: forward unnormalized, inverse scaled by ``1/(H·W)``;
+the DCT is the orthonormal DCT-II, inverse its transpose.
 
-``fft2``/``ifft2`` run outside any kernel (the solver derives its decay
-schedule from one forward transform), so they are plain ``torch.fft`` calls.
-``dft_matrices`` is built exactly like the JAX package's (float64 on the
-host, rounded once to float32), so the plan constants are bit-equal; the
-CUDA solve (csrc/pocs_solve.cu) multiplies by these matrices.
+``fft2``/``ifft2`` and ``dct2_2d``/``idct2_2d`` run outside any kernel (the
+solver derives its decay schedule from one forward transform), so they are
+plain ``torch.fft`` calls and ``torch.matmul`` products. ``dft_matrices``
+and ``dct2_matrix`` are built exactly like the JAX package's (float64 on
+the host, rounded once to float32), so the plan constants are bit-equal;
+the CUDA solves (csrc/pocs_solve.cu) multiply by these matrices.
 """
 
 from __future__ import annotations
@@ -31,6 +33,33 @@ def dft_matrices(n: int) -> tuple[np.ndarray, np.ndarray]:
     return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
 
 
+@functools.lru_cache(maxsize=64)
+def dct2_matrix(n: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix ``C`` with ``X = C @ x``; inverse is ``C.T``.
+
+    Computed in float64 on the host, stored float32."""
+    k = np.arange(n)[:, None].astype(np.float64)
+    t = np.arange(n)[None, :].astype(np.float64)
+    c = np.cos(np.pi * (2 * t + 1) * k / (2 * n)) * np.sqrt(2.0 / n)
+    c[0] /= np.sqrt(2.0)
+    return c.astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def dft_on(n: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (cos, sin) pair of :func:`dft_matrices` on ``device``."""
+    fr, fi = dft_matrices(n)
+    return (torch.from_numpy(fr).to(device), torch.from_numpy(fi).to(device))
+
+
+@functools.lru_cache(maxsize=16)
+def dct_on(n: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(C, C.T)`` of :func:`dct2_matrix` on ``device``, both contiguous."""
+    c = dct2_matrix(n)
+    return (torch.from_numpy(c).to(device),
+            torch.from_numpy(np.ascontiguousarray(c.T)).to(device))
+
+
 def _as_complex(z: Cplx) -> torch.Tensor:
     return torch.complex(z.re.float(), z.im.float())
 
@@ -45,3 +74,18 @@ def ifft2(z: Cplx) -> Cplx:
     """2D inverse DFT over the trailing two axes; scaled by ``1/(H·W)``."""
     out = torch.fft.ifft2(_as_complex(z))
     return Cplx(out.real.contiguous(), out.imag.contiguous())
+
+
+def dct2_2d(x: torch.Tensor) -> torch.Tensor:
+    """Orthonormal 2D DCT-II over the trailing two axes of a real tensor:
+    ``C_h @ x @ C_wᵀ``."""
+    ch, _ = dct_on(x.shape[-2], str(x.device))
+    _, cwt = dct_on(x.shape[-1], str(x.device))
+    return torch.matmul(torch.matmul(ch, x), cwt)
+
+
+def idct2_2d(x: torch.Tensor) -> torch.Tensor:
+    """Inverse orthonormal 2D DCT (DCT-III): ``C_hᵀ @ x @ C_w``."""
+    _, cht = dct_on(x.shape[-2], str(x.device))
+    cw, _ = dct_on(x.shape[-1], str(x.device))
+    return torch.matmul(torch.matmul(cht, x), cw)

@@ -1,22 +1,28 @@
-"""Fixed-iteration POCS solve, FFT basis: the CUDA kernel's wrapper and its
-plain PyTorch version.
+"""Fixed-iteration POCS solves (FFT, DCT and WAVELET bases) and the single
+FFT-basis POCS iteration: the CUDA kernels' wrappers and their plain
+PyTorch versions.
 
 Replaces ``pseudo_3d_interpolation_tpu/ops/pallas/pocs_iter.py ::
-pocs_solve_fused`` with ``basis='fft'`` (kernel body ``_solve_kernel``),
-which runs the whole solve of each slice in one Pallas launch with the
-slice held in VMEM. That cannot carry over: a 512² complex slice is 2 MB
-and a Hopper block has at most 227 KB of shared memory.
-``csrc/pocs_solve.cu`` instead enqueues, per iteration, four batched complex
-DFT products over the whole batch (threshold fused into the forward
-right-product, scale, reinsertion and the cost's partial sums fused into the
-inverse right-product) and one per-slice state kernel that takes the FPOCS
-restart decision on the device. It is bound by the dense DFT products,
-16·H·W·(H+W) fp32 flops per slice-iteration on the CUDA cores; the file's
-header has the details.
+pocs_solve_fused`` (kernel body ``_solve_kernel``, bases 'fft', 'dct' and
+'wavelet'), which runs the whole solve of each slice in one Pallas launch
+with the slice held in VMEM, and ``pocs_iteration_fused`` (body
+``_kernel``), one iteration per launch. Holding a slice cannot carry over:
+a 512² complex slice is 2 MB and a Hopper block has at most 227 KB of
+shared memory. ``csrc/pocs_solve.cu`` instead enqueues, per iteration,
+batched complex products with the basis' dense matrices over the whole
+batch (the threshold fused into the forward right-product, or one
+elementwise pass for the wavelet's per-band thresholds; scale, reinsertion
+and the cost's partial sums fused into the last inverse product) and one
+per-slice state kernel that takes the FPOCS restart decision on the
+device. The DCT and wavelet matrices are real, so their products do half
+the complex products' work. They are bound by those dense products on the
+CUDA cores; the file's header has the details.
 
-:func:`pocs_solve` launches the kernel for CUDA tensors and takes
-:func:`pocs_solve_plain` only for CPU tensors; ``pocs_solve.launches``
-counts kernel launches.
+:func:`pocs_solve` and :func:`pocs_iteration` launch their kernels for
+CUDA tensors and take their plain versions (:func:`pocs_solve_plain`,
+:func:`pocs_iteration_plain`) only for CPU tensors.
+``pocs_solve.launches_by_basis`` counts solve launches per basis,
+``pocs_iteration.launches`` iteration launches.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 from .. import dft
@@ -32,6 +39,7 @@ from . import _build
 
 THRESH_OPS = {"hard": 0, "soft": 1, "garrote": 2}
 PRECISIONS = ("high", "highest")
+BASES = ("fft", "dct", "wavelet")
 
 
 def _shrink(mag2: torch.Tensor, tau, op: str) -> torch.Tensor:
@@ -48,52 +56,154 @@ def _shrink(mag2: torch.Tensor, tau, op: str) -> torch.Tensor:
     return (mag2 >= tau * tau).to(mag2.dtype)
 
 
-def _check(obs: Cplx, mask, decay, thresh_op, version, precision) -> str:
+def _check_op(thresh_op: str, precision: str) -> str:
     op = "garrote" if thresh_op == "garotte" else thresh_op
     if op not in THRESH_OPS:
-        raise ValueError(f"pocs_solve supports {sorted(THRESH_OPS)} "
+        raise ValueError(f"the POCS kernels support {sorted(THRESH_OPS)} "
                          f"thresholds, not {thresh_op!r}")
-    if version not in ("regular", "fast"):
-        raise ValueError(f"pocs_solve supports regular/fast, not {version!r}")
     if precision not in PRECISIONS:
         raise NotImplementedError(
-            f"precision {precision!r}: the solve computes 'high' and "
+            f"precision {precision!r}: the kernels compute 'high' and "
             "'highest' in full fp32; a Hopper mapping of the other modes "
             "(TF32, 3xTF32, bf16) is an open ROADMAP item")
-    if obs.re.dim() != 3 or obs.im.shape != obs.re.shape:
-        raise ValueError(f"obs must be a (B, H, W) pair, got "
-                         f"{tuple(obs.re.shape)} / {tuple(obs.im.shape)}")
-    b, h, w = obs.re.shape
-    if tuple(mask.shape) != (h, w):
-        raise ValueError(f"mask must be ({h}, {w}), got {tuple(mask.shape)}")
-    if decay.dim() != 2 or decay.shape[1] != b:
-        raise ValueError(f"decay must be (niter, {b}), got "
-                         f"{tuple(decay.shape)}")
-    for name, t in (("obs.re", obs.re), ("obs.im", obs.im), ("mask", mask),
-                    ("decay", decay)):
+    return op
+
+
+def _check_tensors(named, like: torch.Tensor) -> None:
+    for name, t in named:
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
-        if t.device != obs.re.device:
+        if t.device != like.device:
             raise ValueError(f"{name} is on {t.device}, obs on "
-                             f"{obs.re.device}")
+                             f"{like.device}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+
+
+def _check_slices(name: str, z: Cplx) -> tuple[int, int, int]:
+    if z.re.dim() != 3 or z.im.shape != z.re.shape:
+        raise ValueError(f"{name} must be a (B, H, W) pair, got "
+                         f"{tuple(z.re.shape)} / {tuple(z.im.shape)}")
+    return tuple(z.re.shape)
+
+
+def _check(obs: Cplx, mask, decay, thresh_op, version, precision, basis,
+           wavelet_mats) -> str:
+    op = _check_op(thresh_op, precision)
+    if version not in ("regular", "fast"):
+        raise ValueError(f"pocs_solve supports regular/fast, not {version!r}")
+    if basis not in BASES:
+        raise ValueError(f"pocs_solve supports the {BASES} bases, not "
+                         f"{basis!r}")
+    b, h, w = _check_slices("obs", obs)
+    if tuple(mask.shape) != (h, w):
+        raise ValueError(f"mask must be ({h}, {w}), got {tuple(mask.shape)}")
+    if basis == "wavelet":
+        if h != w:
+            raise ValueError("the wavelet solve needs square slices")
+        if not wavelet_mats:
+            raise ValueError("basis='wavelet' needs wavelet_mats (the "
+                             "per-level analysis matrices, finest first)")
+        level = len(wavelet_mats)
+        if h % (1 << level):
+            raise ValueError(f"slice side {h} is not divisible by "
+                             f"2**{level}")
+        for lv, a in enumerate(wavelet_mats):
+            if tuple(a.shape) != (h >> lv, h >> lv):
+                raise ValueError(f"wavelet_mats[{lv}] must be "
+                                 f"({h >> lv}, {h >> lv}), got "
+                                 f"{tuple(a.shape)}")
+        if decay.dim() != 3 or tuple(decay.shape[1:]) != (b, 3 * level):
+            raise ValueError(f"wavelet decay must be (niter, {b}, "
+                             f"{3 * level}), got {tuple(decay.shape)}")
+    elif decay.dim() != 2 or decay.shape[1] != b:
+        raise ValueError(f"decay must be (niter, {b}), got "
+                         f"{tuple(decay.shape)}")
+    _check_tensors((("obs.re", obs.re), ("obs.im", obs.im), ("mask", mask),
+                    ("decay", decay)), obs.re)
     return op
+
+
+def _wavelet_tau_map(tau: torch.Tensor, n: int, level: int) -> torch.Tensor:
+    """(B, 3·level) per-band thresholds, deepest level first, each level
+    (cH, cV, cD) -> the (B, n, n) per-coefficient map over the Mallat
+    quadrant layout (pocs_iter.py:654-666): the level-d detail bands sit
+    where max(row, col) is in [s, 2s), s = n >> (level − d); cH has the high
+    rows, cV the high columns, cD both. The approximation block gets 0."""
+    idx = torch.arange(n, device=tau.device)
+    r, c = idx[:, None], idx[None, :]
+    band = torch.full((n, n), 3 * level, dtype=torch.int64,
+                      device=tau.device)
+    for d in range(level):
+        s = n >> (level - d)
+        hi_r, hi_c = (r >= s) & (r < 2 * s), (c >= s) & (c < 2 * s)
+        lo_r, lo_c = r < s, c < s
+        band = torch.where(hi_r & lo_c, 3 * d, band)
+        band = torch.where(lo_r & hi_c, 3 * d + 1, band)
+        band = torch.where(hi_r & hi_c, 3 * d + 2, band)
+    padded = torch.cat([tau, torch.zeros_like(tau[:, :1])], dim=-1)
+    return padded[:, band]
+
+
+def _real_pair(fn):
+    """A real linear map applied to re and im of a complex tensor."""
+    return lambda y: torch.complex(fn(y.real.contiguous()),
+                                   fn(y.imag.contiguous()))
+
+
+def _plain_basis(basis: str, h: int, w: int, device, wavelet_mats):
+    """(forward, inverse, tau_of) of a basis on (B, H, W) complex tensors:
+    the kernels' products in the JAX kernel's association order, the
+    inverse with its scale; ``tau_of`` maps one iteration's decay row to
+    thresholds that broadcast against the coefficients."""
+    if basis == "fft":
+        return (torch.fft.fft2, torch.fft.ifft2,
+                lambda t: t[:, None, None])
+    if basis == "dct":
+        ch, cht = dft.dct_on(h, str(device))
+        cw, cwt = dft.dct_on(w, str(device))
+        return (_real_pair(lambda y: (ch @ y) @ cwt),
+                _real_pair(lambda x: (cht @ x) @ cw),
+                lambda t: t[:, None, None])
+    mats = [torch.as_tensor(np.asarray(a), device=device)
+            if not isinstance(a, torch.Tensor) else a.to(device)
+            for a in wavelet_mats]
+
+    def fwd(y):
+        y = y.clone()
+        for lv, a in enumerate(mats):
+            nj = h >> lv
+            y[..., :nj, :nj] = (a @ y[..., :nj, :nj]) @ a.T
+        return y
+
+    def inv(x):
+        x = x.clone()
+        for lv in range(len(mats) - 1, -1, -1):
+            nj = h >> lv
+            x[..., :nj, :nj] = (mats[lv].T @ x[..., :nj, :nj]) @ mats[lv]
+        return x
+
+    return (_real_pair(fwd), _real_pair(inv),
+            lambda t: _wavelet_tau_map(t, h, len(mats)))
 
 
 def pocs_solve_plain(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
                      alpha: float = 0.75, thresh_op: str = "hard",
-                     version: str = "fast") -> tuple[Cplx, torch.Tensor]:
-    """The solve in plain PyTorch (``torch.fft``, complex64): the same
-    function as the kernel, from the same initial state
+                     version: str = "fast", basis: str = "fft",
+                     wavelet_mats=None) -> tuple[Cplx, torch.Tensor]:
+    """The solve in plain PyTorch (``torch.fft`` for the FFT basis, dense
+    ``torch.matmul`` products for the DCT and wavelet bases, complex64):
+    the same function as the kernel, from the same initial state
     ``x_prev = x = obs, v = 1, cost_prev = +inf``. Returns the final
     iterate and the final-iteration cost per slice."""
     op = "garrote" if thresh_op == "garotte" else thresh_op
     fast = version == "fast"
     z0 = torch.complex(obs.re, obs.im)
+    b, h, w = z0.shape
+    forward, inverse, tau_of = _plain_basis(basis, h, w, z0.device,
+                                            wavelet_mats)
     keep = 1.0 - alpha * mask
     a_obs = alpha * z0
-    b = z0.shape[0]
     x = x_prev = z0
     v = torch.ones(b, dtype=torch.float32, device=z0.device)
     cost = cost_prev = torch.full((b,), float("inf"), device=z0.device)
@@ -101,10 +211,10 @@ def pocs_solve_plain(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
         v1 = (1.0 + torch.sqrt(1.0 + 4.0 * v * v)) / 2.0
         f = (v - 1.0) / (v1 + 1.0) if fast else torch.zeros_like(v)
         y = x + f[:, None, None] * (x - x_prev)
-        spec = torch.fft.fft2(y)
+        spec = forward(y)
         spec = spec * _shrink(spec.real ** 2 + spec.imag ** 2,
-                              decay[j][:, None, None], op)
-        new = torch.fft.ifft2(spec) * keep + a_obs
+                              tau_of(decay[j]), op)
+        new = inverse(spec) * keep + a_obs
         mag_new = new.abs()
         d = torch.sum(mag_new - x.abs(), dim=(-2, -1))
         s = torch.sum(mag_new, dim=(-2, -1))
@@ -123,40 +233,62 @@ def pocs_solve_plain(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pocs_solve")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.p3d_pocs_solve_work_floats.argtypes = [i, i, i]
-    lib.p3d_pocs_solve_work_floats.restype = ctypes.c_size_t
+    for name in ("p3d_pocs_solve_work_floats",
+                 "p3d_pocs_iteration_work_floats"):
+        getattr(lib, name).argtypes = [i, i, i]
+        getattr(lib, name).restype = ctypes.c_size_t
     lib.p3d_pocs_solve.argtypes = [p] * 12 + [i] * 4 + [f, i, i, p]
-    lib.p3d_pocs_solve.restype = i
+    lib.p3d_pocs_solve_dct.argtypes = [p] * 12 + [i] * 4 + [f, i, i, p]
+    lib.p3d_pocs_solve_wavelet.argtypes = [p] * 9 + [i] * 4 + [f, i, i, p]
+    lib.p3d_pocs_iteration.argtypes = [p] * 13 + [i] * 3 + [f, i, p]
+    for name in ("p3d_pocs_solve", "p3d_pocs_solve_dct",
+                 "p3d_pocs_solve_wavelet", "p3d_pocs_iteration"):
+        getattr(lib, name).restype = i
     return lib
 
 
-@functools.lru_cache(maxsize=8)
-def _dft_on(n: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    fr, fi = dft.dft_matrices(n)
-    return (torch.from_numpy(fr).to(device), torch.from_numpy(fi).to(device))
+def _wavelet_pack(mats, device) -> torch.Tensor:
+    """``[A_0, A_0ᵀ, A_1, A_1ᵀ, ...]`` flattened into one float32 tensor on
+    ``device``, the kernel's layout. Matrices already on the device are
+    packed there, with no host synchronisation."""
+    parts = [torch.as_tensor(a, dtype=torch.float32, device=device)
+             for a in mats]
+    return torch.cat([m.reshape(-1) for a in parts for m in (a, a.T)])
+
+
+def _stream(device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
                alpha: float = 0.75, thresh_op: str = "hard",
                version: str = "fast", precision: str = "highest",
+               basis: str = "fft", wavelet_mats=None,
                ) -> tuple[Cplx, torch.Tensor]:
     """The complete fixed-iteration POCS solve of a batch of slices.
 
-    ``obs``: (B, H, W) float32 pair, any H and W; ``mask``: (H, W);
-    ``decay``: (niter, B) per-iteration per-slice thresholds;
+    ``obs``: (B, H, W) float32 pair, any H and W (square for the wavelet
+    basis); ``mask``: (H, W); ``decay``: (niter, B) per-iteration
+    per-slice thresholds, or for ``basis='wavelet'`` (niter, B, 3·level)
+    per-band thresholds, deepest level first, each level (cH, cV, cD);
     ``version``: 'regular' or 'fast' (Nesterov with adaptive restart);
-    ``precision``: 'high' or 'highest', both computed in full fp32.
+    ``precision``: 'high' or 'highest', both computed in full fp32;
+    ``basis``: 'fft', 'dct' (orthonormal DCT-II) or 'wavelet' (the Mallat
+    cascade of ``wavelet_mats``, the per-level analysis matrices
+    ``ops/wavelet.dwt_matrix(n >> lv, name)``, finest first).
     Returns ``(result, final_cost)``. CUDA tensors run the CUDA kernel,
     CPU tensors :func:`pocs_solve_plain`.
     """
-    op = _check(obs, mask, decay, thresh_op, version, precision)
+    op = _check(obs, mask, decay, thresh_op, version, precision, basis,
+                wavelet_mats)
     device = obs.re.device
-    if device.type == "cpu":
-        return pocs_solve_plain(obs, mask, decay, alpha, op, version)
-    if device.type != "cuda":
+    b, h, w = obs.re.shape
+    if b and device.type == "cpu":
+        return pocs_solve_plain(obs, mask, decay, alpha, op, version, basis,
+                                wavelet_mats)
+    if device.type not in ("cuda", "cpu"):
         raise ValueError(f"pocs_solve runs on cuda or cpu tensors, not "
                          f"{device}")
-    b, h, w = obs.re.shape
     out_re = torch.empty_like(obs.re)
     out_im = torch.empty_like(obs.im)
     cost = torch.empty(b, dtype=torch.float32, device=device)
@@ -165,21 +297,109 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
     lib = _lib()
     work = torch.empty(lib.p3d_pocs_solve_work_floats(b, h, w),
                        dtype=torch.float32, device=device)
-    fh = _dft_on(h, str(device))
-    fw = _dft_on(w, str(device))
+    head = (obs.re.data_ptr(), obs.im.data_ptr(), mask.data_ptr(),
+            decay.data_ptr())
+    tail = (out_re.data_ptr(), out_im.data_ptr(), cost.data_ptr(),
+            work.data_ptr())
+    common = (decay.shape[0], float(alpha), THRESH_OPS[op],
+              int(version == "fast"), _stream(device))
     with torch.cuda.device(device):
-        rc = lib.p3d_pocs_solve(
-            obs.re.data_ptr(), obs.im.data_ptr(), mask.data_ptr(),
-            decay.data_ptr(), fh[0].data_ptr(), fh[1].data_ptr(),
-            fw[0].data_ptr(), fw[1].data_ptr(), out_re.data_ptr(),
-            out_im.data_ptr(), cost.data_ptr(), work.data_ptr(),
-            b, h, w, decay.shape[0], float(alpha), THRESH_OPS[op],
-            int(version == "fast"),
-            torch.cuda.current_stream(device).cuda_stream)
+        if basis == "fft":
+            fh = dft.dft_on(h, str(device))
+            fw = dft.dft_on(w, str(device))
+            rc = lib.p3d_pocs_solve(
+                *head, fh[0].data_ptr(), fh[1].data_ptr(), fw[0].data_ptr(),
+                fw[1].data_ptr(), *tail, b, h, w, *common)
+        elif basis == "dct":
+            ch, cht = dft.dct_on(h, str(device))
+            cw, cwt = dft.dct_on(w, str(device))
+            rc = lib.p3d_pocs_solve_dct(
+                *head, ch.data_ptr(), cht.data_ptr(), cw.data_ptr(),
+                cwt.data_ptr(), *tail, b, h, w, *common)
+        else:
+            mats = _wavelet_pack(wavelet_mats, device)
+            rc = lib.p3d_pocs_solve_wavelet(
+                *head, mats.data_ptr(), *tail, b, h, len(wavelet_mats),
+                *common)
     if rc != 0:
-        raise RuntimeError(f"pocs_solve: CUDA error {rc} while launching")
-    pocs_solve.launches += 1
+        raise RuntimeError(f"pocs_solve[{basis}]: CUDA error {rc} while "
+                           "launching")
+    pocs_solve.launches_by_basis[basis] += 1
     return Cplx(out_re, out_im), cost
 
 
-pocs_solve.launches = 0
+pocs_solve.launches_by_basis = dict.fromkeys(BASES, 0)
+
+
+def pocs_iteration_plain(x: Cplx, obs: Cplx, mask: torch.Tensor,
+                         tau: torch.Tensor, alpha: float = 1.0,
+                         thresh_op: str = "hard") -> Cplx:
+    """One FFT-basis POCS iteration in plain PyTorch (``torch.fft``):
+    ``ifft2(shrink(fft2(x), tau[b])) · (1 − α·mask) + α·obs``."""
+    op = "garrote" if thresh_op == "garotte" else thresh_op
+    spec = torch.fft.fft2(torch.complex(x.re, x.im))
+    spec = spec * _shrink(spec.real ** 2 + spec.imag ** 2,
+                          tau[:, None, None], op)
+    rec = torch.fft.ifft2(spec)
+    keep = 1.0 - alpha * mask
+    return Cplx((rec.real * keep + alpha * obs.re).contiguous(),
+                (rec.imag * keep + alpha * obs.im).contiguous())
+
+
+def pocs_iteration(x: Cplx, obs: Cplx, mask: torch.Tensor, tau: torch.Tensor,
+                   alpha: float = 1.0, thresh_op: str = "hard",
+                   precision: str = "highest") -> Cplx:
+    """One fused FFT-basis POCS iteration over a batch of slices, the
+    contract of the JAX package's ``pocs_iteration_fused``.
+
+    ``x``/``obs``: (B, H, W) float32 pairs, any H and W; ``mask``: (H, W);
+    ``tau``: (B,) per-slice thresholds; ``precision``: 'high' or 'highest',
+    both full fp32. Returns the reinserted iterate (B, H, W). CUDA tensors
+    run the CUDA kernel, CPU tensors :func:`pocs_iteration_plain`.
+    """
+    op = _check_op(thresh_op, precision)
+    b, h, w = _check_slices("x", x)
+    if _check_slices("obs", obs) != (b, h, w):
+        raise ValueError(f"obs {tuple(obs.re.shape)} does not match x "
+                         f"{(b, h, w)}")
+    if tuple(mask.shape) != (h, w):
+        raise ValueError(f"mask must be ({h}, {w}), got {tuple(mask.shape)}")
+    if tuple(tau.shape) != (b,):
+        raise ValueError(f"tau must be ({b},), got {tuple(tau.shape)}")
+    _check_tensors((("x.re", x.re), ("x.im", x.im), ("obs.re", obs.re),
+                    ("obs.im", obs.im), ("mask", mask), ("tau", tau)), x.re)
+    device = x.re.device
+    if b and device.type == "cpu":
+        return pocs_iteration_plain(x, obs, mask, tau, alpha, op)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"pocs_iteration runs on cuda or cpu tensors, not "
+                         f"{device}")
+    out = Cplx(torch.empty_like(x.re), torch.empty_like(x.im))
+    if b == 0:
+        return out
+    lib = _lib()
+    work = torch.empty(lib.p3d_pocs_iteration_work_floats(b, h, w),
+                       dtype=torch.float32, device=device)
+    fh = dft.dft_on(h, str(device))
+    fw = dft.dft_on(w, str(device))
+    with torch.cuda.device(device):
+        rc = lib.p3d_pocs_iteration(
+            x.re.data_ptr(), x.im.data_ptr(), obs.re.data_ptr(),
+            obs.im.data_ptr(), mask.data_ptr(), tau.data_ptr(),
+            fh[0].data_ptr(), fh[1].data_ptr(), fw[0].data_ptr(),
+            fw[1].data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
+            work.data_ptr(), b, h, w, float(alpha), THRESH_OPS[op],
+            _stream(device))
+    if rc != 0:
+        raise RuntimeError(f"pocs_iteration: CUDA error {rc} while launching")
+    pocs_iteration.launches += 1
+    return out
+
+
+pocs_iteration.launches = 0
+
+
+def reset_launches() -> None:
+    """Set every launch count of this module to 0."""
+    pocs_solve.launches_by_basis = dict.fromkeys(BASES, 0)
+    pocs_iteration.launches = 0

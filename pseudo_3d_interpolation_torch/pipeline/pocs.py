@@ -36,11 +36,13 @@ _DASK_KEYS = ("n_workers", "processes", "threads_per_worker", "memory_limit",
               "batch_chunk")
 
 # Driver-level precision default per basis, applied only when the user
-# leaves ``precision`` unset. 'high' was chosen on the TPU (bf16x3, cube-SNR
-# neutral there); here the kernels compute it in full fp32, so it equals
-# 'highest' until the Hopper mapping is chosen (open ROADMAP item). The
-# other bases' entries arrive with those bases.
+# leaves ``precision`` unset (JAX pipeline/pocs.py:57-63). 'high' was chosen
+# on the TPU (bf16x3, cube-SNR neutral there); here the kernels compute it
+# in full fp32, so it equals 'highest' until the Hopper mapping is chosen
+# (open ROADMAP item). CURVELET's entry arrives with that basis.
 _PRODUCTION_PRECISION = {"FFT": {"precision": "high"},
+                         "DCT": {"precision": "high"},
+                         "WAVELET": {"precision": "high"},
                          "SHEARLET": {"precision": "high"}}
 
 
@@ -54,21 +56,26 @@ def _production_transform(config: POCSConfig, extra: dict):
 
 
 def _transform_subbands(transform, slice_shape, config: POCSConfig) -> int:
-    """Per-batch working-set expansion of a basis against the FFT solve's
-    (``fits_resident``'s ``expansion``). FFT: 1. A spectral-stack basis
-    with the streamed iteration and the streamed decay never holds the
-    (B, L, H, W) stack: its scan keeps about sixteen pairs per slice (the
-    iterates, the spectrum, the accumulator, the inverse and the cost's
-    temporaries), 2. When the decay model needs the coefficients
-    themselves (data-driven, non-'values' kinds, inverse-proportional) the
-    forward stack is materialised once per batch: L."""
-    kind = getattr(transform, "kind", "FFT")
-    if kind != "SHEARLET":
-        return 1
+    """Per-batch working-set expansion of a basis against the folded
+    solve's (``fits_resident``'s ``expansion``). A folded solve (FFT, DCT,
+    WAVELET): 1. The scan over ``pocs_iteration`` (``fused-periter``) keeps
+    about twelve pairs per slice (the observation scaled by α, x_prev,
+    x_curr, the extrapolated input, the kernel's result and its two work
+    pairs, their replacements while the old ones live, the cost's
+    temporaries), 2. A spectral-stack basis with the streamed iteration and
+    the streamed decay never holds the (B, L, H, W) stack: its scan keeps
+    about sixteen pairs per slice (the iterates, the spectrum, the
+    accumulator, the inverse and the cost's temporaries), 2. When the
+    decay model needs the coefficients themselves (data-driven,
+    non-'values' kinds, inverse-proportional) the forward stack is
+    materialised once per batch: L."""
+    h, w = int(slice_shape[-2]), int(slice_shape[-1])
+    if getattr(transform, "kind", "FFT") != "SHEARLET":
+        route = solver_route((1, h, w), (h, w), config, transform)
+        return 2 if route.route == "fused-periter" else 1
     if not transform._needs_full_forward(
             config.thresh_model, config.decay_kind):
         return 2
-    h, w = int(slice_shape[-2]), int(slice_shape[-1])
     return sh.n_subbands(transform.n_scales or sh.default_scales(h, w))
 
 

@@ -1,5 +1,6 @@
-"""The CUDA kernels (pseudo_3d_interpolation_torch/csrc/pocs_solve.cu and
-csrc/subband.cu) held against their plain PyTorch versions on the card.
+"""The CUDA kernels (pseudo_3d_interpolation_torch/csrc/pocs_solve.cu: the
+FFT, DCT and WAVELET solves and the FFT iteration; csrc/subband.cu) held
+against their plain PyTorch versions on the card.
 
 Every test here needs a CUDA card and skips without one; the kernels have
 no CPU mode. The file imports no JAX, so on the machine with the card (which
@@ -15,6 +16,7 @@ import torch
 from torch_helpers import gap_taus
 
 from pseudo_3d_interpolation_torch.ops import shearlet as sh
+from pseudo_3d_interpolation_torch.ops import wavelet as wv
 from pseudo_3d_interpolation_torch.ops.cplx import Cplx
 from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
 from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
@@ -76,11 +78,11 @@ def _snr(ref, x):
 @pytest.mark.parametrize("h,w", [(512, 512), (384, 512), (100, 130)])
 def test_kernel_matches_plain(device, h, w, version, op):
     truth, z, mask, decay = _inputs(4, h, w, 10, device)
-    before = ks.pocs_solve.launches
+    before = ks.pocs_solve.launches_by_basis["fft"]
     res, cost = ks.pocs_solve(z, mask, decay, 0.75, op, version)
     ref, ref_cost = ks.pocs_solve_plain(z, mask, decay, 0.75, op, version)
     torch.cuda.synchronize()
-    assert ks.pocs_solve.launches == before + 1
+    assert ks.pocs_solve.launches_by_basis["fft"] == before + 1
     got, want = _host(res), _host(ref)
     assert np.isfinite(got).all()
     if op == "hard":
@@ -105,11 +107,11 @@ def test_cube_drivers_agree_on_the_card(device):
     stored = np.ascontiguousarray(np.moveaxis(truth * m, 0, -1))
     view = np.moveaxis(stored, -1, 0)
     cfg = POCSConfig(niter=8, p_min="adaptive", version="fast", alpha=0.75)
-    before = ks.pocs_solve.launches
+    before = ks.pocs_solve.launches_by_basis["fft"]
     res = solver.interpolate_cube_resident(view, m, cfg, batch=2,
                                            device=device)
     chunked = solver.interpolate_cube(view, m, cfg, batch=2, device=device)
-    assert ks.pocs_solve.launches == before + 6
+    assert ks.pocs_solve.launches_by_basis["fft"] == before + 6
     for a, b in zip(res, chunked):
         np.testing.assert_array_equal(a, b)
     assert _snr(truth, res[0]) > _snr(truth, view)
@@ -127,6 +129,146 @@ def test_kernel_runs_zero_iterations_and_empty_batches(device):
     empty = Cplx(z.re[:0], z.im[:0])
     res, cost = ks.pocs_solve(empty, mask, decay[:, :0])
     assert res.re.shape == (0, 64, 64) and cost.shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
+@pytest.mark.parametrize("h,w", [(512, 512), (384, 512), (100, 130)])
+def test_iteration_kernel_matches_plain(device, h, w, op):
+    """One FFT-basis iteration; the hard threshold on taus away from every
+    spectral magnitude (``gap_taus``), so all three are held to 1e-4."""
+    truth, z, mask, decay = _inputs(4, h, w, 10, device)
+    x = Cplx(z.re * 1.5 + 0.1, z.im - 0.2)
+    tau = decay[3].contiguous()
+    if op == "hard":
+        mags = np.abs(np.fft.fft2(_host(x).astype(np.complex128)))
+        tau = torch.from_numpy(gap_taus(mags.reshape(4, 1, -1))[:, 0]).to(
+            device)
+    before = ks.pocs_iteration.launches
+    got = ks.pocs_iteration(x, z, mask, tau, 0.75, op)
+    want = ks.pocs_iteration_plain(x, z, mask, tau, 0.75, op)
+    torch.cuda.synchronize()
+    assert ks.pocs_iteration.launches == before + 1
+    got, want = _host(got), _host(want)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+def _basis_decay(z: Cplx, basis: str, niter: int, wavelet=None):
+    """The exponential schedule of the basis' own coefficients (p_min
+    1e-3): (niter, B), or (niter, B, 3·level) for the wavelet."""
+    from pseudo_3d_interpolation_torch.models.transforms import get_transform
+
+    tr = get_transform(basis.upper(), **({"wavelet": wavelet, "level": 3}
+                                         if wavelet else {}))
+    if wavelet:
+        tr = tr.with_shape(z.shape)
+    d = tr.decay(tr.forward(z), "exponential", niter, 0.99, 1e-3, "values")
+    if wavelet:
+        d = torch.stack([leaf for det in d[1:] for leaf in det], dim=-1)
+    return d.contiguous()
+
+
+def _check_solve(truth, z, mask, decay, op, version, **kw):
+    before = ks.pocs_solve.launches_by_basis[kw["basis"]]
+    res, cost = ks.pocs_solve(z, mask, decay, 0.75, op, version, **kw)
+    ref, ref_cost = ks.pocs_solve_plain(z, mask, decay, 0.75, op, version,
+                                        **kw)
+    torch.cuda.synchronize()
+    assert ks.pocs_solve.launches_by_basis[kw["basis"]] == before + 1
+    got, want = _host(res), _host(ref)
+    assert np.isfinite(got).all()
+    if op == "hard":
+        assert abs(_snr(truth, got) - _snr(truth, want)) < SNR_TOL_DB
+    else:
+        assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+        np.testing.assert_allclose(np.sqrt(cost.cpu().numpy()),
+                                   np.sqrt(ref_cost.cpu().numpy()),
+                                   rtol=0, atol=SQRT_COST_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
+@pytest.mark.parametrize("version", ["regular", "fast"])
+@pytest.mark.parametrize("h,w", [(512, 512), (384, 512), (100, 130)])
+def test_dct_kernel_matches_plain(device, h, w, version, op):
+    truth, z, mask, _ = _inputs(4, h, w, 10, device)
+    _check_solve(truth, z, mask, _basis_decay(z, "dct", 10), op, version,
+                 basis="dct")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
+@pytest.mark.parametrize("version", ["regular", "fast"])
+@pytest.mark.parametrize("n,name", [(512, "db4"), (512, "coif5"),
+                                    (96, "db4")])
+def test_wavelet_kernel_matches_plain(device, n, name, version, op):
+    """The Mallat cascade at level 3; 96² has blocks of 96, 48 and 24,
+    none a multiple of the 64-wide tiles."""
+    truth, z, mask, _ = _inputs(4, n, n, 10, device)
+    mats = [wv.dwt_matrix(n >> j, name) for j in range(3)]
+    _check_solve(truth, z, mask, _basis_decay(z, "wavelet", 10, name), op,
+                 version, basis="wavelet", wavelet_mats=mats)
+
+
+@pytest.mark.cuda
+def test_wavelet_kernel_keeps_the_band_order(device):
+    """One regular iteration with a distinct soft threshold per band: the
+    kernel's quadrant map against the plain map."""
+    truth, z, mask, _ = _inputs(2, 256, 256, 1, device)
+    d = _basis_decay(z, "wavelet", 1, "db4")
+    d = d * torch.linspace(0.2, 1.0, d.shape[-1], device=device)
+    mats = [wv.dwt_matrix(256 >> j, "db4") for j in range(3)]
+    _check_solve(truth, z, mask, d.contiguous(), "soft", "regular",
+                 basis="wavelet", wavelet_mats=mats)
+
+
+@pytest.mark.cuda
+def test_new_kernels_take_empty_batches(device):
+    _, z, mask, decay = _inputs(1, 64, 64, 2, device)
+    empty = Cplx(z.re[:0], z.im[:0])
+    out = ks.pocs_iteration(empty, empty, mask, decay[0, :0])
+    assert out.re.shape == (0, 64, 64)
+    res, cost = ks.pocs_solve(empty, mask, decay[:, :0], basis="dct")
+    assert res.re.shape == (0, 64, 64) and cost.shape == (0,)
+    mats = [wv.dwt_matrix(64 >> j, "db4") for j in range(2)]
+    res, cost = ks.pocs_solve(empty, mask, torch.zeros(2, 0, 6,
+                                                       device=device),
+                              basis="wavelet", wavelet_mats=mats)
+    assert res.re.shape == (0, 64, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,change,counter", [
+    ("FFT", {"eps": 1e-16}, "iteration"),
+    ("DCT", {}, "dct"),
+    ("WAVELET", {"p_min": 1e-5}, "wavelet")])
+def test_new_routes_on_the_card_match_the_host(device, kind, change, counter):
+    """``pocs_interpolate`` on each new route, on the card through its
+    kernel and on the host through the plain versions (soft thresholds):
+    one launch per iteration (per-iteration route) or per batch."""
+    import dataclasses
+
+    from pseudo_3d_interpolation_torch.models.pocs import (POCSConfig,
+                                                           pocs_interpolate)
+
+    truth, z, mask, _ = _inputs(3, 256, 256, 8, device)
+    cfg = dataclasses.replace(
+        POCSConfig(niter=8, thresh_op="soft", p_min="adaptive",
+                   version="fast", alpha=0.75, transform_kind=kind),
+        **change)
+    ks.reset_launches()
+    res = pocs_interpolate(z, mask, config=cfg)
+    torch.cuda.synchronize()
+    launches = (ks.pocs_iteration.launches if counter == "iteration"
+                else ks.pocs_solve.launches_by_basis[counter])
+    assert launches == (8 if counter == "iteration" else 1)
+    host = pocs_interpolate(Cplx(z.re.cpu(), z.im.cpu()), mask.cpu(),
+                            config=cfg)
+    got, want = _host(res.data), _host(host.data)
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+    assert res.n_iterations.tolist() == host.n_iterations.tolist()
+    assert _snr(truth, got) > _snr(truth, _host(z))
 
 
 def _slices(b, h, w, device, seed):

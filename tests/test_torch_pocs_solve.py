@@ -104,13 +104,13 @@ def test_plain_matches_jax_kernel_hard_by_snr(h, w, split, version):
 
 def test_wrapper_takes_plain_on_cpu_without_counting():
     _, obs, mask, decay = _inputs(2, 128, 128, 3)
-    before = ks.pocs_solve.launches
+    before = ks.pocs_solve.launches_by_basis["fft"]
     got, cost = _port(obs, mask, decay, "garotte", "fast")
     ref, ref_cost = _port(obs, mask, decay, "garrote", "fast",
                           ks.pocs_solve_plain)
     np.testing.assert_array_equal(got, ref)
     np.testing.assert_array_equal(cost, ref_cost)
-    assert ks.pocs_solve.launches == before
+    assert ks.pocs_solve.launches_by_basis["fft"] == before
 
 
 def test_zero_iterations_return_the_observation():

@@ -25,7 +25,8 @@ from pseudo_3d_interpolation_tpu.pipeline import pocs as jpipe
 from pseudo_3d_interpolation_torch import compat
 from pseudo_3d_interpolation_torch.io.cube import Cube
 from pseudo_3d_interpolation_torch.models import pocs
-from pseudo_3d_interpolation_torch.models.transforms import (FFTTransform,
+from pseudo_3d_interpolation_torch.models.transforms import (DCTTransform,
+                                                             FFTTransform,
                                                              get_transform)
 from pseudo_3d_interpolation_torch.ops.cplx import Cplx
 from pseudo_3d_interpolation_torch.parallel import solver
@@ -158,14 +159,17 @@ def test_zero_slice_short_circuits_like_jax():
                                rtol=1e-3)
 
 
-# each configuration outside the slice, with the route the JAX package
-# gives it
+# each configuration no ported route takes, with the basis and the route
+# the JAX package gives it: the scan options run on the FFT basis' ported
+# per-iteration route, but the DCT and WAVELET bases send them to the XLA
+# scan, which is not ported
 UNPORTED = [
-    pytest.param({"eps": 1e-3}, id="eps"),
-    pytest.param({"keep_cost_history": True}, id="history"),
-    pytest.param({"global_early_stop": True}, id="global-early-stop"),
-    pytest.param({"version": "adaptive"}, id="adaptive"),
-    pytest.param({"thresh_op": "soft-percentile"}, id="percentile"),
+    pytest.param({"eps": 1e-3}, "WAVELET", id="eps"),
+    pytest.param({"keep_cost_history": True}, "DCT", id="history"),
+    pytest.param({"global_early_stop": True}, "WAVELET",
+                 id="global-early-stop"),
+    pytest.param({"version": "adaptive"}, "DCT", id="adaptive"),
+    pytest.param({"thresh_op": "soft-percentile"}, "FFT", id="percentile"),
 ]
 
 
@@ -188,19 +192,21 @@ def test_describe_route_of_the_slice_matches_jax():
         == "fused-folded"
 
 
-@pytest.mark.parametrize("change", UNPORTED)
-def test_unported_routes_match_jax_and_raise(change):
+@pytest.mark.parametrize("change,kind", UNPORTED)
+def test_unported_routes_match_jax_and_raise(change, kind):
     jcfg = _jax_cfg(**change)
     cfg = compat.config_from_reference(dataclasses.asdict(jcfg))
     shape, mshape = (2, 128, 128), (128, 128)
-    jrt = jpocs.solver_route(shape, mshape, jcfg, jget("FFT"))
-    rt = pocs.solver_route(shape, mshape, cfg, get_transform("FFT"))
+    jrt = jpocs.solver_route(shape, mshape, jcfg, jget(kind))
+    rt = pocs.solver_route(shape, mshape, cfg, get_transform(kind))
     assert tuple(rt) == tuple(jrt) and rt.reason
+    assert rt.route == "xla-scan" and not pocs.runs(rt)
     assert pocs.describe_route(rt) == \
-        f"{rt.route}[fft] — not ported: {jrt.reason}"
+        f"xla-scan[{kind.lower()}] — not ported: {jrt.reason}"
     z = Cplx(torch.ones(shape), torch.zeros(shape))
     with pytest.raises(NotImplementedError, match="not ported"):
-        pocs.pocs_interpolate(z, torch.ones(mshape), config=cfg)
+        pocs.pocs_interpolate(z, torch.ones(mshape), config=cfg,
+                              transform=get_transform(kind))
 
 
 def test_unported_mask_and_basis_raise():
@@ -210,13 +216,15 @@ def test_unported_mask_and_basis_raise():
     rt = pocs.solver_route(shape, shape, cfg)
     assert tuple(rt) == tuple(jrt)
     z = Cplx(torch.ones(shape), torch.zeros(shape))
-    with pytest.raises(NotImplementedError, match="exact 2-D"):
-        pocs.pocs_interpolate(z, torch.ones(shape), config=cfg)
-    for kind in ("DCT", "WAVELET", "CURVELET"):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-            pocs.pocs_interpolate(z, torch.ones(shape[1:]), config=
+    for kind in ("FFT", "DCT", "WAVELET"):
+        with pytest.raises(NotImplementedError, match="exact 2-D"):
+            pocs.pocs_interpolate(z, torch.ones(shape), config=
                                   dataclasses.replace(cfg,
                                                       transform_kind=kind))
+    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
+        pocs.pocs_interpolate(z, torch.ones(shape[1:]), config=
+                              dataclasses.replace(cfg,
+                                                  transform_kind="CURVELET"))
     with pytest.raises(ValueError, match="Unsupported transform"):
         get_transform("FOURIER")
     with pytest.raises(TypeError, match="unknown transform option"):
@@ -241,8 +249,9 @@ def test_compat_carries_the_jax_configuration_over():
     assert compat.transform_from_reference("FFT", {"precision": "high"}) \
         == FFTTransform(precision="high")
     assert compat.transform_from_reference("fft") == FFTTransform()
+    assert compat.transform_from_reference("dct") == DCTTransform()
     with pytest.raises(NotImplementedError):
-        compat.transform_from_reference("DCT")
+        compat.transform_from_reference("CURVELET")
 
 
 def test_config_from_yaml_matches_jax(tmp_path):
