@@ -30,6 +30,15 @@ Phases, each of which exits non-zero on failure:
    e. ``pocs_solve(basis='wavelet')`` at 512² (batch 8, 10 iterations, db4
       and coif5 at level 3, soft and hard); times both at batch 32 over 50
       iterations (db4);
+   f. ``subband_update_spatial`` (spatial in and out) at 512² (batches
+      8, 1 and 32, the 48 full-size bands; at 32 they run in three chunks
+      and only the last inverts) and on one 384x512 rectangle, and on the
+      CURVELET plan at 512² (batches 8, 1 and 32) ``subband_update`` and
+      ``subband_update_spatial`` over its 41 full-size bands and
+      ``box_group_update`` on its 72-side box group of 9 bands, soft and
+      hard, on the thresholds of their main paths' decay schedules; then
+      times the spatial kernel and the 72-side box group and their plain
+      versions at batch 32;
 4. FFT main path: ``pipeline.pocs.interpolate`` with its production
    defaults on an in-memory 512x512 frequency cube of 513 slices (the
    north star's rfft slice count), stored (iline, xline, freq) as users
@@ -52,10 +61,20 @@ Phases, each of which exits non-zero on failure:
 8. WAVELET main path: production defaults with ``transform_kind=
    'WAVELET'`` (db4, level 3) and p_min 1e-5 (the adaptive minimum is
    undefined for wavelets); asserts one ``pocs_solve[wavelet]`` launch
-   per batch and the same checks.
-Phases 4 to 8 print the wall time, slice-iterations/s and device peak
+   per batch and the same checks;
+9. CURVELET main path: the production configuration of that basis
+   (precision 'high' with 'highest' box groups, p_min 1e-3 as the
+   adaptive minimum is shearlet-only), under phase 5's cut rule; asserts
+   one ``subband_update`` and one ``box_group_update`` launch per batch
+   per iteration and the same checks;
+10. SHEARLET main path with ``P3D_SPATIAL_IO=1`` (set for that call only)
+   on phase 5's cube: asserts one ``subband_update_spatial`` and two
+   ``box_group_update`` launches per batch per iteration, no
+   ``subband_update``, the same checks and an SNR within 0.1 dB of
+   phase 5's.
+Phases 4 to 10 print the wall time, slice-iterations/s and device peak
 memory. Before each, every kernel's launch count is set to 0; after it,
-the counts of all six kernels must be the path's own (zero for the
+the counts of all seven kernels must be the path's own (zero for the
 others).
 
 Tolerances, kernel against plain: soft thresholds max|Δ| ≤ 1e-4·max|plain|
@@ -68,8 +87,8 @@ SNR is that of one whole POCS iterate: the kernel's output combined with
 the other kernel's plain output, inverted and reinserted.
 
 ``--trace DIR`` runs each main path once more under ``torch.profiler``
-(the SHEARLET and per-iteration paths on their first two batches, 64
-slices), writes the Chrome
+(the SHEARLET, per-iteration, CURVELET and spatial-I/O paths on their
+first two batches, 64 slices), writes the Chrome
 traces to ``DIR`` (gzipped) and prints the device's busy time (the union
 of kernel, memcpy and memset intervals), its idle share of the traced wall
 time, and the largest device and host entries.
@@ -80,7 +99,8 @@ and bound (``bound_ms``: the larger of the bytes the call must move over
 3.35 TB/s and its operations over 67 TFLOP/s fp32, the H100 SXM data
 sheet's rates at 700 W). Operations are counted as a fast transform does
 the work: 5·n·log2 n flops per complex 2-D FFT of n points (the FFT
-solve and iteration); 2.5·n·log2 n per real 2-D DCT of n points, four per
+solve and iteration; 2·L + 2 per slice for the spatial subband update of
+L bands); 2.5·n·log2 n per real 2-D DCT of n points, four per
 slice-iteration (re and im, forward and inverse: the DCT solve); 2·L
 flops per output of each 1-D filter pass of a length-L wavelet, two
 passes per level, forward and inverse, re and im (the wavelet solve).
@@ -89,11 +109,13 @@ passes per level, forward and inverse, re and im (the wavelet solve).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gzip
 import inspect
 import json
 import math
+import os
 import pathlib
 import subprocess
 import sys
@@ -222,7 +244,11 @@ def time_ms(torch, fn, reps):
 
 def time_pair(torch, kernel, plain, reps):
     """(kernel ms, plain ms), each the mean of two timings taken in the
-    order plain, kernel, kernel, plain; prints all four."""
+    order plain, kernel, kernel, plain, after one untimed call of each (the
+    first call may wait on the allocator for its scratch); prints all
+    four."""
+    plain()
+    kernel()
     p_a = time_ms(torch, plain, reps)
     k_a = time_ms(torch, kernel, reps)
     k_b = time_ms(torch, kernel, reps)
@@ -299,14 +325,16 @@ def iteration_against_plain(torch, ks, Cplx, b, h, w, op, seed, dev):
     return z, mask, tau, err
 
 
-class ShearletCase:
-    """Phase 3b inputs for one slice shape: plane waves under the column
-    mask, the plan's kernel packing, the spectrum and the thresholds of
-    iteration TAU_ITER of the main path's decay schedule."""
+class SubbandCase:
+    """Phase 3b and 3f inputs for one slice shape and spectral-stack basis:
+    plane waves under the column mask, the plan's kernel packing, the
+    slices, their spectrum and the thresholds of iteration TAU_ITER of the
+    main path's decay schedule (SHEARLET: adaptive p_min; CURVELET: its
+    production 1e-3)."""
 
-    def __init__(self, torch, b, h, w, seed, dev):
+    def __init__(self, torch, b, h, w, seed, dev, basis="SHEARLET"):
         from pseudo_3d_interpolation_torch.models.transforms import (
-            ShearletTransform)
+            get_transform)
         from pseudo_3d_interpolation_torch.ops import shearlet as sh
         from pseudo_3d_interpolation_torch.ops.cplx import Cplx
 
@@ -314,10 +342,13 @@ class ShearletCase:
         self.truth, self.mask = plane_waves(torch, b, h, w, seed, dev)
         self.obs = self.truth * self.mask
         z = Cplx(self.obs.real.contiguous(), self.obs.imag.contiguous())
-        tau = ShearletTransform(precision="high").decay_from_input(
-            z, "exponential", NITER, 0.99, "adaptive", "values")[TAU_ITER]
+        self.x = z
+        tr = get_transform(basis, precision="high")
+        p_min = "adaptive" if basis == "SHEARLET" else 1e-3
+        tau = tr.decay_from_input(z, "exponential", NITER, 0.99, p_min,
+                                  "values")[TAU_ITER]
         self.full, full_idx, self.boxes = sh._plan_kernel_pack(
-            sh.shearlet_plan(h, w), h, w)
+            tr._plan(h, w), h, w)
         self.psi = self.full.psi_on(dev)
         self.tau_full = tau[:, torch.from_numpy(full_idx).to(dev)].contiguous()
         self.tau = tau.contiguous()
@@ -367,24 +398,36 @@ def compare(torch, label, op, got, want, snr_k, snr_p):
     return err
 
 
-def subband_kernels_against_plain(torch, ksb, case, ops, with_boxes):
-    """Phase 3b on one ShearletCase; returns (max|Δ| subband, box)."""
+def subband_kernels_against_plain(torch, ksb, case, ops, with_boxes,
+                                  spatial=False):
+    """Phase 3b, or with ``spatial`` the spatial kernel of phase 3f, on one
+    SubbandCase; returns (max|Δ| subband, box). The spatial kernel's
+    output enters the iterate SNR through its fft2."""
     c = case
     cplx = torch.complex
     err_a = err_b = 0.0
     for op in ops:
-        want_a = ksb.subband_update_plain(c.spec, c.psi, c.tau_full, op)
-        got_a = ksb.subband_update(c.spec, c.psi, c.tau_full, op, "high")
+        if spatial:
+            want_a = ksb.subband_update_spatial_plain(c.x, c.psi, c.tau_full,
+                                                      op)
+            got_a = ksb.subband_update_spatial(c.x, c.psi, c.tau_full, op,
+                                               "high")
+        else:
+            want_a = ksb.subband_update_plain(c.spec, c.psi, c.tau_full, op)
+            got_a = ksb.subband_update(c.spec, c.psi, c.tau_full, op, "high")
         box_plain = []
         for k in range(len(c.boxes)):
             sel, args = c.box_args(k, op)
             m = ksb.box_group_update_plain(*args)
             box_plain.append((sel, cplx(m.re, m.im)))
         want_a, got_a = cplx(want_a.re, want_a.im), cplx(got_a.re, got_a.im)
-        label = f"subband_update {c.b}x{c.h}x{c.w} ({c.psi.shape[0]} bands)"
+        name = "subband_update_spatial" if spatial else "subband_update"
+        label = f"{name} {c.b}x{c.h}x{c.w} ({c.psi.shape[0]} bands)"
+        spec = torch.fft.fft2 if spatial else (lambda a: a)
         err_a = max(err_a, compare(
-            torch, label, op, got_a, want_a, c.iterate_snr(got_a, box_plain),
-            c.iterate_snr(want_a, box_plain)))
+            torch, label, op, got_a, want_a,
+            c.iterate_snr(spec(got_a), box_plain),
+            c.iterate_snr(spec(want_a), box_plain)))
         if not with_boxes:
             continue
         for k in range(len(c.boxes)):
@@ -398,9 +441,31 @@ def subband_kernels_against_plain(torch, ksb, case, ops, with_boxes):
                      f"{sel[2].shape[1]} of {c.h}x{c.w}")
             err_b = max(err_b, compare(
                 torch, label, op, got_b, want_b,
-                c.iterate_snr(want_a, with_k),
-                c.iterate_snr(want_a, box_plain)))
+                c.iterate_snr(spec(want_a), with_k),
+                c.iterate_snr(spec(want_a), box_plain)))
     return err_a, err_b
+
+
+def time_box(torch, ksb, case, k):
+    """Time box group k of a SubbandCase at its batch, kernel and plain;
+    returns (kernel ms, plain ms, bound)."""
+    _, lg, g = case.boxes[k]
+    _, bargs = case.box_args(k, "hard")
+    t_k, t_p, four = time_pair(
+        torch, lambda: ksb.box_group_update(*bargs, "high"),
+        lambda: ksb.box_group_update_plain(*bargs), 5)
+    side = len(g.idx_h)
+    # a pruned FFT: the field from the box's `side` nonzero columns, then
+    # along every row; the same back to the box
+    flops = 2 * case.b * lg * 5.0 * (side * N * math.log2(N)
+                                     + N * N * math.log2(N))
+    bnd = bound(flops, case.b * side * side * 16 + lg * side * side * 4
+                + case.b * lg * 4 + 2 * side * N * 8)
+    print(f"box_group_update {case.b}x{side}x{side} ({lg} bands) of "
+          f"{case.h}x{case.w}: kernel {four[0]:.3f} / {four[1]:.3f} ms, "
+          f"plain (torch.matmul) {four[2]:.3f} / {four[3]:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return t_k, t_p, bnd
 
 
 def trace_main_path(torch, run, out_dir: pathlib.Path, name: str):
@@ -463,7 +528,8 @@ def make_cube(torch, Cube, truth, mask):
 
 
 KERNELS = ("pocs_solve[fft]", "pocs_solve[dct]", "pocs_solve[wavelet]",
-           "pocs_iteration", "subband_update", "box_group_update")
+           "pocs_iteration", "subband_update", "subband_update[spatial]",
+           "box_group_update")
 
 
 def launch_counts(ks, ksb) -> dict:
@@ -474,13 +540,56 @@ def launch_counts(ks, ksb) -> dict:
             "pocs_solve[wavelet]": by_basis["wavelet"],
             "pocs_iteration": ks.pocs_iteration.launches,
             "subband_update": ksb.subband_update.launches,
+            "subband_update[spatial]": ksb.subband_update_spatial.launches,
             "box_group_update": ksb.box_group_update.launches}
 
 
 def reset_counts(ks, ksb):
     ks.reset_launches()
     ksb.subband_update.launches = 0
+    ksb.subband_update_spatial.launches = 0
     ksb.box_group_update.launches = 0
+
+
+@contextlib.contextmanager
+def spatial_io():
+    """``P3D_SPATIAL_IO=1`` inside the block only; the old value comes back
+    however the block ends."""
+    old = os.environ.get("P3D_SPATIAL_IO")
+    os.environ["P3D_SPATIAL_IO"] = "1"
+    try:
+        yield
+    finally:
+        if old is None:
+            del os.environ["P3D_SPATIAL_IO"]
+        else:
+            os.environ["P3D_SPATIAL_IO"] = old
+
+
+def cut_to_fit(torch, interpolate, Cube, truth, mask, cube, s_in, config,
+               dev, label):
+    """Time ``interpolate`` on the cube's first batch; when the whole cube
+    would take longer than WALL_LIMIT_S, cut it to the batches that fit
+    half of it (plus one slice, a last batch of 1) and print the cut.
+    Returns (truth, cube, masked-input SNR) of the cube to run: ``cube``
+    and ``s_in`` when nothing is cut."""
+    first, _ = make_cube(torch, Cube, truth[:MAIN_BATCH], mask)
+    t0 = time.perf_counter()
+    interpolate(first, config=config, device=dev)
+    torch.cuda.synchronize()
+    per_batch = time.perf_counter() - t0
+    n_batches = math.ceil(SLICES / MAIN_BATCH)
+    print(f"{label} first batch of {MAIN_BATCH}: {per_batch:.2f} s",
+          flush=True)
+    if per_batch * n_batches <= WALL_LIMIT_S:
+        return truth, cube, s_in
+    slices = max(1, int(WALL_LIMIT_S / 2 / per_batch)) * MAIN_BATCH + 1
+    print(f"CUT: the first batch took {per_batch:.1f} s, so the "
+          f"{SLICES}-slice {label} cube would take about "
+          f"{per_batch * n_batches:.0f} s; it runs {slices} slices",
+          flush=True)
+    cube, s_in = make_cube(torch, Cube, truth[:slices], mask)
+    return truth[:slices], cube, s_in
 
 
 def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
@@ -537,6 +646,9 @@ def main():
     args = parser.parse_args()
     import torch
 
+    # phases 3-9 take the spectral route; phase 10 sets the switch itself
+    os.environ.pop("P3D_SPATIAL_IO", None)
+
     t_start = time.perf_counter()
     # phase 1: device
     if not torch.cuda.is_available():
@@ -554,7 +666,8 @@ def main():
     from pseudo_3d_interpolation_torch.ops.kernels import _build
     from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
     from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
-    from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
+    from pseudo_3d_interpolation_torch.pipeline.pocs import (
+        _production_transform, interpolate)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -613,12 +726,12 @@ def main():
     # phase 3b: the subband kernels against plain
     err_a = err_b = 0.0
     for b, h, w, boxes in ((8, N, N, True), (4, 384, N, False)):
-        case = ShearletCase(torch, b, h, w, 200 + h, dev)
+        case = SubbandCase(torch, b, h, w, 200 + h, dev)
         ea, eb = subband_kernels_against_plain(torch, ksb, case,
                                                ("soft", "hard"), boxes)
         err_a, err_b = max(err_a, ea), max(err_b, eb)
         del case
-    case = ShearletCase(torch, MAIN_BATCH, N, N, 300, dev)
+    case = SubbandCase(torch, MAIN_BATCH, N, N, 300, dev)
     n_full = case.psi.shape[0]
     sub_ms, sub_plain_ms, four = time_pair(
         torch, lambda: ksb.subband_update(case.spec, case.psi, case.tau_full,
@@ -632,23 +745,10 @@ def main():
                       MAIN_BATCH * N * N * 16 + n_full * N * N * 4
                       + MAIN_BATCH * n_full * 4)
     box_times, box_bounds = [], []
-    for k, (_, lg, g) in enumerate(case.boxes):
-        _, bargs = case.box_args(k, "hard")
-        t_k, t_p, four = time_pair(
-            torch, lambda: ksb.box_group_update(*bargs, "high"),
-            lambda: ksb.box_group_update_plain(*bargs), 5)
-        side = len(g.idx_h)
-        print(f"box_group_update {MAIN_BATCH}x{side}x{side} ({lg} bands) of "
-              f"{N}x{N}: kernel {four[0]:.3f} / {four[1]:.3f} ms, plain "
-              f"(torch.matmul) {four[2]:.3f} / {four[3]:.3f} ms", flush=True)
+    for k in range(len(case.boxes)):
+        t_k, t_p, bnd = time_box(torch, ksb, case, k)
         box_times.append((t_k, t_p))
-        # a pruned FFT: the field from the box's `side` nonzero columns,
-        # then along every row; the same back to the box
-        flops = 2 * MAIN_BATCH * lg * 5.0 * (side * N * math.log2(N)
-                                             + N * N * math.log2(N))
-        box_bounds.append(bound(flops, MAIN_BATCH * side * side * 16
-                                + lg * side * side * 4 + MAIN_BATCH * lg * 4
-                                + 2 * side * N * 8))
+        box_bounds.append(bnd)
     box_ms = sum(t for t, _ in box_times) / len(box_times)
     box_plain_ms = sum(t for _, t in box_times) / len(box_times)
     box_bound = (sum(b for b, _ in box_bounds) / len(box_bounds),
@@ -732,6 +832,50 @@ def main():
     wv_bound = bound(wv_flops * NITER * MAIN_BATCH,
                      solve_bytes + NITER * MAIN_BATCH * 8 * 4)
     del z, mask, tau
+
+    # phase 3f: the spatial subband kernel, and both subband kernels on the
+    # CURVELET plan (41 full-size bands, one 72-side box group of 9),
+    # against plain at the main paths' batches (32 and the cube's last 1),
+    # where the bands run in chunks and only the last chunk inverts;
+    # timings last
+    last = SLICES % MAIN_BATCH
+    for name, nb in (("SHEARLET", n_full), ("CURVELET", 41)):
+        if ksb.band_chunk(MAIN_BATCH, N, N, nb) >= nb:
+            fail(f"the {name} main path's batch runs its {nb} bands in one "
+                 "chunk: phase 3f would not check the chunked sum")
+    err_sp = 0.0
+    for i, (b, h) in enumerate(((8, N), (4, 384), (last, N),
+                                (MAIN_BATCH, N))):
+        sp_case = SubbandCase(torch, b, h, N, 700 + i, dev)
+        ea, _ = subband_kernels_against_plain(torch, ksb, sp_case,
+                                              ("soft", "hard"), False, True)
+        err_sp = max(err_sp, ea)
+    for i, b in enumerate((8, last, MAIN_BATCH)):
+        cv_case = SubbandCase(torch, b, N, N, 710 + i, dev, "CURVELET")
+        if [(lg, len(g.idx_h)) for _, lg, g in cv_case.boxes] != [(9, 72)]:
+            fail("the 512² CURVELET plan packs no 72-side box group of 9 "
+                 "bands")
+        ea, eb = subband_kernels_against_plain(torch, ksb, cv_case,
+                                               ("soft", "hard"), True)
+        es, _ = subband_kernels_against_plain(torch, ksb, cv_case,
+                                              ("soft", "hard"), False, True)
+        err_a, err_b, err_sp = max(err_a, ea), max(err_b, eb), max(err_sp, es)
+    case = sp_case
+    sp_ms, sp_plain_ms, four = time_pair(
+        torch, lambda: ksb.subband_update_spatial(case.x, case.psi,
+                                                  case.tau_full, "hard",
+                                                  "high"),
+        lambda: ksb.subband_update_spatial_plain(case.x, case.psi,
+                                                 case.tau_full, "hard"), 3)
+    print(f"subband_update_spatial {MAIN_BATCH}x{N}x{N}, {n_full} bands: "
+          f"kernel {four[0]:.2f} / {four[1]:.2f} ms, plain (torch.fft) "
+          f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
+    # 2·L + 2 complex 2-D FFTs per slice; bytes as subband_update's
+    sp_bound = bound((2 * n_full + 2) * fft2_flops(N, N) * MAIN_BATCH,
+                     MAIN_BATCH * N * N * 16 + n_full * N * N * 4
+                     + MAIN_BATCH * n_full * 4)
+    time_box(torch, ksb, cv_case, 0)
+    del case, sp_case, cv_case
     torch.cuda.empty_cache()
     print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s", flush=True)
 
@@ -751,29 +895,15 @@ def main():
 
     # phase 5: the SHEARLET main path on the same cube
     shearlet = dataclasses.replace(production, transform_kind="SHEARLET")
-    first, _ = make_cube(torch, Cube, truth[:MAIN_BATCH], mask)
-    t0 = time.perf_counter()
-    interpolate(first, config=shearlet, device=dev)
-    torch.cuda.synchronize()
-    per_batch = time.perf_counter() - t0
-    slices, sh_truth, sh_cube, sh_in = SLICES, truth, cube, s_in
-    if per_batch * n_batches > WALL_LIMIT_S:
-        slices = max(1, int(WALL_LIMIT_S / 2 / per_batch)) * MAIN_BATCH + 1
-        print(f"CUT: the first batch took {per_batch:.1f} s, so the "
-              f"{SLICES}-slice SHEARLET cube would take about "
-              f"{per_batch * n_batches:.0f} s; it runs {slices} slices",
-              flush=True)
-        sh_truth = truth[:slices]
-        sh_cube, sh_in = make_cube(torch, Cube, sh_truth, mask)
-    print(f"SHEARLET first batch of {MAIN_BATCH}: {per_batch:.2f} s",
-          flush=True)
-    sh_batches = math.ceil(slices / MAIN_BATCH)
-    _, counts_sh, _, _ = main_path(
+    sh_truth, sh_cube, sh_in = cut_to_fit(torch, interpolate, Cube, truth,
+                                          mask, cube, s_in, shearlet, dev,
+                                          "SHEARLET")
+    sh_batches = math.ceil(sh_truth.shape[0] / MAIN_BATCH)
+    _, counts_sh, snr_sh, _ = main_path(
         torch, interpolate, sh_cube, shearlet, dev, sh_truth, sh_in,
         "SHEARLET main path", modules,
         {"subband_update": sh_batches * NITER,
          "box_group_update": 2 * sh_batches * NITER})
-    del sh_cube, sh_truth
     part, _ = make_cube(torch, Cube, truth[:2 * MAIN_BATCH], mask)
     if args.trace is not None:
         trace_main_path(torch, lambda: interpolate(part, config=shearlet,
@@ -820,6 +950,47 @@ def main():
         trace_main_path(torch, lambda: interpolate(cube, config=wavelet,
                                                    device=dev),
                         args.trace, "wavelet_main_path_trace")
+
+    # phase 9: the CURVELET main path, its production configuration
+    curvelet = dataclasses.replace(production, transform_kind="CURVELET",
+                                   p_min=1e-3)
+    tr = _production_transform(curvelet, {})
+    if (tr.precision, tr.box_precision) != ("high", "highest"):
+        fail(f"the CURVELET production transform is {tr}")
+    print(f"CURVELET production transform: {tr}", flush=True)
+    cv_truth, cv_cube, cv_in = cut_to_fit(torch, interpolate, Cube, truth,
+                                          mask, cube, s_in, curvelet, dev,
+                                          "CURVELET")
+    cv_batches = math.ceil(cv_truth.shape[0] / MAIN_BATCH)
+    _, counts_cv, _, _ = main_path(
+        torch, interpolate, cv_cube, curvelet, dev, cv_truth, cv_in,
+        "CURVELET main path", modules,
+        {"subband_update": cv_batches * NITER,
+         "box_group_update": cv_batches * NITER})
+    del cv_cube, cv_truth
+    if args.trace is not None:
+        trace_main_path(torch, lambda: interpolate(part, config=curvelet,
+                                                   device=dev),
+                        args.trace, "curvelet_main_path_trace")
+
+    # phase 10: the SHEARLET main path through the spatial subband kernel,
+    # on phase 5's cube
+    with spatial_io():
+        _, counts_sp, snr_sp, _ = main_path(
+            torch, interpolate, sh_cube, shearlet, dev, sh_truth, sh_in,
+            "SHEARLET main path, P3D_SPATIAL_IO=1", modules,
+            {"subband_update[spatial]": sh_batches * NITER,
+             "box_group_update": 2 * sh_batches * NITER})
+        if args.trace is not None:
+            trace_main_path(torch, lambda: interpolate(part, config=shearlet,
+                                                       device=dev),
+                            args.trace, "spatial_io_main_path_trace")
+    print(f"SHEARLET SNR: spectral route (phase 5) {snr_sh:.3f} dB, spatial "
+          f"route {snr_sp:.3f} dB", flush=True)
+    if abs(snr_sp - snr_sh) > SNR_TOL_DB:
+        fail(f"the spatial route's SNR {snr_sp:.3f} dB is not within "
+             f"{SNR_TOL_DB} dB of the spectral route's {snr_sh:.3f} dB")
+    del sh_cube, sh_truth
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,
@@ -846,6 +1017,9 @@ def main():
         entry("subband_update", "subband.py:392",
               counts_sh["subband_update"], err_a, sub_ms, sub_plain_ms,
               sub_bound, "subband.cu"),
+        entry("subband_update[spatial]", "subband.py:110",
+              counts_sp["subband_update[spatial]"], err_sp, sp_ms,
+              sp_plain_ms, sp_bound, "subband.cu"),
         entry("box_group_update", "subband.py:316",
               counts_sh["box_group_update"], err_b, box_ms, box_plain_ms,
               box_bound, "subband.cu"),

@@ -3,8 +3,9 @@
 The system has no learned weights: what defines a solve is the solver
 configuration and the plan constants: the DFT and DCT matrices (built
 bit-equal in ``ops/dft.py``), the wavelet filters and their periodized DWT
-matrices (bit-equal in ``ops/wavelet.py``), and the shearlet windows and
-their support-cropped plan (bit-equal in ``ops/shearlet.py``). Each is
+matrices (bit-equal in ``ops/wavelet.py``), and the shearlet and curvelet windows
+and their support-cropped plans (bit-equal in ``ops/shearlet.py`` and
+``ops/curvelet.py``). Each is
 rebuilt here from the transform's kind and options, so a transform carries
 across by those alone. These helpers turn the JAX
 package's configuration and plan, as plain Python and numpy values
@@ -42,14 +43,17 @@ def config_from_reference(d: dict) -> POCSConfig:
 def transform_from_reference(kind: str, kwargs: dict | None = None):
     """A transform kind and its options, as the JAX package's
     ``get_transform`` takes them (FFT, DCT, WAVELET with ``wavelet`` and
-    ``level``, SHEARLET; ``precision`` for each) -> this package's
+    ``level``, SHEARLET with ``n_scales`` and ``box_precision``, CURVELET
+    with ``nbscales``, ``nbangles_coarse``, ``allcurvelets`` and
+    ``box_precision``; ``precision`` for each) -> this package's
     transform."""
     return get_transform(kind, **{k: _plain(v)
                                   for k, v in (kwargs or {}).items()})
 
 
 def plan_from_reference(groups, perm) -> Plan:
-    """A JAX shearlet plan's arrays -> this package's :class:`Plan`.
+    """A JAX shearlet or curvelet plan's arrays -> this package's
+    :class:`Plan` (the two bases share the plan format).
 
     ``groups``: one ``(idx_h, idx_w, psi)`` per plan group, as numpy
     (``(g.idx_h, g.idx_w, g.psi) for g in jax_plan``; the indices are None

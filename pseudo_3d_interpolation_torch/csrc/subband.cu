@@ -1,6 +1,6 @@
-// Subband updates of the spectral-stack (SHEARLET) POCS iteration, for
-// Hopper (sm_90a), with a plain C interface loaded through ctypes
-// (ops/kernels/subband.py).
+// Subband updates of the spectral-stack (SHEARLET, CURVELET) POCS
+// iteration, for Hopper (sm_90a), with a plain C interface loaded through
+// ctypes (ops/kernels/subband.py).
 //
 // Kernel A, p3d_subband_update, replaces
 // pseudo_3d_interpolation_tpu/ops/pallas/subband.py :: subband_update_fused
@@ -29,6 +29,30 @@
 // (slice, band, pixel) over the three passes (the windows, the scratch
 // written and read twice, the spectrum), against about 5·log2(H·W)·2 flops
 // of FFT per (slice, band, pixel) done from shared memory.
+//
+// Kernel C, p3d_subband_update_spatial, replaces subband.py ::
+// subband_update_fused(spatial_io=True) (body _kernel_spatial): kernel A
+// with the top-level transforms inside, spatial x in and spatial out,
+//
+//   out_b = ifft2(Σ_l fft2(shrink(ifft2(fft2(x_b)·psi_l), tau[b, l]))·psi_l)
+//
+// for any H×W in natural order. The TPU kernel keeps the slice's spectrum
+// and accumulator in VMEM across its (B, L) grid; here both live in device
+// memory and the transforms are line passes like kernel A's:
+//   (0) per (b, block of columns): forward FFT along H of x into a
+//       (B, H, W) spectrum scratch; per (b, block of rows): forward FFT
+//       along W in place;
+//   (a)-(c) kernel A's passes on that spectrum, the accumulator in the
+//       output planes; pass (c) of the last band chunk, whose row blocks
+//       hold the complete sum over the bands, also takes the inverse FFT
+//       along W in shared memory before it writes;
+//   (d) per (b, block of columns): inverse FFT along H, scaled by
+//       1/(H·W), in place in the output planes.
+// The sum over the bands keeps kernel A's fixed order. What bounds it:
+// device memory as kernel A, about 48 bytes per (slice, band, pixel), plus
+// about 64 per (slice, pixel) for the new passes (x read, the spectrum
+// written, read and written, the output read and written), against
+// 5·log2(H·W) flops per pixel of each of the 2·L + 2 2-D FFTs per slice.
 //
 // Kernel B, p3d_box_group_update, replaces subband.py ::
 // box_group_update_fused (body _box_kernel). For one support-cropped group
@@ -254,7 +278,10 @@ cols_shrink_kernel(float2* __restrict__ scratch,
 }
 
 // (c) rows: acc_b (+)= Σ_l (forward FFT along W of scratch[b, l])·psi_l,
-// the bands of the chunk in order. grid (row blocks, batch).
+// the bands of the chunk in order. grid (row blocks, batch). With INV_W
+// (kernel C's last chunk) the block holds the complete sum of its rows and
+// writes their inverse FFT along W instead.
+template <bool INV_W>
 __global__ void __launch_bounds__(NT)
 rows_forward_acc_kernel(const float2* __restrict__ scratch,
                         const float* __restrict__ psi,
@@ -291,9 +318,71 @@ rows_forward_acc_kernel(const float2* __restrict__ scratch,
     }
     __syncthreads();
   }
+  if (INV_W) fft_lines(acc, tmp, nr, w, logw, w, tw, true);
   for (int e = threadIdx.x; e < n; e += NT) {
     accr[ao + e] = acc[e].x;
     acci[ao + e] = acc[e].y;
+  }
+}
+
+// Kernel C's column passes: FFT along H (inverse when `inv`) of the
+// (re, im) planes `in`, times `scale`, into the planes `out`, which may be
+// `in` (a block reads and writes only its own columns). grid (column
+// blocks, batch).
+__global__ void __launch_bounds__(NT)
+cols_fft_kernel(const float* in_re, const float* in_im, float* out_re,
+                float* out_im, const float2* __restrict__ tw_h, int h, int w,
+                int logh, int cols, int inv, float scale) {
+  extern __shared__ float2 smem[];
+  const int ls = h + 1;  // padded column stride, as in cols_shrink_kernel
+  float2* tw = smem;
+  float2* buf = tw + h;
+  float2* tmp = buf + cols * ls;
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * cols;
+  const int nc = min(cols, w - c0);
+  const int n = h * nc;
+  const long long off = (long long)b * h * w + c0;
+  for (int e = threadIdx.x; e < h; e += NT) tw[e] = tw_h[e];
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const int r = e / nc, c = e - r * nc;
+    const long long o = off + (long long)r * w + c;
+    buf[c * ls + r] = make_float2(in_re[o], in_im[o]);
+  }
+  __syncthreads();
+  fft_lines(buf, tmp, nc, h, logh, ls, tw, inv != 0);
+  for (int e = threadIdx.x; e < n; e += NT) {
+    const int r = e / nc, c = e - r * nc;
+    const long long o = off + (long long)r * w + c;
+    const float2 v = buf[c * ls + r];
+    out_re[o] = v.x * scale;
+    out_im[o] = v.y * scale;
+  }
+}
+
+// Kernel C's row pass: forward FFT along W of the (re, im) planes, in
+// place. grid (row blocks, batch).
+__global__ void __launch_bounds__(NT)
+rows_fft_kernel(float* __restrict__ re, float* __restrict__ im,
+                const float2* __restrict__ tw_w, int h, int w, int logw,
+                int rows) {
+  extern __shared__ float2 smem[];
+  float2* tw = smem;
+  float2* buf = tw + w;
+  float2* tmp = buf + rows * w;
+  const int b = blockIdx.y;
+  const int r0 = blockIdx.x * rows;
+  const int nr = min(rows, h - r0);
+  const int n = nr * w;
+  const long long o = (long long)b * h * w + (long long)r0 * w;
+  for (int e = threadIdx.x; e < w; e += NT) tw[e] = tw_w[e];
+  for (int e = threadIdx.x; e < n; e += NT)
+    buf[e] = make_float2(re[o + e], im[o + e]);
+  __syncthreads();
+  fft_lines(buf, tmp, nr, w, logw, w, tw, false);
+  for (int e = threadIdx.x; e < n; e += NT) {
+    re[o + e] = buf[e].x;
+    im[o + e] = buf[e].y;
   }
 }
 
@@ -484,6 +573,71 @@ int allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
+// The line blocks of kernels A and C for an h × w slice: rows per row
+// block, columns per column block, and the shared memory of the row
+// passes (a), the column passes (b) and the accumulating row pass (c).
+struct Lines {
+  int logh, logw, rows, cols;
+  size_t smem_a, smem_b, smem_c;
+};
+
+Lines lines_for(int h, int w) {
+  Lines s;
+  s.logh = log2_or_neg(h);
+  s.logw = log2_or_neg(w);
+  s.rows = h < ROW_ELEMS / w ? h : (ROW_ELEMS / w > 0 ? ROW_ELEMS / w : 1);
+  s.cols = w < COL_ELEMS / h ? w : (COL_ELEMS / h > 0 ? COL_ELEMS / h : 1);
+  const size_t c8 = sizeof(float2);
+  s.smem_a = c8 * (w + (size_t)s.rows * w * (s.logw < 0 ? 2 : 1));
+  s.smem_b = c8 * (h + (size_t)s.cols * (h + 1)
+                   + (s.logh < 0 ? (size_t)s.cols * h : 0));
+  s.smem_c = c8 * (w + (size_t)s.rows * w * (s.logw < 0 ? 3 : 2));
+  return s;
+}
+
+// Passes (a)-(c) over every band chunk: acc = Σ_l fft2(shrink(ifft2(
+// X·psi_l)))·psi_l from the spectrum planes (xr, xi); with `inv_last` the
+// last chunk's pass (c) also takes the inverse FFT along W.
+int band_passes(const Lines& s, const float* xr, const float* xi,
+                const float* psi, const float* tau, const float2* twh,
+                const float2* tww, float* acc_re, float* acc_im,
+                float2* scratch, int batch, int h, int w, int nbands, int lc,
+                int op, bool inv_last, cudaStream_t stream) {
+  int err;
+  if ((err = allow_smem(rows_inverse_kernel, s.smem_a)) != 0) return err;
+  if ((err = allow_smem(cols_shrink_kernel, s.smem_b)) != 0) return err;
+  if ((err = allow_smem(rows_forward_acc_kernel<false>, s.smem_c)) != 0)
+    return err;
+  if (inv_last &&
+      (err = allow_smem(rows_forward_acc_kernel<true>, s.smem_c)) != 0)
+    return err;
+  const long long plane = (long long)h * w;
+  const float scale = 1.0f / (float)((double)h * (double)w);
+  for (int l0 = 0; l0 < nbands; l0 += lc) {
+    const int nl = lc < nbands - l0 ? lc : nbands - l0;
+    const float* p = psi + (long long)l0 * plane;
+    rows_inverse_kernel<<<dim3(ceil_div(h, s.rows), nl, batch), NT,
+                          s.smem_a, stream>>>(xr, xi, p, tww, scratch, h, w,
+                                              s.logw, s.rows, nl);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    cols_shrink_kernel<<<dim3(ceil_div(w, s.cols), nl, batch), NT, s.smem_b,
+                         stream>>>(scratch, tau, twh, h, w, s.logh, s.cols,
+                                   nl, nbands, l0, scale, op);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+    const dim3 grid(ceil_div(h, s.rows), batch);
+    if (inv_last && l0 + nl >= nbands)
+      rows_forward_acc_kernel<true><<<grid, NT, s.smem_c, stream>>>(
+          scratch, p, tww, acc_re, acc_im, h, w, s.logw, s.rows, nl,
+          l0 == 0);
+    else
+      rows_forward_acc_kernel<false><<<grid, NT, s.smem_c, stream>>>(
+          scratch, p, tww, acc_re, acc_im, h, w, s.logw, s.rows, nl,
+          l0 == 0);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+  }
+  return 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -499,42 +653,49 @@ int p3d_subband_update(const float* x_re, const float* x_im,
                        float* acc_re, float* acc_im, float* work, int batch,
                        int h, int w, int nbands, int lc, int op,
                        void* stream_handle) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const int logh = log2_or_neg(h), logw = log2_or_neg(w);
-  const int rows = h < ROW_ELEMS / w ? h : (ROW_ELEMS / w > 0 ? ROW_ELEMS / w : 1);
-  const int cols = w < COL_ELEMS / h ? w : (COL_ELEMS / h > 0 ? COL_ELEMS / h : 1);
-  const size_t c8 = sizeof(float2);
-  const size_t smem_a = c8 * (w + (size_t)rows * w * (logw < 0 ? 2 : 1));
-  const size_t smem_b =
-      c8 * (h + (size_t)cols * (h + 1) + (logh < 0 ? (size_t)cols * h : 0));
-  const size_t smem_c = c8 * (w + (size_t)rows * w * (logw < 0 ? 3 : 2));
-  int err;
-  if ((err = allow_smem(rows_inverse_kernel, smem_a)) != 0) return err;
-  if ((err = allow_smem(cols_shrink_kernel, smem_b)) != 0) return err;
-  if ((err = allow_smem(rows_forward_acc_kernel, smem_c)) != 0) return err;
+  return band_passes(lines_for(h, w), x_re, x_im, psi, tau,
+                     reinterpret_cast<const float2*>(tw_h),
+                     reinterpret_cast<const float2*>(tw_w), acc_re, acc_im,
+                     reinterpret_cast<float2*>(work), batch, h, w, nbands, lc,
+                     op, false, static_cast<cudaStream_t>(stream_handle));
+}
 
+// Kernel C. Returns as p3d_subband_update. `spec` holds the spectrum's
+// (re, im) planes, 2·batch·h·w floats; `work` as p3d_subband_update's;
+// (out_re, out_im) take the spatial result and serve as the accumulator
+// until the last pass. nbands >= 1.
+int p3d_subband_update_spatial(const float* x_re, const float* x_im,
+                               const float* psi,  // (nbands, h, w)
+                               const float* tau,  // (batch, nbands)
+                               const float* tw_h, const float* tw_w,
+                               float* out_re, float* out_im, float* spec,
+                               float* work, int batch, int h, int w,
+                               int nbands, int lc, int op,
+                               void* stream_handle) {
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const Lines s = lines_for(h, w);
+  int err;
+  if ((err = allow_smem(cols_fft_kernel, s.smem_b)) != 0) return err;
+  if ((err = allow_smem(rows_fft_kernel, s.smem_a)) != 0) return err;
   const float2* twh = reinterpret_cast<const float2*>(tw_h);
   const float2* tww = reinterpret_cast<const float2*>(tw_w);
-  float2* scratch = reinterpret_cast<float2*>(work);
-  const long long plane = (long long)h * w;
-  const float scale = 1.0f / (float)((double)h * (double)w);
-  for (int l0 = 0; l0 < nbands; l0 += lc) {
-    const int nl = lc < nbands - l0 ? lc : nbands - l0;
-    const float* p = psi + (long long)l0 * plane;
-    rows_inverse_kernel<<<dim3(ceil_div(h, rows), nl, batch), NT, smem_a,
-                          stream>>>(x_re, x_im, p, tww, scratch, h, w, logw,
-                                    rows, nl);
-    if ((err = (int)cudaGetLastError()) != 0) return err;
-    cols_shrink_kernel<<<dim3(ceil_div(w, cols), nl, batch), NT, smem_b,
-                         stream>>>(scratch, tau, twh, h, w, logh, cols, nl,
-                                   nbands, l0, scale, op);
-    if ((err = (int)cudaGetLastError()) != 0) return err;
-    rows_forward_acc_kernel<<<dim3(ceil_div(h, rows), batch), NT, smem_c,
-                              stream>>>(scratch, p, tww, acc_re, acc_im, h, w,
-                                        logw, rows, nl, l0 == 0);
-    if ((err = (int)cudaGetLastError()) != 0) return err;
-  }
-  return 0;
+  float* spec_re = spec;
+  float* spec_im = spec + (long long)batch * h * w;
+  const dim3 col_grid(ceil_div(w, s.cols), batch);
+  cols_fft_kernel<<<col_grid, NT, s.smem_b, stream>>>(
+      x_re, x_im, spec_re, spec_im, twh, h, w, s.logh, s.cols, 0, 1.0f);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  rows_fft_kernel<<<dim3(ceil_div(h, s.rows), batch), NT, s.smem_a,
+                    stream>>>(spec_re, spec_im, tww, h, w, s.logw, s.rows);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  if ((err = band_passes(s, spec_re, spec_im, psi, tau, twh, tww, out_re,
+                         out_im, reinterpret_cast<float2*>(work), batch, h,
+                         w, nbands, lc, op, true, stream)) != 0)
+    return err;
+  cols_fft_kernel<<<col_grid, NT, s.smem_b, stream>>>(
+      out_re, out_im, out_re, out_im, twh, h, w, s.logh, s.cols, 1,
+      1.0f / (float)((double)h * (double)w));
+  return (int)cudaGetLastError();
 }
 
 // Returns 0, ERR_SMEM, or the first CUDA error met while enqueuing. `work`

@@ -1,4 +1,5 @@
-"""POCS sparse-inversion solver: the FFT, DCT, WAVELET and SHEARLET bases.
+"""POCS sparse-inversion solver: the FFT, DCT, WAVELET, SHEARLET and
+CURVELET bases.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/models/pocs.py``. Per
 iteration: forward transform -> threshold(decay_i) -> inverse transform ->
@@ -12,9 +13,11 @@ Three routes are ported:
 - ``fused-periter[fft]``: the FFT basis when the configuration needs the
   scan (eps ≠ 0, cost history, global early stop, ``version='adaptive'``),
   each iteration one ``pocs_iteration`` kernel launch;
-- ``streamed-subband``: the spectral-stack bases (SHEARLET), each
-  iteration's ``inverse(threshold(forward(·)))`` fused in the transform's
-  ``apply_threshold`` (the subband kernels on the card).
+- ``streamed-subband``: the spectral-stack bases (SHEARLET, CURVELET),
+  each iteration's ``inverse(threshold(forward(·)))`` fused in the
+  transform's ``apply_threshold`` (the subband kernels on the card:
+  ``subband_update`` and ``box_group_update``, or with ``P3D_SPATIAL_IO``
+  set ``subband_update_spatial`` and ``box_group_update``).
 The last two share one scan, a Python loop over the iterations with the
 state on the device. It carries the scan's options: regular / fast /
 adaptive, lane freezing for eps > 0, cost history and ``global_early_stop``
@@ -78,11 +81,12 @@ class SolverRoute(NamedTuple):
 
     ``route`` is ``'fused-folded'`` (a solve kernel), ``'fused-periter'``
     (the FFT basis' scan over the iteration kernel), ``'streamed-subband'``
-    (the directional scan over the subband kernels) or ``'xla-scan'`` (the
-    JAX package's plain scan, not ported); ``basis`` the folded kernel's
-    basis ('fft'/'dct'/'wavelet', '' otherwise); ``reason`` the first failed
-    folded-kernel condition, worded as in the JAX package ('' when the
-    folded kernel runs). :func:`runs` says whether the route is ported."""
+    (SHEARLET's and CURVELET's directional scan over the subband kernels)
+    or ``'xla-scan'`` (the JAX package's plain scan, not ported); ``basis``
+    the folded kernel's basis ('fft'/'dct'/'wavelet', '' otherwise);
+    ``reason`` the first failed folded-kernel condition, worded as in the
+    JAX package ('' when the folded kernel runs). :func:`runs` says whether
+    the route is ported."""
 
     route: str
     basis: str

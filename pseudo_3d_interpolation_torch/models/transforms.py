@@ -1,13 +1,14 @@
-"""Sparse-transform protocol for the POCS solver: the FFT, DCT, WAVELET and
-SHEARLET bases.
+"""Sparse-transform protocol for the POCS solver: the FFT, DCT, WAVELET,
+SHEARLET and CURVELET bases.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/models/transforms.py``. A
 transform is a small frozen object with ``forward``, ``inverse``, ``decay``
 and ``threshold`` over ``Cplx`` pairs, batch first (WAVELET's coefficients
-and decay are pywt-style lists); the spectral-stack basis (SHEARLET) adds
-the fused ``apply_threshold`` and ``decay_from_input`` the solver's
-directional route uses. CURVELET raises :class:`NotImplementedError` naming
-its ROADMAP queue item.
+and decay are pywt-style lists); the spectral-stack bases (SHEARLET,
+CURVELET) add the fused ``apply_threshold`` and ``decay_from_input`` the
+solver's directional route uses. The decimated CURVELET
+(``decimated=True``) raises :class:`NotImplementedError`: its solve is the
+JAX package's plain XLA scan, which is not ported.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Any
 import torch
 import torch.nn.functional as F
 
+from ..ops import curvelet as cv
 from ..ops import decay as decay_ops
 from ..ops import dft
 from ..ops import shearlet as sh
@@ -181,10 +183,31 @@ class WaveletTransform:
 
 
 class _SpectralStackMixin:
-    """The streamed POCS surface of the spectral-stack bases: the fused
+    """What the spectral-stack bases (SHEARLET, CURVELET) share: the planned
+    transforms of their ``_plan`` (one plan format, ops/shearlet.py), one
+    threshold per subband, and the streamed POCS surface, the fused
     ``inverse(threshold(forward(z)))`` and the decay schedule from
     per-subband statistics, neither of which materialises the
-    (B, L, H, W) coefficient stack (ops/shearlet.py)."""
+    (B, L, H, W) coefficient stack. ``box_precision`` (default
+    ``precision``) is the precision of the support-cropped box groups."""
+
+    def __post_init__(self):
+        _resolve_precision(self.precision)
+        if self.box_precision is not None:
+            _resolve_precision(self.box_precision)
+
+    def forward(self, z: Cplx) -> Cplx:
+        return sh.shearlet_transform_planned(
+            z, self._plan(z.shape[-2], z.shape[-1]))
+
+    def inverse(self, coeffs: Cplx) -> Cplx:
+        return sh.inverse_shearlet_transform_planned(
+            coeffs, self._plan(coeffs.shape[-2], coeffs.shape[-1]))
+
+    def threshold(self, coeffs: Cplx, t, op: str) -> Cplx:
+        # t: (..., L) per-subband thresholds
+        return threshold_ops.threshold_pair(coeffs, t[..., None, None],
+                                            kind=op)
 
     def apply_threshold(self, z: Cplx, t, op: str) -> Cplx:
         """``inverse(threshold(forward(z), t))`` through
@@ -209,30 +232,15 @@ class _SpectralStackMixin:
 @dataclasses.dataclass(frozen=True)
 class ShearletTransform(_SpectralStackMixin):
     """Cone-adapted Meyer shearlet basis (reference SHEARLET kind via
-    FFST); coefficients carry subbands on axis -3, (..., L, H, W), with one
-    threshold per subband. ``box_precision`` (default ``precision``) is the
-    precision of the support-cropped box groups."""
+    FFST); coefficients carry subbands on axis -3, (..., L, H, W)."""
 
     n_scales: int | None = None
     precision: str = "highest"
     box_precision: str | None = None
     kind: str = "SHEARLET"
 
-    def __post_init__(self):
-        _resolve_precision(self.precision)
-        if self.box_precision is not None:
-            _resolve_precision(self.box_precision)
-
     def _plan(self, h, w):
         return sh.shearlet_plan(h, w, self.n_scales)
-
-    def forward(self, z: Cplx) -> Cplx:
-        return sh.shearlet_transform_planned(
-            z, self._plan(z.shape[-2], z.shape[-1]))
-
-    def inverse(self, coeffs: Cplx) -> Cplx:
-        return sh.inverse_shearlet_transform_planned(
-            coeffs, self._plan(coeffs.shape[-2], coeffs.shape[-1]))
 
     def decay(self, coeffs: Cplx, model, niter, p_max, p_min, decay_kind):
         mag = coeffs.abs()  # (..., L, H, W): L batches -> per-subband tau
@@ -247,11 +255,6 @@ class ShearletTransform(_SpectralStackMixin):
         return decay_ops.threshold_decay(
             mag, model, niter, p_max=p_max, p_min=p_min, kind=decay_kind,
             tau_min_override=tau_min_override)
-
-    def threshold(self, coeffs: Cplx, t, op: str) -> Cplx:
-        # t: (..., L) per-subband thresholds
-        return threshold_ops.threshold_pair(coeffs, t[..., None, None],
-                                            kind=op)
 
     def decay_from_input(self, z: Cplx, model, niter, p_max, p_min,
                          decay_kind):
@@ -276,19 +279,56 @@ class ShearletTransform(_SpectralStackMixin):
         return decay_ops.schedule(model, niter, tau_max, tau_min)
 
 
+@dataclasses.dataclass(frozen=True)
+class CurveletTransform(_SpectralStackMixin):
+    """Fast discrete curvelet frame (reference CURVELET kind, CurveLab's
+    wrapping geometry) as an exactly tight undecimated frame
+    (ops/curvelet.py); coefficients carry wedges on axis -3, (..., L, H, W),
+    with one threshold per wedge."""
+
+    nbscales: int | None = None
+    nbangles_coarse: int = 16
+    allcurvelets: bool = False
+    precision: str = "highest"
+    box_precision: str | None = None
+    kind: str = "CURVELET"
+
+    def _plan(self, h, w):
+        return cv.curvelet_plan(h, w, self.nbscales, self.nbangles_coarse,
+                                self.allcurvelets)
+
+    @staticmethod
+    def _numeric_p_min(p_min) -> None:
+        if isinstance(p_min, str):
+            raise ValueError(
+                "p_min='adaptive' is shearlet-specific (reference "
+                "functions/POCS.py:302-324); use a numeric p_min for "
+                "CURVELET")
+
+    def decay(self, coeffs: Cplx, model, niter, p_max, p_min, decay_kind):
+        self._numeric_p_min(p_min)
+        return decay_ops.threshold_decay(
+            coeffs.abs(), model, niter, p_max=p_max, p_min=p_min,
+            kind=decay_kind)
+
+    def decay_from_input(self, z: Cplx, model, niter, p_max, p_min,
+                         decay_kind):
+        """The decay schedule (niter, B, L) from the streamed per-wedge
+        maxima; a numeric ``p_min`` only."""
+        self._numeric_p_min(p_min)
+        if self._needs_full_forward(model, decay_kind):
+            return self.decay(self.forward(z), model, niter, p_max, p_min,
+                              decay_kind)
+        amax, _ = self._streamed_stats(z)
+        return decay_ops.schedule(model, niter, p_max * amax, p_min * amax)
+
+
 _REGISTRY = {}
 
 
 def register_transform(name: str, factory) -> None:
     """Register a transform factory under an (upper-case) kind name."""
     _REGISTRY[name.upper()] = factory
-
-
-def _not_ported(kind: str, queue: str):
-    def factory(**kw):
-        raise NotImplementedError(
-            f"transform {kind!r} is not ported yet ({queue})")
-    return factory
 
 
 register_transform("FFT", lambda precision="highest", **kw:
@@ -304,8 +344,28 @@ register_transform(
     lambda n_scales=None, precision="highest", box_precision=None,
     **kw: ShearletTransform(n_scales=n_scales, precision=precision,
                             box_precision=box_precision))
-register_transform("CURVELET", _not_ported(
-    "CURVELET", "ROADMAP queue 1 #12, queue 2 #3-#5"))
+
+
+def _curvelet_factory(nbscales=None, nbangles_coarse=16, allcurvelets=False,
+                      precision="highest", box_precision=None,
+                      decimated=False, **kw):
+    if decimated:
+        if box_precision is not None:
+            raise ValueError(
+                "box_precision does not apply to decimated=True: EVERY "
+                "band is a wrapped/support-cropped grid there — set "
+                "'precision' (uniform) instead")
+        raise NotImplementedError(
+            "the decimated CURVELET (decimated=True) is not ported yet: its "
+            "solve is the JAX package's plain XLA scan (ROADMAP queue 1 "
+            "#12, the xla-scan route)")
+    return CurveletTransform(
+        nbscales=nbscales, nbangles_coarse=nbangles_coarse,
+        allcurvelets=allcurvelets, precision=precision,
+        box_precision=box_precision)
+
+
+register_transform("CURVELET", _curvelet_factory)
 
 # the union of constructor options across all bases of the JAX package: a
 # config may carry options for another basis than the selected one, but a

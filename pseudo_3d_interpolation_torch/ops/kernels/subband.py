@@ -1,16 +1,21 @@
-"""Subband updates of the spectral-stack (SHEARLET) POCS iteration: the CUDA
-kernels' wrappers and their plain PyTorch versions.
+"""Subband updates of the spectral-stack (SHEARLET, CURVELET) POCS
+iteration: the CUDA kernels' wrappers and their plain PyTorch versions.
 
 :func:`subband_update` replaces
 ``pseudo_3d_interpolation_tpu/ops/pallas/subband.py :: subband_update_fused``
 (bodies ``_kernel``, radix-permuted layout, and ``_kernel_dense``, natural
 layout): the full-size bands' ``Σ_l fft2(shrink(ifft2(X·ψ_l)))·ψ_l``. The
 port keeps the spectrum in natural order for every shape; the permuted
-layout was a TPU choice to skip an interleave. :func:`box_group_update`
+layout was a TPU choice to skip an interleave.
+:func:`subband_update_spatial` replaces ``subband_update_fused(...,
+spatial_io=True)`` (body ``_kernel_spatial``): the same update with the
+top-level ``fft2`` and ``ifft2`` inside the kernel, spatial in and out.
+The JAX package runs it only in the permuted layout (square slices with a
+fast split); the port's kernel takes any H×W. :func:`box_group_update`
 replaces ``box_group_update_fused`` (body ``_box_kernel``): one support-
 cropped group's ``Σ_l ψ_l·A_h·shrink(A_hᴴ(xb·ψ_l)A_w*/(N_h·N_w))·A_wᵀ``.
-``csrc/subband.cu`` has both kernels, with their design and what bounds
-them.
+``csrc/subband.cu`` has the three kernels, with their design and what
+bounds them.
 
 Each wrapper launches its kernel for CUDA tensors, counts the launch
 (``.launches``) and takes its plain version only for CPU tensors; a failed
@@ -45,9 +50,12 @@ def band_chunk(batch: int, h: int, w: int, nbands: int) -> int:
     return max(1, min(nbands, SCRATCH_BYTES // max(1, batch * h * w * 8)))
 
 
-def scratch_bytes(batch: int, h: int, w: int, nbands: int) -> int:
-    """Device scratch of one :func:`subband_update` call."""
-    return band_chunk(batch, h, w, nbands) * batch * h * w * 8
+def scratch_bytes(batch: int, h: int, w: int, nbands: int,
+                  spatial: bool = False) -> int:
+    """Device scratch of one :func:`subband_update` call, or with
+    ``spatial`` of one :func:`subband_update_spatial` call (one (B, H, W)
+    spectrum more)."""
+    return (band_chunk(batch, h, w, nbands) + int(spatial)) * batch * h * w * 8
 
 
 def _op(thresh_op: str, precision: str) -> str:
@@ -86,6 +94,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.p3d_subband_update.argtypes = [p] * 9 + [i] * 6 + [p]
     lib.p3d_subband_update.restype = i
+    lib.p3d_subband_update_spatial.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.p3d_subband_update_spatial.restype = i
     lib.p3d_box_group_update.argtypes = [p] * 11 + [i] * 8 + [p]
     lib.p3d_box_group_update.restype = i
     return lib
@@ -127,6 +137,27 @@ def subband_update_plain(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
     return Cplx(acc.real.contiguous(), acc.imag.contiguous())
 
 
+def _check_bands(x: Cplx, psi: torch.Tensor, tau: torch.Tensor,
+                 name: str) -> torch.device:
+    """The checks of :func:`subband_update` and
+    :func:`subband_update_spatial`; returns the tensors' device."""
+    device = _device(x.re)
+    if x.re.dim() != 3 or x.im.shape != x.re.shape:
+        raise ValueError(f"{name} must be a (B, H, W) pair, got "
+                         f"{tuple(x.re.shape)} / {tuple(x.im.shape)}")
+    b, h, w = x.re.shape
+    if psi.dim() != 3 or tuple(psi.shape[1:]) != (h, w):
+        raise ValueError(f"psi must be (L, {h}, {w}), got "
+                         f"{tuple(psi.shape)}")
+    nbands = psi.shape[0]
+    if tuple(tau.shape) != (b, nbands):
+        raise ValueError(f"tau must be ({b}, {nbands}), got "
+                         f"{tuple(tau.shape)}")
+    _check({f"{name}.re": x.re, f"{name}.im": x.im, "psi": psi, "tau": tau},
+           device)
+    return device
+
+
 def subband_update(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
                    thresh_op: str = "hard", precision: str = "highest"
                    ) -> Cplx:
@@ -138,23 +169,11 @@ def subband_update(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
     the (B, H, W) spectral accumulator, which inverts with ``ifft2``. CUDA
     tensors run the kernel, CPU tensors :func:`subband_update_plain`."""
     op = _op(thresh_op, precision)
-    device = _device(x_spec.re)
-    if x_spec.re.dim() != 3 or x_spec.im.shape != x_spec.re.shape:
-        raise ValueError(f"x_spec must be a (B, H, W) pair, got "
-                         f"{tuple(x_spec.re.shape)} / "
-                         f"{tuple(x_spec.im.shape)}")
-    b, h, w = x_spec.re.shape
-    if psi.dim() != 3 or tuple(psi.shape[1:]) != (h, w):
-        raise ValueError(f"psi must be (L, {h}, {w}), got "
-                         f"{tuple(psi.shape)}")
-    nbands = psi.shape[0]
-    if tuple(tau.shape) != (b, nbands):
-        raise ValueError(f"tau must be ({b}, {nbands}), got "
-                         f"{tuple(tau.shape)}")
-    _check({"x_spec.re": x_spec.re, "x_spec.im": x_spec.im, "psi": psi,
-            "tau": tau}, device)
+    device = _check_bands(x_spec, psi, tau, "x_spec")
     if device.type == "cpu":
         return subband_update_plain(x_spec, psi, tau, op)
+    b, h, w = x_spec.re.shape
+    nbands = psi.shape[0]
     acc_re = torch.empty_like(x_spec.re)
     acc_im = torch.empty_like(x_spec.im)
     if b == 0 or nbands == 0:
@@ -176,6 +195,60 @@ def subband_update(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
 
 
 subband_update.launches = 0
+
+
+def subband_update_spatial_plain(x: Cplx, psi: torch.Tensor,
+                                 tau: torch.Tensor, thresh_op: str = "hard"
+                                 ) -> Cplx:
+    """``ifft2`` of :func:`subband_update_plain` of ``fft2(x)``: the bands
+    one at a time, summed in band order."""
+    xf = torch.fft.fft2(torch.complex(x.re, x.im))
+    acc = subband_update_plain(
+        Cplx(xf.real.contiguous(), xf.imag.contiguous()), psi, tau,
+        thresh_op)
+    out = torch.fft.ifft2(torch.complex(acc.re, acc.im))
+    return Cplx(out.real.contiguous(), out.imag.contiguous())
+
+
+def subband_update_spatial(x: Cplx, psi: torch.Tensor, tau: torch.Tensor,
+                           thresh_op: str = "hard",
+                           precision: str = "highest") -> Cplx:
+    """The full-size bands' subband update of a batch of slices, spatial in
+    and out: ``ifft2(Σ_l fft2(shrink(ifft2(fft2(x)·ψ_l)))·ψ_l)``.
+
+    ``x``: (B, H, W) float32 pair of spatial slices, any H and W; ``psi``,
+    ``tau`` and ``precision`` as :func:`subband_update`. Returns the
+    (B, H, W) spatial update. CUDA tensors run the kernel, whose forward
+    and inverse transforms are its own passes; CPU tensors
+    :func:`subband_update_spatial_plain`."""
+    op = _op(thresh_op, precision)
+    device = _check_bands(x, psi, tau, "x")
+    b, h, w = x.re.shape
+    nbands = psi.shape[0]
+    if b == 0 or nbands == 0:
+        return Cplx(torch.zeros_like(x.re), torch.zeros_like(x.im))
+    if device.type == "cpu":
+        return subband_update_spatial_plain(x, psi, tau, op)
+    out_re = torch.empty_like(x.re)
+    out_im = torch.empty_like(x.im)
+    lc = band_chunk(b, h, w, nbands)
+    work = torch.empty(b * lc * h * w * 2, dtype=torch.float32, device=device)
+    spec = torch.empty(b * h * w * 2, dtype=torch.float32, device=device)
+    tw_h = _twiddles_on(h, str(device))
+    tw_w = _twiddles_on(w, str(device))
+    with torch.cuda.device(device):
+        rc = _lib().p3d_subband_update_spatial(
+            x.re.data_ptr(), x.im.data_ptr(), psi.data_ptr(), tau.data_ptr(),
+            tw_h.data_ptr(), tw_w.data_ptr(), out_re.data_ptr(),
+            out_im.data_ptr(), spec.data_ptr(), work.data_ptr(), b, h, w,
+            nbands, lc, THRESH_OPS[op],
+            torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "subband_update_spatial", (b, h, w))
+    subband_update_spatial.launches += 1
+    return Cplx(out_re, out_im)
+
+
+subband_update_spatial.launches = 0
 
 
 def box_group_update_plain(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor,

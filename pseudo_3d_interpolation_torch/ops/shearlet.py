@@ -1,4 +1,6 @@
-"""Finite discrete shearlet transform (FFST-style) for the SHEARLET basis.
+"""Finite discrete shearlet transform (FFST-style) for the SHEARLET basis,
+and the fused subband apply both spectral-stack bases (SHEARLET, CURVELET)
+share.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/ops/shearlet.py``: Meyer-
 windowed cone-adapted shearlets with precomputed real Fourier windows
@@ -11,15 +13,17 @@ The POCS hot path is :func:`pocs_subband_apply`, the fused
 ``inverse(threshold(forward(z)))``. On a CUDA tensor it runs the kernel
 route (the top-level ``torch.fft`` spectrum, the ``subband_update`` kernel
 over the full-size bands and one ``box_group_update`` launch per support-
-cropped box group, one inverse); on a CPU tensor the plain streamed route,
-which never materialises the (B, L, H, W) coefficient stack. Subband order
-matches FFST: 0 = lowpass, then per scale j (coarse -> fine) 2^(j+2)
-directional subbands.
+cropped box group, one inverse; with ``P3D_SPATIAL_IO`` set, the spatial
+route of ``subband_update_spatial``); on a CPU tensor the plain streamed
+route, which never materialises the (B, L, H, W) coefficient stack.
+Subband order matches FFST: 0 = lowpass, then per scale j (coarse -> fine)
+2^(j+2) directional subbands.
 """
 
 from __future__ import annotations
 
 import functools
+import os
 
 import numpy as np
 import torch
@@ -419,19 +423,38 @@ def _pocs_subband_apply_streamed(z: Cplx, plan: Plan, tau, thresh_op: str
     return _pair(torch.fft.ifft2(acc) + extra)
 
 
-def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
-                                precision: str, box_precision: str) -> Cplx:
-    """The kernel route (JAX ``_pocs_subband_apply_pallas``, natural
-    layout): the top-level spectrum from ``torch.fft``, one
-    ``subband_update`` launch over the full-size bands, one
-    ``box_group_update`` launch per box group, one inverse.
+def spatial_io_default() -> bool:
+    """Whether ``P3D_SPATIAL_IO`` selects the spatial route, as in the JAX
+    package (ops/shearlet.py:578)."""
+    return bool(os.environ.get("P3D_SPATIAL_IO"))
 
-    The box spectrum is gathered from the top-level spectrum and each
-    group's window-weighted summed box is added into the accumulator before
-    the one inverse. The JAX package takes a partial fft2 of the spatial
-    iterate instead and adds a partial ifft2 of each box after the
-    inverse: the same linear maps, so the two differ by rounding only."""
-    from .kernels.subband import box_group_update, subband_update
+
+def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
+                                precision: str, box_precision: str,
+                                spatial_io: bool = False) -> Cplx:
+    """The kernel route (JAX ``_pocs_subband_apply_pallas``, natural
+    layout). On CUDA tensors it launches the kernels; on CPU tensors the
+    wrappers take their plain versions (the CPU tests' check of the route).
+
+    Spectral route: the top-level spectrum from ``torch.fft``, one
+    ``subband_update`` launch over the full-size bands, one
+    ``box_group_update`` launch per box group, one inverse. The box
+    spectrum is gathered from the top-level spectrum and each group's
+    window-weighted summed box is added into the accumulator before the one
+    inverse. The JAX package takes a partial fft2 of the spatial iterate
+    instead and adds a partial ifft2 of each box after the inverse: the
+    same linear maps, so the two differ by rounding only.
+
+    ``spatial_io`` (JAX ``P3D_SPATIAL_IO``): the JAX structure, one
+    ``subband_update_spatial`` launch on the spatial iterate over the
+    full-size bands, then per box group the box spectrum from a partial
+    fft2 of the iterate, one ``box_group_update`` launch, and a partial
+    ifft2 of its result added to the spatial output. The JAX package takes
+    this route only in its permuted layout (square slices with a fast
+    split); the port's kernel takes any H×W, so here it applies to every
+    shape."""
+    from .kernels.subband import (box_group_update, subband_update,
+                                  subband_update_spatial)
 
     b, h, w = z.re.shape
     full, full_idx, boxes = _plan_kernel_pack(plan, h, w)
@@ -442,12 +465,27 @@ def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
     # the kernels read tau[b, l] for every slice: a shared (1, L) tau is
     # materialised to (B, L)
     tau2 = tau2.expand(b, tau2.shape[-1])
-    zf = torch.fft.fft2(_complex(z))
     idx = full._cached(("full_idx", str(device)),
                        lambda: torch.from_numpy(full_idx).to(device))
-    acc = _complex(subband_update(_pair(zf), full.psi_on(device),
-                                  tau2[:, idx].contiguous(), thresh_op,
-                                  precision))
+    tau_full = tau2[:, idx].contiguous()
+    if spatial_io:
+        z = Cplx(z.re.contiguous(), z.im.contiguous())
+        out = _complex(subband_update_spatial(z, full.psi_on(device),
+                                              tau_full, thresh_op,
+                                              precision))
+        x = _complex(z)
+        for l0, lg, g in boxes:
+            ah, aw = g.partial_on(h, w, device)
+            m = box_group_update(_pair(_partial_fft2(x, ah, aw)),
+                                 g.psi_on(device),
+                                 tau2[:, l0:l0 + lg].contiguous(),
+                                 g.box_mats_on(h, w, device), h, w,
+                                 thresh_op, box_precision)
+            out += _partial_ifft2(_complex(m), ah, aw)
+        return _pair(out)
+    zf = torch.fft.fft2(_complex(z))
+    acc = _complex(subband_update(_pair(zf), full.psi_on(device), tau_full,
+                                  thresh_op, precision))
     for l0, lg, g in boxes:
         ih, iw = g.index_on(device)
         sel = (slice(None), ih[:, None], iw[None, :])
@@ -470,7 +508,10 @@ def pocs_subband_apply(z: Cplx, plan: Plan, tau, thresh_op: str,
     in plan order (what the transform's decay emits per iteration);
     ``precision``/``box_precision``: 'high' or 'highest', both computed in
     full fp32 (the box groups take ``box_precision``, default
-    ``precision``)."""
+    ``precision``). With ``P3D_SPATIAL_IO`` set (:func:`spatial_io_default`,
+    the one reader of the switch, which the device budget reads too) the
+    kernel route takes its spatial form (``subband_update_spatial``), for
+    every slice shape."""
     if box_precision is None:
         box_precision = precision
     if z.re.dim() != 3:
@@ -480,7 +521,7 @@ def pocs_subband_apply(z: Cplx, plan: Plan, tau, thresh_op: str,
         tau = torch.as_tensor(tau, dtype=torch.float32)
         return _pocs_subband_apply_streamed(z, plan, tau, thresh_op)
     return _pocs_subband_apply_kernels(z, plan, tau, thresh_op, precision,
-                                       box_precision)
+                                       box_precision, spatial_io_default())
 
 
 def subband_stats(z: Cplx, plan: Plan):

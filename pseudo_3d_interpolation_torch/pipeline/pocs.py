@@ -25,6 +25,7 @@ from ..io.cube import Cube
 from ..models.pocs import (TPU_ONLY_FIELDS, POCSConfig, describe_route,
                            solver_route)
 from ..models.transforms import TRANSFORM_OPTION_KEYS, get_transform
+from ..ops import curvelet as cv
 from ..ops import shearlet as sh
 from ..ops.kernels import subband
 from ..parallel.solver import (fits_resident, interpolate_cube,
@@ -39,20 +40,38 @@ _DASK_KEYS = ("n_workers", "processes", "threads_per_worker", "memory_limit",
 # leaves ``precision`` unset (JAX pipeline/pocs.py:57-63). 'high' was chosen
 # on the TPU (bf16x3, cube-SNR neutral there); here the kernels compute it
 # in full fp32, so it equals 'highest' until the Hopper mapping is chosen
-# (open ROADMAP item). CURVELET's entry arrives with that basis.
+# (open ROADMAP item). CURVELET's mix (full-size bands 'high', box groups
+# 'highest') kept the TPU's cube SNR there.
 _PRODUCTION_PRECISION = {"FFT": {"precision": "high"},
                          "DCT": {"precision": "high"},
                          "WAVELET": {"precision": "high"},
-                         "SHEARLET": {"precision": "high"}}
+                         "SHEARLET": {"precision": "high"},
+                         "CURVELET": {"precision": "high",
+                                      "box_precision": "highest"}}
 
 
 def _production_transform(config: POCSConfig, extra: dict):
     """Build the solve transform from the YAML extras, with the driver's
     precision default where the user left ``precision`` unset."""
     kw = {k: extra[k] for k in TRANSFORM_OPTION_KEYS if k in extra}
-    if "precision" not in kw:
-        kw.update(_PRODUCTION_PRECISION.get(config.transform_kind, {}))
+    if "precision" not in kw and not kw.get("decimated"):
+        for key, val in _PRODUCTION_PRECISION.get(config.transform_kind,
+                                                  {}).items():
+            kw.setdefault(key, val)
     return get_transform(config.transform_kind, **kw)
+
+
+def _is_spectral_stack(transform) -> bool:
+    return getattr(transform, "kind", "FFT") in ("SHEARLET", "CURVELET")
+
+
+def _n_subbands(transform, h: int, w: int) -> int:
+    """The subband count of a spectral-stack basis at (h, w)."""
+    if transform.kind == "CURVELET":
+        return cv.n_subbands(transform.nbscales or cv.default_nbscales(h, w),
+                             transform.nbangles_coarse,
+                             transform.allcurvelets)
+    return sh.n_subbands(transform.n_scales or sh.default_scales(h, w))
 
 
 def _transform_subbands(transform, slice_shape, config: POCSConfig) -> int:
@@ -70,25 +89,27 @@ def _transform_subbands(transform, slice_shape, config: POCSConfig) -> int:
     non-'values' kinds, inverse-proportional) the forward stack is
     materialised once per batch: L."""
     h, w = int(slice_shape[-2]), int(slice_shape[-1])
-    if getattr(transform, "kind", "FFT") != "SHEARLET":
+    if not _is_spectral_stack(transform):
         route = solver_route((1, h, w), (h, w), config, transform)
         return 2 if route.route == "fused-periter" else 1
     if not transform._needs_full_forward(
             config.thresh_model, config.decay_kind):
         return 2
-    return sh.n_subbands(transform.n_scales or sh.default_scales(h, w))
+    return _n_subbands(transform, h, w)
 
 
 def _transform_device_bytes(transform, batch: int, h: int, w: int) -> int:
     """Device memory a basis holds or allocates for one batch beyond its
     slice buffers: a spectral-stack basis's windows, twice (the plan's
-    groups and the kernels' full-size pack), and ``subband_update``'s
-    scratch."""
-    if getattr(transform, "kind", "FFT") != "SHEARLET":
+    groups and the kernels' full-size pack), and the subband kernel's
+    scratch (with ``P3D_SPATIAL_IO`` set, ``subband_update_spatial``'s,
+    which adds one (B, H, W) spectrum)."""
+    if not _is_spectral_stack(transform):
         return 0
-    n_bands = sh.n_subbands(transform.n_scales or sh.default_scales(h, w))
+    n_bands = _n_subbands(transform, h, w)
     return (2 * n_bands * h * w * 4
-            + subband.scratch_bytes(batch, h, w, n_bands))
+            + subband.scratch_bytes(batch, h, w, n_bands,
+                                    spatial=sh.spatial_io_default()))
 
 
 def config_from_yaml(path_or_dict) -> tuple[POCSConfig, dict]:

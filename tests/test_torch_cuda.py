@@ -1,5 +1,6 @@
 """The CUDA kernels (pseudo_3d_interpolation_torch/csrc/pocs_solve.cu: the
-FFT, DCT and WAVELET solves and the FFT iteration; csrc/subband.cu) held
+FFT, DCT and WAVELET solves and the FFT iteration; csrc/subband.cu: the
+subband update, spectral and spatial, and the box group update) held
 against their plain PyTorch versions on the card.
 
 Every test here needs a CUDA card and skips without one; the kernels have
@@ -15,6 +16,7 @@ import pytest
 import torch
 from torch_helpers import gap_taus
 
+from pseudo_3d_interpolation_torch.ops import curvelet as cv
 from pseudo_3d_interpolation_torch.ops import shearlet as sh
 from pseudo_3d_interpolation_torch.ops import wavelet as wv
 from pseudo_3d_interpolation_torch.ops.cplx import Cplx
@@ -322,16 +324,9 @@ def test_subband_kernel_matches_plain(device, h, w, op):
     assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("op", ["soft", "hard"])
-@pytest.mark.parametrize("n", [256, 512])
-def test_box_kernel_matches_plain(device, n, op):
-    """Kernel B on both box groups of the plan (16- and 40-side boxes),
-    within 1e-4 of max; the hard threshold on taus away from every
-    coefficient."""
-    plan = sh.shearlet_plan(n, n)
-    _, _, boxes = sh._plan_kernel_pack(plan, n, n)
-    assert [len(g.idx_h) for _, _, g in boxes] == [16, 40]
+def _check_box_groups(device, plan, n, op, boxes):
+    """Kernel B against plain on every box group of ``plan`` at n², within
+    1e-4 of max; the hard threshold on taus away from every coefficient."""
     x, spec = _slices(4, n, n, device, 5)
     tau = _taus(x, plan)
     for l0, lg, g in boxes:
@@ -361,6 +356,130 @@ def test_box_kernel_matches_plain(device, n, op):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "hard"])
+@pytest.mark.parametrize("n", [256, 512])
+def test_box_kernel_matches_plain(device, n, op):
+    """Kernel B on both box groups of the shearlet plan (16- and 40-side
+    boxes)."""
+    plan = sh.shearlet_plan(n, n)
+    _, _, boxes = sh._plan_kernel_pack(plan, n, n)
+    assert [len(g.idx_h) for _, _, g in boxes] == [16, 40]
+    _check_box_groups(device, plan, n, op, boxes)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "hard"])
+def test_box_kernel_on_the_curvelet_group(device, op):
+    """Kernel B on the curvelet plan's one box group at 512²: 9 bands of a
+    72-side box."""
+    plan = cv.curvelet_plan(512, 512)
+    _, _, boxes = sh._plan_kernel_pack(plan, 512, 512)
+    assert [(lg, len(g.idx_h)) for _, lg, g in boxes] == [(9, 72)]
+    _check_box_groups(device, plan, 512, op, boxes)
+
+
+def _mags_on(spec: Cplx, psi: torch.Tensor) -> np.ndarray:
+    """|ifft2(X·ψ_l)| in float64 on the card, (B, L, H·W), for gap_taus."""
+    xf = torch.complex(spec.re, spec.im).to(torch.complex128)
+    out = []
+    for b in range(xf.shape[0]):
+        c = torch.fft.ifft2(xf[b, None] * psi.double())
+        out.append(c.abs().reshape(psi.shape[0], -1).cpu().numpy())
+    return np.stack(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "hard"])
+@pytest.mark.parametrize("b,h,w,chunk", [
+    (8, 512, 512, None), (8, 512, 512, 5), (4, 384, 512, None),
+    (1, 512, 512, None)],
+    ids=["8x512", "8x512-chunks-of-5", "4x384x512", "1x512"])
+def test_spatial_kernel_matches_plain(device, b, h, w, chunk, op,
+                                      monkeypatch):
+    """Kernel C on the shearlet plan's full-size bands (48 at 512²), spatial
+    in and out, within 1e-4 of max; the hard threshold on taus away from
+    every coefficient. ``chunk`` cuts the scratch to that many bands, so
+    the 48 bands run in ten chunks and only the last one inverts; the
+    384×512 rectangle takes the direct-DFT line path along H."""
+    if chunk is not None:
+        monkeypatch.setattr(ksb, "SCRATCH_BYTES", chunk * b * h * w * 8)
+        assert ksb.band_chunk(b, h, w, 48) == chunk
+    plan = sh.shearlet_plan(h, w)
+    full, full_idx, _ = sh._plan_kernel_pack(plan, h, w)
+    x, spec = _slices(b, h, w, device, 7)
+    psi = full.psi_on(device)
+    tau = _taus(x, plan)[:, torch.from_numpy(full_idx).to(device)]
+    if op == "hard":
+        tau = torch.from_numpy(gap_taus(_mags_on(spec, psi))).to(device)
+    tau = tau.contiguous()
+    before = ksb.subband_update_spatial.launches
+    got = ksb.subband_update_spatial(x, psi, tau, op)
+    want = ksb.subband_update_spatial_plain(x, psi, tau, op)
+    torch.cuda.synchronize()
+    assert ksb.subband_update_spatial.launches == before + 1
+    got, want = _host(got), _host(want)
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis,n", [("shearlet", 256), ("curvelet", 512)])
+@pytest.mark.parametrize("spatial", [False, True], ids=["spectral",
+                                                        "spatial"])
+def test_subband_apply_routes_match_streamed(device, basis, n, spatial,
+                                             monkeypatch):
+    """Both kernel routes of the fused apply on both spectral-stack plans
+    against the plain streamed route (soft thresholds), with their launch
+    counts: one subband update and one box update per box group."""
+    plan = (sh.shearlet_plan if basis == "shearlet" else cv.curvelet_plan)(
+        n, n)
+    n_boxes = len(sh._plan_kernel_pack(plan, n, n)[2])
+    z, _ = _slices(2, n, n, device, 6)
+    tau = _taus(z, plan)
+    a = (ksb.subband_update.launches, ksb.subband_update_spatial.launches,
+         ksb.box_group_update.launches)
+    if spatial:
+        monkeypatch.setenv("P3D_SPATIAL_IO", "1")
+    else:
+        monkeypatch.delenv("P3D_SPATIAL_IO", raising=False)
+    got = sh.pocs_subband_apply(z, plan, tau, "soft")
+    want = sh._pocs_subband_apply_streamed(z, plan, tau, "soft")
+    torch.cuda.synchronize()
+    assert (ksb.subband_update.launches - a[0],
+            ksb.subband_update_spatial.launches - a[1],
+            ksb.box_group_update.launches - a[2]) == (
+        int(not spatial), int(spatial), n_boxes)
+    got, want = _host(got), _host(want)
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_spatial_route_matches_spectral_on_shearlet(device, monkeypatch):
+    """The two kernel routes on the thresholds of iteration 10 of the
+    production decay (hard), compared by the SNR against the truth of one
+    whole POCS iterate, as chip_smoke.py phase 3b compares: they differ by
+    rounding and threshold-boundary flips only."""
+    from pseudo_3d_interpolation_torch.models.transforms import (
+        ShearletTransform)
+
+    truth, z, mask, _ = _inputs(4, 512, 512, 2, device)
+    plan = sh.shearlet_plan(512, 512)
+    tau = ShearletTransform(precision="high").decay_from_input(
+        z, "exponential", 50, 0.99, "adaptive", "values")[10]
+    snrs = []
+    monkeypatch.delenv("P3D_SPATIAL_IO", raising=False)
+    for spatial in (False, True):
+        if spatial:
+            monkeypatch.setenv("P3D_SPATIAL_IO", "1")
+        rec = sh.pocs_subband_apply(z, plan, tau, "hard", "high")
+        x = Cplx(rec.re * (1 - 0.75 * mask) + 0.75 * z.re,
+                 rec.im * (1 - 0.75 * mask) + 0.75 * z.im)
+        snrs.append(_snr(truth, _host(x)))
+    assert abs(snrs[0] - snrs[1]) < SNR_TOL_DB, snrs
+    assert snrs[1] > _snr(truth, _host(z))
+
+
+@pytest.mark.cuda
 def test_subband_apply_kernel_route_matches_streamed(device):
     """The kernel route of the fused apply against the plain streamed
     route on the same slices (soft thresholds)."""
@@ -387,6 +506,10 @@ def test_subband_kernels_take_empty_batches(device):
                  torch.empty(0, n, n, device=device))
     out = ksb.subband_update(empty, full.psi_on(device),
                              torch.empty(0, full.psi.shape[0], device=device))
+    assert out.re.shape == (0, n, n)
+    out = ksb.subband_update_spatial(
+        empty, full.psi_on(device),
+        torch.empty(0, full.psi.shape[0], device=device))
     assert out.re.shape == (0, n, n)
     _, lg, g = boxes[0]
     sr = len(g.idx_h)
@@ -424,3 +547,42 @@ def test_shearlet_cube_drivers_agree_on_the_card(device):
     for x, y in zip(res, chunked):
         np.testing.assert_array_equal(x, y)
     assert _snr(truth, res[0]) > _snr(truth, view)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,spatial", [("CURVELET", False),
+                                          ("CURVELET", True),
+                                          ("SHEARLET", True)])
+def test_spectral_stack_routes_on_the_card_match_the_host(device, kind,
+                                                          spatial,
+                                                          monkeypatch):
+    """``pocs_interpolate`` on CURVELET's route and on the spatial route
+    (``P3D_SPATIAL_IO`` set), on the card through the kernels and on the
+    host through the plain streamed route (soft thresholds): per
+    iteration one subband update (spectral or spatial) and one box update
+    per box group."""
+    from pseudo_3d_interpolation_torch.models.pocs import (POCSConfig,
+                                                           pocs_interpolate)
+    from pseudo_3d_interpolation_torch.models.transforms import get_transform
+
+    if spatial:
+        monkeypatch.setenv("P3D_SPATIAL_IO", "1")
+    else:
+        monkeypatch.delenv("P3D_SPATIAL_IO", raising=False)
+    truth, z, mask, _ = _inputs(3, 256, 256, 4, device)
+    cfg = POCSConfig(niter=4, thresh_op="soft", p_min=1e-3, version="fast",
+                     alpha=0.75, transform_kind=kind)
+    tr = get_transform(kind)
+    n_boxes = len(sh._plan_kernel_pack(tr._plan(256, 256), 256, 256)[2])
+    a = (ksb.subband_update.launches, ksb.subband_update_spatial.launches,
+         ksb.box_group_update.launches)
+    res = pocs_interpolate(z, mask, tr, cfg)
+    torch.cuda.synchronize()
+    assert (ksb.subband_update.launches - a[0],
+            ksb.subband_update_spatial.launches - a[1],
+            ksb.box_group_update.launches - a[2]) == (
+        4 * int(not spatial), 4 * int(spatial), 4 * n_boxes)
+    host = pocs_interpolate(Cplx(z.re.cpu(), z.im.cpu()), mask.cpu(), tr,
+                            cfg)
+    got, want = _host(res.data), _host(host.data)
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
