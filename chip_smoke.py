@@ -16,12 +16,18 @@ Phases, each of which exits non-zero on failure:
       384x512 rectangle, and at the shapes the FFT main path gives it
       (batch 32 and the cube's last batch of 1, 50 iterations, hard/fast
       at 'high'); times both at batch 32;
-   b. ``subband_update`` at 512² (batch 8, all 48 full-size bands of the
-      plan) and on one 384x512 rectangle, and ``box_group_update`` on both
-      box groups of the 512² plan (16- and 40-side boxes), soft and hard,
-      on the thresholds of the SHEARLET main path's decay schedule; times
-      both kernels and their plain versions at the main path's batch of
-      32;
+   b. the subband kernels' line engine (``csrc/fft_lines.cuh``, through
+      ``line_fft``) against ``torch.fft`` at every line length the plans
+      use, 8 to 4096 in powers of two, 384 and an odd length, forward and
+      inverse; ``subband_update`` at 512² (batch 8, all 48 full-size bands
+      of the plan) and on one 384x512 rectangle, and ``box_group_update``
+      on both box groups of the 512² plan (16- and 40-side boxes), soft and
+      hard, on the thresholds of the SHEARLET main path's decay schedule;
+      times both kernels and their plain versions at the main path's batch
+      of 32, and each pass of ``subband_update`` there (torch.profiler),
+      with its bytes per second and flop rate; prints ``bound_ms``, counted
+      on the rows the windows touch, with their row-support fraction and
+      the dense count beside it;
    c. ``pocs_iteration`` (one FFT-basis iteration) at 512² (batch 8, soft
       and hard) and on one 384x512 rectangle; times both at batch 32;
    d. ``pocs_solve(basis='dct')`` at 512² (batch 8, 10 iterations, regular
@@ -31,14 +37,16 @@ Phases, each of which exits non-zero on failure:
       and coif5 at level 3, soft and hard); times both at batch 32 over 50
       iterations (db4);
    f. ``subband_update_spatial`` (spatial in and out) at 512² (batches
-      8, 1 and 32, the 48 full-size bands; at 32 they run in three chunks
-      and only the last inverts) and on one 384x512 rectangle, and on the
-      CURVELET plan at 512² (batches 8, 1 and 32) ``subband_update`` and
-      ``subband_update_spatial`` over its 41 full-size bands and
-      ``box_group_update`` on its 72-side box group of 9 bands, soft and
-      hard, on the thresholds of their main paths' decay schedules; then
-      times the spatial kernel and the 72-side box group and their plain
-      versions at batch 32;
+      8, 1 and 32, the 48 full-size bands; at 32 their support rows run in
+      two chunks of the scratch and only the last inverts) and on one
+      384x512 rectangle, and on the CURVELET plan at 512² (batches 8, 1
+      and 32) ``subband_update`` and ``subband_update_spatial`` over its
+      41 full-size bands and ``box_group_update`` on its 72-side box group
+      of 9 bands, soft and hard, on the thresholds of their main paths'
+      decay schedules; then times the spatial kernel and the 72-side box
+      group and their plain versions at batch 32, and the passes of the
+      spatial kernel and of ``subband_update`` on the CURVELET plan as in
+      3b;
 4. FFT main path: ``pipeline.pocs.interpolate`` with its production
    defaults on an in-memory 512x512 frequency cube of 513 slices (the
    north star's rfft slice count), stored (iline, xline, freq) as users
@@ -99,11 +107,16 @@ and bound (``bound_ms``: the larger of the bytes the call must move over
 3.35 TB/s and its operations over 67 TFLOP/s fp32, the H100 SXM data
 sheet's rates at 700 W). Operations are counted as a fast transform does
 the work: 5·n·log2 n flops per complex 2-D FFT of n points (the FFT
-solve and iteration; 2·L + 2 per slice for the spatial subband update of
-L bands); 2.5·n·log2 n per real 2-D DCT of n points, four per
-slice-iteration (re and im, forward and inverse: the DCT solve); 2·L
-flops per output of each 1-D filter pass of a length-L wavelet, two
-passes per level, forward and inverse, re and im (the wavelet solve).
+solve and iteration), and 5·n·log2 n per complex 1-D FFT of n points;
+2.5·n·log2 n per real 2-D DCT of n points, four per slice-iteration (re
+and im, forward and inverse: the DCT solve); 2·L flops per output of each
+1-D filter pass of a length-L wavelet, two passes per level, forward and
+inverse, re and im (the wavelet solve). The subband kernels' work depends
+on the windows: their ``bound_ms`` counts the 1-D FFTs of the rows that
+hold a nonzero of a window, each way, and of every column of every band,
+each way, plus the spatial kernel's two 2-D FFTs (``subband_bound``); the
+dense count of 2·L full 2-D FFTs per slice (2·L + 2 spatial) is printed
+beside it (3b, 3f).
 """
 
 from __future__ import annotations
@@ -119,6 +132,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -350,6 +364,8 @@ class SubbandCase:
         self.full, full_idx, self.boxes = sh._plan_kernel_pack(
             tr._plan(h, w), h, w)
         self.psi = self.full.psi_on(dev)
+        self.support = self.full.support_on(dev)
+        self.chunks = self.support.chunks(b, h, w)[0]
         self.tau_full = tau[:, torch.from_numpy(full_idx).to(dev)].contiguous()
         self.tau = tau.contiguous()
         self.zf = torch.fft.fft2(self.obs)
@@ -411,10 +427,11 @@ def subband_kernels_against_plain(torch, ksb, case, ops, with_boxes,
             want_a = ksb.subband_update_spatial_plain(c.x, c.psi, c.tau_full,
                                                       op)
             got_a = ksb.subband_update_spatial(c.x, c.psi, c.tau_full, op,
-                                               "high")
+                                               "high", support=c.support)
         else:
             want_a = ksb.subband_update_plain(c.spec, c.psi, c.tau_full, op)
-            got_a = ksb.subband_update(c.spec, c.psi, c.tau_full, op, "high")
+            got_a = ksb.subband_update(c.spec, c.psi, c.tau_full, op, "high",
+                                       support=c.support)
         box_plain = []
         for k in range(len(c.boxes)):
             sel, args = c.box_args(k, op)
@@ -468,6 +485,144 @@ def time_box(torch, ksb, case, k):
     return t_k, t_p, bnd
 
 
+LINE_LENGTHS = (8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 384, 97)
+
+
+def line_engine_against_plain(torch, ksb, Cplx, dev) -> float:
+    """The subband kernels' line engine alone against ``torch.fft`` at
+    every line length the plans use (powers of two from 8 to 4096, the
+    rectangle's 384 and an odd length), forward and inverse, within
+    SOFT_TOL of max; returns the largest relative max|Δ|."""
+    rng = np.random.default_rng(800)
+    worst = 0.0
+    for n in LINE_LENGTHS:
+        x = Cplx(*(torch.as_tensor(rng.normal(size=(64, n)),
+                                   dtype=torch.float32, device=dev)
+                   for _ in range(2)))
+        for inverse in (False, True):
+            got = ksb.line_fft(x, inverse)
+            want = ksb.line_fft_plain(x, inverse)
+            got = torch.complex(got.re, got.im)
+            want = torch.complex(want.re, want.im)
+            if not bool(torch.isfinite(got).all()):
+                fail(f"line engine n={n} inverse={inverse}: not finite")
+            rel = float(torch.max(torch.abs(got - want))
+                        / torch.max(torch.abs(want)))
+            worst = max(worst, rel)
+            if rel > SOFT_TOL:
+                fail(f"line engine n={n} inverse={inverse}: max|d| "
+                     f"{rel:.2e} of max > {SOFT_TOL}")
+    print(f"line engine vs torch.fft at n = {LINE_LENGTHS}, forward and "
+          f"inverse: max|d| <= {worst:.2e} of max", flush=True)
+    return worst
+
+
+# a pass of the subband kernels by its kernel's name in the trace
+PASS_NAMES = ("rows_inverse_kernel", "cols_shrink_kernel",
+              "rows_forward_acc_kernel", "cols_fft_kernel",
+              "rows_fft_kernel")
+
+
+def pass_work(case, spatial: bool) -> dict:
+    """(bytes, flops) of each pass of one subband call on a SubbandCase,
+    counted on the rows the kernel transforms: S support rows over the
+    bands, L bands, C band chunks. (a) reads X and ψ and writes the
+    scratch on the S rows, one W-line FFT each; (b) reads and writes the
+    scratch's S rows, two H-line FFTs of every column of every band; (c)
+    reads the scratch and ψ on the S rows, one W-line FFT each, and writes
+    the accumulator C times, reading it C − 1 times (and with ``spatial``
+    one more inverse W-line FFT of every row); spatial only: the column
+    passes read and write a plane pair with one H-line FFT per column, the
+    row pass one W-line FFT per row, each twice."""
+    b, h, w = case.b, case.h, case.w
+    offsets = case.support.offsets
+    s_rows = int(offsets[-1])
+    nbands = len(offsets) - 1
+    chunks = len(case.chunks) - 1
+    lw, lh = 5.0 * w * math.log2(w), 5.0 * h * math.log2(h)
+    work = {
+        "rows_inverse_kernel": (b * s_rows * w * 20, b * s_rows * lw),
+        "cols_shrink_kernel": (b * s_rows * w * 16, b * nbands * w * 2 * lh),
+        "rows_forward_acc_kernel": (
+            b * s_rows * w * 12 + (2 * chunks - 1) * b * h * w * 8,
+            b * s_rows * lw + spatial * b * h * lw)}
+    if spatial:
+        work["cols_fft_kernel"] = (2 * b * h * w * 16, 2 * b * w * lh)
+        work["rows_fft_kernel"] = (b * h * w * 16, b * h * lw)
+    return work
+
+
+def subband_passes(torch, ksb, case, spatial: bool, reps: int = 3) -> dict:
+    """Time each pass of ``reps`` subband calls on a SubbandCase under
+    torch.profiler; print per call each pass's time, bytes per second and
+    flop rate (pass_work's counts); returns {pass: ms per call}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    if spatial:
+        def run():
+            ksb.subband_update_spatial(case.x, case.psi, case.tau_full,
+                                       "hard", "high", support=case.support)
+    else:
+        def run():
+            ksb.subband_update(case.spec, case.psi, case.tau_full, "hard",
+                               "high", support=case.support)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    times = dict.fromkeys(PASS_NAMES, 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        events = device_events(prof, pathlib.Path(tmp) / "passes.json")
+    for e in events:
+        for name in PASS_NAMES:
+            if name in e["name"]:
+                times[name] += e["dur"] / 1e3 / reps
+    work = pass_work(case, spatial)
+    label = ("subband_update_spatial" if spatial else "subband_update")
+    print(f"{label} {case.b}x{case.h}x{case.w} ({case.psi.shape[0]} bands,"
+          f" {len(case.chunks) - 1} chunks) per pass, per call:", flush=True)
+    for name, (nbytes, flops) in work.items():
+        ms = times[name]
+        if ms <= 0:
+            fail(f"{label}: the trace holds no {name}")
+        print(f"  {name:24s} {ms:8.3f} ms  {nbytes / ms / 1e9:7.3f} TB/s  "
+              f"{flops / ms / 1e9:7.2f} TFLOP/s", flush=True)
+    return {k: times[k] for k in work}
+
+
+def subband_bound(label, case, spatial: bool) -> tuple[float, str]:
+    """The bound of one subband call on a SubbandCase: the operations of
+    the rows its windows touch (pass_work's flops, whose column FFTs are
+    counted dense) and the bytes of the slices in and out, the windows and
+    the thresholds. Prints it with the windows' row-support fraction and,
+    beside it, the dense count of 2·L full 2-D FFTs per slice (2·L + 2
+    spatial), which ignores the rows the kernels skip."""
+    b, h, w, nbands = case.b, case.h, case.w, case.psi.shape[0]
+    flops = sum(f for _, f in pass_work(case, spatial).values())
+    nbytes = b * h * w * 16 + nbands * h * w * 4 + b * nbands * 4
+    bnd = bound(flops, nbytes)
+    dense = bound((2 * nbands + 2 * int(spatial)) * fft2_flops(h, w) * b,
+                  nbytes)
+    frac = float(case.support.offsets[-1]) / (nbands * h)
+    print(f"{label} {b}x{h}x{w}: bound_ms {bnd[0]:.4f} ({bnd[1]}, "
+          f"{flops / 1e9:.1f} GFLOP on the support rows, support fraction "
+          f"{frac:.4f} of the bands' rows); dense count {dense[0]:.4f} ms",
+          flush=True)
+    return bnd
+
+
+def device_events(prof, path: pathlib.Path) -> list:
+    """The device events (kernel, memcpy, memset) of a finished profile,
+    read back from its Chrome trace, written to ``path``."""
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    return [e for e in events
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+
 def trace_main_path(torch, run, out_dir: pathlib.Path, name: str):
     """Run ``run`` under torch.profiler; print the device's busy time, its
     idle share of the traced wall and the largest device and host
@@ -483,18 +638,15 @@ def trace_main_path(torch, run, out_dir: pathlib.Path, name: str):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     raw = out_dir / f"{name}.json"
-    prof.export_chrome_trace(str(raw))
-    with open(raw) as fh:
-        events = json.load(fh)["traceEvents"]
+    events = device_events(prof, raw)
     with open(raw, "rb") as src, gzip.open(f"{raw}.gz", "wb") as dst:
         dst.write(src.read())
     raw.unlink()
     spans, by_name = [], {}
     for e in events:
-        if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS:
-            spans.append((e["ts"], e["ts"] + e["dur"]))
-            n, t = by_name.get(e["name"], (0, 0.0))
-            by_name[e["name"]] = (n + 1, t + e["dur"])
+        spans.append((e["ts"], e["ts"] + e["dur"]))
+        n, t = by_name.get(e["name"], (0, 0.0))
+        by_name[e["name"]] = (n + 1, t + e["dur"])
     if not spans:
         fail(f"the {name} trace holds no device activity")
     busy, end = 0.0, -math.inf
@@ -665,6 +817,7 @@ def main():
     from pseudo_3d_interpolation_torch.ops.cplx import Cplx
     from pseudo_3d_interpolation_torch.ops.kernels import _build
     from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
+    from pseudo_3d_interpolation_torch.ops import shearlet as sh
     from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
     from pseudo_3d_interpolation_torch.pipeline.pocs import (
         _production_transform, interpolate)
@@ -723,7 +876,9 @@ def main():
                         solve_bytes)
     del z, mask, tau
 
-    # phase 3b: the subband kernels against plain
+    # phase 3b: the subband kernels' line engine, then the kernels,
+    # against plain
+    line_engine_against_plain(torch, ksb, Cplx, dev)
     err_a = err_b = 0.0
     for b, h, w, boxes in ((8, N, N, True), (4, 384, N, False)):
         case = SubbandCase(torch, b, h, w, 200 + h, dev)
@@ -735,15 +890,15 @@ def main():
     n_full = case.psi.shape[0]
     sub_ms, sub_plain_ms, four = time_pair(
         torch, lambda: ksb.subband_update(case.spec, case.psi, case.tau_full,
-                                          "hard", "high"),
+                                          "hard", "high",
+                                          support=case.support),
         lambda: ksb.subband_update_plain(case.spec, case.psi, case.tau_full,
                                          "hard"), 3)
     print(f"subband_update {MAIN_BATCH}x{N}x{N}, {n_full} bands: kernel "
           f"{four[0]:.2f} / {four[1]:.2f} ms, plain (torch.fft) "
           f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
-    sub_bound = bound(2 * fft2_flops(N, N) * MAIN_BATCH * n_full,
-                      MAIN_BATCH * N * N * 16 + n_full * N * N * 4
-                      + MAIN_BATCH * n_full * 4)
+    subband_passes(torch, ksb, case, False)
+    sub_bound = subband_bound("subband_update", case, False)
     box_times, box_bounds = [], []
     for k in range(len(case.boxes)):
         t_k, t_p, bnd = time_box(torch, ksb, case, k)
@@ -839,10 +994,13 @@ def main():
     # where the bands run in chunks and only the last chunk inverts;
     # timings last
     last = SLICES % MAIN_BATCH
-    for name, nb in (("SHEARLET", n_full), ("CURVELET", 41)):
-        if ksb.band_chunk(MAIN_BATCH, N, N, nb) >= nb:
-            fail(f"the {name} main path's batch runs its {nb} bands in one "
-                 "chunk: phase 3f would not check the chunked sum")
+    for name in ("SHEARLET", "CURVELET"):
+        full = sh._plan_kernel_pack(get_transform(name)._plan(N, N), N, N)[0]
+        offsets = full.support_on(dev).offsets
+        if len(ksb.band_chunks(offsets, MAIN_BATCH, N, N)) < 3:
+            fail(f"the {name} main path's batch runs its {len(offsets) - 1} "
+                 "bands in one chunk: phase 3f would not check the chunked "
+                 "sum")
     err_sp = 0.0
     for i, (b, h) in enumerate(((8, N), (4, 384), (last, N),
                                 (MAIN_BATCH, N))):
@@ -864,16 +1022,17 @@ def main():
     sp_ms, sp_plain_ms, four = time_pair(
         torch, lambda: ksb.subband_update_spatial(case.x, case.psi,
                                                   case.tau_full, "hard",
-                                                  "high"),
+                                                  "high",
+                                                  support=case.support),
         lambda: ksb.subband_update_spatial_plain(case.x, case.psi,
                                                  case.tau_full, "hard"), 3)
     print(f"subband_update_spatial {MAIN_BATCH}x{N}x{N}, {n_full} bands: "
           f"kernel {four[0]:.2f} / {four[1]:.2f} ms, plain (torch.fft) "
           f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
-    # 2·L + 2 complex 2-D FFTs per slice; bytes as subband_update's
-    sp_bound = bound((2 * n_full + 2) * fft2_flops(N, N) * MAIN_BATCH,
-                     MAIN_BATCH * N * N * 16 + n_full * N * N * 4
-                     + MAIN_BATCH * n_full * 4)
+    subband_passes(torch, ksb, case, True)
+    sp_bound = subband_bound("subband_update_spatial", case, True)
+    subband_passes(torch, ksb, cv_case, False)
+    subband_bound("subband_update (CURVELET)", cv_case, False)
     time_box(torch, ksb, cv_case, 0)
     del case, sp_case, cv_case
     torch.cuda.empty_cache()

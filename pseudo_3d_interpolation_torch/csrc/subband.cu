@@ -11,24 +11,36 @@
 //
 // The TPU kernel holds one slice in VMEM across its (B, L) grid; a 512²
 // complex slice is 2 MB and a block here has at most 227 KB of shared
-// memory. So each 2-D transform is split into line FFTs in shared memory,
-// with one pass through a device-memory scratch between the two axes:
-//   (a) per (b, l, block of rows): load X·psi_l, inverse FFT along W;
-//   (b) per (b, l, block of columns): inverse FFT along H, scale by
-//       1/(H·W), shrink with the kernel's |c|² >= tau² form, forward FFT
-//       along H;
-//   (c) per (b, block of rows): for l in order, forward FFT along W,
-//       multiply by psi_l and accumulate: the sum over l has a fixed order,
-//       with no atomics, so the result does not depend on scheduling.
-// The scratch holds a chunk of bands, (B, chunk, H, W) (the caller chooses
-// the chunk); pass (c) of a later chunk adds to the accumulator of the
-// earlier ones.
-// Power-of-two lines use an iterative radix-2 FFT, other lengths a direct
-// DFT of the line; both read a twiddle table exp(-2πi m/n) built in float64
-// on the host. What bounds it: device memory, about 48 bytes moved per
-// (slice, band, pixel) over the three passes (the windows, the scratch
-// written and read twice, the spectrum), against about 5·log2(H·W)·2 flops
-// of FFT per (slice, band, pixel) done from shared memory.
+// memory. So each 2-D transform is split into line FFTs, with one pass
+// through a device-memory scratch between the two axes. The line FFTs are
+// fft_lines.cuh's: each line in the registers of its own group of threads,
+// which synchronises only itself, so a line can be skipped alone.
+//
+// Most of each window is zero (at 512² the SHEARLET windows are nonzero on
+// about half their rows, the CURVELET ones a little less), and a row of
+// X·psi_l whose window row is zero is a zero line both where it is inverted
+// along W and where its forward transform is weighted by psi_l. So the
+// passes take only each band's support rows, listed once per window stack
+// on the host (a CSR list, and a (band, row) -> packed row table), and the
+// scratch stores only those rows, (B, support rows of the chunk, W):
+//   (a) per (b, block of support rows): load X·psi_l, inverse FFT along W;
+//   (b) per (b, l, block of 16 columns): load the band's support rows of
+//       the columns (128-byte row segments) into shared memory, zeros
+//       elsewhere; per column inverse FFT along H, scale by 1/(H·W), shrink
+//       with the kernel's |c|² >= tau² form, forward FFT along H; store the
+//       support rows back;
+//   (c) per (b, block of rows): for l in order, where row r is in band l's
+//       support, forward FFT along W, multiply by psi_l and accumulate in
+//       registers: the sum over l has a fixed order, with no atomics, so the
+//       result does not depend on scheduling.
+// The caller cuts the bands into chunks whose support rows fit the scratch;
+// pass (c) of a later chunk adds to the accumulator of the earlier ones.
+// What bounds it: the column pass, whose transforms stay dense (two H-line
+// FFTs of every column of every band) and run at about 8 TFLOP/s, bound by
+// the engine's throughput at two 512-thread blocks an SM (64 registers a
+// thread); it takes about 60% of a call at 32×512² on an H100 SXM
+// (700 W). The row passes move about 20 and 12 bytes per (slice, support
+// pixel) and run near the memory rate (2.3-2.5 TB/s there).
 //
 // Kernel C, p3d_subband_update_spatial, replaces subband.py ::
 // subband_update_fused(spatial_io=True) (body _kernel_spatial): kernel A
@@ -38,21 +50,20 @@
 //
 // for any H×W in natural order. The TPU kernel keeps the slice's spectrum
 // and accumulator in VMEM across its (B, L) grid; here both live in device
-// memory and the transforms are line passes like kernel A's:
+// memory and the transforms are line passes on the same engine:
 //   (0) per (b, block of columns): forward FFT along H of x into a
 //       (B, H, W) spectrum scratch; per (b, block of rows): forward FFT
 //       along W in place;
 //   (a)-(c) kernel A's passes on that spectrum, the accumulator in the
-//       output planes; pass (c) of the last band chunk, whose row blocks
-//       hold the complete sum over the bands, also takes the inverse FFT
-//       along W in shared memory before it writes;
+//       output planes; pass (c) of the last band chunk, whose rows hold the
+//       complete sum over the bands, also takes the inverse FFT along W of
+//       every row, whatever the bands cover, before it writes;
 //   (d) per (b, block of columns): inverse FFT along H, scaled by
 //       1/(H·W), in place in the output planes.
 // The sum over the bands keeps kernel A's fixed order. What bounds it:
-// device memory as kernel A, about 48 bytes per (slice, band, pixel), plus
-// about 64 per (slice, pixel) for the new passes (x read, the spectrum
-// written, read and written, the output read and written), against
-// 5·log2(H·W) flops per pixel of each of the 2·L + 2 2-D FFTs per slice.
+// kernel A's passes; the new passes move about 64 bytes per (slice,
+// pixel) (x read, the spectrum written, read and written, the output read
+// and written) and add about 3% to a call at 32×512².
 //
 // Kernel B, p3d_box_group_update, replaces subband.py ::
 // box_group_update_fused (body _box_kernel). For one support-cropped group
@@ -76,313 +87,306 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "fft_lines.cuh"
 #include "shrink.cuh"
 
 namespace {
 
-constexpr int NT = 256;            // threads per block
-// complex elements of rows, and of columns, per line block: small enough
-// that six blocks share an SM
-constexpr int ROW_ELEMS = 2048;
-constexpr int COL_ELEMS = 4096;
-constexpr int RB = 16;             // field rows per chunk of the box kernel
-constexpr int MAX_SMEM = 232448;   // dynamic shared memory a block may use
-constexpr int ERR_SMEM = -2;       // the shape needs more shared memory
+constexpr int NT = 256;           // threads per block (line kernels: at least)
+constexpr int LINE_NT_MAX = 512;  // a line kernel's block: one 4096 line
+constexpr int COL_TILE = 16;      // columns of a column block: 128-byte rows
+constexpr int RB = 16;            // field rows per chunk of the box kernel
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
+constexpr int ERR_SMEM = -2;      // the shape needs more shared memory
+constexpr int ERR_SHAPE = -3;     // a side is longer than MAX_LINE
 
-__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
-  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
-}
-
-// a · conj(b)
-__device__ __forceinline__ float2 cmul_conj(float2 a, float2 b) {
-  return make_float2(a.x * b.x + a.y * b.y, a.y * b.x - a.x * b.y);
-}
-
-__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
-  return make_float2(a.x + b.x, a.y + b.y);
-}
-
-__device__ __forceinline__ float2 csub(float2 a, float2 b) {
-  return make_float2(a.x - b.x, a.y - b.y);
-}
-
-// In-place DFT of `nlines` lines of length n held in shared memory, element
-// k of line q at buf[q * ls + k]; tw[m] = exp(-2πi m / n), conjugated for
-// the inverse (which is left unscaled). logn >= 0 when n is a power of two
-// (radix 2: bit reversal, then the log2 n butterfly stages, two per pass
-// through shared memory); otherwise -1, and each output is a direct sum
-// into tmp (nlines·n elements), copied back. Every thread of the block
-// calls it.
-__device__ void fft_lines(float2* buf, float2* tmp, int nlines, int n,
-                          int logn, int ls, const float2* tw, bool inv) {
-  const int t = threadIdx.x;
-  if (n == 1) return;
-  if (logn > 0) {
-    const int total = nlines << logn;
-    for (int e = t; e < total; e += NT) {
-      const int q = e >> logn, k = e & (n - 1);
-      const int r = __brev(k) >> (32 - logn);
-      if (k < r) {
-        float2* row = buf + q * ls;
-        const float2 a = row[k];
-        row[k] = row[r];
-        row[r] = a;
-      }
-    }
-    __syncthreads();
-    int s = 1;
-    // stages s and s + 1 in one round trip: each thread takes the four
-    // elements i0 + {0, h, 2h, 3h} through both stages' butterflies
-    const int quarter = n >> 2;
-    for (; s + 1 <= logn; s += 2) {
-      const int h = 1 << (s - 1);
-      const int step1 = n >> s, step2 = n >> (s + 1);
-      for (int e = t; e < nlines * quarter; e += NT) {
-        const int q = e >> (logn - 2);
-        const int u = e & (quarter - 1);
-        const int j = u & (h - 1);
-        const int i0 = ((u >> (s - 1)) << (s + 1)) + j;
-        float2 w1 = tw[j * step1], w2 = tw[j * step2];
-        float2 w3 = tw[(j + h) * step2];
-        if (inv) {
-          w1.y = -w1.y;
-          w2.y = -w2.y;
-          w3.y = -w3.y;
-        }
-        float2* row = buf + q * ls;
-        const float2 a0 = row[i0], a1 = cmul(row[i0 + h], w1);
-        const float2 a2 = row[i0 + 2 * h], a3 = cmul(row[i0 + 3 * h], w1);
-        const float2 b0 = cadd(a0, a1), b1 = csub(a0, a1);
-        const float2 b2 = cmul(cadd(a2, a3), w2);
-        const float2 b3 = cmul(csub(a2, a3), w3);
-        row[i0] = cadd(b0, b2);
-        row[i0 + h] = cadd(b1, b3);
-        row[i0 + 2 * h] = csub(b0, b2);
-        row[i0 + 3 * h] = csub(b1, b3);
-      }
-      __syncthreads();
-    }
-    if (s == logn) {  // the last stage alone when log2 n is odd
-      const int half = 1 << (s - 1);
-      const int halfn = n >> 1;
-      for (int e = t; e < nlines * halfn; e += NT) {
-        const int q = e >> (logn - 1);
-        const int u = e & (halfn - 1);
-        const int j = u & (half - 1);
-        const int i0 = ((u >> (s - 1)) << s) + j;
-        float2 w = tw[j];  // n >> s == 1 at the last stage
-        if (inv) w.y = -w.y;
-        float2* row = buf + q * ls;
-        const float2 a = row[i0];
-        const float2 b = cmul(row[i0 + half], w);
-        row[i0] = cadd(a, b);
-        row[i0 + half] = csub(a, b);
-      }
-      __syncthreads();
-    }
-    return;
-  }
-  const int total = nlines * n;
-  for (int e = t; e < total; e += NT) {
-    const int q = e / n, k = e - q * n;
-    const float2* row = buf + q * ls;
-    float2 acc = make_float2(0.0f, 0.0f);
-    int m = 0;  // (j·k) mod n
-    for (int j = 0; j < n; ++j) {
-      const float2 w = tw[m];
-      acc = cadd(acc, inv ? cmul_conj(row[j], w) : cmul(row[j], w));
-      m += k;
-      if (m >= n) m -= n;
-    }
-    tmp[e] = acc;
-  }
-  __syncthreads();
-  for (int e = t; e < total; e += NT) {
-    const int q = e / n, k = e - q * n;
-    buf[q * ls + k] = tmp[e];
-  }
+// The twiddle table of the block's lines into shared memory; every thread
+// of the block calls it.
+__device__ __forceinline__ void load_twiddles(float2* tw, const float2* src,
+                                              int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) tw[e] = src[e];
   __syncthreads();
 }
 
-// (a) rows: scratch[b, l] = inverse FFT along W of X_b·psi_l, for `rows`
-// rows per block. grid (row blocks, bands of the chunk, batch).
-__global__ void __launch_bounds__(NT)
+// A column block's walk over its tile: thread c + cols·i (i < step) takes
+// column c of rows i, i + step, ...; neighbouring threads read neighbouring
+// columns of a row (one 128-byte segment for 16 columns). `in`: the column
+// lies inside the slice (the last block may hold fewer than cols).
+struct TileWalk {
+  int c, r0, step;
+  bool active, in;
+  __device__ __forceinline__ TileWalk(int cols, int nc) {
+    step = blockDim.x / cols;
+    r0 = threadIdx.x / cols;
+    c = threadIdx.x - r0 * cols;
+    active = r0 < step;
+    in = c < nc;
+  }
+};
+
+// (a) support rows: scratch[b, q] = inverse FFT along W of row rows[q] of
+// X_b·psi_{bands[q]}, one group per row. grid (row blocks, batch).
+__global__ void __launch_bounds__(LINE_NT_MAX)
 rows_inverse_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
-                    const float* __restrict__ psi,  // (bands of chunk, H, W)
+                    const float* __restrict__ psi,  // (nbands, H, W)
+                    const int* __restrict__ rows,   // the chunk's support rows
+                    const int* __restrict__ bands,  // and their bands
                     const float2* __restrict__ tw_w,
-                    float2* __restrict__ scratch,   // (B, lc, H, W)
-                    int h, int w, int logw, int rows, int lc) {
+                    float2* __restrict__ scratch,   // (B, nrows, W)
+                    LineShape L, int h, int nrows) {
   extern __shared__ float2 smem[];
+  const int w = L.n;
+  const Group g = make_group(L.t);
   float2* tw = smem;
-  float2* buf = tw + w;
-  float2* tmp = buf + rows * w;
-  const int b = blockIdx.z, l = blockIdx.y;
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, h - r0);
-  const int n = nr * w;
+  float2* buf = tw + w + g.index * line_buf(w);
+  load_twiddles(tw, tw_w, w);
+  const int q = blockIdx.x * g.count + g.index;
+  if (q >= nrows) return;
+  const int b = blockIdx.y, r = rows[q];
   const long long plane = (long long)h * w;
-  for (int e = threadIdx.x; e < w; e += NT) tw[e] = tw_w[e];
-  const long long xo = b * plane + (long long)r0 * w;
-  const float* p = psi + l * plane + (long long)r0 * w;
-  for (int e = threadIdx.x; e < n; e += NT) {
-    const float pv = p[e];
-    buf[e] = make_float2(xr[xo + e] * pv, xi[xo + e] * pv);
+  const long long xo = b * plane + (long long)r * w;
+  const float* p = psi + bands[q] * plane + (long long)r * w;
+  float2 v[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    v[s] = make_float2(0.0f, 0.0f);
+    if (e < w) {
+      const float pv = p[e];
+      v[s] = make_float2(xr[xo + e] * pv, xi[xo + e] * pv);
+    }
   }
-  __syncthreads();
-  fft_lines(buf, tmp, nr, w, logw, w, tw, true);
-  float2* out = scratch + ((long long)b * lc + l) * plane + (long long)r0 * w;
-  for (int e = threadIdx.x; e < n; e += NT) out[e] = buf[e];
+  line_fft<true>(v, buf, tw, L, g);
+  float2* out = scratch + ((long long)b * nrows + q) * w;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    if (e < w) out[e] = v[s];
+  }
 }
 
-// (b) columns: inverse FFT along H, scale, shrink, forward FFT along H, in
-// place in the scratch. grid (column blocks, bands of the chunk, batch).
-__global__ void __launch_bounds__(NT)
-cols_shrink_kernel(float2* __restrict__ scratch,
+// (b) columns of band l0 + blockIdx.y: inverse FFT along H, scale, shrink,
+// forward FFT along H, the band's support rows in place in the scratch.
+// grid (column blocks, bands of the chunk, batch).
+__global__ void __launch_bounds__(LINE_NT_MAX, 2)
+cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
+                   const int* __restrict__ slot,  // (nbands, H)
                    const float* __restrict__ tau,  // (B, nbands)
-                   const float2* __restrict__ tw_h, int h, int w, int logh,
-                   int cols, int lc, int nbands, int l0, float scale, int op) {
+                   const float2* __restrict__ tw_h, LineShape L, int w,
+                   int cols, int nrows, int p0, int nbands, int l0,
+                   float scale, int op) {
   extern __shared__ float2 smem[];
-  const int ls = h + 1;  // padded column stride: the transposing stores
-                         // of neighbouring columns land in other banks
+  const int h = L.n;
+  const int ls = h + 1;  // padded column stride: the transposing stores of
+                         // a row's 16 columns land in 16 banks
+  const Group g = make_group(L.t);
   float2* tw = smem;
-  float2* buf = tw + h;
-  float2* tmp = buf + cols * ls;
-  const int b = blockIdx.z, l = blockIdx.y;
+  float2* tile = tw + h;  // column c at tile[c·ls]
+  float2* bufs = tile + cols * ls;
+  float2* buf = bufs + g.index * line_buf(h);
+  int* rs = reinterpret_cast<int*>(bufs + g.count * line_buf(h));
+  const int b = blockIdx.z, l = l0 + blockIdx.y;
   const int c0 = blockIdx.x * cols;
   const int nc = min(cols, w - c0);
-  const int n = h * nc;
-  const long long plane = (long long)h * w;
-  for (int e = threadIdx.x; e < h; e += NT) tw[e] = tw_h[e];
-  float2* s = scratch + ((long long)b * lc + l) * plane + c0;
-  for (int e = threadIdx.x; e < n; e += NT) {
-    const int r = e / nc, c = e - r * nc;
-    buf[c * ls + r] = s[(long long)r * w + c];
+  const int* sl = slot + (long long)l * h;  // packed row of row r, or -1
+  float2* s = scratch + (long long)b * nrows * w + c0;
+  for (int r = threadIdx.x; r < h; r += blockDim.x) rs[r] = sl[r];
+  __syncthreads();
+  const TileWalk tl(cols, nc);
+  if (tl.active) {
+#pragma unroll 4
+    for (int r = tl.r0; r < h; r += tl.step) {
+      const int k = rs[r];
+      tile[tl.c * ls + r] = k >= 0 && tl.in ? s[(long long)(k - p0) * w + tl.c]
+                                            : make_float2(0.0f, 0.0f);
+    }
+  }
+  load_twiddles(tw, tw_h, h);
+  const float t = tau[(long long)b * nbands + l];
+  for (int c = g.index; c < nc; c += g.count) {
+    float2* col = tile + c * ls;
+    float2 v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = g.j + q * g.t;
+      v[q] = e < h ? col[e] : make_float2(0.0f, 0.0f);
+    }
+    line_fft<true>(v, buf, tw, L, g);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float2 u = make_float2(v[q].x * scale, v[q].y * scale);
+      const float f = shrink_factor(u.x * u.x + u.y * u.y, t, op);
+      v[q] = make_float2(u.x * f, u.y * f);
+    }
+    line_fft<false>(v, buf, tw, L, g);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = g.j + q * g.t;
+      if (e < h) col[e] = v[q];
+    }
   }
   __syncthreads();
-  fft_lines(buf, tmp, nc, h, logh, ls, tw, true);
-  const float t = tau[(long long)b * nbands + l0 + l];
-  for (int e = threadIdx.x; e < n; e += NT) {
-    const int c = e / h, r = e - c * h;
-    float2 v = buf[c * ls + r];
-    v.x *= scale;
-    v.y *= scale;
-    const float f = shrink_factor(v.x * v.x + v.y * v.y, t, op);
-    buf[c * ls + r] = make_float2(v.x * f, v.y * f);
-  }
-  __syncthreads();
-  fft_lines(buf, tmp, nc, h, logh, ls, tw, false);
-  for (int e = threadIdx.x; e < n; e += NT) {
-    const int r = e / nc, c = e - r * nc;
-    s[(long long)r * w + c] = buf[c * ls + r];
+  if (tl.active && tl.in) {
+#pragma unroll 4
+    for (int r = tl.r0; r < h; r += tl.step) {
+      const int k = rs[r];
+      if (k >= 0) s[(long long)(k - p0) * w + tl.c] = tile[tl.c * ls + r];
+    }
   }
 }
 
-// (c) rows: acc_b (+)= Σ_l (forward FFT along W of scratch[b, l])·psi_l,
-// the bands of the chunk in order. grid (row blocks, batch). With INV_W
-// (kernel C's last chunk) the block holds the complete sum of its rows and
-// writes their inverse FFT along W instead.
+// (c) rows: acc_b (+)= Σ_l (forward FFT along W of scratch row)·psi_l over
+// the bands [l0, l1) in order, for the bands whose support holds the row;
+// one group per row, its sum in registers. grid (row blocks, batch). With
+// INV_W (kernel C's last chunk) the group holds the complete sum of its row
+// and writes its inverse FFT along W instead.
 template <bool INV_W>
-__global__ void __launch_bounds__(NT)
+__global__ void __launch_bounds__(LINE_NT_MAX, 2)
 rows_forward_acc_kernel(const float2* __restrict__ scratch,
+                        const int* __restrict__ slot,
                         const float* __restrict__ psi,
                         const float2* __restrict__ tw_w,
                         float* __restrict__ accr, float* __restrict__ acci,
-                        int h, int w, int logw, int rows, int lc, int first) {
+                        LineShape L, int h, int nrows, int p0, int l0, int l1,
+                        int first) {
   extern __shared__ float2 smem[];
+  const int w = L.n;
+  const Group g = make_group(L.t);
   float2* tw = smem;
-  float2* buf = tw + w;
-  float2* acc = buf + rows * w;
-  float2* tmp = acc + rows * w;
+  float2* buf = tw + w + g.index * line_buf(w);
+  load_twiddles(tw, tw_w, w);
+  const int r = blockIdx.x * g.count + g.index;
+  if (r >= h) return;
   const int b = blockIdx.y;
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, h - r0);
-  const int n = nr * w;
   const long long plane = (long long)h * w;
-  for (int e = threadIdx.x; e < w; e += NT) tw[e] = tw_w[e];
-  const long long ao = b * plane + (long long)r0 * w;
-  // each thread owns the same accumulator elements for every band
-  for (int e = threadIdx.x; e < n; e += NT)
-    acc[e] = first ? make_float2(0.0f, 0.0f)
-                   : make_float2(accr[ao + e], acci[ao + e]);
-  for (int l = 0; l < lc; ++l) {
-    const float2* s =
-        scratch + ((long long)b * lc + l) * plane + (long long)r0 * w;
-    for (int e = threadIdx.x; e < n; e += NT) buf[e] = s[e];
-    __syncthreads();
-    fft_lines(buf, tmp, nr, w, logw, w, tw, false);
-    const float* p = psi + l * plane + (long long)r0 * w;
-    for (int e = threadIdx.x; e < n; e += NT) {
-      const float pv = p[e];
-      const float2 v = buf[e];
-      acc[e] = make_float2(acc[e].x + v.x * pv, acc[e].y + v.y * pv);
-    }
-    __syncthreads();
+  const long long ao = b * plane + (long long)r * w;
+  float2 acc[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    acc[s] = first || e >= w ? make_float2(0.0f, 0.0f)
+                             : make_float2(accr[ao + e], acci[ao + e]);
   }
-  if (INV_W) fft_lines(acc, tmp, nr, w, logw, w, tw, true);
-  for (int e = threadIdx.x; e < n; e += NT) {
-    accr[ao + e] = acc[e].x;
-    acci[ao + e] = acc[e].y;
+  for (int l = l0; l < l1; ++l) {
+    const int k = slot[(long long)l * h + r];
+    if (k < 0) continue;
+    const float2* row = scratch + ((long long)b * nrows + (k - p0)) * w;
+    float2 v[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int e = g.j + s * g.t;
+      v[s] = e < w ? row[e] : make_float2(0.0f, 0.0f);
+    }
+    line_fft<false>(v, buf, tw, L, g);
+    const float* p = psi + l * plane + (long long)r * w;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int e = g.j + s * g.t;
+      if (e < w) {
+        const float pv = p[e];
+        acc[s] = make_float2(acc[s].x + v[s].x * pv, acc[s].y + v[s].y * pv);
+      }
+    }
+  }
+  if (INV_W) line_fft<true>(acc, buf, tw, L, g);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    if (e < w) {
+      accr[ao + e] = acc[s].x;
+      acci[ao + e] = acc[s].y;
+    }
   }
 }
 
 // Kernel C's column passes: FFT along H (inverse when `inv`) of the
 // (re, im) planes `in`, times `scale`, into the planes `out`, which may be
-// `in` (a block reads and writes only its own columns). grid (column
-// blocks, batch).
-__global__ void __launch_bounds__(NT)
+// `in` (a block reads all of its columns before it writes them). grid
+// (column blocks, batch).
+__global__ void __launch_bounds__(LINE_NT_MAX, 2)
 cols_fft_kernel(const float* in_re, const float* in_im, float* out_re,
-                float* out_im, const float2* __restrict__ tw_h, int h, int w,
-                int logh, int cols, int inv, float scale) {
+                float* out_im, const float2* __restrict__ tw_h, LineShape L,
+                int w, int cols, int inv, float scale) {
   extern __shared__ float2 smem[];
-  const int ls = h + 1;  // padded column stride, as in cols_shrink_kernel
+  const int h = L.n, ls = h + 1;  // padded as in cols_shrink_kernel
+  const Group g = make_group(L.t);
   float2* tw = smem;
-  float2* buf = tw + h;
-  float2* tmp = buf + cols * ls;
+  float2* tile = tw + h;
+  float2* buf = tile + cols * ls + g.index * line_buf(h);
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * cols;
   const int nc = min(cols, w - c0);
-  const int n = h * nc;
   const long long off = (long long)b * h * w + c0;
-  for (int e = threadIdx.x; e < h; e += NT) tw[e] = tw_h[e];
-  for (int e = threadIdx.x; e < n; e += NT) {
-    const int r = e / nc, c = e - r * nc;
-    const long long o = off + (long long)r * w + c;
-    buf[c * ls + r] = make_float2(in_re[o], in_im[o]);
+  const TileWalk tl(cols, nc);
+  if (tl.active) {
+#pragma unroll 4
+    for (int r = tl.r0; r < h; r += tl.step) {
+      const long long o = off + (long long)r * w + tl.c;
+      tile[tl.c * ls + r] = tl.in ? make_float2(in_re[o], in_im[o])
+                                  : make_float2(0.0f, 0.0f);
+    }
+  }
+  load_twiddles(tw, tw_h, h);
+  for (int c = g.index; c < nc; c += g.count) {
+    float2* col = tile + c * ls;
+    float2 v[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int e = g.j + s * g.t;
+      v[s] = e < h ? col[e] : make_float2(0.0f, 0.0f);
+    }
+    if (inv)
+      line_fft<true>(v, buf, tw, L, g);
+    else
+      line_fft<false>(v, buf, tw, L, g);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int e = g.j + s * g.t;
+      if (e < h) col[e] = make_float2(v[s].x * scale, v[s].y * scale);
+    }
   }
   __syncthreads();
-  fft_lines(buf, tmp, nc, h, logh, ls, tw, inv != 0);
-  for (int e = threadIdx.x; e < n; e += NT) {
-    const int r = e / nc, c = e - r * nc;
-    const long long o = off + (long long)r * w + c;
-    const float2 v = buf[c * ls + r];
-    out_re[o] = v.x * scale;
-    out_im[o] = v.y * scale;
+  if (tl.active && tl.in) {
+#pragma unroll 4
+    for (int r = tl.r0; r < h; r += tl.step) {
+      const long long o = off + (long long)r * w + tl.c;
+      const float2 v = tile[tl.c * ls + r];
+      out_re[o] = v.x;
+      out_im[o] = v.y;
+    }
   }
 }
 
-// Kernel C's row pass: forward FFT along W of the (re, im) planes, in
-// place. grid (row blocks, batch).
-__global__ void __launch_bounds__(NT)
+// Kernel C's row pass, and the line engine's own entry: FFT along W
+// (inverse, unscaled, with INV) of the (re, im) planes, in place, one group
+// per row. grid (row blocks, batch).
+template <bool INV>
+__global__ void __launch_bounds__(LINE_NT_MAX)
 rows_fft_kernel(float* __restrict__ re, float* __restrict__ im,
-                const float2* __restrict__ tw_w, int h, int w, int logw,
-                int rows) {
+                const float2* __restrict__ tw_w, LineShape L, int h) {
   extern __shared__ float2 smem[];
+  const int w = L.n;
+  const Group g = make_group(L.t);
   float2* tw = smem;
-  float2* buf = tw + w;
-  float2* tmp = buf + rows * w;
-  const int b = blockIdx.y;
-  const int r0 = blockIdx.x * rows;
-  const int nr = min(rows, h - r0);
-  const int n = nr * w;
-  const long long o = (long long)b * h * w + (long long)r0 * w;
-  for (int e = threadIdx.x; e < w; e += NT) tw[e] = tw_w[e];
-  for (int e = threadIdx.x; e < n; e += NT)
-    buf[e] = make_float2(re[o + e], im[o + e]);
-  __syncthreads();
-  fft_lines(buf, tmp, nr, w, logw, w, tw, false);
-  for (int e = threadIdx.x; e < n; e += NT) {
-    re[o + e] = buf[e].x;
-    im[o + e] = buf[e].y;
+  float2* buf = tw + w + g.index * line_buf(w);
+  load_twiddles(tw, tw_w, w);
+  const int r = blockIdx.x * g.count + g.index;
+  if (r >= h) return;
+  const long long o = ((long long)blockIdx.y * h + r) * w;
+  float2 v[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    v[s] = e < w ? make_float2(re[o + e], im[o + e]) : make_float2(0.0f, 0.0f);
+  }
+  line_fft<INV>(v, buf, tw, L, g);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    if (e < w) {
+      re[o + e] = v[s].x;
+      im[o + e] = v[s].y;
+    }
   }
 }
 
@@ -556,14 +560,6 @@ box_reduce_kernel(const float2* __restrict__ part,
 
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// log2 n for a power of two, else -1
-inline int log2_or_neg(int n) {
-  if (n <= 0 || (n & (n - 1))) return -1;
-  int k = 0;
-  while ((1 << k) < n) ++k;
-  return k;
-}
-
 // Lets `kernel` use `bytes` of dynamic shared memory; ERR_SMEM when a
 // block cannot have that much.
 template <typename K>
@@ -573,66 +569,94 @@ int allow_smem(K kernel, size_t bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The line blocks of kernels A and C for an h × w slice: rows per row
-// block, columns per column block, and the shared memory of the row
-// passes (a), the column passes (b) and the accumulating row pass (c).
+// threads of a line kernel's block: NT, or one whole group of a long line
+inline int line_threads(const LineShape& L) { return L.t > NT ? L.t : NT; }
+
+// The line blocks of kernels A and C for an h × w slice: the lines along H
+// and W, the threads of the column and row blocks, the columns of a column
+// block, and the shared memory of the row and column kernels.
 struct Lines {
-  int logh, logw, rows, cols;
-  size_t smem_a, smem_b, smem_c;
+  LineShape lh, lw;
+  int nt_h, nt_w, cols;
+  size_t smem_rows, smem_cols;
 };
 
-Lines lines_for(int h, int w) {
-  Lines s;
-  s.logh = log2_or_neg(h);
-  s.logw = log2_or_neg(w);
-  s.rows = h < ROW_ELEMS / w ? h : (ROW_ELEMS / w > 0 ? ROW_ELEMS / w : 1);
-  s.cols = w < COL_ELEMS / h ? w : (COL_ELEMS / h > 0 ? COL_ELEMS / h : 1);
+// 0, ERR_SHAPE for a side out of [1, MAX_LINE], or ERR_SMEM
+int lines_for(int h, int w, Lines* s) {
+  if (h < 1 || w < 1 || h > MAX_LINE || w > MAX_LINE) return ERR_SHAPE;
+  s->lh = line_shape(h);
+  s->lw = line_shape(w);
+  s->nt_w = line_threads(s->lw);
   const size_t c8 = sizeof(float2);
-  s.smem_a = c8 * (w + (size_t)s.rows * w * (s.logw < 0 ? 2 : 1));
-  s.smem_b = c8 * (h + (size_t)s.cols * (h + 1)
-                   + (s.logh < 0 ? (size_t)s.cols * h : 0));
-  s.smem_c = c8 * (w + (size_t)s.rows * w * (s.logw < 0 ? 3 : 2));
-  return s;
+  s->smem_rows = c8 * (w + (size_t)(s->nt_w / s->lw.t) * line_buf(w));
+  // a column block: one group per column of its tile, up to LINE_NT_MAX
+  // threads (whole warps), its columns' tile, the groups' buffers and the
+  // band's row table
+  const int t = s->lh.t;
+  const size_t col = c8 * (h + 1);
+  int cols = COL_TILE < w ? COL_TILE : w;
+  for (;; --cols) {
+    int nt = cols * t < LINE_NT_MAX ? cols * t : LINE_NT_MAX;
+    nt = nt > t ? nt : t;
+    s->nt_h = (nt + 31) / 32 * 32;
+    s->smem_cols = c8 * (h + (size_t)(s->nt_h / t) * line_buf(h)) +
+                   cols * col + sizeof(int) * (size_t)h;
+    if (cols == 1 || s->smem_cols <= (size_t)MAX_SMEM) break;
+  }
+  s->cols = cols;
+  return s->smem_cols > (size_t)MAX_SMEM ? ERR_SMEM : 0;
 }
 
 // Passes (a)-(c) over every band chunk: acc = Σ_l fft2(shrink(ifft2(
 // X·psi_l)))·psi_l from the spectrum planes (xr, xi); with `inv_last` the
-// last chunk's pass (c) also takes the inverse FFT along W.
+// last chunk's pass (c) also takes the inverse FFT along W. `support`
+// (device) holds the support rows in band order, their bands (nnz each)
+// and the (nbands, h) table of packed rows; `offsets` (host, nbands + 1)
+// the CSR offsets; `chunks` (host, nchunks + 1) the chunks' first bands.
 int band_passes(const Lines& s, const float* xr, const float* xi,
                 const float* psi, const float* tau, const float2* twh,
-                const float2* tww, float* acc_re, float* acc_im,
-                float2* scratch, int batch, int h, int w, int nbands, int lc,
-                int op, bool inv_last, cudaStream_t stream) {
+                const float2* tww, const int* support, const int* offsets,
+                const int* chunks, int nchunks, float* acc_re, float* acc_im,
+                float2* scratch, int batch, int h, int w, int nbands, int op,
+                bool inv_last, cudaStream_t stream) {
   int err;
-  if ((err = allow_smem(rows_inverse_kernel, s.smem_a)) != 0) return err;
-  if ((err = allow_smem(cols_shrink_kernel, s.smem_b)) != 0) return err;
-  if ((err = allow_smem(rows_forward_acc_kernel<false>, s.smem_c)) != 0)
+  if ((err = allow_smem(rows_inverse_kernel, s.smem_rows)) != 0) return err;
+  if ((err = allow_smem(cols_shrink_kernel, s.smem_cols)) != 0) return err;
+  if ((err = allow_smem(rows_forward_acc_kernel<false>, s.smem_rows)) != 0)
     return err;
   if (inv_last &&
-      (err = allow_smem(rows_forward_acc_kernel<true>, s.smem_c)) != 0)
+      (err = allow_smem(rows_forward_acc_kernel<true>, s.smem_rows)) != 0)
     return err;
-  const long long plane = (long long)h * w;
+  const int nnz = offsets[nbands];
+  const int* rows = support;
+  const int* bands = support + nnz;
+  const int* slot = support + 2 * (long long)nnz;
   const float scale = 1.0f / (float)((double)h * (double)w);
-  for (int l0 = 0; l0 < nbands; l0 += lc) {
-    const int nl = lc < nbands - l0 ? lc : nbands - l0;
-    const float* p = psi + (long long)l0 * plane;
-    rows_inverse_kernel<<<dim3(ceil_div(h, s.rows), nl, batch), NT,
-                          s.smem_a, stream>>>(xr, xi, p, tww, scratch, h, w,
-                                              s.logw, s.rows, nl);
-    if ((err = (int)cudaGetLastError()) != 0) return err;
-    cols_shrink_kernel<<<dim3(ceil_div(w, s.cols), nl, batch), NT, s.smem_b,
-                         stream>>>(scratch, tau, twh, h, w, s.logh, s.cols,
-                                   nl, nbands, l0, scale, op);
-    if ((err = (int)cudaGetLastError()) != 0) return err;
-    const dim3 grid(ceil_div(h, s.rows), batch);
-    if (inv_last && l0 + nl >= nbands)
-      rows_forward_acc_kernel<true><<<grid, NT, s.smem_c, stream>>>(
-          scratch, p, tww, acc_re, acc_im, h, w, s.logw, s.rows, nl,
-          l0 == 0);
+  const int per_block = s.nt_w / s.lw.t;  // rows of a row block
+  for (int ci = 0; ci < nchunks; ++ci) {
+    const int l0 = chunks[ci], l1 = chunks[ci + 1];
+    const int p0 = offsets[l0], nrows = offsets[l1] - p0;
+    if (nrows > 0) {
+      rows_inverse_kernel<<<dim3(ceil_div(nrows, per_block), batch), s.nt_w,
+                            s.smem_rows, stream>>>(xr, xi, psi, rows + p0,
+                                                   bands + p0, tww, scratch,
+                                                   s.lw, h, nrows);
+      if ((err = (int)cudaGetLastError()) != 0) return err;
+      cols_shrink_kernel<<<dim3(ceil_div(w, s.cols), l1 - l0, batch), s.nt_h,
+                           s.smem_cols, stream>>>(scratch, slot, tau, twh,
+                                                  s.lh, w, s.cols, nrows, p0,
+                                                  nbands, l0, scale, op);
+      if ((err = (int)cudaGetLastError()) != 0) return err;
+    }
+    const dim3 grid(ceil_div(h, per_block), batch);
+    if (inv_last && ci == nchunks - 1)
+      rows_forward_acc_kernel<true><<<grid, s.nt_w, s.smem_rows, stream>>>(
+          scratch, slot, psi, tww, acc_re, acc_im, s.lw, h, nrows, p0, l0, l1,
+          ci == 0);
     else
-      rows_forward_acc_kernel<false><<<grid, NT, s.smem_c, stream>>>(
-          scratch, p, tww, acc_re, acc_im, h, w, s.logw, s.rows, nl,
-          l0 == 0);
+      rows_forward_acc_kernel<false><<<grid, s.nt_w, s.smem_rows, stream>>>(
+          scratch, slot, psi, tww, acc_re, acc_im, s.lw, h, nrows, p0, l0, l1,
+          ci == 0);
     if ((err = (int)cudaGetLastError()) != 0) return err;
   }
   return 0;
@@ -642,59 +666,94 @@ int band_passes(const Lines& s, const float* xr, const float* xi,
 
 extern "C" {
 
-// Returns 0, ERR_SMEM when a line does not fit a block's shared memory, or
-// the first CUDA error met while enqueuing. `work` holds batch·lc·h·w
-// complex values (2 floats each), lc <= nbands the bands per chunk. Nothing
-// is synchronised; every launch goes to `stream`.
+// Returns 0, ERR_SMEM or ERR_SHAPE for a shape the line blocks do not take,
+// or the first CUDA error met while enqueuing. `support`, `offsets` and
+// `chunks` as band_passes takes them (nchunks >= 1, the last chunk ending
+// at nbands); `work` holds batch·(the most support rows of a chunk)·w
+// complex values (2 floats each). Nothing is synchronised; every launch
+// goes to `stream`.
 int p3d_subband_update(const float* x_re, const float* x_im,
                        const float* psi,  // (nbands, h, w)
                        const float* tau,  // (batch, nbands)
                        const float* tw_h, const float* tw_w,  // (n, 2)
-                       float* acc_re, float* acc_im, float* work, int batch,
-                       int h, int w, int nbands, int lc, int op,
-                       void* stream_handle) {
-  return band_passes(lines_for(h, w), x_re, x_im, psi, tau,
+                       const int* support, const int* offsets,
+                       const int* chunks, float* acc_re, float* acc_im,
+                       float* work, int batch, int h, int w, int nbands,
+                       int nchunks, int op, void* stream_handle) {
+  Lines s;
+  const int err = lines_for(h, w, &s);
+  if (err != 0) return err;
+  return band_passes(s, x_re, x_im, psi, tau,
                      reinterpret_cast<const float2*>(tw_h),
-                     reinterpret_cast<const float2*>(tw_w), acc_re, acc_im,
-                     reinterpret_cast<float2*>(work), batch, h, w, nbands, lc,
-                     op, false, static_cast<cudaStream_t>(stream_handle));
+                     reinterpret_cast<const float2*>(tw_w), support, offsets,
+                     chunks, nchunks, acc_re, acc_im,
+                     reinterpret_cast<float2*>(work), batch, h, w, nbands, op,
+                     false, static_cast<cudaStream_t>(stream_handle));
 }
 
 // Kernel C. Returns as p3d_subband_update. `spec` holds the spectrum's
-// (re, im) planes, 2·batch·h·w floats; `work` as p3d_subband_update's;
-// (out_re, out_im) take the spatial result and serve as the accumulator
-// until the last pass. nbands >= 1.
+// (re, im) planes, 2·batch·h·w floats; `work` and the support as
+// p3d_subband_update's; (out_re, out_im) take the spatial result and serve
+// as the accumulator until the last pass. nbands >= 1.
 int p3d_subband_update_spatial(const float* x_re, const float* x_im,
                                const float* psi,  // (nbands, h, w)
                                const float* tau,  // (batch, nbands)
                                const float* tw_h, const float* tw_w,
-                               float* out_re, float* out_im, float* spec,
-                               float* work, int batch, int h, int w,
-                               int nbands, int lc, int op,
-                               void* stream_handle) {
+                               const int* support, const int* offsets,
+                               const int* chunks, float* out_re,
+                               float* out_im, float* spec, float* work,
+                               int batch, int h, int w, int nbands,
+                               int nchunks, int op, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const Lines s = lines_for(h, w);
+  Lines s;
   int err;
-  if ((err = allow_smem(cols_fft_kernel, s.smem_b)) != 0) return err;
-  if ((err = allow_smem(rows_fft_kernel, s.smem_a)) != 0) return err;
+  if ((err = lines_for(h, w, &s)) != 0) return err;
+  if ((err = allow_smem(cols_fft_kernel, s.smem_cols)) != 0) return err;
+  if ((err = allow_smem(rows_fft_kernel<false>, s.smem_rows)) != 0)
+    return err;
   const float2* twh = reinterpret_cast<const float2*>(tw_h);
   const float2* tww = reinterpret_cast<const float2*>(tw_w);
   float* spec_re = spec;
   float* spec_im = spec + (long long)batch * h * w;
   const dim3 col_grid(ceil_div(w, s.cols), batch);
-  cols_fft_kernel<<<col_grid, NT, s.smem_b, stream>>>(
-      x_re, x_im, spec_re, spec_im, twh, h, w, s.logh, s.cols, 0, 1.0f);
+  cols_fft_kernel<<<col_grid, s.nt_h, s.smem_cols, stream>>>(
+      x_re, x_im, spec_re, spec_im, twh, s.lh, w, s.cols, 0, 1.0f);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  rows_fft_kernel<<<dim3(ceil_div(h, s.rows), batch), NT, s.smem_a,
-                    stream>>>(spec_re, spec_im, tww, h, w, s.logw, s.rows);
+  rows_fft_kernel<false><<<dim3(ceil_div(h, s.nt_w / s.lw.t), batch), s.nt_w,
+                           s.smem_rows, stream>>>(spec_re, spec_im, tww, s.lw,
+                                                  h);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  if ((err = band_passes(s, spec_re, spec_im, psi, tau, twh, tww, out_re,
-                         out_im, reinterpret_cast<float2*>(work), batch, h,
-                         w, nbands, lc, op, true, stream)) != 0)
+  if ((err = band_passes(s, spec_re, spec_im, psi, tau, twh, tww, support,
+                         offsets, chunks, nchunks, out_re, out_im,
+                         reinterpret_cast<float2*>(work), batch, h, w,
+                         nbands, op, true, stream)) != 0)
     return err;
-  cols_fft_kernel<<<col_grid, NT, s.smem_b, stream>>>(
-      out_re, out_im, out_re, out_im, twh, h, w, s.logh, s.cols, 1,
+  cols_fft_kernel<<<col_grid, s.nt_h, s.smem_cols, stream>>>(
+      out_re, out_im, out_re, out_im, twh, s.lh, w, s.cols, 1,
       1.0f / (float)((double)h * (double)w));
+  return (int)cudaGetLastError();
+}
+
+// The line engine alone: the FFT (inverse, unscaled, when `inv`) of each of
+// `nlines` lines of length n of the (re, im) planes, in place. Returns as
+// p3d_subband_update.
+int p3d_line_fft(float* re, float* im, const float* tw, int nlines, int n,
+                 int inv, void* stream_handle) {
+  if (n < 1 || n > MAX_LINE) return ERR_SHAPE;
+  const LineShape L = line_shape(n);
+  const int nt = line_threads(L);
+  const size_t smem = sizeof(float2) * (n + (size_t)(nt / L.t) * line_buf(n));
+  const dim3 grid(ceil_div(nlines, nt / L.t), 1);
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const float2* t = reinterpret_cast<const float2*>(tw);
+  int err;
+  if (inv) {
+    if ((err = allow_smem(rows_fft_kernel<true>, smem)) != 0) return err;
+    rows_fft_kernel<true><<<grid, nt, smem, stream>>>(re, im, t, L, nlines);
+  } else {
+    if ((err = allow_smem(rows_fft_kernel<false>, smem)) != 0) return err;
+    rows_fft_kernel<false><<<grid, nt, smem, stream>>>(re, im, t, L, nlines);
+  }
   return (int)cudaGetLastError();
 }
 

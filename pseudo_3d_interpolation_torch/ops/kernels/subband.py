@@ -15,11 +15,18 @@ fast split); the port's kernel takes any H×W. :func:`box_group_update`
 replaces ``box_group_update_fused`` (body ``_box_kernel``): one support-
 cropped group's ``Σ_l ψ_l·A_h·shrink(A_hᴴ(xb·ψ_l)A_w*/(N_h·N_w))·A_wᵀ``.
 ``csrc/subband.cu`` has the three kernels, with their design and what
-bounds them.
+bounds them; ``csrc/fft_lines.cuh`` the line FFTs of the first two, which
+:func:`line_fft` also runs alone.
 
-Each wrapper launches its kernel for CUDA tensors, counts the launch
-(``.launches``) and takes its plain version only for CPU tensors; a failed
-build or launch raises.
+The first two kernels transform only the rows of each window that hold a
+nonzero (:func:`row_support`, a CSR list built once per window stack on
+the host, :class:`RowSupport` on the device): a row of X·ψ_l whose window
+row is zero is a zero line wherever it would be transformed, so the skip
+is exact.
+
+Each wrapper launches its kernel for CUDA tensors and takes its plain
+version only for CPU tensors; a failed build or launch raises. The three
+solver kernels' wrappers count their launches (``.launches``).
 """
 
 from __future__ import annotations
@@ -43,19 +50,86 @@ BOX_BLOCKS_PER_SM = 4
 # a box-kernel block forms 16 field rows at a time (csrc/subband.cu RB)
 _BOX_ROWS = 16
 _ERR_SMEM = -2
+_ERR_SHAPE = -3
+# the longest line of the subband kernels (csrc/fft_lines.cuh MAX_LINE)
+MAX_LINE = 4096
 
 
 def band_chunk(batch: int, h: int, w: int, nbands: int) -> int:
-    """Bands of kernel A's scratch in flight at a time."""
+    """Full-size bands of kernel A's scratch in flight at a time: the
+    scratch holds this many bands' worth of support rows."""
     return max(1, min(nbands, SCRATCH_BYTES // max(1, batch * h * w * 8)))
 
 
 def scratch_bytes(batch: int, h: int, w: int, nbands: int,
                   spatial: bool = False) -> int:
-    """Device scratch of one :func:`subband_update` call, or with
-    ``spatial`` of one :func:`subband_update_spatial` call (one (B, H, W)
-    spectrum more)."""
+    """Upper bound of the device scratch of one :func:`subband_update`
+    call, or with ``spatial`` of one :func:`subband_update_spatial` call
+    (one (B, H, W) spectrum more), whatever the windows' support."""
     return (band_chunk(batch, h, w, nbands) + int(spatial)) * batch * h * w * 8
+
+
+class RowSupport:
+    """A window stack's row support as the kernels take it: ``offsets``,
+    (L + 1,) int32 on the host, the CSR offsets of each band's rows; and
+    ``table``, int32 on the kernels' device: the support rows in band
+    order, their bands, then the (L, H) packed index of each (band, row),
+    -1 off the support. :meth:`chunks` keeps each batch's band chunks."""
+
+    __slots__ = ("offsets", "table", "_chunks")
+
+    def __init__(self, offsets: np.ndarray, table: torch.Tensor):
+        self.offsets = offsets
+        self.table = table
+        self._chunks = {}
+
+    def chunks(self, batch: int, h: int, w: int) -> tuple[np.ndarray, int]:
+        """:func:`band_chunks` of a (batch, h, w) call and the most support
+        rows of one chunk, computed once per scratch size."""
+        cap = band_chunk(batch, h, w, len(self.offsets) - 1) * h
+        if cap not in self._chunks:
+            c = band_chunks(self.offsets, batch, h, w)
+            self._chunks[cap] = (c, int(np.max(self.offsets[c[1:]]
+                                               - self.offsets[c[:-1]])))
+        return self._chunks[cap]
+
+
+def row_support(psi: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """The rows r with ψ_l[r, :] ≠ 0 of each band l of a (L, H, W) window
+    stack, as a CSR list: (offsets (L + 1,), rows (nnz,)), both int32, the
+    rows of band l ``rows[offsets[l]:offsets[l + 1]]`` in ascending
+    order."""
+    nz = np.any(psi != 0, axis=-1)
+    offsets = np.zeros(nz.shape[0] + 1, np.int32)
+    offsets[1:] = np.cumsum(nz.sum(axis=1))
+    return offsets, np.nonzero(nz)[1].astype(np.int32)
+
+
+def row_support_on(psi: np.ndarray, device) -> RowSupport:
+    """:func:`row_support` of ``psi`` with its device table on
+    ``device``."""
+    offsets, rows = row_support(psi)
+    nbands, h = psi.shape[:2]
+    bands = np.repeat(np.arange(nbands, dtype=np.int32), np.diff(offsets))
+    slot = np.full((nbands, h), -1, np.int32)
+    slot[bands, rows] = np.arange(len(rows), dtype=np.int32)
+    table = np.concatenate([rows, bands, slot.ravel()])
+    return RowSupport(offsets, torch.from_numpy(table).to(device))
+
+
+def band_chunks(offsets: np.ndarray, batch: int, h: int, w: int
+                ) -> np.ndarray:
+    """The band chunks of one call: int32 first band of each chunk, then
+    L. A chunk takes bands in order while their support rows fit
+    ``band_chunk(...)·H`` rows, so the scratch never outgrows
+    :func:`scratch_bytes`."""
+    nbands = len(offsets) - 1
+    cap = band_chunk(batch, h, w, nbands) * h
+    starts = [0]
+    for l in range(nbands):
+        if offsets[l + 1] - offsets[starts[-1]] > cap:
+            starts.append(l)
+    return np.asarray(starts + [nbands], np.int32)
 
 
 def _op(thresh_op: str, precision: str) -> str:
@@ -92,10 +166,12 @@ def _device(t: torch.Tensor) -> torch.device:
 def _lib() -> ctypes.CDLL:
     lib = _build.load("subband")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.p3d_subband_update.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.p3d_subband_update.argtypes = [p] * 12 + [i] * 6 + [p]
     lib.p3d_subband_update.restype = i
-    lib.p3d_subband_update_spatial.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.p3d_subband_update_spatial.argtypes = [p] * 13 + [i] * 6 + [p]
     lib.p3d_subband_update_spatial.restype = i
+    lib.p3d_line_fft.argtypes = [p] * 3 + [i] * 3 + [p]
+    lib.p3d_line_fft.restype = i
     lib.p3d_box_group_update.argtypes = [p] * 11 + [i] * 8 + [p]
     lib.p3d_box_group_update.restype = i
     return lib
@@ -105,6 +181,9 @@ def _raise_on(rc: int, what: str, shape) -> None:
     if rc == _ERR_SMEM:
         raise ValueError(f"{what}: shape {shape} needs more shared memory "
                          "than a block has")
+    if rc == _ERR_SHAPE:
+        raise ValueError(f"{what}: shape {shape} has a side longer than "
+                         f"{MAX_LINE}, the longest line the kernels take")
     if rc != 0:
         raise RuntimeError(f"{what}: CUDA error {rc} while launching")
 
@@ -158,38 +237,65 @@ def _check_bands(x: Cplx, psi: torch.Tensor, tau: torch.Tensor,
     return device
 
 
+def _check_support(psi: torch.Tensor, support: RowSupport) -> None:
+    """Raise unless ``support`` describes ``psi``'s bands on its device."""
+    nbands, h = psi.shape[:2]
+    offsets, table = support.offsets, support.table
+    if (offsets.dtype != np.int32 or offsets.shape != (nbands + 1,)
+            or table.dtype != torch.int32 or table.device != psi.device
+            or tuple(table.shape) != (2 * int(offsets[-1]) + nbands * h,)):
+        raise ValueError(f"support does not describe {nbands} bands of "
+                         f"{h} rows on {psi.device}")
+
+
+def _band_call(x: Cplx, support: RowSupport, spatial: bool) -> tuple:
+    """What the two subband entry points share: (the band chunks, the
+    compact scratch, with ``spatial`` the spectrum scratch else None, the
+    int arguments (B, H, W, L, chunk count))."""
+    b, h, w = x.re.shape
+    nbands = len(support.offsets) - 1
+    chunks, rows = support.chunks(b, h, w)
+    work = torch.empty(max(1, b * rows * w * 2), dtype=torch.float32,
+                       device=x.re.device)
+    spec = (torch.empty(b * h * w * 2, dtype=torch.float32,
+                        device=x.re.device) if spatial else None)
+    return chunks, work, spec, (b, h, w, nbands, len(chunks) - 1)
+
+
 def subband_update(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
-                   thresh_op: str = "hard", precision: str = "highest"
-                   ) -> Cplx:
+                   thresh_op: str = "hard", precision: str = "highest", *,
+                   support: RowSupport) -> Cplx:
     """The full-size bands' subband update of a batch of spectra.
 
     ``x_spec``: (B, H, W) float32 pair, the natural-order ``fft2`` of the
-    slices, any H and W; ``psi``: (L, H, W) real windows; ``tau``: (B, L)
-    thresholds; ``precision``: 'high' or 'highest', both full fp32. Returns
-    the (B, H, W) spectral accumulator, which inverts with ``ifft2``. CUDA
+    slices, any H and W up to 4096; ``psi``: (L, H, W) real windows;
+    ``tau``: (B, L) thresholds; ``precision``: 'high' or 'highest', both
+    full fp32; ``support``: ``psi``'s :class:`RowSupport` on its device,
+    built once per window stack (:func:`row_support_on`). Returns the
+    (B, H, W) spectral accumulator, which inverts with ``ifft2``. CUDA
     tensors run the kernel, CPU tensors :func:`subband_update_plain`."""
     op = _op(thresh_op, precision)
     device = _check_bands(x_spec, psi, tau, "x_spec")
+    _check_support(psi, support)
     if device.type == "cpu":
         return subband_update_plain(x_spec, psi, tau, op)
-    b, h, w = x_spec.re.shape
-    nbands = psi.shape[0]
     acc_re = torch.empty_like(x_spec.re)
     acc_im = torch.empty_like(x_spec.im)
-    if b == 0 or nbands == 0:
+    if x_spec.re.shape[0] == 0 or psi.shape[0] == 0:
         return Cplx(acc_re.zero_(), acc_im.zero_())
-    lc = band_chunk(b, h, w, nbands)
-    work = torch.empty(b * lc * h * w * 2, dtype=torch.float32, device=device)
+    chunks, work, _, ints = _band_call(x_spec, support, False)
+    h, w = ints[1:3]
     tw_h = _twiddles_on(h, str(device))
     tw_w = _twiddles_on(w, str(device))
     with torch.cuda.device(device):
         rc = _lib().p3d_subband_update(
             x_spec.re.data_ptr(), x_spec.im.data_ptr(), psi.data_ptr(),
             tau.data_ptr(), tw_h.data_ptr(), tw_w.data_ptr(),
-            acc_re.data_ptr(), acc_im.data_ptr(), work.data_ptr(),
-            b, h, w, nbands, lc, THRESH_OPS[op],
+            support.table.data_ptr(), support.offsets.ctypes.data,
+            chunks.ctypes.data, acc_re.data_ptr(), acc_im.data_ptr(),
+            work.data_ptr(), *ints, THRESH_OPS[op],
             torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "subband_update", (b, h, w))
+    _raise_on(rc, "subband_update", tuple(x_spec.re.shape))
     subband_update.launches += 1
     return Cplx(acc_re, acc_im)
 
@@ -212,43 +318,79 @@ def subband_update_spatial_plain(x: Cplx, psi: torch.Tensor,
 
 def subband_update_spatial(x: Cplx, psi: torch.Tensor, tau: torch.Tensor,
                            thresh_op: str = "hard",
-                           precision: str = "highest") -> Cplx:
+                           precision: str = "highest", *,
+                           support: RowSupport) -> Cplx:
     """The full-size bands' subband update of a batch of slices, spatial in
     and out: ``ifft2(Σ_l fft2(shrink(ifft2(fft2(x)·ψ_l)))·ψ_l)``.
 
-    ``x``: (B, H, W) float32 pair of spatial slices, any H and W; ``psi``,
-    ``tau`` and ``precision`` as :func:`subband_update`. Returns the
-    (B, H, W) spatial update. CUDA tensors run the kernel, whose forward
-    and inverse transforms are its own passes; CPU tensors
-    :func:`subband_update_spatial_plain`."""
+    ``x``: (B, H, W) float32 pair of spatial slices, any H and W up to
+    4096; ``psi``, ``tau``, ``precision`` and ``support`` as
+    :func:`subband_update`. Returns the (B, H, W) spatial update. CUDA
+    tensors run the kernel, whose forward and inverse transforms are its
+    own passes; CPU tensors :func:`subband_update_spatial_plain`."""
     op = _op(thresh_op, precision)
     device = _check_bands(x, psi, tau, "x")
-    b, h, w = x.re.shape
-    nbands = psi.shape[0]
-    if b == 0 or nbands == 0:
+    _check_support(psi, support)
+    if x.re.shape[0] == 0 or psi.shape[0] == 0:
         return Cplx(torch.zeros_like(x.re), torch.zeros_like(x.im))
     if device.type == "cpu":
         return subband_update_spatial_plain(x, psi, tau, op)
     out_re = torch.empty_like(x.re)
     out_im = torch.empty_like(x.im)
-    lc = band_chunk(b, h, w, nbands)
-    work = torch.empty(b * lc * h * w * 2, dtype=torch.float32, device=device)
-    spec = torch.empty(b * h * w * 2, dtype=torch.float32, device=device)
+    chunks, work, spec, ints = _band_call(x, support, True)
+    h, w = ints[1:3]
     tw_h = _twiddles_on(h, str(device))
     tw_w = _twiddles_on(w, str(device))
     with torch.cuda.device(device):
         rc = _lib().p3d_subband_update_spatial(
             x.re.data_ptr(), x.im.data_ptr(), psi.data_ptr(), tau.data_ptr(),
-            tw_h.data_ptr(), tw_w.data_ptr(), out_re.data_ptr(),
-            out_im.data_ptr(), spec.data_ptr(), work.data_ptr(), b, h, w,
-            nbands, lc, THRESH_OPS[op],
+            tw_h.data_ptr(), tw_w.data_ptr(), support.table.data_ptr(),
+            support.offsets.ctypes.data, chunks.ctypes.data,
+            out_re.data_ptr(), out_im.data_ptr(), spec.data_ptr(),
+            work.data_ptr(), *ints, THRESH_OPS[op],
             torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "subband_update_spatial", (b, h, w))
+    _raise_on(rc, "subband_update_spatial", tuple(x.re.shape))
     subband_update_spatial.launches += 1
     return Cplx(out_re, out_im)
 
 
 subband_update_spatial.launches = 0
+
+
+def line_fft_plain(x: Cplx, inverse: bool = False) -> Cplx:
+    """The DFT along the last axis with ``torch.fft`` (``inverse``: the
+    unscaled inverse, n·ifft)."""
+    c = torch.complex(x.re, x.im)
+    n = c.shape[-1]
+    out = torch.fft.ifft(c) * n if inverse else torch.fft.fft(c)
+    return Cplx(out.real.contiguous(), out.imag.contiguous())
+
+
+def line_fft(x: Cplx, inverse: bool = False) -> Cplx:
+    """The subband kernels' line engine (``csrc/fft_lines.cuh``) alone:
+    the DFT along the last axis of a (..., n) float32 pair, n up to 4096
+    (``inverse``: unscaled). Not on a solver path: it lets the engine be
+    held against ``torch.fft`` at every line length. CUDA tensors run the
+    kernel, CPU tensors :func:`line_fft_plain`."""
+    device = _device(x.re)
+    if x.im.shape != x.re.shape or x.re.dim() < 1:
+        raise ValueError(f"x must be a (..., n) pair, got "
+                         f"{tuple(x.re.shape)} / {tuple(x.im.shape)}")
+    _check({"x.re": x.re, "x.im": x.im}, device)
+    if device.type == "cpu":
+        return line_fft_plain(x, inverse)
+    n = x.re.shape[-1]
+    nlines = x.re.numel() // max(1, n)
+    re, im = x.re.clone(), x.im.clone()
+    if nlines == 0:
+        return Cplx(re, im)
+    tw = _twiddles_on(n, str(device))
+    with torch.cuda.device(device):
+        rc = _lib().p3d_line_fft(
+            re.data_ptr(), im.data_ptr(), tw.data_ptr(), nlines, n,
+            int(inverse), torch.cuda.current_stream(device).cuda_stream)
+    _raise_on(rc, "line_fft", tuple(x.re.shape))
+    return Cplx(re, im)
 
 
 def box_group_update_plain(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor,

@@ -187,6 +187,16 @@ class _ScaleGroup:
         return self._cached(("psi", str(device)),
                             lambda: torch.from_numpy(self.psi).to(device))
 
+    def support_on(self, device):
+        """The windows' row support (``kernels.subband.RowSupport``: the
+        rows each window touches) with its table on ``device``, built once
+        on the host and copied once per device."""
+        from .kernels.subband import row_support_on
+
+        device = torch.device(device)
+        return self._cached(("support", str(device)),
+                            lambda: row_support_on(self.psi, device))
+
     def index_on(self, device) -> tuple[torch.Tensor, torch.Tensor]:
         """(idx_h, idx_w) as int64 tensors on ``device``."""
         device = torch.device(device)
@@ -470,9 +480,9 @@ def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
     tau_full = tau2[:, idx].contiguous()
     if spatial_io:
         z = Cplx(z.re.contiguous(), z.im.contiguous())
-        out = _complex(subband_update_spatial(z, full.psi_on(device),
-                                              tau_full, thresh_op,
-                                              precision))
+        out = _complex(subband_update_spatial(
+            z, full.psi_on(device), tau_full, thresh_op, precision,
+            support=full.support_on(device)))
         x = _complex(z)
         for l0, lg, g in boxes:
             ah, aw = g.partial_on(h, w, device)
@@ -485,7 +495,8 @@ def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
         return _pair(out)
     zf = torch.fft.fft2(_complex(z))
     acc = _complex(subband_update(_pair(zf), full.psi_on(device), tau_full,
-                                  thresh_op, precision))
+                                  thresh_op, precision,
+                                  support=full.support_on(device)))
     for l0, lg, g in boxes:
         ih, iw = g.index_on(device)
         sel = (slice(None), ih[:, None], iw[None, :])

@@ -1,7 +1,8 @@
 """The CUDA kernels (pseudo_3d_interpolation_torch/csrc/pocs_solve.cu: the
 FFT, DCT and WAVELET solves and the FFT iteration; csrc/subband.cu: the
-subband update, spectral and spatial, and the box group update) held
-against their plain PyTorch versions on the card.
+subband update, spectral and spatial, their line engine
+csrc/fft_lines.cuh, and the box group update) held against their plain
+PyTorch versions on the card.
 
 Every test here needs a CUDA card and skips without one; the kernels have
 no CPU mode. The file imports no JAX, so on the machine with the card (which
@@ -315,7 +316,8 @@ def test_subband_kernel_matches_plain(device, h, w, op):
     tau = _tau_for(op, _taus(x, plan)[:, torch.from_numpy(full_idx).to(
         device)].contiguous(), mags)
     before = ksb.subband_update.launches
-    got = ksb.subband_update(spec, psi, tau, op)
+    got = ksb.subband_update(spec, psi, tau, op,
+                             support=full.support_on(device))
     want = ksb.subband_update_plain(spec, psi, tau, op)
     torch.cuda.synchronize()
     assert ksb.subband_update.launches == before + 1
@@ -413,7 +415,8 @@ def test_spatial_kernel_matches_plain(device, b, h, w, chunk, op,
         tau = torch.from_numpy(gap_taus(_mags_on(spec, psi))).to(device)
     tau = tau.contiguous()
     before = ksb.subband_update_spatial.launches
-    got = ksb.subband_update_spatial(x, psi, tau, op)
+    got = ksb.subband_update_spatial(x, psi, tau, op,
+                                     support=full.support_on(device))
     want = ksb.subband_update_spatial_plain(x, psi, tau, op)
     torch.cuda.synchronize()
     assert ksb.subband_update_spatial.launches == before + 1
@@ -504,12 +507,14 @@ def test_subband_kernels_take_empty_batches(device):
     full, _, boxes = sh._plan_kernel_pack(plan, n, n)
     empty = Cplx(torch.empty(0, n, n, device=device),
                  torch.empty(0, n, n, device=device))
+    sup = full.support_on(device)
     out = ksb.subband_update(empty, full.psi_on(device),
-                             torch.empty(0, full.psi.shape[0], device=device))
+                             torch.empty(0, full.psi.shape[0], device=device),
+                             support=sup)
     assert out.re.shape == (0, n, n)
     out = ksb.subband_update_spatial(
         empty, full.psi_on(device),
-        torch.empty(0, full.psi.shape[0], device=device))
+        torch.empty(0, full.psi.shape[0], device=device), support=sup)
     assert out.re.shape == (0, n, n)
     _, lg, g = boxes[0]
     sr = len(g.idx_h)
@@ -586,3 +591,105 @@ def test_spectral_stack_routes_on_the_card_match_the_host(device, kind,
                             cfg)
     got, want = _host(res.data), _host(host.data)
     assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [8, 16, 32, 64, 128, 256, 512, 1024, 2048,
+                               4096, 384, 97])
+@pytest.mark.parametrize("inverse", [False, True],
+                         ids=["forward", "inverse"])
+def test_line_engine_matches_torch_fft(device, n, inverse):
+    """The subband kernels' line engine (csrc/fft_lines.cuh) alone, at
+    every length the plans use: the register FFT for powers of two, the
+    direct DFT for 384 and an odd length; within 1e-4 of max."""
+    rng = np.random.default_rng(n)
+    x = Cplx(*(torch.from_numpy(rng.normal(size=(5, n)).astype(
+        np.float32)).to(device) for _ in range(2)))
+    got = _host(ksb.line_fft(x, inverse))
+    torch.cuda.synchronize()
+    want = _host(ksb.line_fft_plain(x, inverse))
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+def _edge_windows(h, w, seed):
+    """(5, h, w) windows with the support cases the row skip meets: an
+    all-zero band, a band with every row, two single-row bands (one row of
+    one nonzero, one whole row) and a band on a random half of the rows."""
+    rng = np.random.default_rng(seed)
+    psi = rng.uniform(0.1, 1.0, size=(5, h, w)).astype(np.float32)
+    psi[0] = 0.0
+    psi[2] = 0.0
+    psi[2, h // 3, w // 2] = 0.8
+    psi[3, :h - 1] = 0.0
+    psi[4, rng.uniform(size=h) < 0.5] = 0.0
+    return psi
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spatial", [False, True],
+                         ids=["spectral", "spatial"])
+@pytest.mark.parametrize("op", ["soft", "hard"])
+@pytest.mark.parametrize("b,h,w,chunk", [(3, 128, 128, None),
+                                         (2, 96, 80, None),
+                                         (4, 64, 64, 1)],
+                         ids=["128", "96x80", "64-chunks-of-1"])
+def test_subband_kernels_on_edge_supports(device, b, h, w, chunk, op,
+                                          spatial, monkeypatch):
+    """Both subband kernels against plain on windows with an all-zero
+    band, a band with every row and single-row bands, within 1e-4 of max
+    (hard on ``gap_taus``); ``chunk`` cuts the scratch to one band's rows,
+    so the bands run in several chunks of the compact scratch."""
+    if chunk is not None:
+        monkeypatch.setattr(ksb, "SCRATCH_BYTES", chunk * b * h * w * 8)
+    psi_np = _edge_windows(h, w, h + w)
+    offsets, _ = ksb.row_support(psi_np)
+    assert list(np.diff(offsets)[:4]) == [0, h, 1, 1]
+    if chunk is not None:
+        assert len(ksb.band_chunks(offsets, b, h, w)) - 1 > 1
+    psi = torch.from_numpy(psi_np).to(device)
+    x, spec = _slices(b, h, w, device, 8)
+    if op == "hard":
+        tau = torch.from_numpy(gap_taus(_mags_on(spec, psi))).to(device)
+    else:
+        amax = _mags_on(spec, psi).max(axis=-1)
+        tau = torch.from_numpy((0.3 * amax).astype(np.float32)).to(device)
+    tau = tau.contiguous()
+    kernel, plain, arg = (
+        (ksb.subband_update_spatial, ksb.subband_update_spatial_plain, x)
+        if spatial else (ksb.subband_update, ksb.subband_update_plain, spec))
+    support = ksb.row_support_on(psi_np, device)
+    got = _host(kernel(arg, psi, tau, op, "high", support=support))
+    want = _host(plain(arg, psi, tau, op))
+    torch.cuda.synchronize()
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spatial", [False, True],
+                         ids=["spectral", "spatial"])
+@pytest.mark.parametrize("op", ["soft", "garrote"])
+def test_subband_kernels_at_batch_32_in_chunks(device, op, spatial):
+    """The main path's batch: 32 slices of 512², the shearlet plan's 48
+    full-size bands in more than one chunk of the compact scratch, against
+    plain within 1e-4 of max."""
+    plan = sh.shearlet_plan(512, 512)
+    full, full_idx, _ = sh._plan_kernel_pack(plan, 512, 512)
+    support = full.support_on(device)
+    assert len(ksb.band_chunks(support.offsets, 32, 512, 512)) - 1 > 1
+    x, spec = _slices(32, 512, 512, device, 9)
+    psi = full.psi_on(device)
+    tau = _taus(x, plan)[:, torch.from_numpy(full_idx).to(device)]
+    tau = tau.contiguous()
+    kernel, plain, arg = (
+        (ksb.subband_update_spatial, ksb.subband_update_spatial_plain, x)
+        if spatial else (ksb.subband_update, ksb.subband_update_plain, spec))
+    got = kernel(arg, psi, tau, op, "high", support=support)
+    want = plain(arg, psi, tau, op)
+    got = torch.complex(got.re, got.im)
+    want = torch.complex(want.re, want.im)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert float((got - want).abs().max()) <= SOFT_TOL * float(
+        want.abs().max())

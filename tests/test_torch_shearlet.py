@@ -154,7 +154,8 @@ def test_subband_plain_matches_jax_kernel(h, w, op):
         interpret=True, layout="natural")
     before = ksb.subband_update.launches
     got = ksb.subband_update(x, torch.from_numpy(full.psi),
-                             torch.from_numpy(tau), op, "high")
+                             torch.from_numpy(tau), op, "high",
+                             support=full.support_on("cpu"))
     assert ksb.subband_update.launches == before  # the CPU takes plain
     _close(got, want)
 
@@ -310,7 +311,8 @@ def test_shearlet_options_and_errors():
                                        "soft-percentile", "high", "high")
     full, _, _ = sh._plan_kernel_pack(plan, 32, 32)
     with pytest.raises(ValueError, match="tau must be"):
-        ksb.subband_update(z, full.psi_on("cpu"), torch.ones(2, 3))
+        ksb.subband_update(z, full.psi_on("cpu"), torch.ones(2, 3),
+                           support=full.support_on("cpu"))
     with pytest.raises(ValueError, match=r"\(B, H, W\)"):
         sh.pocs_subband_apply(Cplx(z.re[0], z.im[0]), plan,
                               torch.ones(13), "hard")

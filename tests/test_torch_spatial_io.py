@@ -94,7 +94,8 @@ def test_spatial_plain_matches_jax_kernel(basis, op):
         interpret=True, layout="permuted", spatial_io=True)
     before = ksb.subband_update_spatial.launches
     got = ksb.subband_update_spatial(z, torch.from_numpy(full.psi),
-                                     torch.from_numpy(tau), thresh, "high")
+                                     torch.from_numpy(tau), thresh, "high",
+                                     support=full.support_on("cpu"))
     assert ksb.subband_update_spatial.launches == before  # plain on the CPU
     if op == "tau0":
         np.testing.assert_allclose(got.re.numpy(), np.asarray(want.re),
@@ -170,26 +171,29 @@ def test_rectangles_and_small_batches_on_the_plain_route():
     full, _, _ = sh._plan_kernel_pack(plan, h, w)
     empty = Cplx(torch.empty(0, h, w), torch.empty(0, h, w))
     out = ksb.subband_update_spatial(empty, full.psi_on("cpu"),
-                                     torch.empty(0, full.psi.shape[0]))
+                                     torch.empty(0, full.psi.shape[0]),
+                                     support=full.support_on("cpu"))
     assert tuple(out.re.shape) == (0, h, w)
 
 
 def test_wrapper_checks():
     full, _, _ = sh._plan_kernel_pack(sh.shearlet_plan(32, 32), 32, 32)
     psi = full.psi_on("cpu")
+    sup = full.support_on("cpu")
     x = Cplx(torch.ones(2, 32, 32), torch.zeros(2, 32, 32))
     with pytest.raises(ValueError, match="tau must be"):
-        ksb.subband_update_spatial(x, psi, torch.ones(2, 3))
+        ksb.subband_update_spatial(x, psi, torch.ones(2, 3), support=sup)
     with pytest.raises(ValueError, match=r"x must be a \(B, H, W\) pair"):
         ksb.subband_update_spatial(Cplx(x.re[0], x.im[0]), psi,
-                                   torch.ones(2, psi.shape[0]))
+                                   torch.ones(2, psi.shape[0]), support=sup)
     with pytest.raises(ValueError, match="psi must be"):
-        ksb.subband_update_spatial(x, psi[:, :16], torch.ones(2, 3))
+        ksb.subband_update_spatial(x, psi[:, :16], torch.ones(2, 3),
+                                   support=sup)
     with pytest.raises(TypeError, match="float32"):
         ksb.subband_update_spatial(Cplx(x.re.double(), x.im.double()), psi,
-                                   torch.ones(2, psi.shape[0]))
+                                   torch.ones(2, psi.shape[0]), support=sup)
     with pytest.raises(NotImplementedError, match="'default'"):
         ksb.subband_update_spatial(x, psi, torch.ones(2, psi.shape[0]),
-                                   "hard", "default")
+                                   "hard", "default", support=sup)
     assert ksb.scratch_bytes(32, 512, 512, 48, spatial=True) == \
         ksb.scratch_bytes(32, 512, 512, 48) + 32 * 512 * 512 * 8
