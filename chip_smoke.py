@@ -15,7 +15,8 @@ Phases, each of which exits non-zero on failure:
       8, 10 iterations, regular and fast, soft and hard thresholds), one
       384x512 rectangle, and at the shapes the FFT main path gives it
       (batch 32 and the cube's last batch of 1, 50 iterations, hard/fast
-      at 'high'); times both at batch 32;
+      at 'high'); times both at batch 32, and each pass of the kernel there
+      (torch.profiler) with its bytes per second and flop rate;
    b. the subband kernels' line engine (``csrc/fft_lines.cuh``, through
       ``line_fft``) against ``torch.fft`` at every line length the plans
       use, 8 to 4096 in powers of two, 384 and an odd length, forward and
@@ -24,8 +25,8 @@ Phases, each of which exits non-zero on failure:
       on both box groups of the 512² plan (16- and 40-side boxes), soft and
       hard, on the thresholds of the SHEARLET main path's decay schedule;
       times both kernels and their plain versions at the main path's batch
-      of 32, and each pass of ``subband_update`` there (torch.profiler),
-      with its bytes per second and flop rate; prints ``bound_ms``, counted
+      of 32, and each pass of both there (torch.profiler), with its bytes
+      per second and flop rate; prints ``bound_ms``, counted
       on the rows the windows touch, with their row-support fraction and
       the dense count beside it;
    c. ``pocs_iteration`` (one FFT-basis iteration) at 512² (batch 8, soft
@@ -45,8 +46,8 @@ Phases, each of which exits non-zero on failure:
       of 9 bands, soft and hard, on the thresholds of their main paths'
       decay schedules; then times the spatial kernel and the 72-side box
       group and their plain versions at batch 32, and the passes of the
-      spatial kernel and of ``subband_update`` on the CURVELET plan as in
-      3b;
+      spatial kernel, of ``subband_update`` on the CURVELET plan and of the
+      72-side box group as in 3b;
 4. FFT main path: ``pipeline.pocs.interpolate`` with its production
    defaults on an in-memory 512x512 frequency cube of 513 slices (the
    north star's rfft slice count), stored (iline, xline, freq) as users
@@ -373,6 +374,8 @@ class SubbandCase:
         self.dev = dev
 
     def box_args(self, k, op):
+        """(the box's selection, the plain version's arguments, the
+        kernel's ``index``) of box group k."""
         from pseudo_3d_interpolation_torch.ops.cplx import Cplx
 
         l0, lg, g = self.boxes[k]
@@ -383,7 +386,7 @@ class SubbandCase:
                      g.psi_on(self.dev),
                      self.tau[:, l0:l0 + lg].contiguous(),
                      g.box_mats_on(self.h, self.w, self.dev), self.h, self.w,
-                     op)
+                     op), g.box_index_on(self.h, self.w, self.dev)
 
     def iterate_snr(self, acc, box_sums) -> float:
         """SNR against the truth of the POCS iterate whose spectral
@@ -434,7 +437,7 @@ def subband_kernels_against_plain(torch, ksb, case, ops, with_boxes,
                                        support=c.support)
         box_plain = []
         for k in range(len(c.boxes)):
-            sel, args = c.box_args(k, op)
+            sel, args, _ = c.box_args(k, op)
             m = ksb.box_group_update_plain(*args)
             box_plain.append((sel, cplx(m.re, m.im)))
         want_a, got_a = cplx(want_a.re, want_a.im), cplx(got_a.re, got_a.im)
@@ -448,8 +451,8 @@ def subband_kernels_against_plain(torch, ksb, case, ops, with_boxes,
         if not with_boxes:
             continue
         for k in range(len(c.boxes)):
-            sel, args = c.box_args(k, op)
-            got_b = ksb.box_group_update(*args, "high")
+            sel, args, index = c.box_args(k, op)
+            got_b = ksb.box_group_update(*args, "high", index=index)
             got_b = cplx(got_b.re, got_b.im)
             want_b = box_plain[k][1]
             with_k = [(s, got_b if j == k else m)
@@ -464,12 +467,12 @@ def subband_kernels_against_plain(torch, ksb, case, ops, with_boxes,
 
 
 def time_box(torch, ksb, case, k):
-    """Time box group k of a SubbandCase at its batch, kernel and plain;
-    returns (kernel ms, plain ms, bound)."""
+    """Time box group k of a SubbandCase at its batch, kernel and plain,
+    and each pass of the kernel; returns (kernel ms, plain ms, bound)."""
     _, lg, g = case.boxes[k]
-    _, bargs = case.box_args(k, "hard")
+    _, bargs, index = case.box_args(k, "hard")
     t_k, t_p, four = time_pair(
-        torch, lambda: ksb.box_group_update(*bargs, "high"),
+        torch, lambda: ksb.box_group_update(*bargs, "high", index=index),
         lambda: ksb.box_group_update_plain(*bargs), 5)
     side = len(g.idx_h)
     # a pruned FFT: the field from the box's `side` nonzero columns, then
@@ -482,6 +485,18 @@ def time_box(torch, ksb, case, k):
           f"{case.h}x{case.w}: kernel {four[0]:.3f} / {four[1]:.3f} ms, "
           f"plain (torch.matmul) {four[2]:.3f} / {four[3]:.3f} ms, bound "
           f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    # the passes: (1) the box columns into field columns, (2) every field
+    # row both ways, (3) the field columns back to the box, band-summed
+    b, nh, nw = case.b, case.h, case.w
+    field = b * lg * side * nh * 8  # the scratch G, bytes
+    col_flops = b * lg * side * 5.0 * nh * math.log2(nh)
+    print_passes(f"box_group_update {b}x{side}x{side}", kernel_passes(
+        torch, lambda: ksb.box_group_update(*bargs, "high", index=index),
+        BOX_PASSES), {
+        "box_cols_inverse_kernel": (b * side * side * 8 + field, col_flops),
+        "box_rows_kernel": (2 * field, 2 * b * lg * nh * 5.0 * nw
+                            * math.log2(nw)),
+        "box_cols_forward_kernel": (field + b * side * side * 8, col_flops)})
     return t_k, t_p, bnd
 
 
@@ -517,10 +532,50 @@ def line_engine_against_plain(torch, ksb, Cplx, dev) -> float:
     return worst
 
 
-# a pass of the subband kernels by its kernel's name in the trace
+# a pass of each line-FFT kernel by its kernel's name in the trace
 PASS_NAMES = ("rows_inverse_kernel", "cols_shrink_kernel",
               "rows_forward_acc_kernel", "cols_fft_kernel",
               "rows_fft_kernel")
+BOX_PASSES = ("box_cols_inverse_kernel", "box_rows_kernel",
+              "box_cols_forward_kernel")
+SOLVE_PASSES = ("solve_rows_forward_kernel", "solve_cols_shrink_kernel",
+                "solve_rows_inverse_kernel", "state_kernel", "init_kernel")
+
+
+def kernel_passes(torch, run, names, reps: int = 3) -> dict:
+    """ms per call of each pass (device kernel, by a name in ``names``
+    that its trace name contains, the longest such name) of ``reps``
+    calls of ``run`` under torch.profiler, after one untimed call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    times = dict.fromkeys(names, 0.0)
+    with tempfile.TemporaryDirectory() as tmp:
+        events = device_events(prof, pathlib.Path(tmp) / "passes.json")
+    for e in events:
+        hits = [n for n in names if n in e["name"]]
+        if hits:
+            times[max(hits, key=len)] += e["dur"] / 1e3 / reps
+    return times
+
+
+def print_passes(label, times: dict, work: dict) -> dict:
+    """Print each pass of ``work`` ({pass: (bytes, flops)} per call) with
+    its ms per call, bytes per second and flop rate; fails when the trace
+    holds no such pass. Returns {pass: ms per call}."""
+    print(f"{label} per pass, per call:", flush=True)
+    for name, (nbytes, flops) in work.items():
+        ms = times[name]
+        if ms <= 0:
+            fail(f"{label}: the trace holds no {name}")
+        print(f"  {name:26s} {ms:8.3f} ms  {nbytes / ms / 1e9:7.3f} TB/s  "
+              f"{flops / ms / 1e9:7.2f} TFLOP/s", flush=True)
+    return {k: times[k] for k in work}
 
 
 def pass_work(case, spatial: bool) -> dict:
@@ -552,12 +607,9 @@ def pass_work(case, spatial: bool) -> dict:
     return work
 
 
-def subband_passes(torch, ksb, case, spatial: bool, reps: int = 3) -> dict:
-    """Time each pass of ``reps`` subband calls on a SubbandCase under
-    torch.profiler; print per call each pass's time, bytes per second and
-    flop rate (pass_work's counts); returns {pass: ms per call}."""
-    from torch.profiler import ProfilerActivity, profile
-
+def subband_passes(torch, ksb, case, spatial: bool) -> dict:
+    """Time and print each pass of a subband call on a SubbandCase
+    (pass_work's counts); returns {pass: ms per call}."""
     if spatial:
         def run():
             ksb.subband_update_spatial(case.x, case.psi, case.tau_full,
@@ -566,30 +618,33 @@ def subband_passes(torch, ksb, case, spatial: bool, reps: int = 3) -> dict:
         def run():
             ksb.subband_update(case.spec, case.psi, case.tau_full, "hard",
                                "high", support=case.support)
-    run()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            run()
-        torch.cuda.synchronize()
-    times = dict.fromkeys(PASS_NAMES, 0.0)
-    with tempfile.TemporaryDirectory() as tmp:
-        events = device_events(prof, pathlib.Path(tmp) / "passes.json")
-    for e in events:
-        for name in PASS_NAMES:
-            if name in e["name"]:
-                times[name] += e["dur"] / 1e3 / reps
-    work = pass_work(case, spatial)
     label = ("subband_update_spatial" if spatial else "subband_update")
-    print(f"{label} {case.b}x{case.h}x{case.w} ({case.psi.shape[0]} bands,"
-          f" {len(case.chunks) - 1} chunks) per pass, per call:", flush=True)
-    for name, (nbytes, flops) in work.items():
-        ms = times[name]
-        if ms <= 0:
-            fail(f"{label}: the trace holds no {name}")
-        print(f"  {name:24s} {ms:8.3f} ms  {nbytes / ms / 1e9:7.3f} TB/s  "
-              f"{flops / ms / 1e9:7.2f} TFLOP/s", flush=True)
-    return {k: times[k] for k in work}
+    return print_passes(
+        f"{label} {case.b}x{case.h}x{case.w} ({case.psi.shape[0]} bands, "
+        f"{len(case.chunks) - 1} chunks)",
+        kernel_passes(torch, run, PASS_NAMES), pass_work(case, spatial))
+
+
+def solve_passes(torch, ks, z, mask, tau) -> dict:
+    """Time and print each pass of one FFT-basis pocs_solve call at
+    (B, H, W) with ``tau``'s iterations: per iteration (a) reads y and
+    writes t with one W-line FFT a row, (b) reads and writes t with two
+    H-line FFTs a column, (c) reads t, obs and x (the mask once) and
+    writes y with one W-line FFT a row, the state kernel reads y and x
+    and writes both."""
+    b, h, w = z.re.shape
+    niter = tau.shape[0]
+    px = niter * b * h * w
+    rows = px * 5.0 * math.log2(w)
+    return print_passes(
+        f"pocs_solve[fft] {b}x{h}x{w}, {niter} iterations",
+        kernel_passes(torch, lambda: ks.pocs_solve(
+            z, mask, tau, ALPHA, "hard", "fast", "high"), SOLVE_PASSES, 2),
+        {"solve_rows_forward_kernel": (16 * px, rows),
+         "solve_cols_shrink_kernel": (16 * px, 2 * px * 5.0 * math.log2(h)),
+         "solve_rows_inverse_kernel": (32 * px + 4 * h * w, rows),
+         "state_kernel": (32 * px, 0.0),
+         "init_kernel": (24 * b * h * w, 0.0)})
 
 
 def subband_bound(label, case, spatial: bool) -> tuple[float, str]:
@@ -863,11 +918,10 @@ def main():
         torch, lambda: ks.pocs_solve(z, mask, tau, ALPHA, "hard", "fast",
                                      "high"),
         lambda: ks.pocs_solve_plain(z, mask, tau, ALPHA, "hard", "fast"), 2)
-    dense_tflop = 16 * N * N * (N + N) * NITER * MAIN_BATCH / 1e12
     print(f"pocs_solve {MAIN_BATCH}x{N}x{N}, {NITER} iterations: kernel "
-          f"{four[0]:.2f} / {four[1]:.2f} ms ({dense_tflop / solve_ms * 1e3:.2f}"
-          f" TFLOP/s dense fp32), plain (torch.fft) {four[2]:.2f} / "
-          f"{four[3]:.2f} ms", flush=True)
+          f"{four[0]:.2f} / {four[1]:.2f} ms, plain (torch.fft) "
+          f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
+    solve_passes(torch, ks, z, mask, tau)
     # the compulsory bytes of a solve: the observed pair in, the result
     # pair out, the mask, the thresholds, the costs
     solve_bytes = (MAIN_BATCH * N * N * 16 + N * N * 4

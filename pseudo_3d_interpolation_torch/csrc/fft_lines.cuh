@@ -1,5 +1,6 @@
 // Line FFTs for Hopper with each line's elements in registers: the engine of
-// the subband kernels (subband.cu).
+// the subband and box kernels (subband.cu) and of the FFT-basis solve
+// (pocs_solve.cu), with the line kernels' block geometry they share.
 //
 // A line of length n belongs to a group of t threads, which synchronises
 // only itself (a warp's lanes, or a named barrier of whole warps), so a
@@ -233,6 +234,89 @@ __device__ __forceinline__ void line_fft(float2 (&v)[8], float2* buf,
     fft_stage<4, INV>(v, j, t, logn, lns, tw);
   else
     fft_stage<2, INV>(v, j, t, logn, lns, tw);
+}
+
+// ---------------------------------------------------------------------------
+// The line kernels' blocks: a row kernel gives each row of a slice to one
+// group; a column kernel loads a tile of columns into shared memory (each
+// row of the tile one coalesced segment) and gives each column to a group.
+
+constexpr int LINE_NT_MAX = 512;  // a line kernel's block: one 4096 line
+constexpr int COL_TILE = 16;      // columns of a column block: 128-byte rows
+constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
+constexpr int ERR_SMEM = -2;      // the shape needs more shared memory
+constexpr int ERR_SHAPE = -3;     // a side is longer than MAX_LINE
+
+inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+
+// The twiddle table of the block's lines into shared memory; every thread
+// of the block calls it.
+__device__ __forceinline__ void load_twiddles(float2* tw, const float2* src,
+                                              int n) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) tw[e] = src[e];
+  __syncthreads();
+}
+
+// A column block's walk over its tile: thread c + cols·i (i < step) takes
+// column c of rows i, i + step, ...; neighbouring threads read neighbouring
+// columns of a row (one 128-byte segment for 16 complex columns). `in`: the
+// column lies inside the slice (the last block may hold fewer than cols).
+struct TileWalk {
+  int c, r0, step;
+  bool active, in;
+  __device__ __forceinline__ TileWalk(int cols, int nc) {
+    step = blockDim.x / cols;
+    r0 = threadIdx.x / cols;
+    c = threadIdx.x - r0 * cols;
+    active = r0 < step;
+    in = c < nc;
+  }
+};
+
+// Lets `kernel` use `bytes` of dynamic shared memory; ERR_SMEM when a
+// block cannot have that much.
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  if (bytes > (size_t)MAX_SMEM) return ERR_SMEM;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// The line blocks for an h × w slice: the lines along H and W, the threads
+// of the column and row blocks, the columns of a column block, and the
+// shared memory of the row and column kernels.
+struct Lines {
+  LineShape lh, lw;
+  int nt_h, nt_w, cols;
+  size_t smem_rows, smem_cols;
+  int rows_per_block() const { return nt_w / lw.t; }
+};
+
+// 0, ERR_SHAPE for a side out of [1, MAX_LINE], or ERR_SMEM. A row block
+// has `row_threads` threads (at least one group); a column block also
+// holds a table of `col_ints` ints.
+inline int lines_for(int h, int w, int row_threads, int col_ints, Lines* s) {
+  if (h < 1 || w < 1 || h > MAX_LINE || w > MAX_LINE) return ERR_SHAPE;
+  s->lh = line_shape(h);
+  s->lw = line_shape(w);
+  s->nt_w = s->lw.t > row_threads ? s->lw.t : row_threads;
+  const size_t c8 = sizeof(float2);
+  s->smem_rows = c8 * (w + (size_t)s->rows_per_block() * line_buf(w));
+  // a column block: one group per column of its tile, up to LINE_NT_MAX
+  // threads (whole warps), its columns' tile and the groups' buffers
+  const int t = s->lh.t;
+  const size_t col = c8 * (h + 1);
+  int cols = COL_TILE < w ? COL_TILE : w;
+  for (;; --cols) {
+    int nt = cols * t < LINE_NT_MAX ? cols * t : LINE_NT_MAX;
+    nt = nt > t ? nt : t;
+    s->nt_h = (nt + 31) / 32 * 32;
+    s->smem_cols = c8 * (h + (size_t)(s->nt_h / t) * line_buf(h)) +
+                   cols * col + sizeof(int) * (size_t)col_ints;
+    if (cols == 1 || s->smem_cols <= (size_t)MAX_SMEM) break;
+  }
+  s->cols = cols;
+  return s->smem_cols > (size_t)MAX_SMEM ? ERR_SMEM : 0;
 }
 
 }  // namespace

@@ -6,7 +6,7 @@
 // Replaces pseudo_3d_interpolation_tpu/ops/pallas/pocs_iter.py ::
 // pocs_solve_fused (body _solve_kernel, bases 'fft', 'dct' and 'wavelet')
 // and pocs_iteration_fused (body _kernel). Per iteration j and slice b of
-// a solve, with the basis' dense transform matrices:
+// a solve, with the basis' transform T:
 //
 //   X   = T(y)                                  forward transform
 //   X^  = X · shrink(|X|², tau)                 hard / soft / garrote
@@ -15,8 +15,8 @@
 //   FPOCS: restart on cost increase, Nesterov extrapolation
 //   y' = new + f·(new − x_prev')
 //
-//   FFT:     T(y) = F_H @ y @ F_W, T⁻¹ = conj(F_H) @ · @ conj(F_W),
-//            scale 1/(H·W); tau[j, b]
+//   FFT:     T(y) = F_H @ y @ F_W (fft2), T⁻¹ = conj(F_H) @ · @ conj(F_W)
+//            (the unscaled ifft2), scale 1/(H·W); tau[j, b]
 //   DCT:     T(y) = C_H @ y @ C_Wᵀ, T⁻¹ = C_Hᵀ @ · @ C_W, scale 1 (the
 //            orthonormal DCT-II is real: re and im transform alone);
 //            tau[j, b]
@@ -29,33 +29,53 @@
 //            columns), cV (low rows, high columns), cD (both high); the
 //            approximation block keeps everything.
 //
-// The single iteration (pocs_iteration_fused) is the FFT chain once, from
-// a given iterate x to the reinserted result, with tau[b] and no cost.
+// The single iteration (pocs_iteration_fused) is the FFT chain of DFT
+// GEMMs once, from a given iterate x to the reinserted result, with tau[b]
+// and no cost.
 //
 // Design. The TPU kernels keep one whole slice in VMEM; a 512² complex
 // slice is 2 MB and a block here has at most 227 KB of shared memory, so a
-// solve is a chain of launches over the whole batch instead: batched
-// complex GEMMs and one per-slice state kernel per iteration, all on the
+// solve is a chain of launches over the whole batch instead, one iteration
+// after another, with one per-slice state kernel per iteration, all on the
 // caller's stream, with no host synchronisation inside the solve (the
 // restart decision is taken on the device).
 //
-// What bounds them: the dense transform products, in full fp32 FMA on the
-// CUDA cores (67 TFLOP/s peak on an H100 SXM). The FFT products are
-// complex × complex, 16·H·W·(H+W) real flops per slice-iteration; the DCT
-// and wavelet matrices are real, so their products take a real operand
-// and do two FMAs per complex output element and depth step, not four:
-// 8·H·W·(H+W) for the DCT, 16·n³·Σ_lv 8^-lv for the wavelet cascade. Each
-// GEMM tile is 64×64 complex outputs per 256-thread block, 4×4 complex
-// accumulators in registers per thread, 16-deep K tiles staged in shared
-// memory; row strides let a product work on the top-left block of a plane.
-// The FFT and DCT thresholds live in the forward right-product's epilogue;
-// the wavelet's in one elementwise pass over the finished coefficient
-// plane (its bands are finished level by level). Scale, reinsertion and
-// the cost's partial sums live in the last inverse product's epilogue, so
-// the unscaled inverse never makes an extra pass through device memory.
-// The partial sums are per block, reduced in a fixed order: the result
-// does not depend on scheduling. A radix split or an FFT, a fast DCT or
-// the filter cascade as convolutions, and tensor cores (3xTF32 / bf16x3
+// The FFT solve runs each iteration as three line passes on the
+// fft_lines.cuh engine (each line in the registers of its own group of
+// threads, twiddles from a float64-built table), through one (B, H, W)
+// complex scratch t:
+//   (a) per (b, block of rows): FFT along W of each row of y into t;
+//   (b) per (b, tile of 16 columns): the columns of t into shared memory
+//       (128-byte row segments); per column FFT along H, shrink with
+//       tau[j, b], inverse FFT along H; back into t;
+//   (c) per (b, block of rows): inverse FFT along W of each row of t,
+//       scale by 1/(H·W), reinsertion new = v·scale·(1 − α·mask) + α·obs
+//       into y, and the block's Σ|new| and Σ(|new| − |x|) in a fixed order.
+// What bounds it: memory. An iteration moves about 100 bytes per (slice,
+// pixel) through device memory (y read, t written, read and written,
+// read, obs and x read, y written, and the state kernel's x and y), about
+// 26 MB per 512² slice, against 5·H·W·log2(H·W) flops each way; the
+// column pass's transforms run at the engine's throughput.
+//
+// The DCT and WAVELET solves, and the single FFT-basis iteration, run
+// batched complex GEMMs with the basis' dense matrices instead. They are
+// bound by those products, in full fp32 FMA on the CUDA cores (67 TFLOP/s
+// peak on an H100 SXM): the DFT products are complex × complex,
+// 16·H·W·(H+W) real flops per slice-iteration; the DCT and wavelet
+// matrices are real, so their products take a real operand and do two
+// FMAs per complex output element and depth step, not four: 8·H·W·(H+W)
+// for the DCT, 16·n³·Σ_lv 8^-lv for the wavelet cascade. Each GEMM tile is
+// 64×64 complex outputs per 256-thread block, 4×4 complex accumulators in
+// registers per thread, 16-deep K tiles staged in shared memory; row
+// strides let a product work on the top-left block of a plane. The
+// iteration's and the DCT's thresholds live in the forward right-product's
+// epilogue; the wavelet's in one elementwise pass over the finished
+// coefficient plane (its bands are finished level by level). Scale,
+// reinsertion and the cost's partial sums live in the last inverse
+// product's epilogue, so the unscaled inverse never makes an extra pass
+// through device memory. The partial sums are per block, reduced in a
+// fixed order: the result does not depend on scheduling. A fast DCT, the
+// filter cascade as convolutions, and tensor cores (3xTF32 / bf16x3
 // wgmma), are later work.
 
 #include <cuda_runtime.h>
@@ -63,6 +83,7 @@
 #include <math.h>
 #include <stddef.h>
 
+#include "fft_lines.cuh"
 #include "shrink.cuh"
 
 namespace {
@@ -374,9 +395,173 @@ wavelet_shrink_kernel(float* sr, float* si, const float* __restrict__ tau,
   }
 }
 
-inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
+// FFT solve, pass (a): t[b, r] = FFT along W of row r of y_b, one group per
+// row. grid (row blocks, batch).
+__global__ void __launch_bounds__(LINE_NT_MAX)
+solve_rows_forward_kernel(const float* __restrict__ yr,
+                          const float* __restrict__ yi,
+                          float2* __restrict__ t,
+                          const float2* __restrict__ tw_w, LineShape L,
+                          int h) {
+  extern __shared__ float2 smem[];
+  const int w = L.n;
+  const Group g = make_group(L.t);
+  float2* tw = smem;
+  float2* buf = tw + w + g.index * line_buf(w);
+  load_twiddles(tw, tw_w, w);
+  const int r = blockIdx.x * g.count + g.index;
+  if (r >= h) return;
+  const long long o = ((long long)blockIdx.y * h + r) * w;
+  float2 v[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    v[s] = e < w ? make_float2(yr[o + e], yi[o + e]) : make_float2(0.0f, 0.0f);
+  }
+  line_fft<false>(v, buf, tw, L, g);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    if (e < w) t[o + e] = v[s];
+  }
+}
 
+// FFT solve, pass (b): per column of t_b, FFT along H, shrink with tau[b],
+// inverse FFT along H (unscaled), in place through a shared-memory tile of
+// columns. grid (column blocks, batch).
+__global__ void __launch_bounds__(LINE_NT_MAX, 2)
+solve_cols_shrink_kernel(float2* __restrict__ t,
+                         const float* __restrict__ tau,  // (B,)
+                         const float2* __restrict__ tw_h, LineShape L, int w,
+                         int cols, int op) {
+  extern __shared__ float2 smem[];
+  const int h = L.n;
+  const int ls = h + 1;  // padded column stride: the transposing stores of
+                         // a row's 16 columns land in 16 banks
+  const Group g = make_group(L.t);
+  float2* tw = smem;
+  float2* tile = tw + h;  // column c at tile[c·ls]
+  float2* buf = tile + cols * ls + g.index * line_buf(h);
+  const int b = blockIdx.y;
+  const int c0 = blockIdx.x * cols;
+  const int nc = min(cols, w - c0);
+  float2* s = t + (long long)b * h * w + c0;
+  const TileWalk tl(cols, nc);
+  if (tl.active) {
+#pragma unroll 4
+    for (int r = tl.r0; r < h; r += tl.step)
+      tile[tl.c * ls + r] = tl.in ? s[(long long)r * w + tl.c]
+                                  : make_float2(0.0f, 0.0f);
+  }
+  load_twiddles(tw, tw_h, h);
+  const float thr = tau[b];
+  for (int c = g.index; c < nc; c += g.count) {
+    float2* col = tile + c * ls;
+    float2 v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = g.j + q * g.t;
+      v[q] = e < h ? col[e] : make_float2(0.0f, 0.0f);
+    }
+    line_fft<false>(v, buf, tw, L, g);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const float f = shrink_factor(v[q].x * v[q].x + v[q].y * v[q].y, thr,
+                                    op);
+      v[q] = make_float2(v[q].x * f, v[q].y * f);
+    }
+    line_fft<true>(v, buf, tw, L, g);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = g.j + q * g.t;
+      if (e < h) col[e] = v[q];
+    }
+  }
+  __syncthreads();
+  if (tl.active && tl.in) {
+#pragma unroll 4
+    for (int r = tl.r0; r < h; r += tl.step)
+      s[(long long)r * w + tl.c] = tile[tl.c * ls + r];
+  }
+}
+
+// FFT solve, pass (c): per row r of slice b, inverse FFT along W of t,
+// then y = v·scale·(1 − α·mask) + α·obs, and the block's Σ|new| and
+// Σ(|new| − |x|) into ri.psum / ri.pdiff[b, blockIdx.x], summed in a fixed
+// order (warp shuffles, then the warps in order). One group per row. grid
+// (row blocks, batch); blockDim.x is LINE_NT_MAX.
+__global__ void __launch_bounds__(LINE_NT_MAX)
+solve_rows_inverse_kernel(const float2* __restrict__ t,
+                          const float2* __restrict__ tw_w, ReinsertArgs ri,
+                          float* __restrict__ yr, float* __restrict__ yi,
+                          LineShape L, int h) {
+  extern __shared__ float2 smem[];
+  __shared__ float red_s[LINE_NT_MAX / 32];
+  __shared__ float red_d[LINE_NT_MAX / 32];
+  const int w = L.n;
+  const Group g = make_group(L.t);
+  float2* tw = smem;
+  float2* buf = tw + w + g.index * line_buf(w);
+  load_twiddles(tw, tw_w, w);
+  const int r = blockIdx.x * g.count + g.index;
+  const int b = blockIdx.y;
+  float local_s = 0.0f, local_d = 0.0f;
+  if (r < h) {  // every thread goes on to the block's sum
+    const long long m0 = (long long)r * w;
+    const long long o = (long long)b * h * w + m0;
+    float2 v[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int e = g.j + s * g.t;
+      v[s] = e < w ? t[o + e] : make_float2(0.0f, 0.0f);
+    }
+    line_fft<true>(v, buf, tw, L, g);
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int e = g.j + s * g.t;
+      if (e < w) {
+        const float keep = 1.0f - ri.alpha * ri.mask[m0 + e];
+        const float vr = v[s].x * ri.scale * keep + ri.alpha * ri.obr[o + e];
+        const float vi = v[s].y * ri.scale * keep + ri.alpha * ri.obi[o + e];
+        const float xr = ri.xr[o + e], xi = ri.xi[o + e];
+        const float mag_new = sqrtf(vr * vr + vi * vi);
+        local_s += mag_new;
+        local_d += mag_new - sqrtf(xr * xr + xi * xi);
+        yr[o + e] = vr;
+        yi[o + e] = vi;
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    local_s += __shfl_down_sync(0xffffffffu, local_s, off);
+    local_d += __shfl_down_sync(0xffffffffu, local_d, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    red_s[threadIdx.x >> 5] = local_s;
+    red_d[threadIdx.x >> 5] = local_d;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f, d = 0.0f;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
+      s += red_s[i];
+      d += red_d[i];
+    }
+    ri.psum[(long long)b * gridDim.x + blockIdx.x] = s;
+    ri.pdiff[(long long)b * gridDim.x + blockIdx.x] = d;
+  }
+}
+
+// GEMM tiles of an h × w plane: the DCT and WAVELET solves' partial sums
 inline int blocks_per_slice(int h, int w) { return ceil_div(w, BN) * ceil_div(h, BM); }
+
+// Row blocks of the FFT solve's pass (c): its partial sums per slice
+inline int row_blocks(int h, int w) {
+  const LineShape lw = line_shape(w);
+  const int threads = lw.t > LINE_NT_MAX ? lw.t : LINE_NT_MAX;
+  return ceil_div(h, threads / lw.t);
+}
 
 inline int plane_chunks(long long plane) {
   const int c = ceil_div(plane, (long long)STATE_THREADS * 8);
@@ -433,37 +618,49 @@ cudaError_t fft_chain(const float* in_re, const float* in_im, Planes t,
   return launch_gemm<REINSERT, CPLX>(inv_right, kNoShrink, ri, batch, stream);
 }
 
-// Solve workspace, carved from the caller's float buffer.
+// Solve workspace, carved from the caller's float buffer: `planes` plane
+// pairs (y, t and, for the GEMM chains, s), then the partial sums.
 struct Work {
   Planes y, t, s;
   float* psum; float* pdiff; float* v; float* cprev;
 };
 
-Work carve(float* work, int batch, long long plane, int nblk) {
+Work carve(float* work, int batch, long long plane, int nblk, int planes) {
   const long long total = plane * batch;
   Work k;
   k.y = {work, work + total};
   k.t = {work + 2 * total, work + 3 * total};
-  k.s = {work + 4 * total, work + 5 * total};
-  k.psum = work + 6 * total;
+  k.s = planes > 2 ? Planes{work + 4 * total, work + 5 * total}
+                   : Planes{nullptr, nullptr};
+  k.psum = work + 2 * planes * total;
   k.pdiff = k.psum + (long long)batch * nblk;
   k.v = k.pdiff + (long long)batch * nblk;   // [2][batch]
   k.cprev = k.v + 2 * batch;                 // [2][batch]
   return k;
 }
 
+// The FFT solve's plane pairs and partial sums per slice, and the GEMM
+// chains'
+constexpr int FFT_PLANES = 2;
+constexpr int GEMM_PLANES = 3;
+
+size_t work_floats(int batch, int h, int w, int planes, int nblk) {
+  return 2 * (size_t)planes * batch * h * w + 2 * (size_t)batch * nblk +
+         4 * (size_t)batch;
+}
+
 // The FPOCS loop around a basis' chain. chain(j, work, reinsert) enqueues
 // iteration j's forward transform of y, threshold, and inverse with the
-// reinsertion and cost epilogue back into y.
+// reinsertion and cost sums (nblk per slice) back into y.
 template <class Chain>
 int run_solve(const float* obs_re, const float* obs_im, const float* mask,
               float* out_re, float* out_im, float* cost, float* work,
               int batch, int h, int w, int niter, float alpha, float scale,
-              int fast, cudaStream_t stream, Chain chain) {
+              int fast, int nblk, int planes, cudaStream_t stream,
+              Chain chain) {
   const long long plane = (long long)h * w;
   const long long total = plane * batch;
-  const int nblk = blocks_per_slice(h, w);
-  const Work k = carve(work, batch, plane, nblk);
+  const Work k = carve(work, batch, plane, nblk, planes);
 
   const int ew_blocks = ceil_div(total, STATE_THREADS) < 4096
                             ? ceil_div(total, STATE_THREADS) : 4096;
@@ -490,34 +687,57 @@ int run_solve(const float* obs_re, const float* obs_im, const float* mask,
 
 extern "C" {
 
-// Floats of scratch every solve needs: y, t, s planes (pairs), the
-// per-block partial sums, and the double-buffered v / cost_prev.
-size_t p3d_pocs_solve_work_floats(int batch, int h, int w) {
-  const size_t plane = (size_t)h * w;
-  return 6 * (size_t)batch * plane
-         + 2 * (size_t)batch * blocks_per_slice(h, w)
-         + 4 * (size_t)batch;
+// Floats of scratch a solve needs: its plane pairs (the FFT solve's y and
+// t; the GEMM chains' y, t and s), the per-block partial sums of its cost
+// (pass (c)'s row blocks; the GEMM tiles), and the double-buffered v /
+// cost_prev. `fft` selects the FFT solve.
+size_t p3d_pocs_solve_work_floats(int batch, int h, int w, int fft) {
+  return fft ? work_floats(batch, h, w, FFT_PLANES, row_blocks(h, w))
+             : work_floats(batch, h, w, GEMM_PLANES, blocks_per_slice(h, w));
 }
 
-// FFT basis. Returns 0 or the first CUDA error met while enqueuing.
-// Nothing is synchronised; every launch goes to `stream`.
+// FFT basis, for h and w up to MAX_LINE: three line passes an iteration
+// (the file's header). Returns 0, ERR_SHAPE, ERR_SMEM or the first CUDA
+// error met while enqueuing. tw_h and tw_w are the (n, 2) twiddle tables
+// exp(-2πi m/n). Nothing is synchronised; every launch goes to `stream`.
 int p3d_pocs_solve(const float* obs_re, const float* obs_im, const float* mask,
                    const float* decay,  // (niter, batch)
-                   const float* fh_re, const float* fh_im,  // (h, h)
-                   const float* fw_re, const float* fw_im,  // (w, w)
+                   const float* tw_h, const float* tw_w,
                    float* out_re, float* out_im, float* cost, float* work,
                    int batch, int h, int w, int niter, float alpha, int op,
                    int fast, void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  Lines s;
+  int err;
+  if ((err = lines_for(h, w, LINE_NT_MAX, 0, &s)) != 0) return err;
+  if ((err = allow_smem(solve_rows_forward_kernel, s.smem_rows)) != 0)
+    return err;
+  if ((err = allow_smem(solve_cols_shrink_kernel, s.smem_cols)) != 0)
+    return err;
+  if ((err = allow_smem(solve_rows_inverse_kernel, s.smem_rows)) != 0)
+    return err;
+  const float2* twh = reinterpret_cast<const float2*>(tw_h);
+  const float2* tww = reinterpret_cast<const float2*>(tw_w);
+  const int nblk = row_blocks(h, w);
+  const dim3 row_grid(nblk, batch);
+  const dim3 col_grid(ceil_div(w, s.cols), batch);
   const float scale = 1.0f / (float)((double)h * (double)w);
   return run_solve(
       obs_re, obs_im, mask, out_re, out_im, cost, work, batch, h, w, niter,
-      alpha, scale, fast, stream,
+      alpha, scale, fast, nblk, FFT_PLANES, stream,
       [=](int j, const Work& k, const ReinsertArgs& ri) {
-        const ShrinkArgs shrink{decay + (long long)j * batch, op};
-        return fft_chain<EPI_REINSERT>(k.y.re, k.y.im, k.t, k.s, k.y.re,
-                                       k.y.im, fh_re, fh_im, fw_re, fw_im,
-                                       shrink, ri, batch, h, w, stream);
+        // t's (re, im) planes hold one (B, H, W) complex array
+        float2* t = reinterpret_cast<float2*>(k.t.re);
+        solve_rows_forward_kernel<<<row_grid, s.nt_w, s.smem_rows, stream>>>(
+            k.y.re, k.y.im, t, tww, s.lw, h);
+        cudaError_t e = cudaGetLastError();
+        if (e != cudaSuccess) return e;
+        solve_cols_shrink_kernel<<<col_grid, s.nt_h, s.smem_cols, stream>>>(
+            t, decay + (long long)j * batch, twh, s.lh, w, s.cols, op);
+        if ((e = cudaGetLastError()) != cudaSuccess) return e;
+        solve_rows_inverse_kernel<<<row_grid, s.nt_w, s.smem_rows, stream>>>(
+            t, tww, ri, k.y.re, k.y.im, s.lw, h);
+        return cudaGetLastError();
       });
 }
 
@@ -533,7 +753,7 @@ int p3d_pocs_solve_dct(const float* obs_re, const float* obs_im,
   const long long plane = (long long)h * w;
   return run_solve(
       obs_re, obs_im, mask, out_re, out_im, cost, work, batch, h, w, niter,
-      alpha, 1.0f, fast, stream,
+      alpha, 1.0f, fast, blocks_per_slice(h, w), GEMM_PLANES, stream,
       [=](int j, const Work& k, const ReinsertArgs& ri) {
         cudaError_t err;
         // forward: t = C_H @ y, then s = shrink(t @ C_Wᵀ)
@@ -588,7 +808,7 @@ int p3d_pocs_solve_wavelet(const float* obs_re, const float* obs_im,
   const dim3 shrink_grid(plane_chunks(plane), batch);
   return run_solve(
       obs_re, obs_im, mask, out_re, out_im, cost, work, batch, n, n, niter,
-      alpha, 1.0f, fast, stream,
+      alpha, 1.0f, fast, blocks_per_slice(n, n), GEMM_PLANES, stream,
       [=](int j, const Work& k, const ReinsertArgs& ri) {
         cudaError_t err;
         // forward, finest level first: t = A @ block, block = t @ Aᵀ; level

@@ -67,20 +67,38 @@
 //
 // Kernel B, p3d_box_group_update, replaces subband.py ::
 // box_group_update_fused (body _box_kernel). For one support-cropped group
-// with box spectrum xb_b (sr × sc), windows psi_l (sr × sc) and the partial
-// DFT rows A_h = F[idx_h] (sr × N_h), A_w = F[idx_w] (sc × N_w):
+// with box spectrum xb_b (sr × sc), windows psi_l (sr × sc) and the box's
+// fft-layout indices idx_h (sr) and idx_w (sc) into the N_h × N_w grid,
+// with A_h = F[idx_h] and A_w = F[idx_w] the partial DFT rows:
 //
 //   c   = A_hᴴ (xb·psi_l) conj(A_w) / (N_h·N_w)     full N_h × N_w field
 //   M_b = Σ_l psi_l · (A_h shrink(c, tau[b, l]) A_wᵀ)
 //
-// The N_h × N_w field of a subband never makes a pass through device
-// memory: a block takes (b, l, a range of field rows), forms those rows of
-// c 16 at a time in shared memory (each thread two field columns), shrinks
-// them, projects them back through A_wᵀ (each warp two box columns) and
-// A_h[:, rows], and keeps a partial (sr × sc) sum of its own; a
-// second kernel sums the partials and the bands in a fixed order, weighted
-// by psi_l. It is bound by the partial-DFT products on the CUDA cores,
-// about 2·N_h·N_w·sc complex multiply-adds per (slice, band).
+// A_hᴴ v is the unscaled inverse DFT of a zero N_h-line that holds v at
+// idx_h, and A_h u the DFT of u read at idx_h (the same along W). So the
+// products are pruned line FFTs of the full field, the box scattered in
+// and gathered out, in three passes on the fft_lines.cuh engine through one
+// scratch G of (B, lg, sc, N_h) complex values (each box column's field
+// column contiguous):
+//   (1) per (b, l, box column k): xb[:, k]·psi_l[:, k] scattered into a
+//       zero N_h-line at idx_h, inverse FFT, into G[b, l, k];
+//   (2) per (b, l, field row n): G[b, l, :, n] scattered into a zero
+//       N_w-line at idx_w, inverse FFT, scaled by 1/(N_h·N_w), shrunk,
+//       forward FFT, gathered at idx_w back into G[b, l, :, n] (in place:
+//       those sc values belong to the row's group alone);
+//   (3) per (b, k): for l in order, forward FFT of G[b, l, k], gathered at
+//       idx_h, times psi_l[:, k], summed in registers; M[b, :, k] is
+//       written once. The sum over the bands has a fixed order, with no
+//       atomics, so the result does not depend on scheduling.
+// The plan's box indices are distinct (the range around 0, wrapped, and a
+// padded tail just above +bound), so each scatter and gather is exact.
+// What bounds it: the row pass's two N_w-line FFTs of every field row of
+// every band, 2·N_h·5·N_w·log2 N_w flops per (slice, band), at the
+// engine's throughput (about 9 TFLOP/s, 80-90% of a call at batch 32 on
+// 512² on an H100 SXM at 700 W); the column passes add 2·sc·5·N_h·log2 N_h,
+// and G moves about 32·N_h·sc bytes per (slice, band). The row pass and
+// the summing column pass keep two blocks an SM (64 registers a thread),
+// as the subband kernels' heavy passes do.
 
 #include <cuda_runtime.h>
 
@@ -92,37 +110,10 @@
 
 namespace {
 
-constexpr int NT = 256;           // threads per block (line kernels: at least)
-constexpr int LINE_NT_MAX = 512;  // a line kernel's block: one 4096 line
-constexpr int COL_TILE = 16;      // columns of a column block: 128-byte rows
-constexpr int RB = 16;            // field rows per chunk of the box kernel
-constexpr int MAX_SMEM = 232448;  // dynamic shared memory a block may use
-constexpr int ERR_SMEM = -2;      // the shape needs more shared memory
-constexpr int ERR_SHAPE = -3;     // a side is longer than MAX_LINE
+constexpr int NT = 256;  // threads per block (line kernels: at least)
 
-// The twiddle table of the block's lines into shared memory; every thread
-// of the block calls it.
-__device__ __forceinline__ void load_twiddles(float2* tw, const float2* src,
-                                              int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) tw[e] = src[e];
-  __syncthreads();
-}
-
-// A column block's walk over its tile: thread c + cols·i (i < step) takes
-// column c of rows i, i + step, ...; neighbouring threads read neighbouring
-// columns of a row (one 128-byte segment for 16 columns). `in`: the column
-// lies inside the slice (the last block may hold fewer than cols).
-struct TileWalk {
-  int c, r0, step;
-  bool active, in;
-  __device__ __forceinline__ TileWalk(int cols, int nc) {
-    step = blockDim.x / cols;
-    r0 = threadIdx.x / cols;
-    c = threadIdx.x - r0 * cols;
-    active = r0 < step;
-    in = c < nc;
-  }
-};
+// threads of a line kernel's block: NT, or one whole group of a long line
+inline int line_threads(const LineShape& L) { return L.t > NT ? L.t : NT; }
 
 // (a) support rows: scratch[b, q] = inverse FFT along W of row rows[q] of
 // X_b·psi_{bands[q]}, one group per row. grid (row blocks, batch).
@@ -390,221 +381,168 @@ rows_fft_kernel(float* __restrict__ re, float* __restrict__ im,
   }
 }
 
-// Kernel B, first pass. grid (row splits, lg, batch): the block of split s
-// owns field rows [s·rows_per_split, ...) of subband l of slice b and
-// writes its own partial (sr × sc) sum.
-__global__ void __launch_bounds__(NT)
-box_partial_kernel(const float* __restrict__ xbr,
-                   const float* __restrict__ xbi,  // (B, sr, sc)
-                   const float* __restrict__ psi,  // (lg, sr, sc)
-                   const float* __restrict__ tau,  // (B, lg)
-                   const float* __restrict__ ahr,
-                   const float* __restrict__ ahi,  // (sr, nh)
-                   const float* __restrict__ awr,
-                   const float* __restrict__ awi,  // (sc, nw)
-                   float2* __restrict__ part,      // (B, lg, nsplit, sr, sc)
-                   int sr, int sc, int nh, int nw, int rb, int rows_per_split,
-                   float scale, int op) {
+// Kernel B's position table: pos[e] = i where idx[i] = e, else -1, for the
+// n elements of a line; every thread of the block calls it. An index
+// outside the line is dropped rather than written past the table (the
+// wrapper's indices are checked once on the host, not per call).
+__device__ __forceinline__ void box_positions(int* pos,
+                                              const int* __restrict__ idx,
+                                              int n, int count) {
+  for (int e = threadIdx.x; e < n; e += blockDim.x) pos[e] = -1;
+  __syncthreads();
+  for (int i = threadIdx.x; i < count; i += blockDim.x) {
+    const int e = idx[i];
+    if (e >= 0 && e < n) pos[e] = i;
+  }
+  __syncthreads();
+}
+
+// Kernel B, pass (1): G[b, l, k] = inverse FFT along H of box column k of
+// xb_b·psi_l scattered at idx_h, one group per box column. grid (column
+// blocks, lg, batch).
+__global__ void __launch_bounds__(LINE_NT_MAX)
+box_cols_inverse_kernel(const float* __restrict__ xbr,
+                        const float* __restrict__ xbi,  // (B, sr, sc)
+                        const float* __restrict__ psi,  // (lg, sr, sc)
+                        const int* __restrict__ idx_h,  // (sr,)
+                        const float2* __restrict__ tw_h,
+                        float2* __restrict__ g,         // (B, lg, sc, nh)
+                        LineShape L, int sr, int sc) {
   extern __shared__ float2 smem[];
-  float2* ahc = smem;           // sr × rb: A_h[i, r0 + r]
-  float2* y = ahc + sr * rb;    // rb × sc: rows of A_hᴴ (xb·psi_l)
-  float2* crow = y + rb * sc;   // rb × nw: shrunk rows of the field
-  float2* tt = crow + rb * nw;  // rb × sc: those rows through A_wᵀ
-  const int b = blockIdx.z, l = blockIdx.y, s = blockIdx.x;
-  const int lg = gridDim.y, nsplit = gridDim.x;
-  const int area = sr * sc;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const float* xr = xbr + (long long)b * area;
-  const float* xi = xbi + (long long)b * area;
-  const float* p = psi + (long long)l * area;
-  float2* out = part + (((long long)b * lg + l) * nsplit + s) * area;
+  const int nh = L.n;
+  const Group grp = make_group(L.t);
+  float2* tw = smem;
+  float2* buf = tw + nh + grp.index * line_buf(nh);
+  int* pos = reinterpret_cast<int*>(tw + nh + grp.count * line_buf(nh));
+  box_positions(pos, idx_h, nh, sr);
+  load_twiddles(tw, tw_h, nh);
+  const int k = blockIdx.x * grp.count + grp.index;
+  if (k >= sc) return;
+  const int l = blockIdx.y, b = blockIdx.z;
+  const long long area = (long long)sr * sc;
+  const float* xr = xbr + b * area + k;
+  const float* xi = xbi + b * area + k;
+  const float* p = psi + l * area + k;
+  float2 v[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = grp.j + s * grp.t;
+    const int i = e < nh ? pos[e] : -1;
+    v[s] = make_float2(0.0f, 0.0f);
+    if (i >= 0) {
+      const float pv = p[(long long)i * sc];
+      v[s] = make_float2(xr[(long long)i * sc] * pv,
+                         xi[(long long)i * sc] * pv);
+    }
+  }
+  line_fft<true>(v, buf, tw, L, grp);
+  float2* out = g + (((long long)b * gridDim.y + l) * sc + k) * nh;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = grp.j + s * grp.t;
+    if (e < nh) out[e] = v[s];
+  }
+}
+
+// Kernel B, pass (2): field row n of band l of slice b, in place in G:
+// scatter at idx_w, inverse FFT along W, scale, shrink, forward FFT along
+// W, gather at idx_w; one group per row. grid (row blocks, lg, batch).
+__global__ void __launch_bounds__(LINE_NT_MAX, 2)
+box_rows_kernel(float2* __restrict__ g,          // (B, lg, sc, nh)
+                const int* __restrict__ idx_w,   // (sc,)
+                const float* __restrict__ tau,   // (B, lg)
+                const float2* __restrict__ tw_w, LineShape L, int nh, int sc,
+                float scale, int op) {
+  extern __shared__ float2 smem[];
+  const int nw = L.n;
+  const Group grp = make_group(L.t);
+  float2* tw = smem;
+  float2* buf = tw + nw + grp.index * line_buf(nw);
+  int* pos = reinterpret_cast<int*>(tw + nw + grp.count * line_buf(nw));
+  box_positions(pos, idx_w, nw, sc);
+  load_twiddles(tw, tw_w, nw);
+  const int n = blockIdx.x * grp.count + grp.index;
+  if (n >= nh) return;
+  const int l = blockIdx.y, b = blockIdx.z, lg = gridDim.y;
+  float2* row = g + ((long long)b * lg + l) * sc * nh + n;  // k at k·nh
   const float t = tau[(long long)b * lg + l];
-  const int r_begin = s * rows_per_split;
-  const int r_end = min(nh, r_begin + rows_per_split);
-  // the partial sum lives in `out`, each element owned by one thread
-  for (int e = tid; e < area; e += NT) out[e] = make_float2(0.0f, 0.0f);
-  for (int r0 = r_begin; r0 < r_end; r0 += rb) {
-    const int nr = min(rb, r_end - r0);
-    for (int e = tid; e < sr * nr; e += NT) {
-      const int i = e / nr, r = e - i * nr;
-      const long long o = (long long)i * nh + r0 + r;
-      ahc[i * rb + r] = make_float2(ahr[o], ahi[o]);
-    }
-    __syncthreads();
-    for (int e = tid; e < nr * sc; e += NT) {
-      const int r = e / sc, j = e - r * sc;
-      float2 acc = make_float2(0.0f, 0.0f);
-      for (int i = 0; i < sr; ++i) {
-        const float pv = p[i * sc + j];
-        const float2 v = make_float2(xr[i * sc + j] * pv, xi[i * sc + j] * pv);
-        acc = cadd(acc, cmul_conj(v, ahc[i * rb + r]));
-      }
-      y[r * sc + j] = acc;
-    }
-    __syncthreads();
-    // each thread forms two field columns, n0 and n0 + NT, so that every
-    // row value of y read from shared memory feeds both
-    for (int n0 = tid; n0 < nw; n0 += 2 * NT) {
-      const int n1 = n0 + NT;
-      const bool has1 = n1 < nw;
-      float2 c0[RB], c1[RB];
+  int ks[8];
+  float2 v[8];
 #pragma unroll
-      for (int r = 0; r < RB; ++r)
-        c0[r] = c1[r] = make_float2(0.0f, 0.0f);
-      for (int j = 0; j < sc; ++j) {
-        const long long o = (long long)j * nw;
-        const float2 a0 = make_float2(awr[o + n0], awi[o + n0]);
-        const float2 a1 = has1 ? make_float2(awr[o + n1], awi[o + n1])
-                               : make_float2(0.0f, 0.0f);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          if (r < nr) {
-            const float2 yv = y[r * sc + j];
-            c0[r] = cadd(c0[r], cmul_conj(yv, a0));
-            c1[r] = cadd(c1[r], cmul_conj(yv, a1));
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        if (r < nr) {
-          float2 v = make_float2(c0[r].x * scale, c0[r].y * scale);
-          float f = shrink_factor(v.x * v.x + v.y * v.y, t, op);
-          crow[r * nw + n0] = make_float2(v.x * f, v.y * f);
-          if (has1) {
-            v = make_float2(c1[r].x * scale, c1[r].y * scale);
-            f = shrink_factor(v.x * v.x + v.y * v.y, t, op);
-            crow[r * nw + n1] = make_float2(v.x * f, v.y * f);
-          }
-        }
-      }
-    }
-    __syncthreads();
-    // one warp per pair of box columns j0, j0 + 1, lanes over the field
-    // columns, then a fixed-order shuffle reduction
-    for (int j0 = 2 * warp; j0 < sc; j0 += 2 * (NT / 32)) {
-      const int j1 = j0 + 1;
-      const bool has1 = j1 < sc;
-      float2 acc0[RB], acc1[RB];
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-        acc0[r] = acc1[r] = make_float2(0.0f, 0.0f);
-      for (int n = lane; n < nw; n += 32) {
-        const long long o0 = (long long)j0 * nw + n;
-        const long long o1 = o0 + nw;
-        const float2 a0 = make_float2(awr[o0], awi[o0]);
-        const float2 a1 = has1 ? make_float2(awr[o1], awi[o1])
-                               : make_float2(0.0f, 0.0f);
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          if (r < nr) {
-            const float2 cv = crow[r * nw + n];
-            acc0[r] = cadd(acc0[r], cmul(cv, a0));
-            acc1[r] = cadd(acc1[r], cmul(cv, a1));
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < RB; ++r) {
-        if (r < nr) {
-          float2 v0 = acc0[r], v1 = acc1[r];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            v0.x += __shfl_xor_sync(0xffffffffu, v0.x, off);
-            v0.y += __shfl_xor_sync(0xffffffffu, v0.y, off);
-            v1.x += __shfl_xor_sync(0xffffffffu, v1.x, off);
-            v1.y += __shfl_xor_sync(0xffffffffu, v1.y, off);
-          }
-          if (lane == 0) {
-            tt[r * sc + j0] = v0;
-            if (has1) tt[r * sc + j1] = v1;
-          }
-        }
-      }
-    }
-    __syncthreads();
-    for (int e = tid; e < area; e += NT) {
-      const int i = e / sc, j = e - i * sc;
-      float2 acc = out[e];
-      for (int r = 0; r < nr; ++r)
-        acc = cadd(acc, cmul(ahc[i * rb + r], tt[r * sc + j]));
-      out[e] = acc;
-    }
-    __syncthreads();
+  for (int s = 0; s < 8; ++s) {
+    const int e = grp.j + s * grp.t;
+    ks[s] = e < nw ? pos[e] : -1;
+    v[s] = ks[s] >= 0 ? row[(long long)ks[s] * nh] : make_float2(0.0f, 0.0f);
   }
+  line_fft<true>(v, buf, tw, L, grp);
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const float2 u = make_float2(v[s].x * scale, v[s].y * scale);
+    const float f = shrink_factor(u.x * u.x + u.y * u.y, t, op);
+    v[s] = make_float2(u.x * f, u.y * f);
+  }
+  line_fft<false>(v, buf, tw, L, grp);
+#pragma unroll
+  for (int s = 0; s < 8; ++s)
+    if (ks[s] >= 0) row[(long long)ks[s] * nh] = v[s];
 }
 
-// Kernel B, second pass: M[b] = Σ_l psi_l · Σ_s part[b, l, s], both sums in
-// index order.
-__global__ void __launch_bounds__(NT)
-box_reduce_kernel(const float2* __restrict__ part,
-                  const float* __restrict__ psi, float* __restrict__ mr,
-                  float* __restrict__ mi, int batch, int lg, int nsplit,
-                  int area) {
-  const long long total = (long long)batch * area;
-  for (long long e = (long long)blockIdx.x * NT + threadIdx.x; e < total;
-       e += (long long)gridDim.x * NT) {
-    const int b = (int)(e / area), k = (int)(e - (long long)b * area);
-    float2 m = make_float2(0.0f, 0.0f);
-    for (int l = 0; l < lg; ++l) {
-      const float2* pl = part + ((long long)b * lg + l) * nsplit * area + k;
-      float2 s = make_float2(0.0f, 0.0f);
-      for (int q = 0; q < nsplit; ++q) s = cadd(s, pl[(long long)q * area]);
-      const float pv = psi[(long long)l * area + k];
-      m = make_float2(m.x + s.x * pv, m.y + s.y * pv);
+// Kernel B, pass (3): M[b, :, k] = Σ_l psi_l[:, k] · (forward FFT along H
+// of G[b, l, k]) at idx_h, the bands in order, the sum in registers; one
+// group per box column. grid (column blocks, batch).
+__global__ void __launch_bounds__(LINE_NT_MAX, 2)
+box_cols_forward_kernel(const float2* __restrict__ g,   // (B, lg, sc, nh)
+                        const float* __restrict__ psi,  // (lg, sr, sc)
+                        const int* __restrict__ idx_h,
+                        const float2* __restrict__ tw_h,
+                        float* __restrict__ mr, float* __restrict__ mi,
+                        LineShape L, int lg, int sr, int sc) {
+  extern __shared__ float2 smem[];
+  const int nh = L.n;
+  const Group grp = make_group(L.t);
+  float2* tw = smem;
+  float2* buf = tw + nh + grp.index * line_buf(nh);
+  int* pos = reinterpret_cast<int*>(tw + nh + grp.count * line_buf(nh));
+  box_positions(pos, idx_h, nh, sr);
+  load_twiddles(tw, tw_h, nh);
+  const int k = blockIdx.x * grp.count + grp.index;
+  if (k >= sc) return;
+  const int b = blockIdx.y;
+  const long long area = (long long)sr * sc;
+  int is[8];
+  float2 acc[8];
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = grp.j + s * grp.t;
+    is[s] = e < nh ? pos[e] : -1;
+    acc[s] = make_float2(0.0f, 0.0f);
+  }
+  for (int l = 0; l < lg; ++l) {
+    const float2* col = g + (((long long)b * lg + l) * sc + k) * nh;
+    float2 v[8];
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int e = grp.j + s * grp.t;
+      v[s] = e < nh ? col[e] : make_float2(0.0f, 0.0f);
     }
-    mr[e] = m.x;
-    mi[e] = m.y;
+    line_fft<false>(v, buf, tw, L, grp);
+    const float* p = psi + l * area + k;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      if (is[s] >= 0) {
+        const float pv = p[(long long)is[s] * sc];
+        acc[s] = make_float2(acc[s].x + v[s].x * pv, acc[s].y + v[s].y * pv);
+      }
+    }
   }
-}
-
-inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
-
-// Lets `kernel` use `bytes` of dynamic shared memory; ERR_SMEM when a
-// block cannot have that much.
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  if (bytes > (size_t)MAX_SMEM) return ERR_SMEM;
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// threads of a line kernel's block: NT, or one whole group of a long line
-inline int line_threads(const LineShape& L) { return L.t > NT ? L.t : NT; }
-
-// The line blocks of kernels A and C for an h × w slice: the lines along H
-// and W, the threads of the column and row blocks, the columns of a column
-// block, and the shared memory of the row and column kernels.
-struct Lines {
-  LineShape lh, lw;
-  int nt_h, nt_w, cols;
-  size_t smem_rows, smem_cols;
-};
-
-// 0, ERR_SHAPE for a side out of [1, MAX_LINE], or ERR_SMEM
-int lines_for(int h, int w, Lines* s) {
-  if (h < 1 || w < 1 || h > MAX_LINE || w > MAX_LINE) return ERR_SHAPE;
-  s->lh = line_shape(h);
-  s->lw = line_shape(w);
-  s->nt_w = line_threads(s->lw);
-  const size_t c8 = sizeof(float2);
-  s->smem_rows = c8 * (w + (size_t)(s->nt_w / s->lw.t) * line_buf(w));
-  // a column block: one group per column of its tile, up to LINE_NT_MAX
-  // threads (whole warps), its columns' tile, the groups' buffers and the
-  // band's row table
-  const int t = s->lh.t;
-  const size_t col = c8 * (h + 1);
-  int cols = COL_TILE < w ? COL_TILE : w;
-  for (;; --cols) {
-    int nt = cols * t < LINE_NT_MAX ? cols * t : LINE_NT_MAX;
-    nt = nt > t ? nt : t;
-    s->nt_h = (nt + 31) / 32 * 32;
-    s->smem_cols = c8 * (h + (size_t)(s->nt_h / t) * line_buf(h)) +
-                   cols * col + sizeof(int) * (size_t)h;
-    if (cols == 1 || s->smem_cols <= (size_t)MAX_SMEM) break;
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    if (is[s] >= 0) {
+      const long long o = b * area + (long long)is[s] * sc + k;
+      mr[o] = acc[s].x;
+      mi[o] = acc[s].y;
+    }
   }
-  s->cols = cols;
-  return s->smem_cols > (size_t)MAX_SMEM ? ERR_SMEM : 0;
 }
 
 // Passes (a)-(c) over every band chunk: acc = Σ_l fft2(shrink(ifft2(
@@ -632,7 +570,7 @@ int band_passes(const Lines& s, const float* xr, const float* xi,
   const int* bands = support + nnz;
   const int* slot = support + 2 * (long long)nnz;
   const float scale = 1.0f / (float)((double)h * (double)w);
-  const int per_block = s.nt_w / s.lw.t;  // rows of a row block
+  const int per_block = s.rows_per_block();
   for (int ci = 0; ci < nchunks; ++ci) {
     const int l0 = chunks[ci], l1 = chunks[ci + 1];
     const int p0 = offsets[l0], nrows = offsets[l1] - p0;
@@ -681,7 +619,7 @@ int p3d_subband_update(const float* x_re, const float* x_im,
                        float* work, int batch, int h, int w, int nbands,
                        int nchunks, int op, void* stream_handle) {
   Lines s;
-  const int err = lines_for(h, w, &s);
+  const int err = lines_for(h, w, NT, h, &s);
   if (err != 0) return err;
   return band_passes(s, x_re, x_im, psi, tau,
                      reinterpret_cast<const float2*>(tw_h),
@@ -707,7 +645,7 @@ int p3d_subband_update_spatial(const float* x_re, const float* x_im,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   Lines s;
   int err;
-  if ((err = lines_for(h, w, &s)) != 0) return err;
+  if ((err = lines_for(h, w, NT, h, &s)) != 0) return err;
   if ((err = allow_smem(cols_fft_kernel, s.smem_cols)) != 0) return err;
   if ((err = allow_smem(rows_fft_kernel<false>, s.smem_rows)) != 0)
     return err;
@@ -719,7 +657,7 @@ int p3d_subband_update_spatial(const float* x_re, const float* x_im,
   cols_fft_kernel<<<col_grid, s.nt_h, s.smem_cols, stream>>>(
       x_re, x_im, spec_re, spec_im, twh, s.lh, w, s.cols, 0, 1.0f);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  rows_fft_kernel<false><<<dim3(ceil_div(h, s.nt_w / s.lw.t), batch), s.nt_w,
+  rows_fft_kernel<false><<<dim3(ceil_div(h, s.rows_per_block()), batch), s.nt_w,
                            s.smem_rows, stream>>>(spec_re, spec_im, tww, s.lw,
                                                   h);
   if ((err = (int)cudaGetLastError()) != 0) return err;
@@ -757,37 +695,50 @@ int p3d_line_fft(float* re, float* im, const float* tw, int nlines, int n,
   return (int)cudaGetLastError();
 }
 
-// Returns 0, ERR_SMEM, or the first CUDA error met while enqueuing. `work`
-// holds batch·lg·nsplit·sr·sc complex partial sums (2 floats each).
+// Kernel B. Returns 0, ERR_SHAPE for a grid side out of [1, MAX_LINE] or a
+// box larger than its grid, ERR_SMEM, or the first CUDA error met while
+// enqueuing. idx_h (sr) and idx_w (sc) are the box's distinct fft-layout
+// indices into the nh × nw grid (int32, on the device); `work` holds
+// batch·lg·sc·nh complex values (2 floats each). Nothing is synchronised;
+// every launch goes to `stream`.
 int p3d_box_group_update(const float* xb_re, const float* xb_im,
                          const float* psi,  // (lg, sr, sc)
                          const float* tau,  // (batch, lg)
-                         const float* ah_re, const float* ah_im,  // (sr, nh)
-                         const float* aw_re, const float* aw_im,  // (sc, nw)
+                         const int* idx_h, const int* idx_w,
+                         const float* tw_h, const float* tw_w,  // (n, 2)
                          float* m_re, float* m_im, float* work, int batch,
-                         int lg, int sr, int sc, int nh, int nw, int nsplit,
-                         int op, void* stream_handle) {
+                         int lg, int sr, int sc, int nh, int nw, int op,
+                         void* stream_handle) {
+  if (nh < 1 || nw < 1 || nh > MAX_LINE || nw > MAX_LINE || sr < 1 ||
+      sc < 1 || sr > nh || sc > nw)
+    return ERR_SHAPE;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  int rb = RB;
-  size_t smem = 0;
-  for (; rb > 0; rb /= 2) {
-    smem = sizeof(float2) * ((size_t)sr * rb + 2 * (size_t)rb * sc +
-                             (size_t)rb * nw);
-    if (smem <= (size_t)MAX_SMEM) break;
-  }
-  if (rb == 0) return ERR_SMEM;
+  const LineShape lh = line_shape(nh), lw = line_shape(nw);
+  const int nt_h = line_threads(lh), nt_w = line_threads(lw);
+  const int per_h = nt_h / lh.t, per_w = nt_w / lw.t;  // lines of a block
+  const size_t c8 = sizeof(float2);
+  const size_t smem_h = c8 * (nh + (size_t)per_h * line_buf(nh)) +
+                        sizeof(int) * (size_t)nh;
+  const size_t smem_w = c8 * (nw + (size_t)per_w * line_buf(nw)) +
+                        sizeof(int) * (size_t)nw;
   int err;
-  if ((err = allow_smem(box_partial_kernel, smem)) != 0) return err;
-  const int per_split = ceil_div(ceil_div(nh, nsplit), rb) * rb;
-  float2* part = reinterpret_cast<float2*>(work);
-  box_partial_kernel<<<dim3(nsplit, lg, batch), NT, smem, stream>>>(
-      xb_re, xb_im, psi, tau, ah_re, ah_im, aw_re, aw_im, part, sr, sc, nh,
-      nw, rb, per_split, 1.0f / (float)((double)nh * (double)nw), op);
+  if ((err = allow_smem(box_cols_inverse_kernel, smem_h)) != 0) return err;
+  if ((err = allow_smem(box_rows_kernel, smem_w)) != 0) return err;
+  if ((err = allow_smem(box_cols_forward_kernel, smem_h)) != 0) return err;
+  float2* g = reinterpret_cast<float2*>(work);
+  const float2* twh = reinterpret_cast<const float2*>(tw_h);
+  const float2* tww = reinterpret_cast<const float2*>(tw_w);
+  box_cols_inverse_kernel<<<dim3(ceil_div(sc, per_h), lg, batch), nt_h,
+                            smem_h, stream>>>(xb_re, xb_im, psi, idx_h, twh,
+                                              g, lh, sr, sc);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  const long long total = (long long)batch * sr * sc;
-  const int blocks = ceil_div(total, NT) < 4096 ? ceil_div(total, NT) : 4096;
-  box_reduce_kernel<<<blocks, NT, 0, stream>>>(part, psi, m_re, m_im, batch,
-                                               lg, nsplit, sr * sc);
+  box_rows_kernel<<<dim3(ceil_div(nh, per_w), lg, batch), nt_w, smem_w,
+                    stream>>>(g, idx_w, tau, tww, lw, nh, sc,
+                              1.0f / (float)((double)nh * (double)nw), op);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  box_cols_forward_kernel<<<dim3(ceil_div(sc, per_h), batch), nt_h, smem_h,
+                            stream>>>(g, psi, idx_h, twh, m_re, m_im, lh, lg,
+                                      sr, sc);
   return (int)cudaGetLastError();
 }
 

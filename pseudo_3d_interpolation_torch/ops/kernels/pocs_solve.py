@@ -9,14 +9,18 @@ with the slice held in VMEM, and ``pocs_iteration_fused`` (body
 ``_kernel``), one iteration per launch. Holding a slice cannot carry over:
 a 512² complex slice is 2 MB and a Hopper block has at most 227 KB of
 shared memory. ``csrc/pocs_solve.cu`` instead enqueues, per iteration,
-batched complex products with the basis' dense matrices over the whole
-batch (the threshold fused into the forward right-product, or one
-elementwise pass for the wavelet's per-band thresholds; scale, reinsertion
-and the cost's partial sums fused into the last inverse product) and one
-per-slice state kernel that takes the FPOCS restart decision on the
-device. The DCT and wavelet matrices are real, so their products do half
-the complex products' work. They are bound by those dense products on the
-CUDA cores; the file's header has the details.
+passes over the whole batch and one per-slice state kernel that takes the
+FPOCS restart decision on the device. The FFT solve's passes are line FFTs
+on the ``csrc/fft_lines.cuh`` engine: rows forward; columns forward,
+threshold and inverse; rows inverse with the scale, the reinsertion and the
+cost's partial sums. It is bound by the memory those passes move. The DCT
+and WAVELET solves and the single iteration run batched complex products
+with the basis' dense matrices (the threshold fused into the forward
+right-product, or one elementwise pass for the wavelet's per-band
+thresholds; scale, reinsertion and the cost's partial sums fused into the
+last inverse product); the DCT and wavelet matrices are real, so their
+products do half the complex products' work. Those are bound by the
+products on the CUDA cores; the file's header has the details.
 
 :func:`pocs_solve` and :func:`pocs_iteration` launch their kernels for
 CUDA tensors and take their plain versions (:func:`pocs_solve_plain`,
@@ -40,6 +44,53 @@ from . import _build
 THRESH_OPS = {"hard": 0, "soft": 1, "garrote": 2}
 PRECISIONS = ("high", "highest")
 BASES = ("fft", "dct", "wavelet")
+# the longest line of the line-FFT kernels (csrc/fft_lines.cuh MAX_LINE)
+MAX_LINE = 4096
+# csrc/fft_lines.cuh: a line kernel's block (LINE_NT_MAX) and error codes
+_LINE_NT_MAX = 512
+_ERR_SMEM = -2
+_ERR_SHAPE = -3
+
+
+@functools.lru_cache(maxsize=16)
+def twiddles(n: int) -> np.ndarray:
+    """(n, 2) float32 table of exp(-2πi m/n), built in float64: the line
+    engine's twiddles."""
+    ang = -2.0 * np.pi * np.arange(n, dtype=np.float64) / n
+    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def twiddles_on(n: int, device: str) -> torch.Tensor:
+    """:func:`twiddles` on ``device``, copied once."""
+    return torch.from_numpy(twiddles(n)).to(device)
+
+
+def raise_on(rc: int, what: str, shape) -> None:
+    """Raise for a kernel entry's nonzero return code."""
+    if rc == _ERR_SMEM:
+        raise ValueError(f"{what}: shape {shape} needs more shared memory "
+                         "than a block has")
+    if rc == _ERR_SHAPE:
+        raise ValueError(f"{what}: shape {shape} has a side longer than "
+                         f"{MAX_LINE}, the longest line the kernels take")
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} while launching")
+
+
+def solve_work_floats(batch: int, h: int, w: int, basis: str) -> int:
+    """Floats of device scratch one :func:`pocs_solve` call allocates
+    (``p3d_pocs_solve_work_floats``): the FFT solve's two plane pairs and
+    one partial sum pair per row block of its pass (c) (rows of
+    ``LINE_NT_MAX`` threads, a power-of-two group of at least w/8 threads
+    a row); the GEMM chains' three pairs and one per 64×64 tile; and the
+    double-buffered per-slice state."""
+    if basis == "fft":
+        t = 1 << max(0, (-(-w // 8) - 1).bit_length())
+        planes, nblk = 2, -(-h // (max(t, _LINE_NT_MAX) // t))
+    else:
+        planes, nblk = 3, -(-h // 64) * -(-w // 64)
+    return 2 * planes * batch * h * w + 2 * batch * nblk + 4 * batch
 
 
 def _shrink(mag2: torch.Tensor, tau, op: str) -> torch.Tensor:
@@ -233,11 +284,12 @@ def pocs_solve_plain(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("pocs_solve")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.p3d_pocs_solve_work_floats.argtypes = [i, i, i, i]
+    lib.p3d_pocs_iteration_work_floats.argtypes = [i, i, i]
     for name in ("p3d_pocs_solve_work_floats",
                  "p3d_pocs_iteration_work_floats"):
-        getattr(lib, name).argtypes = [i, i, i]
         getattr(lib, name).restype = ctypes.c_size_t
-    lib.p3d_pocs_solve.argtypes = [p] * 12 + [i] * 4 + [f, i, i, p]
+    lib.p3d_pocs_solve.argtypes = [p] * 10 + [i] * 4 + [f, i, i, p]
     lib.p3d_pocs_solve_dct.argtypes = [p] * 12 + [i] * 4 + [f, i, i, p]
     lib.p3d_pocs_solve_wavelet.argtypes = [p] * 9 + [i] * 4 + [f, i, i, p]
     lib.p3d_pocs_iteration.argtypes = [p] * 13 + [i] * 3 + [f, i, p]
@@ -273,9 +325,10 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
     per-band thresholds, deepest level first, each level (cH, cV, cD);
     ``version``: 'regular' or 'fast' (Nesterov with adaptive restart);
     ``precision``: 'high' or 'highest', both computed in full fp32;
-    ``basis``: 'fft', 'dct' (orthonormal DCT-II) or 'wavelet' (the Mallat
-    cascade of ``wavelet_mats``, the per-level analysis matrices
-    ``ops/wavelet.dwt_matrix(n >> lv, name)``, finest first).
+    ``basis``: 'fft' (H and W up to 4096 on the card), 'dct' (orthonormal
+    DCT-II) or 'wavelet' (the Mallat cascade of ``wavelet_mats``, the
+    per-level analysis matrices ``ops/wavelet.dwt_matrix(n >> lv, name)``,
+    finest first).
     Returns ``(result, final_cost)``. CUDA tensors run the CUDA kernel,
     CPU tensors :func:`pocs_solve_plain`.
     """
@@ -295,7 +348,8 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
     if b == 0:
         return Cplx(out_re, out_im), cost
     lib = _lib()
-    work = torch.empty(lib.p3d_pocs_solve_work_floats(b, h, w),
+    work = torch.empty(lib.p3d_pocs_solve_work_floats(b, h, w,
+                                                      int(basis == "fft")),
                        dtype=torch.float32, device=device)
     head = (obs.re.data_ptr(), obs.im.data_ptr(), mask.data_ptr(),
             decay.data_ptr())
@@ -305,11 +359,10 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
               int(version == "fast"), _stream(device))
     with torch.cuda.device(device):
         if basis == "fft":
-            fh = dft.dft_on(h, str(device))
-            fw = dft.dft_on(w, str(device))
             rc = lib.p3d_pocs_solve(
-                *head, fh[0].data_ptr(), fh[1].data_ptr(), fw[0].data_ptr(),
-                fw[1].data_ptr(), *tail, b, h, w, *common)
+                *head, twiddles_on(h, str(device)).data_ptr(),
+                twiddles_on(w, str(device)).data_ptr(), *tail, b, h, w,
+                *common)
         elif basis == "dct":
             ch, cht = dft.dct_on(h, str(device))
             cw, cwt = dft.dct_on(w, str(device))
@@ -321,9 +374,7 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
             rc = lib.p3d_pocs_solve_wavelet(
                 *head, mats.data_ptr(), *tail, b, h, len(wavelet_mats),
                 *common)
-    if rc != 0:
-        raise RuntimeError(f"pocs_solve[{basis}]: CUDA error {rc} while "
-                           "launching")
+    raise_on(rc, f"pocs_solve[{basis}]", (b, h, w))
     pocs_solve.launches_by_basis[basis] += 1
     return Cplx(out_re, out_im), cost
 

@@ -13,10 +13,12 @@ top-level ``fft2`` and ``ifft2`` inside the kernel, spatial in and out.
 The JAX package runs it only in the permuted layout (square slices with a
 fast split); the port's kernel takes any H×W. :func:`box_group_update`
 replaces ``box_group_update_fused`` (body ``_box_kernel``): one support-
-cropped group's ``Σ_l ψ_l·A_h·shrink(A_hᴴ(xb·ψ_l)A_w*/(N_h·N_w))·A_wᵀ``.
+cropped group's ``Σ_l ψ_l·A_h·shrink(A_hᴴ(xb·ψ_l)A_w*/(N_h·N_w))·A_wᵀ``,
+whose partial-DFT products the kernel computes as line FFTs of the full
+field with the box scattered in and gathered out at its indices.
 ``csrc/subband.cu`` has the three kernels, with their design and what
-bounds them; ``csrc/fft_lines.cuh`` the line FFTs of the first two, which
-:func:`line_fft` also runs alone.
+bounds them; ``csrc/fft_lines.cuh`` their line FFTs, which :func:`line_fft`
+also runs alone.
 
 The first two kernels transform only the rows of each window that hold a
 nonzero (:func:`row_support`, a CSR list built once per window stack on
@@ -39,20 +41,11 @@ import torch
 
 from ..cplx import Cplx
 from . import _build
-from .pocs_solve import PRECISIONS, THRESH_OPS, _shrink
+from .pocs_solve import PRECISIONS, THRESH_OPS, _shrink, raise_on, twiddles_on
 
 # at most this much device scratch for kernel A's bands in flight: a
 # (B, chunk, H, W) complex stack
 SCRATCH_BYTES = 1 << 30
-# the box kernel splits a subband's field rows over blocks until the grid
-# has this many blocks per SM
-BOX_BLOCKS_PER_SM = 4
-# a box-kernel block forms 16 field rows at a time (csrc/subband.cu RB)
-_BOX_ROWS = 16
-_ERR_SMEM = -2
-_ERR_SHAPE = -3
-# the longest line of the subband kernels (csrc/fft_lines.cuh MAX_LINE)
-MAX_LINE = 4096
 
 
 def band_chunk(batch: int, h: int, w: int, nbands: int) -> int:
@@ -67,6 +60,20 @@ def scratch_bytes(batch: int, h: int, w: int, nbands: int,
     call, or with ``spatial`` of one :func:`subband_update_spatial` call
     (one (B, H, W) spectrum more), whatever the windows' support."""
     return (band_chunk(batch, h, w, nbands) + int(spatial)) * batch * h * w * 8
+
+
+def box_work_floats(batch: int, lg: int, sc: int, n_h: int) -> int:
+    """Floats of the device scratch one :func:`box_group_update` call
+    allocates: the field columns of every box column of every band,
+    (B, lg, sc, N_h) complex."""
+    return batch * lg * sc * n_h * 2
+
+
+def box_scratch_bytes(batch: int, lg: int, sr: int, sc: int,
+                      n_h: int) -> int:
+    """Device bytes one :func:`box_group_update` call allocates on the
+    card: its scratch and its (B, sr, sc) result pair."""
+    return 4 * box_work_floats(batch, lg, sc, n_h) + 8 * batch * sr * sc
 
 
 class RowSupport:
@@ -172,32 +179,9 @@ def _lib() -> ctypes.CDLL:
     lib.p3d_subband_update_spatial.restype = i
     lib.p3d_line_fft.argtypes = [p] * 3 + [i] * 3 + [p]
     lib.p3d_line_fft.restype = i
-    lib.p3d_box_group_update.argtypes = [p] * 11 + [i] * 8 + [p]
+    lib.p3d_box_group_update.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.p3d_box_group_update.restype = i
     return lib
-
-
-def _raise_on(rc: int, what: str, shape) -> None:
-    if rc == _ERR_SMEM:
-        raise ValueError(f"{what}: shape {shape} needs more shared memory "
-                         "than a block has")
-    if rc == _ERR_SHAPE:
-        raise ValueError(f"{what}: shape {shape} has a side longer than "
-                         f"{MAX_LINE}, the longest line the kernels take")
-    if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} while launching")
-
-
-@functools.lru_cache(maxsize=16)
-def twiddles(n: int) -> np.ndarray:
-    """(n, 2) float32 table of exp(-2πi m/n), built in float64."""
-    ang = -2.0 * np.pi * np.arange(n, dtype=np.float64) / n
-    return np.stack([np.cos(ang), np.sin(ang)], axis=-1).astype(np.float32)
-
-
-@functools.lru_cache(maxsize=16)
-def _twiddles_on(n: int, device: str) -> torch.Tensor:
-    return torch.from_numpy(twiddles(n)).to(device)
 
 
 def subband_update_plain(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
@@ -285,8 +269,8 @@ def subband_update(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
         return Cplx(acc_re.zero_(), acc_im.zero_())
     chunks, work, _, ints = _band_call(x_spec, support, False)
     h, w = ints[1:3]
-    tw_h = _twiddles_on(h, str(device))
-    tw_w = _twiddles_on(w, str(device))
+    tw_h = twiddles_on(h, str(device))
+    tw_w = twiddles_on(w, str(device))
     with torch.cuda.device(device):
         rc = _lib().p3d_subband_update(
             x_spec.re.data_ptr(), x_spec.im.data_ptr(), psi.data_ptr(),
@@ -295,7 +279,7 @@ def subband_update(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
             chunks.ctypes.data, acc_re.data_ptr(), acc_im.data_ptr(),
             work.data_ptr(), *ints, THRESH_OPS[op],
             torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "subband_update", tuple(x_spec.re.shape))
+    raise_on(rc, "subband_update", tuple(x_spec.re.shape))
     subband_update.launches += 1
     return Cplx(acc_re, acc_im)
 
@@ -339,8 +323,8 @@ def subband_update_spatial(x: Cplx, psi: torch.Tensor, tau: torch.Tensor,
     out_im = torch.empty_like(x.im)
     chunks, work, spec, ints = _band_call(x, support, True)
     h, w = ints[1:3]
-    tw_h = _twiddles_on(h, str(device))
-    tw_w = _twiddles_on(w, str(device))
+    tw_h = twiddles_on(h, str(device))
+    tw_w = twiddles_on(w, str(device))
     with torch.cuda.device(device):
         rc = _lib().p3d_subband_update_spatial(
             x.re.data_ptr(), x.im.data_ptr(), psi.data_ptr(), tau.data_ptr(),
@@ -349,7 +333,7 @@ def subband_update_spatial(x: Cplx, psi: torch.Tensor, tau: torch.Tensor,
             out_re.data_ptr(), out_im.data_ptr(), spec.data_ptr(),
             work.data_ptr(), *ints, THRESH_OPS[op],
             torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "subband_update_spatial", tuple(x.re.shape))
+    raise_on(rc, "subband_update_spatial", tuple(x.re.shape))
     subband_update_spatial.launches += 1
     return Cplx(out_re, out_im)
 
@@ -384,12 +368,12 @@ def line_fft(x: Cplx, inverse: bool = False) -> Cplx:
     re, im = x.re.clone(), x.im.clone()
     if nlines == 0:
         return Cplx(re, im)
-    tw = _twiddles_on(n, str(device))
+    tw = twiddles_on(n, str(device))
     with torch.cuda.device(device):
         rc = _lib().p3d_line_fft(
             re.data_ptr(), im.data_ptr(), tw.data_ptr(), nlines, n,
             int(inverse), torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "line_fft", tuple(x.re.shape))
+    raise_on(rc, "line_fft", tuple(x.re.shape))
     return Cplx(re, im)
 
 
@@ -413,23 +397,21 @@ def box_group_update_plain(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor,
     return Cplx(m.real.contiguous(), m.imag.contiguous())
 
 
-def _box_splits(device, batch: int, lg: int, n_h: int) -> int:
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    want = -(-BOX_BLOCKS_PER_SM * sms // max(1, batch * lg))
-    return max(1, min(want, -(-n_h // _BOX_ROWS)))
-
-
 def box_group_update(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor, mats,
                      n_h: int, n_w: int, thresh_op: str = "hard",
-                     precision: str = "highest") -> Cplx:
+                     precision: str = "highest", *, index=None) -> Cplx:
     """One support-cropped group's update of a batch of box spectra.
 
     ``xbox``: (B, sr, sc) float32 pair, the group's frequency box of the
-    slices' spectra; ``psi``: (lg, sr, sc) windows; ``tau``: (B, lg);
-    ``mats``: (ahr, ahi, awr, awi), the partial DFT rows A_h = F_{N_h}[idx_h]
-    (sr, N_h) and A_w = F_{N_w}[idx_w] (sc, N_w) as float32. Returns the
-    window-weighted summed box (B, sr, sc), to be added into the slices'
-    spectra at the box. CUDA tensors run the kernel, CPU tensors
+    slices' spectra on the N_h × N_w grid; ``psi``: (lg, sr, sc) windows;
+    ``tau``: (B, lg); ``mats``: (ahr, ahi, awr, awi), the partial DFT rows
+    A_h = F_{N_h}[idx_h] (sr, N_h) and A_w = F_{N_w}[idx_w] (sc, N_w) as
+    float32, which the plain version multiplies by (CUDA tensors may pass
+    None); ``index``: (idx_h, idx_w), the box's distinct fft-layout indices
+    as int32 on the tensors' device (``_ScaleGroup.box_index_on``), which
+    the kernel scatters and gathers at (CPU tensors may pass None). Returns
+    the window-weighted summed box (B, sr, sc), to be added into the
+    slices' spectra at the box. CUDA tensors run the kernel, CPU tensors
     :func:`box_group_update_plain`."""
     op = _op(thresh_op, precision)
     device = _device(xbox.re)
@@ -443,30 +425,40 @@ def box_group_update(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor, mats,
     lg = psi.shape[0]
     if tuple(tau.shape) != (b, lg):
         raise ValueError(f"tau must be ({b}, {lg}), got {tuple(tau.shape)}")
-    ahr, ahi, awr, awi = mats
-    for name, t, shape in (("ahr", ahr, (sr, n_h)), ("ahi", ahi, (sr, n_h)),
-                           ("awr", awr, (sc, n_w)), ("awi", awi, (sc, n_w))):
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be {shape}, got {tuple(t.shape)}")
-    _check({"xbox.re": xbox.re, "xbox.im": xbox.im, "psi": psi, "tau": tau,
-            "ahr": ahr, "ahi": ahi, "awr": awr, "awi": awi}, device)
+    _check({"xbox.re": xbox.re, "xbox.im": xbox.im, "psi": psi, "tau": tau},
+           device)
     if device.type == "cpu":
+        ahr, ahi, awr, awi = mats
+        for name, t, shape in (("ahr", ahr, (sr, n_h)), ("ahi", ahi, (sr, n_h)),
+                               ("awr", awr, (sc, n_w)), ("awi", awi, (sc, n_w))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {shape}, got "
+                                 f"{tuple(t.shape)}")
+        _check({"ahr": ahr, "ahi": ahi, "awr": awr, "awi": awi}, device)
         return box_group_update_plain(xbox, psi, tau, mats, n_h, n_w, op)
+    if index is None:
+        raise ValueError("box_group_update on a CUDA tensor needs index, the "
+                         "box's (idx_h, idx_w) as int32 on its device")
+    idx_h, idx_w = index
+    for name, t, n in (("idx_h", idx_h, sr), ("idx_w", idx_w, sc)):
+        if (t.dtype != torch.int32 or t.device != device
+                or tuple(t.shape) != (n,) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be ({n},) int32 on {device}")
     m_re = torch.empty_like(xbox.re)
     m_im = torch.empty_like(xbox.im)
     if b == 0 or lg == 0:
         return Cplx(m_re.zero_(), m_im.zero_())
-    nsplit = _box_splits(device, b, lg, n_h)
-    work = torch.empty(b * lg * nsplit * sr * sc * 2, dtype=torch.float32,
+    work = torch.empty(box_work_floats(b, lg, sc, n_h), dtype=torch.float32,
                        device=device)
     with torch.cuda.device(device):
         rc = _lib().p3d_box_group_update(
             xbox.re.data_ptr(), xbox.im.data_ptr(), psi.data_ptr(),
-            tau.data_ptr(), ahr.data_ptr(), ahi.data_ptr(), awr.data_ptr(),
-            awi.data_ptr(), m_re.data_ptr(), m_im.data_ptr(),
-            work.data_ptr(), b, lg, sr, sc, n_h, n_w, nsplit, THRESH_OPS[op],
-            torch.cuda.current_stream(device).cuda_stream)
-    _raise_on(rc, "box_group_update", (b, sr, sc, n_h, n_w))
+            tau.data_ptr(), idx_h.data_ptr(), idx_w.data_ptr(),
+            twiddles_on(n_h, str(device)).data_ptr(),
+            twiddles_on(n_w, str(device)).data_ptr(), m_re.data_ptr(),
+            m_im.data_ptr(), work.data_ptr(), b, lg, sr, sc, n_h, n_w,
+            THRESH_OPS[op], torch.cuda.current_stream(device).cuda_stream)
+    raise_on(rc, "box_group_update", (b, sr, sc, n_h, n_w))
     box_group_update.launches += 1
     return Cplx(m_re, m_im)
 

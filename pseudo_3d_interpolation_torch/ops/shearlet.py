@@ -204,6 +204,23 @@ class _ScaleGroup:
             torch.from_numpy(self.idx_h.astype(np.int64)).to(device),
             torch.from_numpy(self.idx_w.astype(np.int64)).to(device)))
 
+    def box_index_on(self, h: int, w: int, device
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+        """(idx_h, idx_w) as int32 on ``device``: the box kernel scatters
+        and gathers each box line at these, so they are checked once to be
+        distinct and inside the h × w grid."""
+        device = torch.device(device)
+
+        def make():
+            for idx, n in ((self.idx_h, h), (self.idx_w, w)):
+                if (len(np.unique(idx)) != len(idx) or idx.min() < 0
+                        or idx.max() >= n):
+                    raise ValueError(f"box indices {idx} are not distinct "
+                                     f"indices into a side of {n}")
+            return (torch.from_numpy(self.idx_h.astype(np.int32)).to(device),
+                    torch.from_numpy(self.idx_w.astype(np.int32)).to(device))
+        return self._cached(("idx32", h, w, str(device)), make)
+
     def box_mats_on(self, h: int, w: int, device):
         """The box kernel's partial-DFT matrices A = F[idx] as float32
         (ahr, ahi, awr, awi), (sr, H) and (sc, W), on ``device``."""
@@ -478,6 +495,14 @@ def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
     idx = full._cached(("full_idx", str(device)),
                        lambda: torch.from_numpy(full_idx).to(device))
     tau_full = tau2[:, idx].contiguous()
+
+    def box_operands(g):
+        """The box update's (mats, index): the plain version's partial-DFT
+        rows on the host, the kernel's indices on the card."""
+        if device.type == "cpu":
+            return g.box_mats_on(h, w, device), None
+        return None, g.box_index_on(h, w, device)
+
     if spatial_io:
         z = Cplx(z.re.contiguous(), z.im.contiguous())
         out = _complex(subband_update_spatial(
@@ -486,11 +511,11 @@ def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
         x = _complex(z)
         for l0, lg, g in boxes:
             ah, aw = g.partial_on(h, w, device)
+            mats, index = box_operands(g)
             m = box_group_update(_pair(_partial_fft2(x, ah, aw)),
                                  g.psi_on(device),
-                                 tau2[:, l0:l0 + lg].contiguous(),
-                                 g.box_mats_on(h, w, device), h, w,
-                                 thresh_op, box_precision)
+                                 tau2[:, l0:l0 + lg].contiguous(), mats, h, w,
+                                 thresh_op, box_precision, index=index)
             out += _partial_ifft2(_complex(m), ah, aw)
         return _pair(out)
     zf = torch.fft.fft2(_complex(z))
@@ -500,10 +525,10 @@ def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
     for l0, lg, g in boxes:
         ih, iw = g.index_on(device)
         sel = (slice(None), ih[:, None], iw[None, :])
+        mats, index = box_operands(g)
         m = box_group_update(_pair(zf[sel]), g.psi_on(device),
-                             tau2[:, l0:l0 + lg].contiguous(),
-                             g.box_mats_on(h, w, device), h, w, thresh_op,
-                             box_precision)
+                             tau2[:, l0:l0 + lg].contiguous(), mats, h, w,
+                             thresh_op, box_precision, index=index)
         acc[sel] += _complex(m)
     return _pair(torch.fft.ifft2(acc))
 

@@ -101,15 +101,21 @@ def _transform_subbands(transform, slice_shape, config: POCSConfig) -> int:
 def _transform_device_bytes(transform, batch: int, h: int, w: int) -> int:
     """Device memory a basis holds or allocates for one batch beyond its
     slice buffers: a spectral-stack basis's windows, twice (the plan's
-    groups and the kernels' full-size pack), and the subband kernel's
-    scratch (with ``P3D_SPATIAL_IO`` set, ``subband_update_spatial``'s,
-    which adds one (B, H, W) spectrum)."""
+    groups and the kernels' full-size pack), the subband kernel's scratch
+    (with ``P3D_SPATIAL_IO`` set, ``subband_update_spatial``'s, which adds
+    one (B, H, W) spectrum) and what the largest box group's call
+    allocates."""
     if not _is_spectral_stack(transform):
         return 0
     n_bands = _n_subbands(transform, h, w)
+    boxes = sh._plan_kernel_pack(transform._plan(h, w), h, w)[2]
+    box_bytes = max((subband.box_scratch_bytes(batch, lg, len(g.idx_h),
+                                               len(g.idx_w), h)
+                     for _, lg, g in boxes), default=0)
     return (2 * n_bands * h * w * 4
             + subband.scratch_bytes(batch, h, w, n_bands,
-                                    spatial=sh.spatial_io_default()))
+                                    spatial=sh.spatial_io_default())
+            + box_bytes)
 
 
 def config_from_yaml(path_or_dict) -> tuple[POCSConfig, dict]:

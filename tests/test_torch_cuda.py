@@ -98,6 +98,28 @@ def test_kernel_matches_plain(device, h, w, version, op):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("niter", [1, 6])
+@pytest.mark.parametrize("h,w", [(512, 512), (384, 512), (100, 130),
+                                 (60, 2048)])
+def test_solve_cost_sums_match_plain(device, h, w, niter):
+    """The FFT solve's cost from the partial sums of its row blocks (8 rows
+    of 512 at 512², 16 rows at 100×130 with a short last block, one row at
+    2048 wide) against the plain version's, to √cost 1e-6; the workspace
+    the wrapper allocates is the one the budget counts."""
+    _, z, mask, decay = _inputs(3, h, w, niter, device, seed=h + w)
+    _, cost = ks.pocs_solve(z, mask, decay, 0.75, "soft", "fast")
+    _, ref_cost = ks.pocs_solve_plain(z, mask, decay, 0.75, "soft", "fast")
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(np.sqrt(cost.cpu().numpy()),
+                               np.sqrt(ref_cost.cpu().numpy()),
+                               rtol=0, atol=SQRT_COST_ATOL)
+    for basis in ks.BASES:
+        assert ks._lib().p3d_pocs_solve_work_floats(
+            3, h, w, int(basis == "fft")) == ks.solve_work_floats(
+                3, h, w, basis)
+
+
+@pytest.mark.cuda
 def test_cube_drivers_agree_on_the_card(device):
     """The host-chunked driver, taken when a cube does not fit the card,
     gives the resident driver's result bit for bit on a cube stored
@@ -326,29 +348,30 @@ def test_subband_kernel_matches_plain(device, h, w, op):
     assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
 
 
-def _check_box_groups(device, plan, n, op, boxes):
-    """Kernel B against plain on every box group of ``plan`` at n², within
-    1e-4 of max; the hard threshold on taus away from every coefficient."""
-    x, spec = _slices(4, n, n, device, 5)
+def _check_box_groups(device, plan, h, w, op, boxes, b=4):
+    """Kernel B against plain on every box group of ``plan`` on an h × w
+    grid at batch b, within 1e-4 of max; the hard threshold on taus away
+    from every coefficient."""
+    x, spec = _slices(b, h, w, device, 5)
     tau = _taus(x, plan)
     for l0, lg, g in boxes:
         ih, iw = g.index_on(device)
         xbox = Cplx(spec.re[:, ih[:, None], iw[None, :]].contiguous(),
                     spec.im[:, ih[:, None], iw[None, :]].contiguous())
-        mats = g.box_mats_on(n, n, device)
+        mats = g.box_mats_on(h, w, device)
 
         def mags():
             ah, aw = (np.asarray(m.cpu(), np.float64) for m in mats[::2])
             ah = ah + 1j * np.asarray(mats[1].cpu(), np.float64)
             aw = aw + 1j * np.asarray(mats[3].cpu(), np.float64)
             v = _host(xbox)[:, None] * g.psi.astype(np.float64)[None]
-            c = ah.conj().T @ v @ aw.conj() / (n * n)
+            c = ah.conj().T @ v @ aw.conj() / (h * w)
             return np.abs(c).reshape(c.shape[0], c.shape[1], -1)
 
         group_tau = _tau_for(op, tau[:, l0:l0 + lg].contiguous(), mags)
-        args = (xbox, g.psi_on(device), group_tau, mats, n, n, op)
+        args = (xbox, g.psi_on(device), group_tau, mats, h, w, op)
         before = ksb.box_group_update.launches
-        got = ksb.box_group_update(*args)
+        got = ksb.box_group_update(*args, index=g.box_index_on(h, w, device))
         want = ksb.box_group_update_plain(*args)
         torch.cuda.synchronize()
         assert ksb.box_group_update.launches == before + 1
@@ -359,25 +382,47 @@ def _check_box_groups(device, plan, n, op, boxes):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["soft", "hard"])
-@pytest.mark.parametrize("n", [256, 512])
-def test_box_kernel_matches_plain(device, n, op):
-    """Kernel B on both box groups of the shearlet plan (16- and 40-side
-    boxes)."""
-    plan = sh.shearlet_plan(n, n)
-    _, _, boxes = sh._plan_kernel_pack(plan, n, n)
-    assert [len(g.idx_h) for _, _, g in boxes] == [16, 40]
-    _check_box_groups(device, plan, n, op, boxes)
+@pytest.mark.parametrize("h,w,b", [(256, 256, 4), (512, 512, 4),
+                                   (384, 512, 4), (100, 130, 4),
+                                   (512, 512, 32)])
+def test_box_kernel_matches_plain(device, h, w, b, op):
+    """Kernel B on the box groups of the shearlet plan (16- and 40-side
+    boxes; at 100×130 the 16-side box alone, on the direct-DFT lines of
+    the odd grid), at batch 4 and at the main path's 32."""
+    plan = sh.shearlet_plan(h, w)
+    _, _, boxes = sh._plan_kernel_pack(plan, h, w)
+    assert [len(g.idx_h) for _, _, g in boxes] == (
+        [16] if (h, w) == (100, 130) else [16, 40])
+    _check_box_groups(device, plan, h, w, op, boxes, b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["soft", "hard"])
-def test_box_kernel_on_the_curvelet_group(device, op):
+@pytest.mark.parametrize("b", [4, 32])
+def test_box_kernel_on_the_curvelet_group(device, b, op):
     """Kernel B on the curvelet plan's one box group at 512²: 9 bands of a
-    72-side box."""
+    72-side box, at batch 4 and at the main path's 32."""
     plan = cv.curvelet_plan(512, 512)
     _, _, boxes = sh._plan_kernel_pack(plan, 512, 512)
     assert [(lg, len(g.idx_h)) for _, lg, g in boxes] == [(9, 72)]
-    _check_box_groups(device, plan, 512, op, boxes)
+    _check_box_groups(device, plan, 512, 512, op, boxes, b)
+
+
+@pytest.mark.cuda
+def test_box_kernel_needs_the_indices_on_the_card(device):
+    """On a CUDA tensor the box update launches its kernel from the box's
+    int32 indices, and raises without them."""
+    plan = sh.shearlet_plan(128, 128)
+    _, lg, g = sh._plan_kernel_pack(plan, 128, 128)[2][0]
+    xbox = Cplx(torch.zeros(2, 16, 16, device=device),
+                torch.zeros(2, 16, 16, device=device))
+    tau = torch.ones(2, lg, device=device)
+    with pytest.raises(ValueError, match="index"):
+        ksb.box_group_update(xbox, g.psi_on(device), tau, None, 128, 128)
+    ih, iw = g.box_index_on(128, 128, device)
+    with pytest.raises(ValueError, match="int32"):
+        ksb.box_group_update(xbox, g.psi_on(device), tau, None, 128, 128,
+                             index=(ih.long(), iw))
 
 
 def _mags_on(spec: Cplx, psi: torch.Tensor) -> np.ndarray:
@@ -521,7 +566,8 @@ def test_subband_kernels_take_empty_batches(device):
     out = ksb.box_group_update(
         Cplx(torch.empty(0, sr, sr, device=device),
              torch.empty(0, sr, sr, device=device)), g.psi_on(device),
-        torch.empty(0, lg, device=device), g.box_mats_on(n, n, device), n, n)
+        torch.empty(0, lg, device=device), None, n, n,
+        index=g.box_index_on(n, n, device))
     assert out.re.shape == (0, sr, sr)
 
 

@@ -384,8 +384,8 @@ def test_production_precision_mix_applies_only_when_unset():
 def test_budget_counts_curvelet_as_a_spectral_stack(monkeypatch):
     """The driver budgets CURVELET as SHEARLET: the streamed scan's two
     pairs per slice, its 50 wedges at 512² when the decay needs the stack,
-    the windows twice and the kernel scratch; with ``P3D_SPATIAL_IO`` set
-    one (B, H, W) spectrum more."""
+    the windows twice, the kernel scratch and the box group's; with
+    ``P3D_SPATIAL_IO`` set one (B, H, W) spectrum more."""
     monkeypatch.delenv("P3D_SPATIAL_IO", raising=False)
     cfg, _ = pipe.config_from_yaml({"metadata": META})
     tr = CurveletTransform(precision="high", box_precision="highest")
@@ -397,11 +397,13 @@ def test_budget_counts_curvelet_as_a_spectral_stack(monkeypatch):
     assert pipe._transform_subbands(
         CurveletTransform(allcurvelets=True), (512, 512), full) == \
         cv.n_subbands(6, 16, True)
+    # and the 72-side box group's call: 9 bands of 72 field columns
+    box = ksb.box_scratch_bytes(32, 9, 72, 72, 512)
     assert pipe._transform_device_bytes(tr, 32, 512, 512) == \
-        2 * 50 * 512 * 512 * 4 + ksb.SCRATCH_BYTES
+        2 * 50 * 512 * 512 * 4 + ksb.SCRATCH_BYTES + box
     monkeypatch.setenv("P3D_SPATIAL_IO", "1")
     assert pipe._transform_device_bytes(tr, 32, 512, 512) == \
-        2 * 50 * 512 * 512 * 4 + ksb.SCRATCH_BYTES + 32 * 512 * 512 * 8
+        2 * 50 * 512 * 512 * 4 + ksb.SCRATCH_BYTES + 32 * 512 * 512 * 8 + box
 
 
 def test_compat_carries_curvelet_options_and_plans():

@@ -219,9 +219,11 @@ def test_production_precision_and_working_set():
     assert pipe._transform_subbands(tr, (512, 512), full) == 61
     assert pipe._transform_subbands(get_transform("FFT"), (512, 512),
                                      cfg) == 1
-    # windows twice and the kernel scratch, capped at 1 GiB
+    # windows twice, the kernel scratch, capped at 1 GiB, and the larger
+    # box group's call (8 bands of 40 field columns, a 40-side result)
     assert pipe._transform_device_bytes(tr, 32, 512, 512) == \
-        2 * 61 * 512 * 512 * 4 + ksb.SCRATCH_BYTES
+        2 * 61 * 512 * 512 * 4 + ksb.SCRATCH_BYTES \
+        + ksb.box_scratch_bytes(32, 8, 40, 40, 512)
     assert ksb.scratch_bytes(1, 512, 512, 48) == 48 * 512 * 512 * 8
     assert pipe._transform_device_bytes(get_transform("FFT"), 32, 512,
                                         512) == 0
