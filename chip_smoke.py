@@ -30,13 +30,18 @@ Phases, each of which exits non-zero on failure:
       on the rows the windows touch, with their row-support fraction and
       the dense count beside it;
    c. ``pocs_iteration`` (one FFT-basis iteration) at 512² (batch 8, soft
-      and hard) and on one 384x512 rectangle; times both at batch 32;
+      and hard), on one 384x512 rectangle and at the main path's batches
+      32 and 1; times both at batch 32, and each of the kernel's three line
+      passes there (torch.profiler) with its bytes per second and flop
+      rate, and the GB a call moves with the rate it reaches;
    d. ``pocs_solve(basis='dct')`` at 512² (batch 8, 10 iterations, regular
       and fast, soft and hard) and on one 384x512 rectangle; times both at
       batch 32 over 50 iterations;
    e. ``pocs_solve(basis='wavelet')`` at 512² (batch 8, 10 iterations, db4
-      and coif5 at level 3, soft and hard); times both at batch 32 over 50
-      iterations (db4);
+      and coif5 at level 3, soft and hard) and at the main path's batches
+      32 and 1 (db4, 50 iterations); times both at batch 32 over 50
+      iterations (db4), and each level's forward and inverse filter pass
+      and the state kernel there, with the GB a call moves and its rate;
    f. ``subband_update_spatial`` (spatial in and out) at 512² (batches
       8, 1 and 32, the 48 full-size bands; at 32 their support rows run in
       two chunks of the scratch and only the last inverts) and on one
@@ -64,7 +69,9 @@ Phases, each of which exits non-zero on failure:
    recommended configuration (production defaults with eps 1e-16), route
    ``fused-periter[fft]``; asserts one ``pocs_iteration`` launch per batch
    and iteration and the output and SNR checks; prints the mean
-   effective iteration count;
+   effective iteration count, and the SNR of the first batch on the card
+   beside that of the same batch through the plain versions on the host
+   (``device="cpu"``): the path ends at the float32 floor;
 7. DCT main path: production defaults with ``transform_kind='DCT'``;
    asserts one ``pocs_solve[dct]`` launch per batch and the same checks;
 8. WAVELET main path: production defaults with ``transform_kind=
@@ -100,7 +107,9 @@ the other kernel's plain output, inverted and reinserted.
 first two batches, 64 slices), writes the Chrome
 traces to ``DIR`` (gzipped) and prints the device's busy time (the union
 of kernel, memcpy and memset intervals), its idle share of the traced wall
-time, and the largest device and host entries.
+time, and the largest device and host entries. The per-iteration and
+WAVELET paths run no dense GEMM: their traces, and phase 3's profiles of
+both kernels, fail on a ``cgemm_kernel`` row.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists each kernel with its launch count, error, times
@@ -112,7 +121,9 @@ solve and iteration), and 5·n·log2 n per complex 1-D FFT of n points;
 2.5·n·log2 n per real 2-D DCT of n points, four per slice-iteration (re
 and im, forward and inverse: the DCT solve); 2·L flops per output of each
 1-D filter pass of a length-L wavelet, two passes per level, forward and
-inverse, re and im (the wavelet solve). The subband kernels' work depends
+inverse, re and im (the wavelet solve; the kernel's filter passes do
+twice that, 4·L flops per complex output of a pass). The subband kernels'
+work depends
 on the windows: their ``bound_ms`` counts the 1-D FFTs of the rows that
 hold a nonzero of a window, each way, and of every column of every band,
 each way, plus the spatial kernel's two 2-D FFTs (``subband_bound``); the
@@ -540,12 +551,14 @@ BOX_PASSES = ("box_cols_inverse_kernel", "box_rows_kernel",
               "box_cols_forward_kernel")
 SOLVE_PASSES = ("solve_rows_forward_kernel", "solve_cols_shrink_kernel",
                 "solve_rows_inverse_kernel", "state_kernel", "init_kernel")
+ITER_PASSES = SOLVE_PASSES[:3]
+# kernels the line-FFT and filter paths must not launch
+GEMM_KERNEL = "cgemm_kernel"
 
 
-def kernel_passes(torch, run, names, reps: int = 3) -> dict:
-    """ms per call of each pass (device kernel, by a name in ``names``
-    that its trace name contains, the longest such name) of ``reps``
-    calls of ``run`` under torch.profiler, after one untimed call."""
+def profiled_events(torch, run, reps: int) -> list:
+    """The device events of ``reps`` calls of ``run`` under torch.profiler,
+    after one untimed call, in the order they started."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -554,14 +567,34 @@ def kernel_passes(torch, run, names, reps: int = 3) -> dict:
         for _ in range(reps):
             run()
         torch.cuda.synchronize()
-    times = dict.fromkeys(names, 0.0)
     with tempfile.TemporaryDirectory() as tmp:
         events = device_events(prof, pathlib.Path(tmp) / "passes.json")
-    for e in events:
+    return sorted(events, key=lambda e: e["ts"])
+
+
+def kernel_passes(torch, run, names, reps: int = 3,
+                  forbid: str | None = None) -> dict:
+    """ms per call of each pass (device kernel, by a name in ``names``
+    that its trace name contains, the longest such name) of ``reps``
+    calls of ``run`` under torch.profiler, after one untimed call; fails
+    when a kernel whose name contains ``forbid`` ran."""
+    times = dict.fromkeys(names, 0.0)
+    for e in profiled_events(torch, run, reps):
+        if forbid and forbid in e["name"]:
+            fail(f"{e['name'][:80]} ran in a profile of {names}")
         hits = [n for n in names if n in e["name"]]
         if hits:
             times[max(hits, key=len)] += e["dur"] / 1e3 / reps
     return times
+
+
+def print_total(label, times: dict, work: dict):
+    """Print the GB the passes of ``work`` move a call and the rate they
+    reach over their summed time."""
+    ms = sum(times.values())
+    nbytes = sum(b for b, _ in work.values())
+    print(f"{label}: the passes move {nbytes / 1e9:.3f} GB a call, "
+          f"{nbytes / ms / 1e9:.3f} TB/s over their {ms:.3f} ms", flush=True)
 
 
 def print_passes(label, times: dict, work: dict) -> dict:
@@ -647,6 +680,77 @@ def solve_passes(torch, ks, z, mask, tau) -> dict:
          "init_kernel": (24 * b * h * w, 0.0)})
 
 
+def iteration_passes(torch, ks, z, mask, tau) -> dict:
+    """Time and print each pass of one pocs_iteration call at (B, H, W):
+    (a) reads x and writes t with one W-line FFT a row, (b) reads and
+    writes t with two H-line FFTs a column, (c) reads t and obs (the mask
+    once) and writes the result with one W-line FFT a row; then the GB a
+    call moves and its rate. Fails if a GEMM ran."""
+    b, h, w = z.re.shape
+    px = b * h * w
+    rows = px * 5.0 * math.log2(w)
+    label = f"pocs_iteration {b}x{h}x{w}"
+    work = {"solve_rows_forward_kernel": (16 * px, rows),
+            "solve_cols_shrink_kernel": (16 * px,
+                                         2 * px * 5.0 * math.log2(h)),
+            "solve_rows_inverse_kernel": (24 * px + 4 * h * w, rows)}
+    times = print_passes(label, kernel_passes(
+        torch, lambda: ks.pocs_iteration(z, z, mask, tau, ALPHA, "hard",
+                                         "high"), ITER_PASSES, 20,
+        GEMM_KERNEL), work)
+    print_total(label, times, work)
+    return times
+
+
+def wavelet_passes(torch, ks, z, mask, tau, mats, reps: int = 2) -> dict:
+    """Time and print each pass of one wavelet pocs_solve call at (B, n, n)
+    with ``tau``'s iterations: per level lv (block nj = n >> lv) its
+    forward filter pass (reads the block, writes its four quadrants) and
+    its inverse pass (reads the coefficients, writes the block; level 0
+    also reads obs, x and the mask and writes y), 8·L flops per output
+    each; the state kernel (reads y and x, writes both) and init. A
+    level's pass is known by its place in the iteration's launch order
+    (forward finest first, inverse deepest first). Then the GB a call
+    moves and its rate. Fails if a GEMM ran."""
+    b, n, _ = z.re.shape
+    niter, level = tau.shape[0], len(mats)
+    taps = ks.wavelet_taps(mats).size // 2
+    times, fwd, inv = {}, 0, 0
+    for e in profiled_events(torch, lambda: ks.pocs_solve(
+            z, mask, tau, ALPHA, "hard", "fast", "high", basis="wavelet",
+            wavelet_mats=mats), reps):
+        name = e["name"]
+        if GEMM_KERNEL in name:
+            fail(f"{name[:80]} ran in the wavelet solve")
+        if "wavelet_forward_kernel" in name:
+            key = f"forward level {fwd % level}"
+            fwd += 1
+        elif "wavelet_inverse_kernel" in name:
+            key = f"inverse level {level - 1 - inv % level}"
+            inv += 1
+        elif "state_kernel" in name or "init_kernel" in name:
+            key = "state_kernel" if "state" in name else "init_kernel"
+        else:
+            continue
+        times[key] = times.get(key, 0.0) + e["dur"] / 1e3 / reps
+    work = {}
+    for lv in range(level):
+        px = niter * b * (n >> lv) ** 2
+        work[f"forward level {lv}"] = (16 * px, 8 * taps * px)
+    for lv in range(level - 1, -1, -1):
+        px = niter * b * (n >> lv) ** 2
+        work[f"inverse level {lv}"] = (
+            (32 * px + niter * 4 * n * n) if lv == 0 else 16 * px,
+            8 * taps * px)
+    work["state_kernel"] = (32 * niter * b * n * n, 0.0)
+    work["init_kernel"] = (24 * b * n * n, 0.0)
+    label = (f"pocs_solve[wavelet] {b}x{n}x{n}, L = {taps}, level {level}, "
+             f"{niter} iterations")
+    times = print_passes(label, dict.fromkeys(work, 0.0) | times, work)
+    print_total(label, times, work)
+    return times
+
+
 def subband_bound(label, case, spatial: bool) -> tuple[float, str]:
     """The bound of one subband call on a SubbandCase: the operations of
     the rows its windows touch (pass_work's flops, whose column FFTs are
@@ -678,10 +782,12 @@ def device_events(prof, path: pathlib.Path) -> list:
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
 
 
-def trace_main_path(torch, run, out_dir: pathlib.Path, name: str):
+def trace_main_path(torch, run, out_dir: pathlib.Path, name: str,
+                    forbid: str | None = None):
     """Run ``run`` under torch.profiler; print the device's busy time, its
     idle share of the traced wall and the largest device and host
-    entries; keep the Chrome trace as ``DIR/<name>.json.gz``."""
+    entries; keep the Chrome trace as ``DIR/<name>.json.gz``. Fails when a
+    kernel whose name contains ``forbid`` ran."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -699,6 +805,8 @@ def trace_main_path(torch, run, out_dir: pathlib.Path, name: str):
     raw.unlink()
     spans, by_name = [], {}
     for e in events:
+        if forbid and forbid in e["name"]:
+            fail(f"the {name} trace holds {e['name'][:80]}")
         spans.append((e["ts"], e["ts"] + e["dur"]))
         n, t = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, t + e["dur"])
@@ -981,6 +1089,7 @@ def main():
     print(f"pocs_iteration {MAIN_BATCH}x{N}x{N}: kernel {four[0]:.3f} / "
           f"{four[1]:.3f} ms, plain (torch.fft) {four[2]:.3f} / "
           f"{four[3]:.3f} ms", flush=True)
+    iteration_passes(torch, ks, z, mask, tau)
     # x and obs pairs in, the result pair out, the mask, the thresholds
     iter_bound = bound(2 * fft2_flops(N, N) * MAIN_BATCH,
                        MAIN_BATCH * N * N * 24 + N * N * 4 + MAIN_BATCH * 4)
@@ -1035,6 +1144,7 @@ def main():
     print(f"pocs_solve[wavelet] db4 level 3 {MAIN_BATCH}x{N}x{N}, {NITER} "
           f"iterations: kernel {four[0]:.2f} / {four[1]:.2f} ms, plain "
           f"(torch.matmul) {four[2]:.2f} / {four[3]:.2f} ms", flush=True)
+    wavelet_passes(torch, ks, z, mask, tau, mats)
     # db4's filter length 8: 2·8 flops per output per 1-D pass, two passes
     # per level, forward and inverse, re and im
     wv_flops = sum(16 * 8 * (N >> lv) ** 2 for lv in range(3))
@@ -1139,10 +1249,22 @@ def main():
           f"mean iterations {iters_it:.2f}, SNR {snr_it:.2f} dB; production "
           f"defaults (eps 0, fused-folded[fft], phase 4): {NITER} "
           f"iterations, SNR {snr_fft:.2f} dB", flush=True)
+    # the path ends at the float32 floor, where the SNR measures rounding:
+    # the first batch on the card and through the plain versions on the host
+    first, _ = make_cube(torch, Cube, truth[:MAIN_BATCH], mask)
+    snr_first = []
+    for where in (dev, "cpu"):
+        rec = interpolate(first, config=recommended,
+                          device=where).data_vars["amp_interp"][1]
+        snr_first.append(snr_db(torch, truth[:MAIN_BATCH], torch.from_numpy(
+            np.moveaxis(rec, -1, 0)).to(dev)))
+    print(f"per-iteration path, first batch of {MAIN_BATCH}: SNR on the card "
+          f"{snr_first[0]:.2f} dB, plain versions on the host "
+          f"{snr_first[1]:.2f} dB", flush=True)
     if args.trace is not None:
         trace_main_path(torch, lambda: interpolate(part, config=recommended,
                                                    device=dev),
-                        args.trace, "periter_main_path_trace")
+                        args.trace, "periter_main_path_trace", GEMM_KERNEL)
 
     # phases 7 and 8: the DCT and WAVELET folded solves on the same cube
     dct = dataclasses.replace(production, transform_kind="DCT")
@@ -1162,7 +1284,7 @@ def main():
     if args.trace is not None:
         trace_main_path(torch, lambda: interpolate(cube, config=wavelet,
                                                    device=dev),
-                        args.trace, "wavelet_main_path_trace")
+                        args.trace, "wavelet_main_path_trace", GEMM_KERNEL)
 
     # phase 9: the CURVELET main path, its production configuration
     curvelet = dataclasses.replace(production, transform_kind="CURVELET",

@@ -1,6 +1,7 @@
 // Line FFTs for Hopper with each line's elements in registers: the engine of
-// the subband and box kernels (subband.cu) and of the FFT-basis solve
-// (pocs_solve.cu), with the line kernels' block geometry they share.
+// the subband and box kernels (subband.cu) and of the FFT-basis solve and
+// iteration (pocs_solve.cu), with the line kernels' block geometry they
+// share.
 //
 // A line of length n belongs to a group of t threads, which synchronises
 // only itself (a warp's lanes, or a named barrier of whole warps), so a

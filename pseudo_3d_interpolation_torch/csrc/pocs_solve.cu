@@ -15,23 +15,23 @@
 //   FPOCS: restart on cost increase, Nesterov extrapolation
 //   y' = new + f·(new − x_prev')
 //
-//   FFT:     T(y) = F_H @ y @ F_W (fft2), T⁻¹ = conj(F_H) @ · @ conj(F_W)
-//            (the unscaled ifft2), scale 1/(H·W); tau[j, b]
+//   FFT:     T = fft2, T⁻¹ the unscaled ifft2, scale 1/(H·W); tau[j, b]
 //   DCT:     T(y) = C_H @ y @ C_Wᵀ, T⁻¹ = C_Hᵀ @ · @ C_W, scale 1 (the
 //            orthonormal DCT-II is real: re and im transform alone);
 //            tau[j, b]
 //   WAVELET: per level lv < L, nj = n >> lv, the top-left nj×nj block
 //            becomes A_lv @ block @ A_lvᵀ (A_lv the orthogonal periodized
-//            analysis matrix, real), the rest of the plane passes through;
-//            the inverse runs A_lvᵀ @ block @ A_lv deepest first; scale 1;
+//            analysis matrix of the filters h, g: A[i, (2i+k) mod nj] =
+//            h[k] for the low rows i < nj/2, g[k] for the high rows); the
+//            inverse runs A_lvᵀ @ block @ A_lv deepest first; scale 1;
 //            tau per Mallat quadrant, tau[j, b, 3·d + band] with d the
 //            level counted deepest first and band cH (high rows, low
 //            columns), cV (low rows, high columns), cD (both high); the
 //            approximation block keeps everything.
 //
-// The single iteration (pocs_iteration_fused) is the FFT chain of DFT
-// GEMMs once, from a given iterate x to the reinserted result, with tau[b]
-// and no cost.
+// The single iteration (pocs_iteration_fused) is the FFT solve's iteration
+// once, from a given iterate x to the reinserted result, with tau[b] and no
+// cost.
 //
 // Design. The TPU kernels keep one whole slice in VMEM; a 512² complex
 // slice is 2 MB and a block here has at most 227 KB of shared memory, so a
@@ -40,43 +40,62 @@
 // caller's stream, with no host synchronisation inside the solve (the
 // restart decision is taken on the device).
 //
-// The FFT solve runs each iteration as three line passes on the
-// fft_lines.cuh engine (each line in the registers of its own group of
-// threads, twiddles from a float64-built table), through one (B, H, W)
-// complex scratch t:
+// The FFT solve and the single iteration run each iteration as three line
+// passes on the fft_lines.cuh engine (each line in the registers of its
+// own group of threads, twiddles from a float64-built table), through one
+// (B, H, W) complex scratch t:
 //   (a) per (b, block of rows): FFT along W of each row of y into t;
 //   (b) per (b, tile of 16 columns): the columns of t into shared memory
 //       (128-byte row segments); per column FFT along H, shrink with
 //       tau[j, b], inverse FFT along H; back into t;
 //   (c) per (b, block of rows): inverse FFT along W of each row of t,
 //       scale by 1/(H·W), reinsertion new = v·scale·(1 − α·mask) + α·obs
-//       into y, and the block's Σ|new| and Σ(|new| − |x|) in a fixed order.
-// What bounds it: memory. An iteration moves about 100 bytes per (slice,
-// pixel) through device memory (y read, t written, read and written,
-// read, obs and x read, y written, and the state kernel's x and y), about
-// 26 MB per 512² slice, against 5·H·W·log2(H·W) flops each way; the
-// column pass's transforms run at the engine's throughput.
+//       into y, and (the solve only) the block's Σ|new| and Σ(|new| − |x|)
+//       in a fixed order.
+// What bounds it: memory. A solve's iteration moves about 100 bytes per
+// (slice, pixel) through device memory (y read, t written, read and
+// written, read, obs and x read, y written, and the state kernel's x and
+// y), about 26 MB per 512² slice, against 5·H·W·log2(H·W) flops each way;
+// the column pass's transforms run at the engine's throughput.
 //
-// The DCT and WAVELET solves, and the single FFT-basis iteration, run
-// batched complex GEMMs with the basis' dense matrices instead. They are
-// bound by those products, in full fp32 FMA on the CUDA cores (67 TFLOP/s
-// peak on an H100 SXM): the DFT products are complex × complex,
-// 16·H·W·(H+W) real flops per slice-iteration; the DCT and wavelet
-// matrices are real, so their products take a real operand and do two
-// FMAs per complex output element and depth step, not four: 8·H·W·(H+W)
-// for the DCT, 16·n³·Σ_lv 8^-lv for the wavelet cascade. Each GEMM tile is
+// The WAVELET solve runs each level as one fused 2-D filter pass per
+// direction, through shared-memory tiles, not as products with the dense
+// nj×nj matrices (whose rows hold L nonzeros of nj). A forward block owns
+// 16×16 coefficient positions of each quadrant: it loads the input region
+// of rows and columns [2·r0, 2·r0 + 32 + L − 2), wrapped modulo nj, filters
+// it along W (low and high columns) and then along H (low and high rows),
+// shrinks the three detail quadrants, which are final at this level, and
+// writes all four. An inverse block owns 32×32 output samples: it loads
+// the 16 + L/2 − 1 low and as many high coefficient rows and columns that
+// reach them (the halo wrapped modulo nj/2), and filters along W, then
+// along H. A level cannot work in place (a tile's halo is another tile's
+// output), so the levels alternate between two plane pairs: forward level
+// lv reads P_lv and writes P_lv+1, inverse level lv reads P_lv+1 and
+// writes P_lv, with P_even the iterate y (free once level 0 has read it)
+// and P_odd the coefficient pair t; every write of a level lands inside
+// the block its partner level no longer reads. The deepest approximation
+// block is never shrunk (tau 0 keeps it). Level 0's inverse epilogue
+// reinserts into y and writes the block's cost sums. What bounds it:
+// memory again, about 90 bytes per (slice, pixel) an iteration; the
+// filters take 4·L flops per complex output and pass, reading taps
+// broadcast from shared memory. The blocks are small (22 KB of shared
+// memory for db4) and held to 32 registers a thread, so that 8 blocks
+// share an SM and keep their loads in flight: 16×16 tiles measured faster
+// than 32×32 ones on an H100, though they re-read more halo (PERF.md).
+//
+// The DCT solve runs batched complex GEMMs with the basis' dense matrices.
+// It is bound by those products, in full fp32 FMA on the CUDA cores (67
+// TFLOP/s peak on an H100 SXM): the DCT matrices are real, so a product
+// takes a real operand and does two FMAs per complex output element and
+// depth step, 8·H·W·(H+W) flops per slice-iteration. Each GEMM tile is
 // 64×64 complex outputs per 256-thread block, 4×4 complex accumulators in
-// registers per thread, 16-deep K tiles staged in shared memory; row
-// strides let a product work on the top-left block of a plane. The
-// iteration's and the DCT's thresholds live in the forward right-product's
-// epilogue; the wavelet's in one elementwise pass over the finished
-// coefficient plane (its bands are finished level by level). Scale,
-// reinsertion and the cost's partial sums live in the last inverse
-// product's epilogue, so the unscaled inverse never makes an extra pass
-// through device memory. The partial sums are per block, reduced in a
-// fixed order: the result does not depend on scheduling. A fast DCT, the
-// filter cascade as convolutions, and tensor cores (3xTF32 / bf16x3
-// wgmma), are later work.
+// registers per thread, 16-deep K tiles staged in shared memory. The
+// threshold lives in the forward right-product's epilogue; scale,
+// reinsertion and the cost's partial sums in the last inverse product's
+// epilogue, so the unscaled inverse never makes an extra pass through
+// device memory. The partial sums of every solve are per block, reduced in
+// a fixed order: the result does not depend on scheduling. A fast DCT on
+// the line engine is later work.
 
 #include <cuda_runtime.h>
 
@@ -97,21 +116,18 @@ constexpr int NT = 256;  // threads per GEMM block
 constexpr int A_PAD = 2; // keeps the transposed A stores free of bank conflicts
 constexpr int STATE_THREADS = 256;
 
-// EPI_REINSERT also writes each block's cost sums; EPI_REINSERT_ONLY
-// (the single iteration) does not
-enum Epilogue {
-  EPI_STORE = 0, EPI_SHRINK = 1, EPI_REINSERT = 2, EPI_REINSERT_ONLY = 3
-};
+// EPI_REINSERT also writes each block's cost sums
+enum Epilogue { EPI_STORE = 0, EPI_SHRINK = 1, EPI_REINSERT = 2 };
 // which operand is a real matrix (its imaginary pointer is unused)
-enum Operands { CPLX = 0, REAL_A = 1, REAL_B = 2 };
+enum Operands { REAL_A = 1, REAL_B = 2 };
 
-// C[b] = A[b] @ B[b] for row-major complex planes with row strides
-// ld*; a batch stride of 0 shares an operand (a transform matrix) across
-// the batch. sign_* = -1 conjugates that operand.
+// C[b] = A[b] @ B[b] for whole row-major complex planes (A m×k, B k×n);
+// a batch stride of 0 shares an operand (a transform matrix) across the
+// batch.
 struct Gemm {
-  const float* ar; const float* ai; long long sa; int lda; float sign_a;
-  const float* br; const float* bi; long long sb; int ldb; float sign_b;
-  float* cr; float* ci; long long sc; int ldc;
+  const float* ar; const float* ai; long long sa;
+  const float* br; const float* bi; long long sb;
+  float* cr; float* ci; long long sc;
   int m, n, k;
 };
 
@@ -120,8 +136,8 @@ struct ShrinkArgs {
   int op;
 };
 
-// Reinsertion on whole planes (ldc == n): new = v·scale·(1 − α·mask) +
-// α·obs; under EPI_REINSERT also each block's Σ|new| and Σ(|new| − |x|).
+// Reinsertion on whole planes: new = v·scale·(1 − α·mask) + α·obs; with
+// the cost also each block's Σ|new| and Σ(|new| − |x|).
 struct ReinsertArgs {
   const float* mask;                   // (M, N)
   const float* obr; const float* obi;  // (B, M, N) observed slices
@@ -130,22 +146,58 @@ struct ReinsertArgs {
   float* psum; float* pdiff;           // (B, blocks per slice)
 };
 
-// STRIDED reads the row strides from ld*; otherwise every plane is whole
-// (lda = k, ldb = ldc = n): whole-plane products index with their own
-// widths, since the row strides cost the FFT solve about 0.4% (PERF.md).
-template <int EPI, int OPS, bool STRIDED>
+// Sums two per-thread partial sums over the block in a fixed order (warp
+// shuffles, then the warps in order) and writes them to psum / pdiff[slot].
+// Every thread of the block calls it.
+__device__ __forceinline__ void block_cost_sums(float local_s, float local_d,
+                                                const ReinsertArgs& ri,
+                                                long long slot) {
+  __shared__ float red_s[32];
+  __shared__ float red_d[32];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    local_s += __shfl_down_sync(0xffffffffu, local_s, off);
+    local_d += __shfl_down_sync(0xffffffffu, local_d, off);
+  }
+  if ((threadIdx.x & 31) == 0) {
+    red_s[threadIdx.x >> 5] = local_s;
+    red_d[threadIdx.x >> 5] = local_d;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float s = 0.0f, d = 0.0f;
+    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
+      s += red_s[i];
+      d += red_d[i];
+    }
+    ri.psum[slot] = s;
+    ri.pdiff[slot] = d;
+  }
+}
+
+// The reinsertion of one complex value v at element o of plane offset m
+// (within a slice): returns new and adds to the cost sums.
+__device__ __forceinline__ float2 reinsert(float2 v, long long o, long long m,
+                                           const ReinsertArgs& ri,
+                                           float& local_s, float& local_d) {
+  const float keep = 1.0f - ri.alpha * ri.mask[m];
+  const float vr = v.x * ri.scale * keep + ri.alpha * ri.obr[o];
+  const float vi = v.y * ri.scale * keep + ri.alpha * ri.obi[o];
+  const float xr = ri.xr[o], xi = ri.xi[o];
+  const float mag_new = sqrtf(vr * vr + vi * vi);
+  local_s += mag_new;
+  local_d += mag_new - sqrtf(xr * xr + xi * xi);
+  return make_float2(vr, vi);
+}
+
+template <int EPI, int OPS>
 __global__ void __launch_bounds__(NT)
 cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
   __shared__ float as_r[BK][BM + A_PAD];
   __shared__ float as_i[BK][BM + A_PAD];
   __shared__ float bs_r[BK][BN];
   __shared__ float bs_i[BK][BN];
-  __shared__ float red_s[NT / 32];
-  __shared__ float red_d[NT / 32];
 
-  const int lda = STRIDED ? g.lda : g.k;
-  const int ldb = STRIDED ? g.ldb : g.n;
-  const int ldc = STRIDED ? g.ldc : g.n;
   const int b = blockIdx.z;
   const int m0 = blockIdx.y * BM;
   const int n0 = blockIdx.x * BN;
@@ -177,9 +229,9 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
       const int k = k0 + a_k;
       float vr = 0.0f, vi = 0.0f;
       if (m < g.m && k < g.k) {
-        const long long off = (long long)m * lda + k;
+        const long long off = (long long)m * g.k + k;
         vr = ar[off];
-        if (OPS != REAL_A) vi = g.sign_a * ai[off];
+        if (OPS != REAL_A) vi = ai[off];
       }
       as_r[a_k][a_m + 16 * p] = vr;
       if (OPS != REAL_A) as_i[a_k][a_m + 16 * p] = vi;
@@ -190,9 +242,9 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
       const int n = n0 + b_n;
       float vr = 0.0f, vi = 0.0f;
       if (k < g.k && n < g.n) {
-        const long long off = (long long)k * ldb + n;
+        const long long off = (long long)k * g.n + n;
         vr = br[off];
-        if (OPS != REAL_B) vi = g.sign_b * bi[off];
+        if (OPS != REAL_B) vi = bi[off];
       }
       bs_r[b_k + 4 * p][b_n] = vr;
       if (OPS != REAL_B) bs_i[b_k + 4 * p][b_n] = vi;
@@ -216,12 +268,7 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
       for (int i = 0; i < TM; ++i)
 #pragma unroll
         for (int j = 0; j < TN; ++j) {
-          if (OPS == CPLX) {
-            acc_r[i][j] = fmaf(a_r[i], b_r[j], acc_r[i][j]);
-            acc_r[i][j] = fmaf(-a_i[i], b_i[j], acc_r[i][j]);
-            acc_i[i][j] = fmaf(a_r[i], b_i[j], acc_i[i][j]);
-            acc_i[i][j] = fmaf(a_i[i], b_r[j], acc_i[i][j]);
-          } else if (OPS == REAL_A) {  // real A times complex B
+          if (OPS == REAL_A) {  // real A times complex B
             acc_r[i][j] = fmaf(a_r[i], b_r[j], acc_r[i][j]);
             acc_i[i][j] = fmaf(a_r[i], b_i[j], acc_i[i][j]);
           } else {  // complex A times real B
@@ -243,53 +290,24 @@ cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
     for (int j = 0; j < TN; ++j) {
       const int n = n0 + tx + 16 * j;
       if (m >= g.m || n >= g.n) continue;
-      const long long off = (long long)m * ldc + n;
-      float vr = acc_r[i][j], vi = acc_i[i][j];
+      const long long off = (long long)m * g.n + n;
+      float2 v = make_float2(acc_r[i][j], acc_i[i][j]);
       if (EPI == EPI_SHRINK) {
-        const float s = shrink_factor(vr * vr + vi * vi, sh.tau[b], sh.op);
-        vr *= s;
-        vi *= s;
-      } else if (EPI == EPI_REINSERT || EPI == EPI_REINSERT_ONLY) {
-        const long long boff = b * g.sc + off;
-        const float keep = 1.0f - ri.alpha * ri.mask[off];
-        vr = vr * ri.scale * keep + ri.alpha * ri.obr[boff];
-        vi = vi * ri.scale * keep + ri.alpha * ri.obi[boff];
-        if (EPI == EPI_REINSERT) {
-          const float xr = ri.xr[boff], xi = ri.xi[boff];
-          const float mag_new = sqrtf(vr * vr + vi * vi);
-          local_s += mag_new;
-          local_d += mag_new - sqrtf(xr * xr + xi * xi);
-        }
+        const float s = shrink_factor(v.x * v.x + v.y * v.y, sh.tau[b], sh.op);
+        v.x *= s;
+        v.y *= s;
+      } else if (EPI == EPI_REINSERT) {
+        v = reinsert(v, b * g.sc + off, off, ri, local_s, local_d);
       }
-      cr[off] = vr;
-      ci[off] = vi;
+      cr[off] = v.x;
+      ci[off] = v.y;
     }
   }
 
-  if (EPI == EPI_REINSERT) {
-    // block sum in a fixed order (warp shuffles, then warps in order)
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      local_s += __shfl_down_sync(0xffffffffu, local_s, off);
-      local_d += __shfl_down_sync(0xffffffffu, local_d, off);
-    }
-    if (t % 32 == 0) {
-      red_s[t / 32] = local_s;
-      red_d[t / 32] = local_d;
-    }
-    __syncthreads();
-    if (t == 0) {
-      float s = 0.0f, d = 0.0f;
-      for (int w = 0; w < NT / 32; ++w) {
-        s += red_s[w];
-        d += red_d[w];
-      }
-      const int nblk = gridDim.x * gridDim.y;
-      const int blk = blockIdx.y * gridDim.x + blockIdx.x;
-      ri.psum[b * nblk + blk] = s;
-      ri.pdiff[b * nblk + blk] = d;
-    }
-  }
+  if (EPI == EPI_REINSERT)
+    block_cost_sums(local_s, local_d, ri,
+                    (long long)b * gridDim.x * gridDim.y +
+                        blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 // x = y = obs, v = 1, cost_prev = +inf (pocs_iter.py:767)
@@ -365,38 +383,8 @@ state_kernel(float* xr, float* xi, float* yr, float* yi,
   }
 }
 
-// The wavelet threshold over finished n×n coefficient planes: the band of
-// (r, c) follows from m = max(r, c) (pocs_iter.py:654-666). tau: this
-// iteration's (batch, 3·level) thresholds, deepest level first.
-__global__ void __launch_bounds__(STATE_THREADS)
-wavelet_shrink_kernel(float* sr, float* si, const float* __restrict__ tau,
-                      int n, int level, int op, long long plane) {
-  const int b = blockIdx.y;
-  const float* tb = tau + (long long)b * 3 * level;
-  const long long base = b * plane;
-  const int s0 = n >> level;  // side of the approximation block
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < plane; e += stride) {
-    const int r = (int)(e / n), c = (int)(e % n);
-    const int m = r > c ? r : c;
-    if (m < s0) continue;  // approximation: tau 0 keeps every coefficient
-    int d = 0, s = s0;
-    while (m >= 2 * s) {
-      s <<= 1;
-      ++d;
-    }
-    const int band = r >= s ? (c >= s ? 2 : 0) : 1;  // cH 0, cV 1, cD 2
-    const long long o = base + e;
-    const float vr = sr[o], vi = si[o];
-    const float f = shrink_factor(vr * vr + vi * vi, tb[3 * d + band], op);
-    sr[o] = vr * f;
-    si[o] = vi * f;
-  }
-}
-
-// FFT solve, pass (a): t[b, r] = FFT along W of row r of y_b, one group per
-// row. grid (row blocks, batch).
+// FFT pass (a): t[b, r] = FFT along W of row r of y_b, one group per row.
+// grid (row blocks, batch).
 __global__ void __launch_bounds__(LINE_NT_MAX)
 solve_rows_forward_kernel(const float* __restrict__ yr,
                           const float* __restrict__ yi,
@@ -426,7 +414,7 @@ solve_rows_forward_kernel(const float* __restrict__ yr,
   }
 }
 
-// FFT solve, pass (b): per column of t_b, FFT along H, shrink with tau[b],
+// FFT pass (b): per column of t_b, FFT along H, shrink with tau[b],
 // inverse FFT along H (unscaled), in place through a shared-memory tile of
 // columns. grid (column blocks, batch).
 __global__ void __launch_bounds__(LINE_NT_MAX, 2)
@@ -485,19 +473,18 @@ solve_cols_shrink_kernel(float2* __restrict__ t,
   }
 }
 
-// FFT solve, pass (c): per row r of slice b, inverse FFT along W of t,
-// then y = v·scale·(1 − α·mask) + α·obs, and the block's Σ|new| and
-// Σ(|new| − |x|) into ri.psum / ri.pdiff[b, blockIdx.x], summed in a fixed
-// order (warp shuffles, then the warps in order). One group per row. grid
-// (row blocks, batch); blockDim.x is LINE_NT_MAX.
+// FFT pass (c): per row r of slice b, inverse FFT along W of t, then
+// y = v·scale·(1 − α·mask) + α·obs; with COST (the solve) also the block's
+// Σ|new| and Σ(|new| − |x|) into ri.psum / ri.pdiff[b, blockIdx.x], summed
+// in a fixed order; without (the single iteration) x is not read. One group
+// per row. grid (row blocks, batch); blockDim.x is LINE_NT_MAX.
+template <bool COST>
 __global__ void __launch_bounds__(LINE_NT_MAX)
 solve_rows_inverse_kernel(const float2* __restrict__ t,
                           const float2* __restrict__ tw_w, ReinsertArgs ri,
                           float* __restrict__ yr, float* __restrict__ yi,
                           LineShape L, int h) {
   extern __shared__ float2 smem[];
-  __shared__ float red_s[LINE_NT_MAX / 32];
-  __shared__ float red_d[LINE_NT_MAX / 32];
   const int w = L.n;
   const Group g = make_group(L.t);
   float2* tw = smem;
@@ -520,47 +507,256 @@ solve_rows_inverse_kernel(const float2* __restrict__ t,
     for (int s = 0; s < 8; ++s) {
       const int e = g.j + s * g.t;
       if (e < w) {
-        const float keep = 1.0f - ri.alpha * ri.mask[m0 + e];
-        const float vr = v[s].x * ri.scale * keep + ri.alpha * ri.obr[o + e];
-        const float vi = v[s].y * ri.scale * keep + ri.alpha * ri.obi[o + e];
-        const float xr = ri.xr[o + e], xi = ri.xi[o + e];
-        const float mag_new = sqrtf(vr * vr + vi * vi);
-        local_s += mag_new;
-        local_d += mag_new - sqrtf(xr * xr + xi * xi);
-        yr[o + e] = vr;
-        yi[o + e] = vi;
+        float2 nv;
+        if (COST) {
+          nv = reinsert(v[s], o + e, m0 + e, ri, local_s, local_d);
+        } else {
+          const float keep = 1.0f - ri.alpha * ri.mask[m0 + e];
+          nv = make_float2(v[s].x * ri.scale * keep + ri.alpha * ri.obr[o + e],
+                           v[s].y * ri.scale * keep + ri.alpha * ri.obi[o + e]);
+        }
+        yr[o + e] = nv.x;
+        yi[o + e] = nv.y;
       }
     }
   }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    local_s += __shfl_down_sync(0xffffffffu, local_s, off);
-    local_d += __shfl_down_sync(0xffffffffu, local_d, off);
+  if (COST)
+    block_cost_sums(local_s, local_d, ri,
+                    (long long)b * gridDim.x + blockIdx.x);
+}
+
+// ---------------------------------------------------------------------------
+// The wavelet levels' filter passes (the file's header). A block owns WT×WT
+// coefficient positions of each quadrant of a level; S = 2·WT + L − 2 is
+// the side of the shared-memory region it filters.
+
+constexpr int WT = 16;    // coefficient positions a tile side, each half
+constexpr int WNT = 256;  // threads of a filter block (8 warps)
+constexpr int WBLOCKS = 8;  // filter blocks an SM: 32 registers a thread
+
+__host__ __device__ __forceinline__ int wavelet_region(int taps) {
+  return 2 * WT + taps - 2;
+}
+
+// Dynamic shared memory of a filter block: the packed taps, the region,
+// the once-filtered region, and the region's row and column indices.
+inline size_t wavelet_smem(int taps) {
+  const size_t s = wavelet_region(taps);
+  return sizeof(float4) * (taps / 2) + sizeof(float2) * (s * s + s * 2 * WT) +
+         sizeof(int) * 2 * s;
+}
+
+// Coefficient tiles a side of level block nj (nj/2 positions a half)
+inline int wavelet_tiles(int nj) { return ceil_div(nj / 2, WT); }
+
+__device__ __forceinline__ int wrap(int i, int m) {
+  const int r = i % m;
+  return r < 0 ? r + m : r;
+}
+
+// x += a·v for a real a and complex x, v
+__device__ __forceinline__ void axpy(float2& x, float a, float2 v) {
+  x.x = fmaf(a, v.x, x.x);
+  x.y = fmaf(a, v.y, x.y);
+}
+
+// The level's shrink of one detail coefficient and its store.
+__device__ __forceinline__ void store_band(float* dr, float* di, long long o,
+                                           float2 v, const float* tau,
+                                           int band, int op) {
+  if (band >= 0) {
+    const float f = shrink_factor(v.x * v.x + v.y * v.y, tau[band], op);
+    v.x *= f;
+    v.y *= f;
   }
-  if ((threadIdx.x & 31) == 0) {
-    red_s[threadIdx.x >> 5] = local_s;
-    red_d[threadIdx.x >> 5] = local_d;
+  dr[o] = v.x;
+  di[o] = v.y;
+}
+
+// Forward level: the top-left nj×nj block of src (planes of n×n, batch
+// stride n²) -> its four quadrants in dst, the detail quadrants shrunk
+// with tau_b = this slice's thresholds of this level (cH, cV, cD). taps:
+// h[0..L) then g[0..L). grid (tiles, tiles, batch).
+__global__ void __launch_bounds__(WNT, WBLOCKS)
+wavelet_forward_kernel(const float* __restrict__ sr,
+                       const float* __restrict__ si, float* __restrict__ dr,
+                       float* __restrict__ di, const float* __restrict__ taps,
+                       int L, int nj, int n, const float* __restrict__ tau,
+                       int ntau, int d, int op) {
+  extern __shared__ float4 wsm[];
+  const int l2 = L / 2, S = wavelet_region(L), sw = S / 2, h2 = nj / 2;
+  float4* tq = wsm;                    // (h[2p], h[2p+1], g[2p], g[2p+1])
+  float2* re = reinterpret_cast<float2*>(tq + l2);  // even columns [S][sw]
+  float2* ro = re + S * sw;                         // odd columns [S][sw]
+  float2* mid = ro + S * sw;           // [S][2·WT]: low | high columns
+  int* ridx = reinterpret_cast<int*>(mid + S * 2 * WT);
+  int* cidx = ridx + S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.y * WT, c0 = blockIdx.x * WT, b = blockIdx.z;
+  for (int p = tid; p < l2; p += WNT)
+    tq[p] = make_float4(taps[2 * p], taps[2 * p + 1], taps[L + 2 * p],
+                        taps[L + 2 * p + 1]);
+  for (int e = tid; e < S; e += WNT) {
+    ridx[e] = wrap(2 * r0 + e, nj);
+    cidx[e] = wrap(2 * c0 + e, nj);
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    float s = 0.0f, d = 0.0f;
-    for (int i = 0; i < (int)(blockDim.x >> 5); ++i) {
-      s += red_s[i];
-      d += red_d[i];
+  const long long base = (long long)b * n * n;
+  for (int a = warp; a < S; a += WNT / 32) {
+    const long long row = base + (long long)ridx[a] * n;
+    for (int c = lane; c < S; c += 32) {
+      const float2 v = make_float2(sr[row + cidx[c]], si[row + cidx[c]]);
+      ((c & 1) ? ro : re)[a * sw + (c >> 1)] = v;
     }
-    ri.psum[(long long)b * gridDim.x + blockIdx.x] = s;
-    ri.pdiff[(long long)b * gridDim.x + blockIdx.x] = d;
+  }
+  __syncthreads();
+  // along W: low and high column c of every region row
+  for (int e = tid; e < S * WT; e += WNT) {
+    const int a = e / WT, c = e % WT;
+    const float2* xe = re + a * sw + c;
+    const float2* xo = ro + a * sw + c;
+    float2 lo = make_float2(0.0f, 0.0f), hi = lo;
+    for (int p = 0; p < l2; ++p) {
+      const float4 k = tq[p];
+      const float2 ve = xe[p], vo = xo[p];
+      axpy(lo, k.x, ve);
+      axpy(lo, k.y, vo);
+      axpy(hi, k.z, ve);
+      axpy(hi, k.w, vo);
+    }
+    mid[a * 2 * WT + c] = lo;
+    mid[a * 2 * WT + WT + c] = hi;
+  }
+  __syncthreads();
+  // along H: low and high row r of every filtered column, and the store
+  const float* tb = tau + (long long)b * ntau + 3 * d;
+  for (int e = tid; e < WT * 2 * WT; e += WNT) {
+    const int r = e / (2 * WT), q = e % (2 * WT);
+    const float2* x = mid + 2 * r * 2 * WT + q;
+    float2 lo = make_float2(0.0f, 0.0f), hi = lo;
+    for (int p = 0; p < l2; ++p) {
+      const float4 k = tq[p];
+      const float2 v0 = x[2 * p * 2 * WT], v1 = x[(2 * p + 1) * 2 * WT];
+      axpy(lo, k.x, v0);
+      axpy(lo, k.y, v1);
+      axpy(hi, k.z, v0);
+      axpy(hi, k.w, v1);
+    }
+    const int rr = r0 + r, cc = c0 + (q % WT);
+    if (rr >= h2 || cc >= h2) continue;
+    const bool high_col = q >= WT;
+    const long long col = high_col ? h2 + cc : cc;
+    // low rows: the approximation (kept) or cV; high rows: cH or cD
+    store_band(dr, di, base + (long long)rr * n + col, lo, tb,
+               high_col ? 1 : -1, op);
+    store_band(dr, di, base + (long long)(h2 + rr) * n + col, hi, tb,
+               high_col ? 2 : 0, op);
   }
 }
 
-// GEMM tiles of an h × w plane: the DCT and WAVELET solves' partial sums
+// Inverse level: the nj×nj coefficient block of src -> the top-left nj×nj
+// block of dst; with REINSERT (level 0, nj = n) dst is y, reinserted, and
+// the block's cost sums go to ri.psum / ri.pdiff[b, tile]. grid (tiles,
+// tiles, batch): a block owns 2·WT × 2·WT output samples.
+template <bool REINSERT>
+__global__ void __launch_bounds__(WNT, WBLOCKS)
+wavelet_inverse_kernel(const float* __restrict__ sr,
+                       const float* __restrict__ si, float* __restrict__ dr,
+                       float* __restrict__ di, const float* __restrict__ taps,
+                       int L, int nj, int n, ReinsertArgs ri) {
+  extern __shared__ float4 wsm[];
+  const int l2 = L / 2, S = wavelet_region(L), u = S / 2, h2 = nj / 2;
+  // output 2i + s of a tile takes the taps k = L − 2 − 2p (s even) and
+  // L − 1 − 2p (s odd) of the coefficients i0 − l2 + 1 + (i + p)
+  float4* tq = wsm;  // (h[L-2-2p], h[L-1-2p], g[L-2-2p], g[L-1-2p])
+  float2* cf = reinterpret_cast<float2*>(tq + l2);  // [S][S]: low | high
+  float2* mid = cf + S * S;            // [S][2·WT]: output columns
+  int* ridx = reinterpret_cast<int*>(mid + S * 2 * WT);
+  int* cidx = ridx + S;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int i0 = blockIdx.y * WT, j0 = blockIdx.x * WT, b = blockIdx.z;
+  for (int p = tid; p < l2; p += WNT)
+    tq[p] = make_float4(taps[L - 2 - 2 * p], taps[L - 1 - 2 * p],
+                        taps[2 * L - 2 - 2 * p], taps[2 * L - 1 - 2 * p]);
+  for (int e = tid; e < S; e += WNT) {
+    const int half = e < u ? 0 : h2, k = e < u ? e : e - u;
+    ridx[e] = half + wrap(i0 - l2 + 1 + k, h2);
+    cidx[e] = half + wrap(j0 - l2 + 1 + k, h2);
+  }
+  __syncthreads();
+  const long long base = (long long)b * n * n;
+  for (int a = warp; a < S; a += WNT / 32) {
+    const long long row = base + (long long)ridx[a] * n;
+    for (int c = lane; c < S; c += 32)
+      cf[a * S + c] = make_float2(sr[row + cidx[c]], si[row + cidx[c]]);
+  }
+  __syncthreads();
+  // along W: output columns 2c and 2c + 1 of every region row
+  for (int e = tid; e < S * WT; e += WNT) {
+    const int a = e / WT, c = e % WT;
+    const float2* lo = cf + a * S + c;
+    const float2* hi = lo + u;
+    float2 even = make_float2(0.0f, 0.0f), odd = even;
+    for (int p = 0; p < l2; ++p) {
+      const float4 k = tq[p];
+      const float2 vl = lo[p], vh = hi[p];
+      axpy(even, k.x, vl);
+      axpy(even, k.z, vh);
+      axpy(odd, k.y, vl);
+      axpy(odd, k.w, vh);
+    }
+    reinterpret_cast<float4*>(mid + a * 2 * WT)[c] =
+        make_float4(even.x, even.y, odd.x, odd.y);
+  }
+  __syncthreads();
+  // along H: output rows 2r and 2r + 1 of every output column
+  float local_s = 0.0f, local_d = 0.0f;
+  for (int e = tid; e < WT * 2 * WT; e += WNT) {
+    const int r = e / (2 * WT), s = e % (2 * WT);
+    const float2* lo = mid + r * 2 * WT + s;
+    const float2* hi = lo + u * 2 * WT;
+    float2 even = make_float2(0.0f, 0.0f), odd = even;
+    for (int p = 0; p < l2; ++p) {
+      const float4 k = tq[p];
+      const float2 vl = lo[p * 2 * WT], vh = hi[p * 2 * WT];
+      axpy(even, k.x, vl);
+      axpy(even, k.z, vh);
+      axpy(odd, k.y, vl);
+      axpy(odd, k.w, vh);
+    }
+    const int row = 2 * (i0 + r), col = 2 * j0 + s;
+    if (i0 + r >= h2 || col >= nj) continue;
+    const long long m = (long long)row * n + col;
+    if (REINSERT) {
+      even = reinsert(even, base + m, m, ri, local_s, local_d);
+      odd = reinsert(odd, base + m + n, m + n, ri, local_s, local_d);
+    }
+    dr[base + m] = even.x;
+    di[base + m] = even.y;
+    dr[base + m + n] = odd.x;
+    di[base + m + n] = odd.y;
+  }
+  if (REINSERT)
+    block_cost_sums(local_s, local_d, ri,
+                    (long long)b * gridDim.x * gridDim.y +
+                        blockIdx.y * gridDim.x + blockIdx.x);
+}
+
+// GEMM tiles of an h × w plane: the DCT solve's partial sums
 inline int blocks_per_slice(int h, int w) { return ceil_div(w, BN) * ceil_div(h, BM); }
 
-// Row blocks of the FFT solve's pass (c): its partial sums per slice
+// Row blocks of the FFT pass (c): its partial sums per slice
 inline int row_blocks(int h, int w) {
   const LineShape lw = line_shape(w);
   const int threads = lw.t > LINE_NT_MAX ? lw.t : LINE_NT_MAX;
   return ceil_div(h, threads / lw.t);
+}
+
+// Level 0's inverse tiles of an n × n slice: the wavelet solve's partial
+// sums
+inline int wavelet_blocks(int n) {
+  const int t = wavelet_tiles(n);
+  return t * t;
 }
 
 inline int plane_chunks(long long plane) {
@@ -568,11 +764,11 @@ inline int plane_chunks(long long plane) {
   return c < 64 ? c : 64;
 }
 
-template <int EPI, int OPS, bool STRIDED = false>
+template <int EPI, int OPS>
 cudaError_t launch_gemm(const Gemm& g, const ShrinkArgs& sh,
                         const ReinsertArgs& ri, int batch, cudaStream_t stream) {
   dim3 grid(ceil_div(g.n, BN), ceil_div(g.m, BM), batch);
-  cgemm_kernel<EPI, OPS, STRIDED><<<grid, NT, 0, stream>>>(g, sh, ri);
+  cgemm_kernel<EPI, OPS><<<grid, NT, 0, stream>>>(g, sh, ri);
   return cudaGetLastError();
 }
 
@@ -584,42 +780,8 @@ struct Planes {
   float* re; float* im;
 };
 
-// One FFT-basis pass: out = reinsert(ifft2(shrink(fft2(in), tau))),
-// through t and s; tau holds one threshold per slice. REINSERT is the last
-// product's epilogue: with or without the cost sums.
-template <int REINSERT>
-cudaError_t fft_chain(const float* in_re, const float* in_im, Planes t,
-                      Planes s, float* out_re, float* out_im,
-                      const float* fh_re, const float* fh_im,
-                      const float* fw_re, const float* fw_im,
-                      const ShrinkArgs& shrink, const ReinsertArgs& ri,
-                      int batch, int h, int w, cudaStream_t stream) {
-  const long long plane = (long long)h * w;
-  cudaError_t err;
-  // forward: t = F_H @ in, then s = shrink(t @ F_W)
-  const Gemm fwd_left{fh_re, fh_im, 0, h, 1.0f, in_re, in_im, plane, w, 1.0f,
-                      t.re, t.im, plane, w, h, w, h};
-  if ((err = launch_gemm<EPI_STORE, CPLX>(fwd_left, kNoShrink, kNoReinsert,
-                                          batch, stream)) != cudaSuccess)
-    return err;
-  const Gemm fwd_right{t.re, t.im, plane, w, 1.0f, fw_re, fw_im, 0, w, 1.0f,
-                       s.re, s.im, plane, w, h, w, w};
-  if ((err = launch_gemm<EPI_SHRINK, CPLX>(fwd_right, shrink, kNoReinsert,
-                                           batch, stream)) != cudaSuccess)
-    return err;
-  // inverse: t = conj(F_H) @ s, then out = reinsert((t @ conj(F_W)) / HW)
-  const Gemm inv_left{fh_re, fh_im, 0, h, -1.0f, s.re, s.im, plane, w, 1.0f,
-                      t.re, t.im, plane, w, h, w, h};
-  if ((err = launch_gemm<EPI_STORE, CPLX>(inv_left, kNoShrink, kNoReinsert,
-                                          batch, stream)) != cudaSuccess)
-    return err;
-  const Gemm inv_right{t.re, t.im, plane, w, 1.0f, fw_re, fw_im, 0, w, -1.0f,
-                       out_re, out_im, plane, w, h, w, w};
-  return launch_gemm<REINSERT, CPLX>(inv_right, kNoShrink, ri, batch, stream);
-}
-
 // Solve workspace, carved from the caller's float buffer: `planes` plane
-// pairs (y, t and, for the GEMM chains, s), then the partial sums.
+// pairs (y, t and, for the DCT's GEMM chain, s), then the partial sums.
 struct Work {
   Planes y, t, s;
   float* psum; float* pdiff; float* v; float* cprev;
@@ -639,10 +801,10 @@ Work carve(float* work, int batch, long long plane, int nblk, int planes) {
   return k;
 }
 
-// The FFT solve's plane pairs and partial sums per slice, and the GEMM
-// chains'
-constexpr int FFT_PLANES = 2;
+// The FFT and WAVELET solves' plane pairs (y, t) and the DCT's (y, t, s)
+constexpr int LINE_PLANES = 2;
 constexpr int GEMM_PLANES = 3;
+enum Basis { BASIS_FFT = 0, BASIS_DCT = 1, BASIS_WAVELET = 2 };
 
 size_t work_floats(int batch, int h, int w, int planes, int nblk) {
   return 2 * (size_t)planes * batch * h * w + 2 * (size_t)batch * nblk +
@@ -683,17 +845,56 @@ int run_solve(const float* obs_re, const float* obs_im, const float* mask,
   return 0;
 }
 
+// The line geometry of the FFT passes for an h × w slice, with the shared
+// memory each pass kernel needs allowed; 0, ERR_SHAPE or ERR_SMEM.
+template <bool COST>
+int fft_passes_for(int h, int w, Lines* s) {
+  int err;
+  if ((err = lines_for(h, w, LINE_NT_MAX, 0, s)) != 0) return err;
+  if ((err = allow_smem(solve_rows_forward_kernel, s->smem_rows)) != 0)
+    return err;
+  if ((err = allow_smem(solve_cols_shrink_kernel, s->smem_cols)) != 0)
+    return err;
+  return allow_smem(solve_rows_inverse_kernel<COST>, s->smem_rows);
+}
+
+// One FFT-basis iteration, passes (a)-(c): y -> t -> t -> out, with the
+// thresholds tau (B,) and, with COST, the cost sums of ri.
+template <bool COST>
+cudaError_t fft_passes(const float* y_re, const float* y_im, float2* t,
+                       float* out_re, float* out_im, const float* tau,
+                       const float2* twh, const float2* tww,
+                       const ReinsertArgs& ri, const Lines& s, int batch,
+                       int h, int w, int op, cudaStream_t stream) {
+  const dim3 row_grid(row_blocks(h, w), batch);
+  const dim3 col_grid(ceil_div(w, s.cols), batch);
+  solve_rows_forward_kernel<<<row_grid, s.nt_w, s.smem_rows, stream>>>(
+      y_re, y_im, t, tww, s.lw, h);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  solve_cols_shrink_kernel<<<col_grid, s.nt_h, s.smem_cols, stream>>>(
+      t, tau, twh, s.lh, w, s.cols, op);
+  if ((e = cudaGetLastError()) != cudaSuccess) return e;
+  solve_rows_inverse_kernel<COST><<<row_grid, s.nt_w, s.smem_rows, stream>>>(
+      t, tww, ri, out_re, out_im, s.lw, h);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch a solve needs: its plane pairs (the FFT solve's y and
-// t; the GEMM chains' y, t and s), the per-block partial sums of its cost
-// (pass (c)'s row blocks; the GEMM tiles), and the double-buffered v /
-// cost_prev. `fft` selects the FFT solve.
-size_t p3d_pocs_solve_work_floats(int batch, int h, int w, int fft) {
-  return fft ? work_floats(batch, h, w, FFT_PLANES, row_blocks(h, w))
-             : work_floats(batch, h, w, GEMM_PLANES, blocks_per_slice(h, w));
+// Floats of scratch a solve needs: its plane pairs (the FFT and WAVELET
+// solves' y and t; the DCT's y, t and s), the per-block partial sums of
+// its cost (the FFT pass (c)'s row blocks; the wavelet's level-0 inverse
+// tiles; the DCT's GEMM tiles), and the double-buffered v / cost_prev.
+// basis: 0 FFT, 1 DCT, 2 WAVELET (square slices, h = w).
+size_t p3d_pocs_solve_work_floats(int batch, int h, int w, int basis) {
+  if (basis == BASIS_FFT)
+    return work_floats(batch, h, w, LINE_PLANES, row_blocks(h, w));
+  if (basis == BASIS_WAVELET)
+    return work_floats(batch, h, w, LINE_PLANES, wavelet_blocks(w));
+  return work_floats(batch, h, w, GEMM_PLANES, blocks_per_slice(h, w));
 }
 
 // FFT basis, for h and w up to MAX_LINE: three line passes an iteration
@@ -709,35 +910,19 @@ int p3d_pocs_solve(const float* obs_re, const float* obs_im, const float* mask,
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   Lines s;
   int err;
-  if ((err = lines_for(h, w, LINE_NT_MAX, 0, &s)) != 0) return err;
-  if ((err = allow_smem(solve_rows_forward_kernel, s.smem_rows)) != 0)
-    return err;
-  if ((err = allow_smem(solve_cols_shrink_kernel, s.smem_cols)) != 0)
-    return err;
-  if ((err = allow_smem(solve_rows_inverse_kernel, s.smem_rows)) != 0)
-    return err;
+  if ((err = fft_passes_for<true>(h, w, &s)) != 0) return err;
   const float2* twh = reinterpret_cast<const float2*>(tw_h);
   const float2* tww = reinterpret_cast<const float2*>(tw_w);
-  const int nblk = row_blocks(h, w);
-  const dim3 row_grid(nblk, batch);
-  const dim3 col_grid(ceil_div(w, s.cols), batch);
   const float scale = 1.0f / (float)((double)h * (double)w);
   return run_solve(
       obs_re, obs_im, mask, out_re, out_im, cost, work, batch, h, w, niter,
-      alpha, scale, fast, nblk, FFT_PLANES, stream,
+      alpha, scale, fast, row_blocks(h, w), LINE_PLANES, stream,
       [=](int j, const Work& k, const ReinsertArgs& ri) {
         // t's (re, im) planes hold one (B, H, W) complex array
-        float2* t = reinterpret_cast<float2*>(k.t.re);
-        solve_rows_forward_kernel<<<row_grid, s.nt_w, s.smem_rows, stream>>>(
-            k.y.re, k.y.im, t, tww, s.lw, h);
-        cudaError_t e = cudaGetLastError();
-        if (e != cudaSuccess) return e;
-        solve_cols_shrink_kernel<<<col_grid, s.nt_h, s.smem_cols, stream>>>(
-            t, decay + (long long)j * batch, twh, s.lh, w, s.cols, op);
-        if ((e = cudaGetLastError()) != cudaSuccess) return e;
-        solve_rows_inverse_kernel<<<row_grid, s.nt_w, s.smem_rows, stream>>>(
-            t, tww, ri, k.y.re, k.y.im, s.lw, h);
-        return cudaGetLastError();
+        return fft_passes<true>(k.y.re, k.y.im,
+                                reinterpret_cast<float2*>(k.t.re), k.y.re,
+                                k.y.im, decay + (long long)j * batch, twh,
+                                tww, ri, s, batch, h, w, op, stream);
       });
 }
 
@@ -757,143 +942,118 @@ int p3d_pocs_solve_dct(const float* obs_re, const float* obs_im,
       [=](int j, const Work& k, const ReinsertArgs& ri) {
         cudaError_t err;
         // forward: t = C_H @ y, then s = shrink(t @ C_Wᵀ)
-        const Gemm fwd_left{ch, nullptr, 0, h, 1.0f, k.y.re, k.y.im, plane,
-                            w, 1.0f, k.t.re, k.t.im, plane, w, h, w, h};
+        const Gemm fwd_left{ch, nullptr, 0, k.y.re, k.y.im, plane,
+                            k.t.re, k.t.im, plane, h, w, h};
         if ((err = launch_gemm<EPI_STORE, REAL_A>(
                  fwd_left, kNoShrink, kNoReinsert, batch, stream))
             != cudaSuccess)
           return err;
-        const Gemm fwd_right{k.t.re, k.t.im, plane, w, 1.0f, cwt, nullptr, 0,
-                             w, 1.0f, k.s.re, k.s.im, plane, w, h, w, w};
+        const Gemm fwd_right{k.t.re, k.t.im, plane, cwt, nullptr, 0,
+                             k.s.re, k.s.im, plane, h, w, w};
         const ShrinkArgs shrink{decay + (long long)j * batch, op};
         if ((err = launch_gemm<EPI_SHRINK, REAL_B>(
                  fwd_right, shrink, kNoReinsert, batch, stream))
             != cudaSuccess)
           return err;
         // inverse: t = C_Hᵀ @ s, then y = reinsert(t @ C_W), scale 1
-        const Gemm inv_left{cht, nullptr, 0, h, 1.0f, k.s.re, k.s.im, plane,
-                            w, 1.0f, k.t.re, k.t.im, plane, w, h, w, h};
+        const Gemm inv_left{cht, nullptr, 0, k.s.re, k.s.im, plane,
+                            k.t.re, k.t.im, plane, h, w, h};
         if ((err = launch_gemm<EPI_STORE, REAL_A>(
                  inv_left, kNoShrink, kNoReinsert, batch, stream))
             != cudaSuccess)
           return err;
-        const Gemm inv_right{k.t.re, k.t.im, plane, w, 1.0f, cw, nullptr, 0,
-                             w, 1.0f, k.y.re, k.y.im, plane, w, h, w, w};
+        const Gemm inv_right{k.t.re, k.t.im, plane, cw, nullptr, 0,
+                             k.y.re, k.y.im, plane, h, w, w};
         return launch_gemm<EPI_REINSERT, REAL_B>(inv_right, kNoShrink, ri,
                                                  batch, stream);
       });
 }
 
-// WAVELET basis on square n×n slices, n divisible by 2^level. mats holds,
-// level by level from the finest, A_lv then A_lvᵀ, each (n >> lv)².
-// decay: (niter, batch, 3·level).
+// WAVELET basis on square n×n slices, n divisible by 2^level, the deepest
+// block n >> (level − 1) at least the filter length L (even). taps: h[0..L)
+// then g[0..L), the analysis filters of the periodized matrices. decay:
+// (niter, batch, 3·level). Returns 0, ERR_SMEM or the first CUDA error met
+// while enqueuing (cudaErrorInvalidValue for a shape outside these).
 int p3d_pocs_solve_wavelet(const float* obs_re, const float* obs_im,
                            const float* mask, const float* decay,
-                           const float* mats, float* out_re, float* out_im,
-                           float* cost, float* work, int batch, int n,
-                           int level, int niter, float alpha, int op, int fast,
+                           const float* taps, int L, float* out_re,
+                           float* out_im, float* cost, float* work,
+                           int batch, int n, int level, int niter,
+                           float alpha, int op, int fast,
                            void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const long long plane = (long long)n * n;
-  const float* a[32];
-  const float* at[32];
-  if (level < 1 || level > 31) return (int)cudaErrorInvalidValue;
-  long long off = 0;
-  for (int lv = 0; lv < level; ++lv) {
-    const long long nj = n >> lv;
-    a[lv] = mats + off;
-    at[lv] = mats + off + nj * nj;
-    off += 2 * nj * nj;
-  }
-  const dim3 shrink_grid(plane_chunks(plane), batch);
+  if (level < 1 || level > 30 || L < 2 || L % 2 || n % (1 << level) ||
+      (n >> (level - 1)) < L)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = wavelet_smem(L);
+  int err;
+  if ((err = allow_smem(wavelet_forward_kernel, smem)) != 0) return err;
+  if ((err = allow_smem(wavelet_inverse_kernel<true>, smem)) != 0) return err;
+  if ((err = allow_smem(wavelet_inverse_kernel<false>, smem)) != 0)
+    return err;
+  const int ntau = 3 * level;
   return run_solve(
       obs_re, obs_im, mask, out_re, out_im, cost, work, batch, n, n, niter,
-      alpha, 1.0f, fast, blocks_per_slice(n, n), GEMM_PLANES, stream,
+      alpha, 1.0f, fast, wavelet_blocks(n), LINE_PLANES, stream,
       [=](int j, const Work& k, const ReinsertArgs& ri) {
-        cudaError_t err;
-        // forward, finest level first: t = A @ block, block = t @ Aᵀ; level
-        // 0 reads y, deeper levels the top-left block of s, in place
+        // level lv reads P_lv and writes P_lv+1 forward, the reverse back:
+        // P_even is y, P_odd is t
+        const Planes p[2] = {k.y, k.t};
+        const float* tau = decay + (long long)j * batch * ntau;
         for (int lv = 0; lv < level; ++lv) {
-          const int nj = n >> lv;
-          const Planes src = lv == 0 ? k.y : k.s;
-          const Gemm left{a[lv], nullptr, 0, nj, 1.0f, src.re, src.im, plane,
-                          n, 1.0f, k.t.re, k.t.im, plane, n, nj, nj, nj};
-          const Gemm right{k.t.re, k.t.im, plane, n, 1.0f, at[lv], nullptr, 0,
-                           nj, 1.0f, k.s.re, k.s.im, plane, n, nj, nj, nj};
-          if ((err = lv == 0 ? launch_gemm<EPI_STORE, REAL_A>(
-                                   left, kNoShrink, kNoReinsert, batch,
-                                   stream)
-                             : launch_gemm<EPI_STORE, REAL_A, true>(
-                                   left, kNoShrink, kNoReinsert, batch,
-                                   stream)) != cudaSuccess)
-            return err;
-          if ((err = lv == 0 ? launch_gemm<EPI_STORE, REAL_B>(
-                                   right, kNoShrink, kNoReinsert, batch,
-                                   stream)
-                             : launch_gemm<EPI_STORE, REAL_B, true>(
-                                   right, kNoShrink, kNoReinsert, batch,
-                                   stream)) != cudaSuccess)
-            return err;
+          const int nj = n >> lv, tiles = wavelet_tiles(nj);
+          const Planes src = p[lv & 1], dst = p[(lv + 1) & 1];
+          wavelet_forward_kernel<<<dim3(tiles, tiles, batch), WNT, smem,
+                                   stream>>>(src.re, src.im, dst.re, dst.im,
+                                             taps, L, nj, n, tau, ntau,
+                                             level - 1 - lv, op);
+          const cudaError_t e = cudaGetLastError();
+          if (e != cudaSuccess) return e;
         }
-        wavelet_shrink_kernel<<<shrink_grid, STATE_THREADS, 0, stream>>>(
-            k.s.re, k.s.im, decay + (long long)j * batch * 3 * level, n,
-            level, op, plane);
-        if ((err = cudaGetLastError()) != cudaSuccess) return err;
-        // inverse, deepest level first: t = Aᵀ @ block, block = t @ A; the
-        // level-0 right product reinserts into y
         for (int lv = level - 1; lv >= 0; --lv) {
-          const int nj = n >> lv;
-          const Gemm left{at[lv], nullptr, 0, nj, 1.0f, k.s.re, k.s.im, plane,
-                          n, 1.0f, k.t.re, k.t.im, plane, n, nj, nj, nj};
-          const Planes dst = lv == 0 ? k.y : k.s;
-          const Gemm right{k.t.re, k.t.im, plane, n, 1.0f, a[lv], nullptr, 0,
-                           nj, 1.0f, dst.re, dst.im, plane, n, nj, nj, nj};
-          if (lv == 0) {
-            if ((err = launch_gemm<EPI_STORE, REAL_A>(
-                     left, kNoShrink, kNoReinsert, batch, stream))
-                != cudaSuccess)
-              return err;
-            err = launch_gemm<EPI_REINSERT, REAL_B>(right, kNoShrink, ri,
-                                                    batch, stream);
-          } else {
-            if ((err = launch_gemm<EPI_STORE, REAL_A, true>(
-                     left, kNoShrink, kNoReinsert, batch, stream))
-                != cudaSuccess)
-              return err;
-            err = launch_gemm<EPI_STORE, REAL_B, true>(
-                right, kNoShrink, kNoReinsert, batch, stream);
-          }
-          if (err != cudaSuccess) return err;
+          const int nj = n >> lv, tiles = wavelet_tiles(nj);
+          const Planes src = p[(lv + 1) & 1], dst = p[lv & 1];
+          const dim3 grid(tiles, tiles, batch);
+          if (lv == 0)
+            wavelet_inverse_kernel<true><<<grid, WNT, smem, stream>>>(
+                src.re, src.im, dst.re, dst.im, taps, L, nj, n, ri);
+          else
+            wavelet_inverse_kernel<false><<<grid, WNT, smem, stream>>>(
+                src.re, src.im, dst.re, dst.im, taps, L, nj, n, kNoReinsert);
+          const cudaError_t e = cudaGetLastError();
+          if (e != cudaSuccess) return e;
         }
         return cudaSuccess;
       });
 }
 
-// Floats of scratch one FFT-basis iteration needs: the t and s planes.
+// Floats of scratch one FFT-basis iteration needs: the t plane.
 size_t p3d_pocs_iteration_work_floats(int batch, int h, int w) {
-  return 4 * (size_t)batch * h * w;
+  return 2 * (size_t)batch * h * w;
 }
 
-// One FFT-basis POCS iteration: out = ifft2(shrink(fft2(x), tau[b])) ·
-// (1 − α·mask) + α·obs, no cost. out must not alias x.
+// One FFT-basis POCS iteration, for h and w up to MAX_LINE: out =
+// ifft2(shrink(fft2(x), tau[b])) · (1 − α·mask) + α·obs, no cost, as the
+// FFT solve's three line passes. out must not alias x. Returns 0,
+// ERR_SHAPE, ERR_SMEM or the first CUDA error met while enqueuing.
 int p3d_pocs_iteration(const float* x_re, const float* x_im,
                        const float* obs_re, const float* obs_im,
                        const float* mask, const float* tau,  // (batch,)
-                       const float* fh_re, const float* fh_im,  // (h, h)
-                       const float* fw_re, const float* fw_im,  // (w, w)
+                       const float* tw_h, const float* tw_w,
                        float* out_re, float* out_im, float* work, int batch,
                        int h, int w, float alpha, int op,
                        void* stream_handle) {
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const long long total = (long long)batch * h * w;
-  const Planes t{work, work + total};
-  const Planes s{work + 2 * total, work + 3 * total};
+  Lines s;
+  int err;
+  if ((err = fft_passes_for<false>(h, w, &s)) != 0) return err;
   const ReinsertArgs ri{mask, obs_re, obs_im, nullptr, nullptr, alpha,
                         1.0f / (float)((double)h * (double)w), nullptr,
                         nullptr};
-  return (int)fft_chain<EPI_REINSERT_ONLY>(
-      x_re, x_im, t, s, out_re, out_im, fh_re, fh_im, fw_re, fw_im,
-      ShrinkArgs{tau, op}, ri, batch, h, w, stream);
+  return (int)fft_passes<false>(
+      x_re, x_im, reinterpret_cast<float2*>(work), out_re, out_im, tau,
+      reinterpret_cast<const float2*>(tw_h),
+      reinterpret_cast<const float2*>(tw_w), ri, s, batch, h, w, op, stream);
 }
 
 }  // extern "C"

@@ -9,7 +9,7 @@ solver derives its decay schedule from one forward transform), so they are
 plain ``torch.fft`` calls and ``torch.matmul`` products. ``dft_matrices``
 and ``dct2_matrix`` are built exactly like the JAX package's (float64 on
 the host, rounded once to float32), so the plan constants are bit-equal;
-the CUDA solves (csrc/pocs_solve.cu) multiply by these matrices.
+the DCT solve (csrc/pocs_solve.cu) multiplies by ``dct2_matrix``.
 """
 
 from __future__ import annotations
@@ -43,13 +43,6 @@ def dct2_matrix(n: int) -> np.ndarray:
     c = np.cos(np.pi * (2 * t + 1) * k / (2 * n)) * np.sqrt(2.0 / n)
     c[0] /= np.sqrt(2.0)
     return c.astype(np.float32)
-
-
-@functools.lru_cache(maxsize=16)
-def dft_on(n: int, device: str) -> tuple[torch.Tensor, torch.Tensor]:
-    """The (cos, sin) pair of :func:`dft_matrices` on ``device``."""
-    fr, fi = dft_matrices(n)
-    return (torch.from_numpy(fr).to(device), torch.from_numpy(fi).to(device))
 
 
 @functools.lru_cache(maxsize=16)

@@ -10,17 +10,19 @@ with the slice held in VMEM, and ``pocs_iteration_fused`` (body
 a 512² complex slice is 2 MB and a Hopper block has at most 227 KB of
 shared memory. ``csrc/pocs_solve.cu`` instead enqueues, per iteration,
 passes over the whole batch and one per-slice state kernel that takes the
-FPOCS restart decision on the device. The FFT solve's passes are line FFTs
-on the ``csrc/fft_lines.cuh`` engine: rows forward; columns forward,
-threshold and inverse; rows inverse with the scale, the reinsertion and the
-cost's partial sums. It is bound by the memory those passes move. The DCT
-and WAVELET solves and the single iteration run batched complex products
-with the basis' dense matrices (the threshold fused into the forward
-right-product, or one elementwise pass for the wavelet's per-band
-thresholds; scale, reinsertion and the cost's partial sums fused into the
-last inverse product); the DCT and wavelet matrices are real, so their
-products do half the complex products' work. Those are bound by the
-products on the CUDA cores; the file's header has the details.
+FPOCS restart decision on the device. The FFT solve's passes, and the
+single iteration's, are line FFTs on the ``csrc/fft_lines.cuh`` engine:
+rows forward; columns forward, threshold and inverse; rows inverse with the
+scale, the reinsertion and (the solve only) the cost's partial sums. The
+WAVELET solve runs each level as one 2-D periodized filter pass per
+direction through shared-memory tiles, the detail bands shrunk in the
+forward pass, level 0's inverse with the reinsertion and the cost's partial
+sums; the wrapper hands it the filters (:func:`wavelet_taps`), not the
+matrices. These are bound by the memory their passes move. The DCT solve
+runs batched products with the basis' dense real matrices (the threshold
+fused into the forward right-product; scale, reinsertion and the cost's
+partial sums into the last inverse product), bound by the products on the
+CUDA cores; the file's header has the details.
 
 :func:`pocs_solve` and :func:`pocs_iteration` launch their kernels for
 CUDA tensors and take their plain versions (:func:`pocs_solve_plain`,
@@ -38,6 +40,7 @@ import numpy as np
 import torch
 
 from .. import dft
+from .. import wavelet as wv
 from ..cplx import Cplx
 from . import _build
 
@@ -83,11 +86,14 @@ def solve_work_floats(batch: int, h: int, w: int, basis: str) -> int:
     (``p3d_pocs_solve_work_floats``): the FFT solve's two plane pairs and
     one partial sum pair per row block of its pass (c) (rows of
     ``LINE_NT_MAX`` threads, a power-of-two group of at least w/8 threads
-    a row); the GEMM chains' three pairs and one per 64×64 tile; and the
-    double-buffered per-slice state."""
+    a row); the wavelet solve's two pairs and one per level-0 inverse tile
+    (32×32 samples); the DCT's GEMM chain's three pairs and one per 64×64
+    tile; and the double-buffered per-slice state."""
     if basis == "fft":
         t = 1 << max(0, (-(-w // 8) - 1).bit_length())
         planes, nblk = 2, -(-h // (max(t, _LINE_NT_MAX) // t))
+    elif basis == "wavelet":
+        planes, nblk = 2, (-(-w // 32)) ** 2
     else:
         planes, nblk = 3, -(-h // 64) * -(-w // 64)
     return 2 * planes * batch * h * w + 2 * batch * nblk + 4 * batch
@@ -167,12 +173,74 @@ def _check(obs: Cplx, mask, decay, thresh_op, version, precision, basis,
         if decay.dim() != 3 or tuple(decay.shape[1:]) != (b, 3 * level):
             raise ValueError(f"wavelet decay must be (niter, {b}, "
                              f"{3 * level}), got {tuple(decay.shape)}")
+        wavelet_taps(wavelet_mats)
     elif decay.dim() != 2 or decay.shape[1] != b:
         raise ValueError(f"decay must be (niter, {b}), got "
                          f"{tuple(decay.shape)}")
     _check_tensors((("obs.re", obs.re), ("obs.im", obs.im), ("mask", mask),
                     ("decay", decay)), obs.re)
     return op
+
+
+class _SameMatrices:
+    """A wavelet matrix set as a cache key: equal only to the same objects
+    in the same order (numpy arrays are not hashable). The cache keeps the
+    key, hence the matrices, alive, so their ids stay theirs."""
+
+    __slots__ = ("mats",)
+
+    def __init__(self, mats):
+        self.mats = tuple(mats)
+
+    def __hash__(self) -> int:
+        return hash(tuple(map(id, self.mats)))
+
+    def __eq__(self, other) -> bool:
+        return (len(self.mats) == len(other.mats)
+                and all(a is b for a, b in zip(self.mats, other.mats)))
+
+
+@functools.lru_cache(maxsize=16)
+def _checked_taps(key: _SameMatrices) -> np.ndarray:
+    host = [np.asarray(a.detach().cpu() if isinstance(a, torch.Tensor)
+                       else a, dtype=np.float32) for a in key.mats]
+    n = host[0].shape[0]
+    lo, hi = host[0][0], host[0][n // 2]
+    nonzero = np.flatnonzero((lo != 0) | (hi != 0))
+    if not nonzero.size:
+        raise ValueError("wavelet_mats[0] has no filter in rows 0 and n/2")
+    taps = int(nonzero[-1]) + 1
+    taps += taps % 2
+    deepest = n >> (len(host) - 1)
+    if deepest < taps:
+        raise ValueError(f"the deepest wavelet block ({deepest}) is shorter "
+                         f"than the filter ({taps} taps)")
+    for lv, a in enumerate(host):
+        if not np.array_equal(a, wv.filter_matrix(lo[:taps], hi[:taps],
+                                                  n >> lv)):
+            raise ValueError(
+                f"wavelet_mats[{lv}] is not the periodized filter matrix of "
+                f"the {taps}-tap filters in rows 0 and {n // 2} of "
+                "wavelet_mats[0] (ops/wavelet.dwt_matrix)")
+    return np.concatenate([lo[:taps], hi[:taps]])
+
+
+def wavelet_taps(mats) -> np.ndarray:
+    """The analysis filters of a wavelet solve's per-level matrices, as the
+    kernel takes them: ``[h, g]``, one (2L,) float32 array with L even, h
+    from row 0 and g from row n/2 of the level-0 matrix. Raises
+    ``ValueError`` when a level's matrix is not the periodized filter matrix
+    of those taps (:func:`ops.wavelet.filter_matrix`) or the deepest block
+    is shorter than the filter. Each matrix set is checked once, by the
+    matrices' identity (the solver passes the cached
+    ``ops/wavelet.dwt_matrix_on`` tensors), so a call on the card does not
+    wait for the device after the first."""
+    return _checked_taps(_SameMatrices(mats))
+
+
+@functools.lru_cache(maxsize=16)
+def _taps_on(key: _SameMatrices, device: str) -> torch.Tensor:
+    return torch.from_numpy(_checked_taps(key)).to(device)
 
 
 def _wavelet_tau_map(tau: torch.Tensor, n: int, level: int) -> torch.Tensor:
@@ -291,21 +359,13 @@ def _lib() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_size_t
     lib.p3d_pocs_solve.argtypes = [p] * 10 + [i] * 4 + [f, i, i, p]
     lib.p3d_pocs_solve_dct.argtypes = [p] * 12 + [i] * 4 + [f, i, i, p]
-    lib.p3d_pocs_solve_wavelet.argtypes = [p] * 9 + [i] * 4 + [f, i, i, p]
-    lib.p3d_pocs_iteration.argtypes = [p] * 13 + [i] * 3 + [f, i, p]
+    lib.p3d_pocs_solve_wavelet.argtypes = ([p] * 5 + [i] + [p] * 4 + [i] * 4
+                                           + [f, i, i, p])
+    lib.p3d_pocs_iteration.argtypes = [p] * 11 + [i] * 3 + [f, i, p]
     for name in ("p3d_pocs_solve", "p3d_pocs_solve_dct",
                  "p3d_pocs_solve_wavelet", "p3d_pocs_iteration"):
         getattr(lib, name).restype = i
     return lib
-
-
-def _wavelet_pack(mats, device) -> torch.Tensor:
-    """``[A_0, A_0ᵀ, A_1, A_1ᵀ, ...]`` flattened into one float32 tensor on
-    ``device``, the kernel's layout. Matrices already on the device are
-    packed there, with no host synchronisation."""
-    parts = [torch.as_tensor(a, dtype=torch.float32, device=device)
-             for a in mats]
-    return torch.cat([m.reshape(-1) for a in parts for m in (a, a.T)])
 
 
 def _stream(device) -> int:
@@ -328,7 +388,7 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
     ``basis``: 'fft' (H and W up to 4096 on the card), 'dct' (orthonormal
     DCT-II) or 'wavelet' (the Mallat cascade of ``wavelet_mats``, the
     per-level analysis matrices ``ops/wavelet.dwt_matrix(n >> lv, name)``,
-    finest first).
+    finest first; the card runs their filters, :func:`wavelet_taps`).
     Returns ``(result, final_cost)``. CUDA tensors run the CUDA kernel,
     CPU tensors :func:`pocs_solve_plain`.
     """
@@ -349,7 +409,7 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
         return Cplx(out_re, out_im), cost
     lib = _lib()
     work = torch.empty(lib.p3d_pocs_solve_work_floats(b, h, w,
-                                                      int(basis == "fft")),
+                                                      BASES.index(basis)),
                        dtype=torch.float32, device=device)
     head = (obs.re.data_ptr(), obs.im.data_ptr(), mask.data_ptr(),
             decay.data_ptr())
@@ -370,10 +430,10 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
                 *head, ch.data_ptr(), cht.data_ptr(), cw.data_ptr(),
                 cwt.data_ptr(), *tail, b, h, w, *common)
         else:
-            mats = _wavelet_pack(wavelet_mats, device)
+            taps = _taps_on(_SameMatrices(wavelet_mats), str(device))
             rc = lib.p3d_pocs_solve_wavelet(
-                *head, mats.data_ptr(), *tail, b, h, len(wavelet_mats),
-                *common)
+                *head, taps.data_ptr(), taps.numel() // 2, *tail, b, h,
+                len(wavelet_mats), *common)
     raise_on(rc, f"pocs_solve[{basis}]", (b, h, w))
     pocs_solve.launches_by_basis[basis] += 1
     return Cplx(out_re, out_im), cost
@@ -403,7 +463,8 @@ def pocs_iteration(x: Cplx, obs: Cplx, mask: torch.Tensor, tau: torch.Tensor,
     """One fused FFT-basis POCS iteration over a batch of slices, the
     contract of the JAX package's ``pocs_iteration_fused``.
 
-    ``x``/``obs``: (B, H, W) float32 pairs, any H and W; ``mask``: (H, W);
+    ``x``/``obs``: (B, H, W) float32 pairs, H and W up to 4096 on the card
+    (any on the CPU); ``mask``: (H, W);
     ``tau``: (B,) per-slice thresholds; ``precision``: 'high' or 'highest',
     both full fp32. Returns the reinserted iterate (B, H, W). CUDA tensors
     run the CUDA kernel, CPU tensors :func:`pocs_iteration_plain`.
@@ -431,18 +492,15 @@ def pocs_iteration(x: Cplx, obs: Cplx, mask: torch.Tensor, tau: torch.Tensor,
     lib = _lib()
     work = torch.empty(lib.p3d_pocs_iteration_work_floats(b, h, w),
                        dtype=torch.float32, device=device)
-    fh = dft.dft_on(h, str(device))
-    fw = dft.dft_on(w, str(device))
     with torch.cuda.device(device):
         rc = lib.p3d_pocs_iteration(
             x.re.data_ptr(), x.im.data_ptr(), obs.re.data_ptr(),
             obs.im.data_ptr(), mask.data_ptr(), tau.data_ptr(),
-            fh[0].data_ptr(), fh[1].data_ptr(), fw[0].data_ptr(),
-            fw[1].data_ptr(), out.re.data_ptr(), out.im.data_ptr(),
-            work.data_ptr(), b, h, w, float(alpha), THRESH_OPS[op],
-            _stream(device))
-    if rc != 0:
-        raise RuntimeError(f"pocs_iteration: CUDA error {rc} while launching")
+            twiddles_on(h, str(device)).data_ptr(),
+            twiddles_on(w, str(device)).data_ptr(), out.re.data_ptr(),
+            out.im.data_ptr(), work.data_ptr(), b, h, w, float(alpha),
+            THRESH_OPS[op], _stream(device))
+    raise_on(rc, "pocs_iteration", (b, h, w))
     pocs_iteration.launches += 1
     return out
 

@@ -255,9 +255,18 @@ def dwt_matrix(n: int, name: str = "db4") -> np.ndarray:
     ``M @ x @ M.T`` with subbands landing as ll | cV / cH | cD quadrants.
     """
     h, g, _, _ = wavelet_filters(name)
-    L = h.size
-    if n < L or n % 2:
+    if n < h.size or n % 2:
         raise ValueError(f"axis length {n} too short/odd for wavelet {name!r}")
+    return filter_matrix(h, g, n)
+
+
+def filter_matrix(h: np.ndarray, g: np.ndarray, n: int) -> np.ndarray:
+    """The (n, n) float32 periodized analysis matrix of the lowpass and
+    highpass filters ``h``, ``g`` (length L <= n, n even): ``M[i, (2i+k) %
+    n] = h[k]`` for the rows i < n/2, ``g[k]`` for the rows n/2 + i. The
+    wavelet solve's kernel applies this map as a strided circular filter
+    (ops/kernels/pocs_solve.wavelet_taps)."""
+    L = h.size
     m = np.zeros((n, n), np.float32)
     cols = (2 * np.arange(n // 2)[:, None] + np.arange(L)[None, :]) % n
     np.put_along_axis(m[: n // 2], cols, np.broadcast_to(h, cols.shape), axis=1)

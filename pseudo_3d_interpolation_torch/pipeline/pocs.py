@@ -78,9 +78,9 @@ def _transform_subbands(transform, slice_shape, config: POCSConfig) -> int:
     """Per-batch working-set expansion of a basis against the folded
     solve's (``fits_resident``'s ``expansion``). A folded solve (FFT, DCT,
     WAVELET): 1. The scan over ``pocs_iteration`` (``fused-periter``) keeps
-    about twelve pairs per slice (the observation scaled by α, x_prev,
-    x_curr, the extrapolated input, the kernel's result and its two work
-    pairs, their replacements while the old ones live, the cost's
+    about eleven pairs per slice (the observation scaled by α, x_prev,
+    x_curr, the extrapolated input, the kernel's result and its one work
+    pair, their replacements while the old ones live, the cost's
     temporaries), 2. A spectral-stack basis with the streamed iteration and
     the streamed decay never holds the (B, L, H, W) stack: its scan keeps
     about sixteen pairs per slice (the iterates, the spectrum, the

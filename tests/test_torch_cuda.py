@@ -24,8 +24,8 @@ from pseudo_3d_interpolation_torch.ops.cplx import Cplx
 from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
 from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
 
-# soft thresholds are continuous in the coefficients: dense fp32 DFT
-# products against cuFFT differ by rounding only
+# soft thresholds are continuous in the coefficients: the kernels' fp32
+# sums against cuFFT and cuBLAS differ by rounding only
 SOFT_TOL = 1e-4
 # hard thresholds flip boundary coefficients under reordered arithmetic:
 # compared by SNR against the truth
@@ -113,10 +113,9 @@ def test_solve_cost_sums_match_plain(device, h, w, niter):
     np.testing.assert_allclose(np.sqrt(cost.cpu().numpy()),
                                np.sqrt(ref_cost.cpu().numpy()),
                                rtol=0, atol=SQRT_COST_ATOL)
-    for basis in ks.BASES:
+    for code, basis in enumerate(ks.BASES):
         assert ks._lib().p3d_pocs_solve_work_floats(
-            3, h, w, int(basis == "fft")) == ks.solve_work_floats(
-                3, h, w, basis)
+            3, h, w, code) == ks.solve_work_floats(3, h, w, basis)
 
 
 @pytest.mark.cuda
@@ -158,10 +157,13 @@ def test_kernel_runs_zero_iterations_and_empty_batches(device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
-@pytest.mark.parametrize("h,w", [(512, 512), (384, 512), (100, 130)])
+@pytest.mark.parametrize("h,w", [(512, 512), (384, 512), (100, 130),
+                                 (8, 4096), (4096, 16)])
 def test_iteration_kernel_matches_plain(device, h, w, op):
-    """One FFT-basis iteration; the hard threshold on taus away from every
-    spectral magnitude (``gap_taus``), so all three are held to 1e-4."""
+    """One FFT-basis iteration on the line passes, up to the engine's
+    longest line (4096) along either side; the hard threshold on taus away
+    from every spectral magnitude (``gap_taus``), so all three are held to
+    1e-4."""
     truth, z, mask, decay = _inputs(4, h, w, 10, device)
     x = Cplx(z.re * 1.5 + 0.1, z.im - 0.2)
     tau = decay[3].contiguous()
@@ -177,6 +179,15 @@ def test_iteration_kernel_matches_plain(device, h, w, op):
     got, want = _host(got), _host(want)
     assert np.isfinite(got).all()
     assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+def test_iteration_kernel_refuses_a_side_past_the_longest_line(device):
+    _, z, mask, decay = _inputs(1, 8, 4097, 1, device)
+    before = ks.pocs_iteration.launches
+    with pytest.raises(ValueError, match="longer than 4096"):
+        ks.pocs_iteration(z, z, mask, decay[0])
+    assert ks.pocs_iteration.launches == before
 
 
 def _basis_decay(z: Cplx, basis: str, niter: int, wavelet=None):
@@ -226,10 +237,12 @@ def test_dct_kernel_matches_plain(device, h, w, version, op):
 @pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
 @pytest.mark.parametrize("version", ["regular", "fast"])
 @pytest.mark.parametrize("n,name", [(512, "db4"), (512, "coif5"),
-                                    (96, "db4")])
+                                    (96, "db4"), (160, "db20"),
+                                    (512, "db20")])
 def test_wavelet_kernel_matches_plain(device, n, name, version, op):
-    """The Mallat cascade at level 3; 96² has blocks of 96, 48 and 24,
-    none a multiple of the 64-wide tiles."""
+    """The Mallat cascade at level 3 as filter passes; 96² has blocks of
+    96, 48 and 24, whose tiles overhang; db20 at 160² has a deepest block
+    of 40 = L, which a tile's region wraps more than twice."""
     truth, z, mask, _ = _inputs(4, n, n, 10, device)
     mats = [wv.dwt_matrix(n >> j, name) for j in range(3)]
     _check_solve(truth, z, mask, _basis_decay(z, "wavelet", 10, name), op,
