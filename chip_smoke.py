@@ -16,7 +16,8 @@ Phases, each of which exits non-zero on failure:
       384x512 rectangle, and at the shapes the FFT main path gives it
       (batch 32 and the cube's last batch of 1, 50 iterations, hard/fast
       at 'high'); times both at batch 32, and each pass of the kernel there
-      (torch.profiler) with its bytes per second and flop rate;
+      (torch.profiler) with its bytes per second and flop rate, and the GB
+      a call moves with the rate it reaches;
    b. the subband kernels' line engine (``csrc/fft_lines.cuh``, through
       ``line_fft``) against ``torch.fft`` at every line length the plans
       use, 8 to 4096 in powers of two, 384 and an odd length, forward and
@@ -35,8 +36,11 @@ Phases, each of which exits non-zero on failure:
       passes there (torch.profiler) with its bytes per second and flop
       rate, and the GB a call moves with the rate it reaches;
    d. ``pocs_solve(basis='dct')`` at 512² (batch 8, 10 iterations, regular
-      and fast, soft and hard) and on one 384x512 rectangle; times both at
-      batch 32 over 50 iterations;
+      and fast, soft and hard), on one 384x512 rectangle, on an odd side
+      (97x130, the line engine's direct DFT) and at the main path's batches
+      32 and 1 (50 iterations); times both at batch 32 over 50 iterations,
+      and each pass of the kernel there (torch.profiler), with the GB a call
+      moves and its rate;
    e. ``pocs_solve(basis='wavelet')`` at 512² (batch 8, 10 iterations, db4
       and coif5 at level 3, soft and hard) and at the main path's batches
       32 and 1 (db4, 50 iterations); times both at batch 32 over 50
@@ -107,9 +111,9 @@ the other kernel's plain output, inverted and reinserted.
 first two batches, 64 slices), writes the Chrome
 traces to ``DIR`` (gzipped) and prints the device's busy time (the union
 of kernel, memcpy and memset intervals), its idle share of the traced wall
-time, and the largest device and host entries. The per-iteration and
-WAVELET paths run no dense GEMM: their traces, and phase 3's profiles of
-both kernels, fail on a ``cgemm_kernel`` row.
+time, and the largest device and host entries. Phase 3's profiles of the
+solves and of the iteration fail on any device activity but their own
+passes: no dense product runs in them.
 
 The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists each kernel with its launch count, error, times
@@ -552,8 +556,8 @@ BOX_PASSES = ("box_cols_inverse_kernel", "box_rows_kernel",
 SOLVE_PASSES = ("solve_rows_forward_kernel", "solve_cols_shrink_kernel",
                 "solve_rows_inverse_kernel", "state_kernel", "init_kernel")
 ITER_PASSES = SOLVE_PASSES[:3]
-# kernels the line-FFT and filter paths must not launch
-GEMM_KERNEL = "cgemm_kernel"
+WAVELET_PASSES = ("wavelet_forward_kernel", "wavelet_inverse_kernel",
+                  "state_kernel", "init_kernel")
 
 
 def profiled_events(torch, run, reps: int) -> list:
@@ -572,16 +576,25 @@ def profiled_events(torch, run, reps: int) -> list:
     return sorted(events, key=lambda e: e["ts"])
 
 
+def only_passes(events: list, names) -> list:
+    """``events``, failing on any whose name contains none of ``names``."""
+    for e in events:
+        if not any(n in e["name"] for n in names):
+            fail(f"{e['name'][:80]} ran in a profile of {names}")
+    return events
+
+
 def kernel_passes(torch, run, names, reps: int = 3,
-                  forbid: str | None = None) -> dict:
+                  exclusive: bool = False) -> dict:
     """ms per call of each pass (device kernel, by a name in ``names``
     that its trace name contains, the longest such name) of ``reps``
-    calls of ``run`` under torch.profiler, after one untimed call; fails
-    when a kernel whose name contains ``forbid`` ran."""
+    calls of ``run`` under torch.profiler, after one untimed call; with
+    ``exclusive`` fails when anything else ran on the device."""
     times = dict.fromkeys(names, 0.0)
-    for e in profiled_events(torch, run, reps):
-        if forbid and forbid in e["name"]:
-            fail(f"{e['name'][:80]} ran in a profile of {names}")
+    events = profiled_events(torch, run, reps)
+    if exclusive:
+        only_passes(events, names)
+    for e in events:
         hits = [n for n in names if n in e["name"]]
         if hits:
             times[max(hits, key=len)] += e["dur"] / 1e3 / reps
@@ -658,26 +671,31 @@ def subband_passes(torch, ksb, case, spatial: bool) -> dict:
         kernel_passes(torch, run, PASS_NAMES), pass_work(case, spatial))
 
 
-def solve_passes(torch, ks, z, mask, tau) -> dict:
-    """Time and print each pass of one FFT-basis pocs_solve call at
-    (B, H, W) with ``tau``'s iterations: per iteration (a) reads y and
+def solve_passes(torch, ks, z, mask, tau, basis: str = "fft") -> dict:
+    """Time and print each pass of one FFT- or DCT-basis pocs_solve call
+    at (B, H, W) with ``tau``'s iterations: per iteration (a) reads y and
     writes t with one W-line FFT a row, (b) reads and writes t with two
     H-line FFTs a column, (c) reads t, obs and x (the mask once) and
     writes y with one W-line FFT a row, the state kernel reads y and x
-    and writes both."""
+    and writes both (the DCT's steps around the FFTs uncounted); then the
+    GB a call moves and its rate. Fails if anything else ran."""
     b, h, w = z.re.shape
     niter = tau.shape[0]
     px = niter * b * h * w
     rows = px * 5.0 * math.log2(w)
-    return print_passes(
-        f"pocs_solve[fft] {b}x{h}x{w}, {niter} iterations",
-        kernel_passes(torch, lambda: ks.pocs_solve(
-            z, mask, tau, ALPHA, "hard", "fast", "high"), SOLVE_PASSES, 2),
-        {"solve_rows_forward_kernel": (16 * px, rows),
-         "solve_cols_shrink_kernel": (16 * px, 2 * px * 5.0 * math.log2(h)),
-         "solve_rows_inverse_kernel": (32 * px + 4 * h * w, rows),
-         "state_kernel": (32 * px, 0.0),
-         "init_kernel": (24 * b * h * w, 0.0)})
+    label = f"pocs_solve[{basis}] {b}x{h}x{w}, {niter} iterations"
+    work = {"solve_rows_forward_kernel": (16 * px, rows),
+            "solve_cols_shrink_kernel": (16 * px,
+                                         2 * px * 5.0 * math.log2(h)),
+            "solve_rows_inverse_kernel": (32 * px + 4 * h * w, rows),
+            "state_kernel": (32 * px, 0.0),
+            "init_kernel": (24 * b * h * w, 0.0)}
+    times = print_passes(label, kernel_passes(
+        torch, lambda: ks.pocs_solve(z, mask, tau, ALPHA, "hard", "fast",
+                                     "high", basis=basis),
+        SOLVE_PASSES, 2, True), work)
+    print_total(label, times, work)
+    return times
 
 
 def iteration_passes(torch, ks, z, mask, tau) -> dict:
@@ -685,7 +703,7 @@ def iteration_passes(torch, ks, z, mask, tau) -> dict:
     (a) reads x and writes t with one W-line FFT a row, (b) reads and
     writes t with two H-line FFTs a column, (c) reads t and obs (the mask
     once) and writes the result with one W-line FFT a row; then the GB a
-    call moves and its rate. Fails if a GEMM ran."""
+    call moves and its rate. Fails if anything else ran."""
     b, h, w = z.re.shape
     px = b * h * w
     rows = px * 5.0 * math.log2(w)
@@ -696,8 +714,7 @@ def iteration_passes(torch, ks, z, mask, tau) -> dict:
             "solve_rows_inverse_kernel": (24 * px + 4 * h * w, rows)}
     times = print_passes(label, kernel_passes(
         torch, lambda: ks.pocs_iteration(z, z, mask, tau, ALPHA, "hard",
-                                         "high"), ITER_PASSES, 20,
-        GEMM_KERNEL), work)
+                                         "high"), ITER_PASSES, 20, True), work)
     print_total(label, times, work)
     return times
 
@@ -711,17 +728,15 @@ def wavelet_passes(torch, ks, z, mask, tau, mats, reps: int = 2) -> dict:
     each; the state kernel (reads y and x, writes both) and init. A
     level's pass is known by its place in the iteration's launch order
     (forward finest first, inverse deepest first). Then the GB a call
-    moves and its rate. Fails if a GEMM ran."""
+    moves and its rate. Fails if anything else ran."""
     b, n, _ = z.re.shape
     niter, level = tau.shape[0], len(mats)
     taps = ks.wavelet_taps(mats).size // 2
     times, fwd, inv = {}, 0, 0
-    for e in profiled_events(torch, lambda: ks.pocs_solve(
+    for e in only_passes(profiled_events(torch, lambda: ks.pocs_solve(
             z, mask, tau, ALPHA, "hard", "fast", "high", basis="wavelet",
-            wavelet_mats=mats), reps):
+            wavelet_mats=mats), reps), WAVELET_PASSES):
         name = e["name"]
-        if GEMM_KERNEL in name:
-            fail(f"{name[:80]} ran in the wavelet solve")
         if "wavelet_forward_kernel" in name:
             key = f"forward level {fwd % level}"
             fwd += 1
@@ -782,12 +797,10 @@ def device_events(prof, path: pathlib.Path) -> list:
             if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
 
 
-def trace_main_path(torch, run, out_dir: pathlib.Path, name: str,
-                    forbid: str | None = None):
+def trace_main_path(torch, run, out_dir: pathlib.Path, name: str):
     """Run ``run`` under torch.profiler; print the device's busy time, its
     idle share of the traced wall and the largest device and host
-    entries; keep the Chrome trace as ``DIR/<name>.json.gz``. Fails when a
-    kernel whose name contains ``forbid`` ran."""
+    entries; keep the Chrome trace as ``DIR/<name>.json.gz``."""
     from torch.profiler import ProfilerActivity, profile
 
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -805,8 +818,6 @@ def trace_main_path(torch, run, out_dir: pathlib.Path, name: str,
     raw.unlink()
     spans, by_name = [], {}
     for e in events:
-        if forbid and forbid in e["name"]:
-            fail(f"the {name} trace holds {e['name'][:80]}")
         spans.append((e["ts"], e["ts"] + e["dur"]))
         n, t = by_name.get(e["name"], (0, 0.0))
         by_name[e["name"]] = (n + 1, t + e["dur"])
@@ -1099,9 +1110,9 @@ def main():
     # shapes
     cases = [(8, N, N, op, ver, 10, "highest") for op in ("soft", "hard")
              for ver in ("regular", "fast")]
-    cases += [(4, 384, N, "soft", "fast", 10, "highest"),
-              (4, 384, N, "hard", "fast", 10, "highest"),
-              (SLICES % MAIN_BATCH, N, N, "hard", "fast", NITER, "high"),
+    cases += [(4, h, w, op, "fast", 10, "highest")
+              for h, w in ((384, N), (97, 130)) for op in ("soft", "hard")]
+    cases += [(SLICES % MAIN_BATCH, N, N, "hard", "fast", NITER, "high"),
               (MAIN_BATCH, N, N, "hard", "fast", NITER, "high")]
     err_dct = 0.0
     for i, case in enumerate(cases):
@@ -1116,6 +1127,7 @@ def main():
     print(f"pocs_solve[dct] {MAIN_BATCH}x{N}x{N}, {NITER} iterations: "
           f"kernel {four[0]:.2f} / {four[1]:.2f} ms, plain (torch.matmul) "
           f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
+    solve_passes(torch, ks, z, mask, tau, "dct")
     # four real 2-D DCTs per slice-iteration at 2.5·n·log2 n each
     dct_bound = bound(4 * 2.5 * N * N * math.log2(N * N) * NITER
                       * MAIN_BATCH, solve_bytes)
@@ -1264,7 +1276,7 @@ def main():
     if args.trace is not None:
         trace_main_path(torch, lambda: interpolate(part, config=recommended,
                                                    device=dev),
-                        args.trace, "periter_main_path_trace", GEMM_KERNEL)
+                        args.trace, "periter_main_path_trace")
 
     # phases 7 and 8: the DCT and WAVELET folded solves on the same cube
     dct = dataclasses.replace(production, transform_kind="DCT")
@@ -1284,7 +1296,7 @@ def main():
     if args.trace is not None:
         trace_main_path(torch, lambda: interpolate(cube, config=wavelet,
                                                    device=dev),
-                        args.trace, "wavelet_main_path_trace", GEMM_KERNEL)
+                        args.trace, "wavelet_main_path_trace")
 
     # phase 9: the CURVELET main path, its production configuration
     curvelet = dataclasses.replace(production, transform_kind="CURVELET",

@@ -1,7 +1,7 @@
 // Line FFTs for Hopper with each line's elements in registers: the engine of
-// the subband and box kernels (subband.cu) and of the FFT-basis solve and
-// iteration (pocs_solve.cu), with the line kernels' block geometry they
-// share.
+// the subband and box kernels (subband.cu) and of the FFT- and DCT-basis
+// solves and the FFT iteration (pocs_solve.cu), with the line kernels'
+// block geometry they share.
 //
 // A line of length n belongs to a group of t threads, which synchronises
 // only itself (a warp's lanes, or a named barrier of whole warps), so a
@@ -250,11 +250,15 @@ constexpr int ERR_SHAPE = -3;     // a side is longer than MAX_LINE
 
 inline int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 
-// The twiddle table of the block's lines into shared memory; every thread
-// of the block calls it.
+// The twiddle table of the block's lines into shared memory: its n entries
+// at tw, then in the same sweep `steps` entries of `extra` (the DCT solve's
+// tables of the steps around the FFT). Every thread of the block calls it.
 __device__ __forceinline__ void load_twiddles(float2* tw, const float2* src,
-                                              int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) tw[e] = src[e];
+                                              int n,
+                                              const float2* extra = nullptr,
+                                              int steps = 0) {
+  for (int e = threadIdx.x; e < n + steps; e += blockDim.x)
+    tw[e] = e < n ? src[e] : extra[e - n];
   __syncthreads();
 }
 
@@ -295,14 +299,18 @@ struct Lines {
 
 // 0, ERR_SHAPE for a side out of [1, MAX_LINE], or ERR_SMEM. A row block
 // has `row_threads` threads (at least one group); a column block also
-// holds a table of `col_ints` ints.
-inline int lines_for(int h, int w, int row_threads, int col_ints, Lines* s) {
+// holds a table of `col_ints` ints. A row and a column block hold
+// `row_tables` and `col_tables` n-entry twiddle tables of their lines: the
+// FFT's, and those of steps around it (the DCT solve's twiddles).
+inline int lines_for(int h, int w, int row_threads, int col_ints, Lines* s,
+                     int row_tables = 1, int col_tables = 1) {
   if (h < 1 || w < 1 || h > MAX_LINE || w > MAX_LINE) return ERR_SHAPE;
   s->lh = line_shape(h);
   s->lw = line_shape(w);
   s->nt_w = s->lw.t > row_threads ? s->lw.t : row_threads;
   const size_t c8 = sizeof(float2);
-  s->smem_rows = c8 * (w + (size_t)s->rows_per_block() * line_buf(w));
+  s->smem_rows =
+      c8 * ((size_t)row_tables * w + (size_t)s->rows_per_block() * line_buf(w));
   // a column block: one group per column of its tile, up to LINE_NT_MAX
   // threads (whole warps), its columns' tile and the groups' buffers
   const int t = s->lh.t;
@@ -312,8 +320,9 @@ inline int lines_for(int h, int w, int row_threads, int col_ints, Lines* s) {
     int nt = cols * t < LINE_NT_MAX ? cols * t : LINE_NT_MAX;
     nt = nt > t ? nt : t;
     s->nt_h = (nt + 31) / 32 * 32;
-    s->smem_cols = c8 * (h + (size_t)(s->nt_h / t) * line_buf(h)) +
-                   cols * col + sizeof(int) * (size_t)col_ints;
+    s->smem_cols =
+        c8 * ((size_t)col_tables * h + (size_t)(s->nt_h / t) * line_buf(h)) +
+        cols * col + sizeof(int) * (size_t)col_ints;
     if (cols == 1 || s->smem_cols <= (size_t)MAX_SMEM) break;
   }
   s->cols = cols;

@@ -16,9 +16,8 @@
 //   y' = new + f·(new − x_prev')
 //
 //   FFT:     T = fft2, T⁻¹ the unscaled ifft2, scale 1/(H·W); tau[j, b]
-//   DCT:     T(y) = C_H @ y @ C_Wᵀ, T⁻¹ = C_Hᵀ @ · @ C_W, scale 1 (the
-//            orthonormal DCT-II is real: re and im transform alone);
-//            tau[j, b]
+//   DCT:     T(y) = C_H @ y @ C_Wᵀ, the orthonormal DCT-II (real: re and
+//            im transform alone), T⁻¹ = C_Hᵀ @ · @ C_W; tau[j, b]
 //   WAVELET: per level lv < L, nj = n >> lv, the top-left nj×nj block
 //            becomes A_lv @ block @ A_lvᵀ (A_lv the orthogonal periodized
 //            analysis matrix of the filters h, g: A[i, (2i+k) mod nj] =
@@ -40,23 +39,40 @@
 // caller's stream, with no host synchronisation inside the solve (the
 // restart decision is taken on the device).
 //
-// The FFT solve and the single iteration run each iteration as three line
-// passes on the fft_lines.cuh engine (each line in the registers of its
-// own group of threads, twiddles from a float64-built table), through one
-// (B, H, W) complex scratch t:
+// The FFT and DCT solves and the single iteration run each iteration as
+// three line passes on the fft_lines.cuh engine (each line in the registers
+// of its own group of threads, twiddles from a float64-built table),
+// through one (B, H, W) complex scratch t:
 //   (a) per (b, block of rows): FFT along W of each row of y into t;
 //   (b) per (b, tile of 16 columns): the columns of t into shared memory
 //       (128-byte row segments); per column FFT along H, shrink with
 //       tau[j, b], inverse FFT along H; back into t;
 //   (c) per (b, block of rows): inverse FFT along W of each row of t,
 //       scale by 1/(H·W), reinsertion new = v·scale·(1 − α·mask) + α·obs
-//       into y, and (the solve only) the block's Σ|new| and Σ(|new| − |x|)
-//       in a fixed order.
+//       into y, and (the solves only) the block's Σ|new| and Σ(|new| −
+//       |x|) in a fixed order.
 // What bounds it: memory. A solve's iteration moves about 100 bytes per
 // (slice, pixel) through device memory (y read, t written, read and
 // written, read, obs and x read, y written, and the state kernel's x and
 // y), about 26 MB per 512² slice, against 5·H·W·log2(H·W) flops each way;
 // the column pass's transforms run at the engine's throughput.
+//
+// The DCT solve runs the same passes with Makhoul's fast DCT (IEEE Trans.
+// ASSP 28(1), 1980) around each line FFT of length n. A line z is loaded
+// reordered, v[m] = z[2m] and v[n − 1 − m] = z[2m + 1], and transformed;
+// then X_k = f_k·V_k + conj(f_k)·V_{n−k} with f_k = (c_k/2)·exp(−iπk/2n),
+// c_k the orthonormal scale: one complex FFT transforms re and im
+// together, the DCT being real. The inverse takes V_k = g_k·(X_k −
+// i·X_{n−k}) (no second term at k = 0) with g_k = exp(iπk/2n)/c_k, the
+// unscaled inverse FFT, and stores v[m] back at the sample it came from: n
+// times the DCT-III, so pass (c)'s scale is 1/(H·W) as the FFT's. Pairing
+// k with n − k exchanges the line once through the group's buffer; the
+// column pass derives X_k, X_{n−k} and the inverse's V_k from one
+// exchange. The reordering is a stride-2 gather from device memory in
+// pass (a), from the tile in pass (b), and pass (c) reinserts at the
+// reordered samples. f and g come from a table built in float64 on the
+// host. The DCT's extra work is one exchange and a few complex products a
+// point and pass: it moves the FFT solve's bytes.
 //
 // The WAVELET solve runs each level as one fused 2-D filter pass per
 // direction, through shared-memory tiles, not as products with the dense
@@ -82,20 +98,6 @@
 // memory for db4) and held to 32 registers a thread, so that 8 blocks
 // share an SM and keep their loads in flight: 16×16 tiles measured faster
 // than 32×32 ones on an H100, though they re-read more halo (PERF.md).
-//
-// The DCT solve runs batched complex GEMMs with the basis' dense matrices.
-// It is bound by those products, in full fp32 FMA on the CUDA cores (67
-// TFLOP/s peak on an H100 SXM): the DCT matrices are real, so a product
-// takes a real operand and does two FMAs per complex output element and
-// depth step, 8·H·W·(H+W) flops per slice-iteration. Each GEMM tile is
-// 64×64 complex outputs per 256-thread block, 4×4 complex accumulators in
-// registers per thread, 16-deep K tiles staged in shared memory. The
-// threshold lives in the forward right-product's epilogue; scale,
-// reinsertion and the cost's partial sums in the last inverse product's
-// epilogue, so the unscaled inverse never makes an extra pass through
-// device memory. The partial sums of every solve are per block, reduced in
-// a fixed order: the result does not depend on scheduling. A fast DCT on
-// the line engine is later work.
 
 #include <cuda_runtime.h>
 
@@ -107,34 +109,7 @@
 
 namespace {
 
-constexpr int BM = 64;   // output rows per block
-constexpr int BN = 64;   // output columns per block
-constexpr int BK = 16;   // contraction depth per shared-memory stage
-constexpr int TM = 4;    // complex rows per thread (strided by 16)
-constexpr int TN = 4;    // complex columns per thread (strided by 16)
-constexpr int NT = 256;  // threads per GEMM block
-constexpr int A_PAD = 2; // keeps the transposed A stores free of bank conflicts
 constexpr int STATE_THREADS = 256;
-
-// EPI_REINSERT also writes each block's cost sums
-enum Epilogue { EPI_STORE = 0, EPI_SHRINK = 1, EPI_REINSERT = 2 };
-// which operand is a real matrix (its imaginary pointer is unused)
-enum Operands { REAL_A = 1, REAL_B = 2 };
-
-// C[b] = A[b] @ B[b] for whole row-major complex planes (A m×k, B k×n);
-// a batch stride of 0 shares an operand (a transform matrix) across the
-// batch.
-struct Gemm {
-  const float* ar; const float* ai; long long sa;
-  const float* br; const float* bi; long long sb;
-  float* cr; float* ci; long long sc;
-  int m, n, k;
-};
-
-struct ShrinkArgs {
-  const float* tau;  // (B,) thresholds of this iteration
-  int op;
-};
 
 // Reinsertion on whole planes: new = v·scale·(1 − α·mask) + α·obs; with
 // the cost also each block's Σ|new| and Σ(|new| − |x|).
@@ -188,126 +163,6 @@ __device__ __forceinline__ float2 reinsert(float2 v, long long o, long long m,
   local_s += mag_new;
   local_d += mag_new - sqrtf(xr * xr + xi * xi);
   return make_float2(vr, vi);
-}
-
-template <int EPI, int OPS>
-__global__ void __launch_bounds__(NT)
-cgemm_kernel(Gemm g, ShrinkArgs sh, ReinsertArgs ri) {
-  __shared__ float as_r[BK][BM + A_PAD];
-  __shared__ float as_i[BK][BM + A_PAD];
-  __shared__ float bs_r[BK][BN];
-  __shared__ float bs_i[BK][BN];
-
-  const int b = blockIdx.z;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * BN;
-  const int t = threadIdx.x;
-  const int tx = t % 16;
-  const int ty = t / 16;
-
-  const float* ar = g.ar + b * g.sa;
-  const float* ai = OPS == REAL_A ? nullptr : g.ai + b * g.sa;
-  const float* br = g.br + b * g.sb;
-  const float* bi = OPS == REAL_B ? nullptr : g.bi + b * g.sb;
-
-  // tile-load coordinates: A as 16 rows x 16 k per pass (4 passes),
-  // B as 4 k-rows x 64 columns per pass (4 passes)
-  const int a_k = t % 16, a_m = t / 16;
-  const int b_n = t % 64, b_k = t / 64;
-
-  float acc_r[TM][TN];
-  float acc_i[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc_r[i][j] = acc_i[i][j] = 0.0f;
-
-  for (int k0 = 0; k0 < g.k; k0 += BK) {
-#pragma unroll
-    for (int p = 0; p < BM / 16; ++p) {
-      const int m = m0 + a_m + 16 * p;
-      const int k = k0 + a_k;
-      float vr = 0.0f, vi = 0.0f;
-      if (m < g.m && k < g.k) {
-        const long long off = (long long)m * g.k + k;
-        vr = ar[off];
-        if (OPS != REAL_A) vi = ai[off];
-      }
-      as_r[a_k][a_m + 16 * p] = vr;
-      if (OPS != REAL_A) as_i[a_k][a_m + 16 * p] = vi;
-    }
-#pragma unroll
-    for (int p = 0; p < BK / 4; ++p) {
-      const int k = k0 + b_k + 4 * p;
-      const int n = n0 + b_n;
-      float vr = 0.0f, vi = 0.0f;
-      if (k < g.k && n < g.n) {
-        const long long off = (long long)k * g.n + n;
-        vr = br[off];
-        if (OPS != REAL_B) vi = bi[off];
-      }
-      bs_r[b_k + 4 * p][b_n] = vr;
-      if (OPS != REAL_B) bs_i[b_k + 4 * p][b_n] = vi;
-    }
-    __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      float a_r[TM], a_i[TM], b_r[TN], b_i[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        a_r[i] = as_r[kk][ty + 16 * i];
-        a_i[i] = OPS == REAL_A ? 0.0f : as_i[kk][ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < TN; ++j) {
-        b_r[j] = bs_r[kk][tx + 16 * j];
-        b_i[j] = OPS == REAL_B ? 0.0f : bs_i[kk][tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) {
-          if (OPS == REAL_A) {  // real A times complex B
-            acc_r[i][j] = fmaf(a_r[i], b_r[j], acc_r[i][j]);
-            acc_i[i][j] = fmaf(a_r[i], b_i[j], acc_i[i][j]);
-          } else {  // complex A times real B
-            acc_r[i][j] = fmaf(a_r[i], b_r[j], acc_r[i][j]);
-            acc_i[i][j] = fmaf(a_i[i], b_r[j], acc_i[i][j]);
-          }
-        }
-    }
-    __syncthreads();
-  }
-
-  float local_s = 0.0f, local_d = 0.0f;
-  float* cr = g.cr + b * g.sc;
-  float* ci = g.ci + b * g.sc;
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int m = m0 + ty + 16 * i;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (m >= g.m || n >= g.n) continue;
-      const long long off = (long long)m * g.n + n;
-      float2 v = make_float2(acc_r[i][j], acc_i[i][j]);
-      if (EPI == EPI_SHRINK) {
-        const float s = shrink_factor(v.x * v.x + v.y * v.y, sh.tau[b], sh.op);
-        v.x *= s;
-        v.y *= s;
-      } else if (EPI == EPI_REINSERT) {
-        v = reinsert(v, b * g.sc + off, off, ri, local_s, local_d);
-      }
-      cr[off] = v.x;
-      ci[off] = v.y;
-    }
-  }
-
-  if (EPI == EPI_REINSERT)
-    block_cost_sums(local_s, local_d, ri,
-                    (long long)b * gridDim.x * gridDim.y +
-                        blockIdx.y * gridDim.x + blockIdx.x);
 }
 
 // x = y = obs, v = 1, cost_prev = +inf (pocs_iter.py:767)
@@ -383,20 +238,100 @@ state_kernel(float* xr, float* xi, float* yr, float* yi,
   }
 }
 
-// FFT pass (a): t[b, r] = FFT along W of row r of y_b, one group per row.
-// grid (row blocks, batch).
+// Makhoul's order: element e of a DCT line's FFT is its sample makhoul(e).
+__device__ __forceinline__ int makhoul(int e, int n) {
+  return 2 * e < n ? 2 * e : 2 * (n - e) - 1;
+}
+
+// n-entry twiddle tables a line kernel holds: the FFT's and, with the DCT,
+// a row pass its f or g, the column pass both
+template <bool DCT>
+__host__ __device__ constexpr int row_tables() {
+  return DCT ? 2 : 1;
+}
+template <bool DCT>
+__host__ __device__ constexpr int col_tables() {
+  return DCT ? 3 : 1;
+}
+
+// For each element e < n that the thread holds, v[s] = op(e, v[s], the
+// group's element (n − e) mod n). Through the group's buffer, free on entry
+// and on return; every thread of the group calls it.
+template <class Op>
+__device__ __forceinline__ void with_mirror(float2 (&v)[8], float2* buf,
+                                            int n, const Group& g, Op op) {
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    if (e < n) buf[line_pad(e)] = v[s];
+  }
+  g.sync();
+#pragma unroll
+  for (int s = 0; s < 8; ++s) {
+    const int e = g.j + s * g.t;
+    if (e < n) v[s] = op(e, v[s], buf[line_pad(e == 0 ? 0 : n - e)]);
+  }
+  g.sync();
+}
+
+// The DCT's forward step after the FFT: X_k = f_k·V_k + conj(f_k)·V_{n−k}
+__device__ __forceinline__ void dct_forward_step(float2 (&v)[8], float2* buf,
+                                                 const float2* f, int n,
+                                                 const Group& g) {
+  with_mirror(v, buf, n, g, [f](int e, float2 own, float2 mirror) {
+    return cadd(cmul(f[e], own), cmul_conj(mirror, f[e]));
+  });
+}
+
+// The DCT's inverse step before the FFT: V_k = g_k·(X_k − i·X_{n−k}), and
+// V_0 = g_0·X_0
+__device__ __forceinline__ void dct_inverse_step(float2 (&v)[8], float2* buf,
+                                                 const float2* gi, int n,
+                                                 const Group& g) {
+  with_mirror(v, buf, n, g, [gi](int e, float2 own, float2 mirror) {
+    const float2 u =
+        e == 0 ? own : make_float2(own.x + mirror.y, own.y - mirror.x);
+    return cmul(gi[e], u);
+  });
+}
+
+// The column pass's DCT step between the FFTs: from A = f_k·V_k and B =
+// conj(f_k)·V_{n−k}, X_k = A + B and X_{n−k} = i·(A − B) (f_{n−k} =
+// −i·conj(f_k) for k > 0); both shrunk, s_k and s_{n−k}, the inverse's
+// input is g_k·(X^_k − i·X^_{n−k}) = g_k·((s_k + s_{n−k})·A + (s_k −
+// s_{n−k})·B). At k = 0 the mirror is the element itself, A = B, and the
+// result g_0·s_0·X_0 holds whatever s_{n−k} is.
+__device__ __forceinline__ void dct_shrink_step(float2 (&v)[8], float2* buf,
+                                                const float2* f,
+                                                const float2* gi, int n,
+                                                float thr, int op,
+                                                const Group& g) {
+  with_mirror(v, buf, n, g, [=](int e, float2 own, float2 mirror) {
+    const float2 a = cmul(f[e], own), b = cmul_conj(mirror, f[e]);
+    const float2 x = cadd(a, b), y = csub(a, b);
+    const float sk = shrink_factor(x.x * x.x + x.y * x.y, thr, op);
+    const float sm = shrink_factor(y.x * y.x + y.y * y.y, thr, op);
+    const float p = sk + sm, q = sk - sm;
+    return cmul(gi[e], make_float2(p * a.x + q * b.x, p * a.y + q * b.y));
+  });
+}
+
+// Pass (a): t[b, r] = the FFT (DCT: the DCT-II) along W of row r of y_b,
+// one group per row. grid (row blocks, batch).
+template <bool DCT>
 __global__ void __launch_bounds__(LINE_NT_MAX)
 solve_rows_forward_kernel(const float* __restrict__ yr,
                           const float* __restrict__ yi,
                           float2* __restrict__ t,
-                          const float2* __restrict__ tw_w, LineShape L,
+                          const float2* __restrict__ tw_w,
+                          const float2* __restrict__ dct_w, LineShape L,
                           int h) {
   extern __shared__ float2 smem[];
   const int w = L.n;
   const Group g = make_group(L.t);
   float2* tw = smem;
-  float2* buf = tw + w + g.index * line_buf(w);
-  load_twiddles(tw, tw_w, w);
+  float2* buf = tw + row_tables<DCT>() * w + g.index * line_buf(w);
+  load_twiddles(tw, tw_w, w, dct_w, DCT ? w : 0);  // f
   const int r = blockIdx.x * g.count + g.index;
   if (r >= h) return;
   const long long o = ((long long)blockIdx.y * h + r) * w;
@@ -404,9 +339,11 @@ solve_rows_forward_kernel(const float* __restrict__ yr,
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
     const int e = g.j + s * g.t;
-    v[s] = e < w ? make_float2(yr[o + e], yi[o + e]) : make_float2(0.0f, 0.0f);
+    const int m = DCT ? makhoul(e, w) : e;
+    v[s] = e < w ? make_float2(yr[o + m], yi[o + m]) : make_float2(0.0f, 0.0f);
   }
   line_fft<false>(v, buf, tw, L, g);
+  if (DCT) dct_forward_step(v, buf, tw + w, w, g);
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
     const int e = g.j + s * g.t;
@@ -414,13 +351,16 @@ solve_rows_forward_kernel(const float* __restrict__ yr,
   }
 }
 
-// FFT pass (b): per column of t_b, FFT along H, shrink with tau[b],
-// inverse FFT along H (unscaled), in place through a shared-memory tile of
-// columns. grid (column blocks, batch).
+// Pass (b): per column of t_b, the FFT along H, shrink with tau[b], the
+// unscaled inverse FFT along H (DCT: the DCT-II, the shrink and n times
+// the DCT-III), in place through a shared-memory tile of columns. grid
+// (column blocks, batch).
+template <bool DCT>
 __global__ void __launch_bounds__(LINE_NT_MAX, 2)
 solve_cols_shrink_kernel(float2* __restrict__ t,
                          const float* __restrict__ tau,  // (B,)
-                         const float2* __restrict__ tw_h, LineShape L, int w,
+                         const float2* __restrict__ tw_h,
+                         const float2* __restrict__ dct_h, LineShape L, int w,
                          int cols, int op) {
   extern __shared__ float2 smem[];
   const int h = L.n;
@@ -428,7 +368,7 @@ solve_cols_shrink_kernel(float2* __restrict__ t,
                          // a row's 16 columns land in 16 banks
   const Group g = make_group(L.t);
   float2* tw = smem;
-  float2* tile = tw + h;  // column c at tile[c·ls]
+  float2* tile = tw + col_tables<DCT>() * h;  // column c at tile[c·ls]
   float2* buf = tile + cols * ls + g.index * line_buf(h);
   const int b = blockIdx.y;
   const int c0 = blockIdx.x * cols;
@@ -441,7 +381,7 @@ solve_cols_shrink_kernel(float2* __restrict__ t,
       tile[tl.c * ls + r] = tl.in ? s[(long long)r * w + tl.c]
                                   : make_float2(0.0f, 0.0f);
   }
-  load_twiddles(tw, tw_h, h);
+  load_twiddles(tw, tw_h, h, dct_h, DCT ? 2 * h : 0);  // f, g
   const float thr = tau[b];
   for (int c = g.index; c < nc; c += g.count) {
     float2* col = tile + c * ls;
@@ -449,20 +389,24 @@ solve_cols_shrink_kernel(float2* __restrict__ t,
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int e = g.j + q * g.t;
-      v[q] = e < h ? col[e] : make_float2(0.0f, 0.0f);
+      v[q] = e < h ? col[DCT ? makhoul(e, h) : e] : make_float2(0.0f, 0.0f);
     }
     line_fft<false>(v, buf, tw, L, g);
+    if (DCT) {
+      dct_shrink_step(v, buf, tw + h, tw + 2 * h, h, thr, op, g);
+    } else {
 #pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const float f = shrink_factor(v[q].x * v[q].x + v[q].y * v[q].y, thr,
-                                    op);
-      v[q] = make_float2(v[q].x * f, v[q].y * f);
+      for (int q = 0; q < 8; ++q) {
+        const float f = shrink_factor(v[q].x * v[q].x + v[q].y * v[q].y, thr,
+                                      op);
+        v[q] = make_float2(v[q].x * f, v[q].y * f);
+      }
     }
     line_fft<true>(v, buf, tw, L, g);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int e = g.j + q * g.t;
-      if (e < h) col[e] = v[q];
+      if (e < h) col[DCT ? makhoul(e, h) : e] = v[q];
     }
   }
   __syncthreads();
@@ -473,23 +417,25 @@ solve_cols_shrink_kernel(float2* __restrict__ t,
   }
 }
 
-// FFT pass (c): per row r of slice b, inverse FFT along W of t, then
-// y = v·scale·(1 − α·mask) + α·obs; with COST (the solve) also the block's
+// Pass (c): per row r of slice b, the inverse FFT along W of t (DCT: n
+// times the DCT-III, its samples back in their places), then y =
+// v·scale·(1 − α·mask) + α·obs; with COST (the solves) also the block's
 // Σ|new| and Σ(|new| − |x|) into ri.psum / ri.pdiff[b, blockIdx.x], summed
 // in a fixed order; without (the single iteration) x is not read. One group
 // per row. grid (row blocks, batch); blockDim.x is LINE_NT_MAX.
-template <bool COST>
+template <bool DCT, bool COST>
 __global__ void __launch_bounds__(LINE_NT_MAX)
 solve_rows_inverse_kernel(const float2* __restrict__ t,
-                          const float2* __restrict__ tw_w, ReinsertArgs ri,
+                          const float2* __restrict__ tw_w,
+                          const float2* __restrict__ dct_w, ReinsertArgs ri,
                           float* __restrict__ yr, float* __restrict__ yi,
                           LineShape L, int h) {
   extern __shared__ float2 smem[];
   const int w = L.n;
   const Group g = make_group(L.t);
   float2* tw = smem;
-  float2* buf = tw + w + g.index * line_buf(w);
-  load_twiddles(tw, tw_w, w);
+  float2* buf = tw + row_tables<DCT>() * w + g.index * line_buf(w);
+  load_twiddles(tw, tw_w, w, DCT ? dct_w + w : dct_w, DCT ? w : 0);  // g
   const int r = blockIdx.x * g.count + g.index;
   const int b = blockIdx.y;
   float local_s = 0.0f, local_d = 0.0f;
@@ -502,21 +448,23 @@ solve_rows_inverse_kernel(const float2* __restrict__ t,
       const int e = g.j + s * g.t;
       v[s] = e < w ? t[o + e] : make_float2(0.0f, 0.0f);
     }
+    if (DCT) dct_inverse_step(v, buf, tw + w, w, g);
     line_fft<true>(v, buf, tw, L, g);
 #pragma unroll
     for (int s = 0; s < 8; ++s) {
       const int e = g.j + s * g.t;
       if (e < w) {
+        const int m = DCT ? makhoul(e, w) : e;
         float2 nv;
         if (COST) {
-          nv = reinsert(v[s], o + e, m0 + e, ri, local_s, local_d);
+          nv = reinsert(v[s], o + m, m0 + m, ri, local_s, local_d);
         } else {
-          const float keep = 1.0f - ri.alpha * ri.mask[m0 + e];
-          nv = make_float2(v[s].x * ri.scale * keep + ri.alpha * ri.obr[o + e],
-                           v[s].y * ri.scale * keep + ri.alpha * ri.obi[o + e]);
+          const float keep = 1.0f - ri.alpha * ri.mask[m0 + m];
+          nv = make_float2(v[s].x * ri.scale * keep + ri.alpha * ri.obr[o + m],
+                           v[s].y * ri.scale * keep + ri.alpha * ri.obi[o + m]);
         }
-        yr[o + e] = nv.x;
-        yi[o + e] = nv.y;
+        yr[o + m] = nv.x;
+        yi[o + m] = nv.y;
       }
     }
   }
@@ -742,10 +690,7 @@ wavelet_inverse_kernel(const float* __restrict__ sr,
                         blockIdx.y * gridDim.x + blockIdx.x);
 }
 
-// GEMM tiles of an h × w plane: the DCT solve's partial sums
-inline int blocks_per_slice(int h, int w) { return ceil_div(w, BN) * ceil_div(h, BM); }
-
-// Row blocks of the FFT pass (c): its partial sums per slice
+// Row blocks of pass (c): the FFT and DCT solves' partial sums per slice
 inline int row_blocks(int h, int w) {
   const LineShape lw = line_shape(w);
   const int threads = lw.t > LINE_NT_MAX ? lw.t : LINE_NT_MAX;
@@ -764,15 +709,6 @@ inline int plane_chunks(long long plane) {
   return c < 64 ? c : 64;
 }
 
-template <int EPI, int OPS>
-cudaError_t launch_gemm(const Gemm& g, const ShrinkArgs& sh,
-                        const ReinsertArgs& ri, int batch, cudaStream_t stream) {
-  dim3 grid(ceil_div(g.n, BN), ceil_div(g.m, BM), batch);
-  cgemm_kernel<EPI, OPS><<<grid, NT, 0, stream>>>(g, sh, ri);
-  return cudaGetLastError();
-}
-
-const ShrinkArgs kNoShrink{nullptr, 0};
 const ReinsertArgs kNoReinsert{};
 
 // Complex plane pairs of the batch; plane = rows·columns of one slice.
@@ -780,34 +716,31 @@ struct Planes {
   float* re; float* im;
 };
 
-// Solve workspace, carved from the caller's float buffer: `planes` plane
-// pairs (y, t and, for the DCT's GEMM chain, s), then the partial sums.
+// Solve workspace, carved from the caller's float buffer: the plane pairs
+// y and t, then the partial sums.
 struct Work {
-  Planes y, t, s;
+  Planes y, t;
   float* psum; float* pdiff; float* v; float* cprev;
 };
 
-Work carve(float* work, int batch, long long plane, int nblk, int planes) {
+// Plane pairs of every solve's workspace (y, t)
+constexpr int PLANES = 2;
+enum Basis { BASIS_FFT = 0, BASIS_DCT = 1, BASIS_WAVELET = 2 };
+
+Work carve(float* work, int batch, long long plane, int nblk) {
   const long long total = plane * batch;
   Work k;
   k.y = {work, work + total};
   k.t = {work + 2 * total, work + 3 * total};
-  k.s = planes > 2 ? Planes{work + 4 * total, work + 5 * total}
-                   : Planes{nullptr, nullptr};
-  k.psum = work + 2 * planes * total;
+  k.psum = work + 2 * PLANES * total;
   k.pdiff = k.psum + (long long)batch * nblk;
   k.v = k.pdiff + (long long)batch * nblk;   // [2][batch]
   k.cprev = k.v + 2 * batch;                 // [2][batch]
   return k;
 }
 
-// The FFT and WAVELET solves' plane pairs (y, t) and the DCT's (y, t, s)
-constexpr int LINE_PLANES = 2;
-constexpr int GEMM_PLANES = 3;
-enum Basis { BASIS_FFT = 0, BASIS_DCT = 1, BASIS_WAVELET = 2 };
-
-size_t work_floats(int batch, int h, int w, int planes, int nblk) {
-  return 2 * (size_t)planes * batch * h * w + 2 * (size_t)batch * nblk +
+size_t work_floats(int batch, int h, int w, int nblk) {
+  return 2 * (size_t)PLANES * batch * h * w + 2 * (size_t)batch * nblk +
          4 * (size_t)batch;
 }
 
@@ -818,11 +751,10 @@ template <class Chain>
 int run_solve(const float* obs_re, const float* obs_im, const float* mask,
               float* out_re, float* out_im, float* cost, float* work,
               int batch, int h, int w, int niter, float alpha, float scale,
-              int fast, int nblk, int planes, cudaStream_t stream,
-              Chain chain) {
+              int fast, int nblk, cudaStream_t stream, Chain chain) {
   const long long plane = (long long)h * w;
   const long long total = plane * batch;
-  const Work k = carve(work, batch, plane, nblk, planes);
+  const Work k = carve(work, batch, plane, nblk);
 
   const int ew_blocks = ceil_div(total, STATE_THREADS) < 4096
                             ? ceil_div(total, STATE_THREADS) : 4096;
@@ -845,56 +777,86 @@ int run_solve(const float* obs_re, const float* obs_im, const float* mask,
   return 0;
 }
 
-// The line geometry of the FFT passes for an h × w slice, with the shared
+// The line geometry of the passes for an h × w slice, with the shared
 // memory each pass kernel needs allowed; 0, ERR_SHAPE or ERR_SMEM.
-template <bool COST>
-int fft_passes_for(int h, int w, Lines* s) {
+template <bool DCT, bool COST>
+int line_passes_for(int h, int w, Lines* s) {
   int err;
-  if ((err = lines_for(h, w, LINE_NT_MAX, 0, s)) != 0) return err;
-  if ((err = allow_smem(solve_rows_forward_kernel, s->smem_rows)) != 0)
+  if ((err = lines_for(h, w, LINE_NT_MAX, 0, s, row_tables<DCT>(),
+                       col_tables<DCT>())) != 0)
     return err;
-  if ((err = allow_smem(solve_cols_shrink_kernel, s->smem_cols)) != 0)
+  if ((err = allow_smem(solve_rows_forward_kernel<DCT>, s->smem_rows)) != 0)
     return err;
-  return allow_smem(solve_rows_inverse_kernel<COST>, s->smem_rows);
+  if ((err = allow_smem(solve_cols_shrink_kernel<DCT>, s->smem_cols)) != 0)
+    return err;
+  return allow_smem(solve_rows_inverse_kernel<DCT, COST>, s->smem_rows);
 }
 
-// One FFT-basis iteration, passes (a)-(c): y -> t -> t -> out, with the
-// thresholds tau (B,) and, with COST, the cost sums of ri.
-template <bool COST>
-cudaError_t fft_passes(const float* y_re, const float* y_im, float2* t,
-                       float* out_re, float* out_im, const float* tau,
-                       const float2* twh, const float2* tww,
-                       const ReinsertArgs& ri, const Lines& s, int batch,
-                       int h, int w, int op, cudaStream_t stream) {
+// The twiddle tables of the passes: the FFT's along H and W and, for the
+// DCT, its f and g along H and W
+struct LineTwiddles {
+  const float2* fft_h; const float2* fft_w;
+  const float2* dct_h; const float2* dct_w;
+};
+
+// One iteration's passes (a)-(c): y -> t -> t -> out, with the thresholds
+// tau (B,) and, with COST, the cost sums of ri.
+template <bool DCT, bool COST>
+cudaError_t line_passes(const float* y_re, const float* y_im, float2* t,
+                        float* out_re, float* out_im, const float* tau,
+                        const LineTwiddles& tw, const ReinsertArgs& ri,
+                        const Lines& s, int batch, int h, int w, int op,
+                        cudaStream_t stream) {
   const dim3 row_grid(row_blocks(h, w), batch);
   const dim3 col_grid(ceil_div(w, s.cols), batch);
-  solve_rows_forward_kernel<<<row_grid, s.nt_w, s.smem_rows, stream>>>(
-      y_re, y_im, t, tww, s.lw, h);
+  solve_rows_forward_kernel<DCT><<<row_grid, s.nt_w, s.smem_rows, stream>>>(
+      y_re, y_im, t, tw.fft_w, tw.dct_w, s.lw, h);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
-  solve_cols_shrink_kernel<<<col_grid, s.nt_h, s.smem_cols, stream>>>(
-      t, tau, twh, s.lh, w, s.cols, op);
+  solve_cols_shrink_kernel<DCT><<<col_grid, s.nt_h, s.smem_cols, stream>>>(
+      t, tau, tw.fft_h, tw.dct_h, s.lh, w, s.cols, op);
   if ((e = cudaGetLastError()) != cudaSuccess) return e;
-  solve_rows_inverse_kernel<COST><<<row_grid, s.nt_w, s.smem_rows, stream>>>(
-      t, tww, ri, out_re, out_im, s.lw, h);
+  solve_rows_inverse_kernel<DCT, COST>
+      <<<row_grid, s.nt_w, s.smem_rows, stream>>>(t, tw.fft_w, tw.dct_w, ri,
+                                                  out_re, out_im, s.lw, h);
   return cudaGetLastError();
+}
+
+// The FFT or DCT solve: the passes of each iteration in run_solve's loop.
+template <bool DCT>
+int line_solve(const float* obs_re, const float* obs_im, const float* mask,
+               const float* decay, const LineTwiddles& tw, float* out_re,
+               float* out_im, float* cost, float* work, int batch, int h,
+               int w, int niter, float alpha, int op, int fast,
+               cudaStream_t stream) {
+  Lines s;
+  int err;
+  if ((err = line_passes_for<DCT, true>(h, w, &s)) != 0) return err;
+  const float scale = 1.0f / (float)((double)h * (double)w);
+  return run_solve(
+      obs_re, obs_im, mask, out_re, out_im, cost, work, batch, h, w, niter,
+      alpha, scale, fast, row_blocks(h, w), stream,
+      [=](int j, const Work& k, const ReinsertArgs& ri) {
+        // t's (re, im) planes hold one (B, H, W) complex array
+        return line_passes<DCT, true>(
+            k.y.re, k.y.im, reinterpret_cast<float2*>(k.t.re), k.y.re,
+            k.y.im, decay + (long long)j * batch, tw, ri, s, batch, h, w, op,
+            stream);
+      });
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of scratch a solve needs: its plane pairs (the FFT and WAVELET
-// solves' y and t; the DCT's y, t and s), the per-block partial sums of
-// its cost (the FFT pass (c)'s row blocks; the wavelet's level-0 inverse
-// tiles; the DCT's GEMM tiles), and the double-buffered v / cost_prev.
-// basis: 0 FFT, 1 DCT, 2 WAVELET (square slices, h = w).
+// Floats of scratch a solve needs: its two plane pairs (y and t), the
+// per-block partial sums of its cost (the FFT and DCT solves' pass (c) row
+// blocks; the wavelet's level-0 inverse tiles), and the double-buffered v
+// / cost_prev. basis: 0 FFT, 1 DCT, 2 WAVELET (square slices, h = w).
 size_t p3d_pocs_solve_work_floats(int batch, int h, int w, int basis) {
-  if (basis == BASIS_FFT)
-    return work_floats(batch, h, w, LINE_PLANES, row_blocks(h, w));
-  if (basis == BASIS_WAVELET)
-    return work_floats(batch, h, w, LINE_PLANES, wavelet_blocks(w));
-  return work_floats(batch, h, w, GEMM_PLANES, blocks_per_slice(h, w));
+  return work_floats(batch, h, w,
+                     basis == BASIS_WAVELET ? wavelet_blocks(w)
+                                            : row_blocks(h, w));
 }
 
 // FFT basis, for h and w up to MAX_LINE: three line passes an iteration
@@ -907,66 +869,33 @@ int p3d_pocs_solve(const float* obs_re, const float* obs_im, const float* mask,
                    float* out_re, float* out_im, float* cost, float* work,
                    int batch, int h, int w, int niter, float alpha, int op,
                    int fast, void* stream_handle) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  Lines s;
-  int err;
-  if ((err = fft_passes_for<true>(h, w, &s)) != 0) return err;
-  const float2* twh = reinterpret_cast<const float2*>(tw_h);
-  const float2* tww = reinterpret_cast<const float2*>(tw_w);
-  const float scale = 1.0f / (float)((double)h * (double)w);
-  return run_solve(
-      obs_re, obs_im, mask, out_re, out_im, cost, work, batch, h, w, niter,
-      alpha, scale, fast, row_blocks(h, w), LINE_PLANES, stream,
-      [=](int j, const Work& k, const ReinsertArgs& ri) {
-        // t's (re, im) planes hold one (B, H, W) complex array
-        return fft_passes<true>(k.y.re, k.y.im,
-                                reinterpret_cast<float2*>(k.t.re), k.y.re,
-                                k.y.im, decay + (long long)j * batch, twh,
-                                tww, ri, s, batch, h, w, op, stream);
-      });
+  const LineTwiddles tw{reinterpret_cast<const float2*>(tw_h),
+                        reinterpret_cast<const float2*>(tw_w), nullptr,
+                        nullptr};
+  return line_solve<false>(obs_re, obs_im, mask, decay, tw, out_re, out_im,
+                           cost, work, batch, h, w, niter, alpha, op, fast,
+                           static_cast<cudaStream_t>(stream_handle));
 }
 
-// DCT basis: ch = C_H, cht = C_Hᵀ (h, h); cw = C_W, cwt = C_Wᵀ (w, w).
+// DCT basis, for h and w up to MAX_LINE: the FFT solve's three line passes
+// with Makhoul's steps around each line FFT (the file's header). tw_h and
+// tw_w are the FFT's tables; dct_h and dct_w the (2n, 2) tables of f_k =
+// (c_k/2)·exp(−iπk/2n) then g_k = exp(iπk/2n)/c_k. Returns as
+// p3d_pocs_solve.
 int p3d_pocs_solve_dct(const float* obs_re, const float* obs_im,
                        const float* mask, const float* decay,  // (niter, batch)
-                       const float* ch, const float* cht, const float* cw,
-                       const float* cwt, float* out_re, float* out_im,
-                       float* cost, float* work, int batch, int h, int w,
-                       int niter, float alpha, int op, int fast,
+                       const float* tw_h, const float* tw_w,
+                       const float* dct_h, const float* dct_w, float* out_re,
+                       float* out_im, float* cost, float* work, int batch,
+                       int h, int w, int niter, float alpha, int op, int fast,
                        void* stream_handle) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const long long plane = (long long)h * w;
-  return run_solve(
-      obs_re, obs_im, mask, out_re, out_im, cost, work, batch, h, w, niter,
-      alpha, 1.0f, fast, blocks_per_slice(h, w), GEMM_PLANES, stream,
-      [=](int j, const Work& k, const ReinsertArgs& ri) {
-        cudaError_t err;
-        // forward: t = C_H @ y, then s = shrink(t @ C_Wᵀ)
-        const Gemm fwd_left{ch, nullptr, 0, k.y.re, k.y.im, plane,
-                            k.t.re, k.t.im, plane, h, w, h};
-        if ((err = launch_gemm<EPI_STORE, REAL_A>(
-                 fwd_left, kNoShrink, kNoReinsert, batch, stream))
-            != cudaSuccess)
-          return err;
-        const Gemm fwd_right{k.t.re, k.t.im, plane, cwt, nullptr, 0,
-                             k.s.re, k.s.im, plane, h, w, w};
-        const ShrinkArgs shrink{decay + (long long)j * batch, op};
-        if ((err = launch_gemm<EPI_SHRINK, REAL_B>(
-                 fwd_right, shrink, kNoReinsert, batch, stream))
-            != cudaSuccess)
-          return err;
-        // inverse: t = C_Hᵀ @ s, then y = reinsert(t @ C_W), scale 1
-        const Gemm inv_left{cht, nullptr, 0, k.s.re, k.s.im, plane,
-                            k.t.re, k.t.im, plane, h, w, h};
-        if ((err = launch_gemm<EPI_STORE, REAL_A>(
-                 inv_left, kNoShrink, kNoReinsert, batch, stream))
-            != cudaSuccess)
-          return err;
-        const Gemm inv_right{k.t.re, k.t.im, plane, cw, nullptr, 0,
-                             k.y.re, k.y.im, plane, h, w, w};
-        return launch_gemm<EPI_REINSERT, REAL_B>(inv_right, kNoShrink, ri,
-                                                 batch, stream);
-      });
+  const LineTwiddles tw{reinterpret_cast<const float2*>(tw_h),
+                        reinterpret_cast<const float2*>(tw_w),
+                        reinterpret_cast<const float2*>(dct_h),
+                        reinterpret_cast<const float2*>(dct_w)};
+  return line_solve<true>(obs_re, obs_im, mask, decay, tw, out_re, out_im,
+                          cost, work, batch, h, w, niter, alpha, op, fast,
+                          static_cast<cudaStream_t>(stream_handle));
 }
 
 // WAVELET basis on square n×n slices, n divisible by 2^level, the deepest
@@ -994,7 +923,7 @@ int p3d_pocs_solve_wavelet(const float* obs_re, const float* obs_im,
   const int ntau = 3 * level;
   return run_solve(
       obs_re, obs_im, mask, out_re, out_im, cost, work, batch, n, n, niter,
-      alpha, 1.0f, fast, wavelet_blocks(n), LINE_PLANES, stream,
+      alpha, 1.0f, fast, wavelet_blocks(n), stream,
       [=](int j, const Work& k, const ReinsertArgs& ri) {
         // level lv reads P_lv and writes P_lv+1 forward, the reverse back:
         // P_even is y, P_odd is t
@@ -1043,17 +972,18 @@ int p3d_pocs_iteration(const float* x_re, const float* x_im,
                        float* out_re, float* out_im, float* work, int batch,
                        int h, int w, float alpha, int op,
                        void* stream_handle) {
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   Lines s;
   int err;
-  if ((err = fft_passes_for<false>(h, w, &s)) != 0) return err;
+  if ((err = line_passes_for<false, false>(h, w, &s)) != 0) return err;
   const ReinsertArgs ri{mask, obs_re, obs_im, nullptr, nullptr, alpha,
                         1.0f / (float)((double)h * (double)w), nullptr,
                         nullptr};
-  return (int)fft_passes<false>(
-      x_re, x_im, reinterpret_cast<float2*>(work), out_re, out_im, tau,
-      reinterpret_cast<const float2*>(tw_h),
-      reinterpret_cast<const float2*>(tw_w), ri, s, batch, h, w, op, stream);
+  const LineTwiddles tw{reinterpret_cast<const float2*>(tw_h),
+                        reinterpret_cast<const float2*>(tw_w), nullptr,
+                        nullptr};
+  return (int)line_passes<false, false>(
+      x_re, x_im, reinterpret_cast<float2*>(work), out_re, out_im, tau, tw,
+      ri, s, batch, h, w, op, static_cast<cudaStream_t>(stream_handle));
 }
 
 }  // extern "C"

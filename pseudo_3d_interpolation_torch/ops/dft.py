@@ -1,4 +1,4 @@
-"""2D DFT and DCT on ``Cplx`` pairs, and the dense matrices the kernels use.
+"""2D DFT and DCT on ``Cplx`` pairs, and their dense matrices.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/ops/dft.py``. Conventions
 match ``numpy.fft``: forward unnormalized, inverse scaled by ``1/(H·W)``;
@@ -9,7 +9,8 @@ solver derives its decay schedule from one forward transform), so they are
 plain ``torch.fft`` calls and ``torch.matmul`` products. ``dft_matrices``
 and ``dct2_matrix`` are built exactly like the JAX package's (float64 on
 the host, rounded once to float32), so the plan constants are bit-equal;
-the DCT solve (csrc/pocs_solve.cu) multiplies by ``dct2_matrix``.
+the DCT solve's plain version multiplies by ``dct2_matrix``, its kernel
+(csrc/pocs_solve.cu) runs a fast DCT on the line FFTs.
 """
 
 from __future__ import annotations

@@ -14,15 +14,16 @@ FPOCS restart decision on the device. The FFT solve's passes, and the
 single iteration's, are line FFTs on the ``csrc/fft_lines.cuh`` engine:
 rows forward; columns forward, threshold and inverse; rows inverse with the
 scale, the reinsertion and (the solve only) the cost's partial sums. The
-WAVELET solve runs each level as one 2-D periodized filter pass per
-direction through shared-memory tiles, the detail bands shrunk in the
-forward pass, level 0's inverse with the reinsertion and the cost's partial
-sums; the wrapper hands it the filters (:func:`wavelet_taps`), not the
-matrices. These are bound by the memory their passes move. The DCT solve
-runs batched products with the basis' dense real matrices (the threshold
-fused into the forward right-product; scale, reinsertion and the cost's
-partial sums into the last inverse product), bound by the products on the
-CUDA cores; the file's header has the details.
+DCT solve runs the same three passes with Makhoul's fast DCT around each
+line FFT (a reordered load, a twiddled pairing of elements k and n − k
+after the forward FFT and before the inverse, the samples stored back in
+their places; :func:`dct_twiddles`), not products with the dense DCT
+matrices. The WAVELET solve runs each level as one 2-D periodized filter
+pass per direction through shared-memory tiles, the detail bands shrunk in
+the forward pass, level 0's inverse with the reinsertion and the cost's
+partial sums; the wrapper hands it the filters (:func:`wavelet_taps`), not
+the matrices. All are bound by the memory their passes move; the file's
+header has the details.
 
 :func:`pocs_solve` and :func:`pocs_iteration` launch their kernels for
 CUDA tensors and take their plain versions (:func:`pocs_solve_plain`,
@@ -69,6 +70,27 @@ def twiddles_on(n: int, device: str) -> torch.Tensor:
     return torch.from_numpy(twiddles(n)).to(device)
 
 
+@functools.lru_cache(maxsize=16)
+def dct_twiddles(n: int) -> np.ndarray:
+    """(2n, 2) float32 table of the DCT solve's steps around a line FFT of
+    length n (Makhoul 1980), built in float64 and rounded once: rows k < n
+    hold f_k = (c_k/2)·exp(−iπk/2n), the forward step's, and rows n + k
+    g_k = exp(iπk/2n)/c_k, the inverse's; c_0 = √(1/n), c_k = √(2/n) the
+    orthonormal DCT-II's scales."""
+    k = np.arange(n, dtype=np.float64)
+    c = np.full(n, np.sqrt(2.0 / n))
+    c[0] = np.sqrt(1.0 / n)
+    w = np.exp(-1j * np.pi * k / (2 * n))
+    tab = np.concatenate([c / 2 * w, np.conj(w) / c])
+    return np.stack([tab.real, tab.imag], axis=-1).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=16)
+def dct_twiddles_on(n: int, device: str) -> torch.Tensor:
+    """:func:`dct_twiddles` on ``device``, copied once."""
+    return torch.from_numpy(dct_twiddles(n)).to(device)
+
+
 def raise_on(rc: int, what: str, shape) -> None:
     """Raise for a kernel entry's nonzero return code."""
     if rc == _ERR_SMEM:
@@ -83,20 +105,17 @@ def raise_on(rc: int, what: str, shape) -> None:
 
 def solve_work_floats(batch: int, h: int, w: int, basis: str) -> int:
     """Floats of device scratch one :func:`pocs_solve` call allocates
-    (``p3d_pocs_solve_work_floats``): the FFT solve's two plane pairs and
-    one partial sum pair per row block of its pass (c) (rows of
-    ``LINE_NT_MAX`` threads, a power-of-two group of at least w/8 threads
-    a row); the wavelet solve's two pairs and one per level-0 inverse tile
-    (32×32 samples); the DCT's GEMM chain's three pairs and one per 64×64
-    tile; and the double-buffered per-slice state."""
-    if basis == "fft":
-        t = 1 << max(0, (-(-w // 8) - 1).bit_length())
-        planes, nblk = 2, -(-h // (max(t, _LINE_NT_MAX) // t))
-    elif basis == "wavelet":
-        planes, nblk = 2, (-(-w // 32)) ** 2
+    (``p3d_pocs_solve_work_floats``): two plane pairs on every basis; one
+    partial sum pair per row block of pass (c) on the FFT and DCT bases
+    (rows of ``LINE_NT_MAX`` threads, a power-of-two group of at least w/8
+    threads a row), per level-0 inverse tile (32×32 samples) on the
+    wavelet; and the double-buffered per-slice state."""
+    if basis == "wavelet":
+        nblk = (-(-w // 32)) ** 2
     else:
-        planes, nblk = 3, -(-h // 64) * -(-w // 64)
-    return 2 * planes * batch * h * w + 2 * batch * nblk + 4 * batch
+        t = 1 << max(0, (-(-w // 8) - 1).bit_length())
+        nblk = -(-h // (max(t, _LINE_NT_MAX) // t))
+    return 4 * batch * h * w + 2 * batch * nblk + 4 * batch
 
 
 def _shrink(mag2: torch.Tensor, tau, op: str) -> torch.Tensor:
@@ -385,8 +404,10 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
     per-band thresholds, deepest level first, each level (cH, cV, cD);
     ``version``: 'regular' or 'fast' (Nesterov with adaptive restart);
     ``precision``: 'high' or 'highest', both computed in full fp32;
-    ``basis``: 'fft' (H and W up to 4096 on the card), 'dct' (orthonormal
-    DCT-II) or 'wavelet' (the Mallat cascade of ``wavelet_mats``, the
+    ``basis``: 'fft', 'dct' (orthonormal DCT-II), both with H and W up to
+    4096 on the card (a longer side raises ``ValueError``; the JAX kernel
+    takes only sides of a multiple of 128 that fit its VMEM, all of them
+    shorter), or 'wavelet' (the Mallat cascade of ``wavelet_mats``, the
     per-level analysis matrices ``ops/wavelet.dwt_matrix(n >> lv, name)``,
     finest first; the card runs their filters, :func:`wavelet_taps`).
     Returns ``(result, final_cost)``. CUDA tensors run the CUDA kernel,
@@ -424,11 +445,12 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
                 twiddles_on(w, str(device)).data_ptr(), *tail, b, h, w,
                 *common)
         elif basis == "dct":
-            ch, cht = dft.dct_on(h, str(device))
-            cw, cwt = dft.dct_on(w, str(device))
             rc = lib.p3d_pocs_solve_dct(
-                *head, ch.data_ptr(), cht.data_ptr(), cw.data_ptr(),
-                cwt.data_ptr(), *tail, b, h, w, *common)
+                *head, twiddles_on(h, str(device)).data_ptr(),
+                twiddles_on(w, str(device)).data_ptr(),
+                dct_twiddles_on(h, str(device)).data_ptr(),
+                dct_twiddles_on(w, str(device)).data_ptr(), *tail, b, h, w,
+                *common)
         else:
             taps = _taps_on(_SameMatrices(wavelet_mats), str(device))
             rc = lib.p3d_pocs_solve_wavelet(

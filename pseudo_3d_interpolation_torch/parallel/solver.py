@@ -38,11 +38,11 @@ def fits_resident(device, n_slices: int, batch: int, h: int, w: int,
     memory. Its peak is two cube-sized float32 pairs (the input and the
     result; the complex staging copy of the upload and of the download
     replaces one of them while it lives) and one batch's solve buffers.
-    A folded solve's are at most six pairs per slice (the kernel's work,
-    two pairs on the FFT basis and three on the DCT and WAVELET, its
-    output and the decay's spectrum); ``expansion`` scales that for other
-    bases, and ``extra_bytes`` adds what does not scale with the slices
-    (a directional basis's windows and kernel scratch). The rule asks for
+    A folded solve's are five pairs per slice (the batch's input, the
+    kernel's work, two pairs on every basis, its output and the decay's
+    spectrum); ``expansion`` scales that for other bases, and
+    ``extra_bytes`` adds what does not scale with the slices (a
+    directional basis's windows and kernel scratch). The rule asks for
     three cubes and eight pairs per slice of the batch times
     ``expansion``. A CPU "device" is the host memory that already holds
     the cube: it always fits."""

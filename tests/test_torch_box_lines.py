@@ -232,17 +232,16 @@ def test_solve_budget_covers_the_kernel_work(basis):
     """The folded solve's scratch (``solve_work_floats``, which
     ``p3d_pocs_solve_work_floats`` returns on the card) with the batch's
     input, its result and the decay's spectrum stays inside
-    ``fits_resident``'s eight pairs a slice at 32×512²; the FFT solve holds two plane pairs
-    and one partial-sum pair per row block of its last pass (8 rows of 512
-    a block: 64 a slice), the wavelet solve two and one per 32×32 tile of
-    its level-0 inverse pass (256 a slice), the DCT's GEMM chain three and
-    one per 64×64 tile (64)."""
+    ``fits_resident``'s eight pairs a slice at 32×512²; the FFT and DCT
+    solves hold two plane pairs and one partial-sum pair per row block of
+    their last pass (8 rows of 512 a block: 64 a slice), the wavelet solve
+    two and one per 32×32 tile of its level-0 inverse pass (256 a
+    slice)."""
     b, n = 32, 512
     work = ks.solve_work_floats(b, n, n, basis)
     pair = b * n * n * 8
-    planes = 3 if basis == "dct" else 2
     nblk = 256 if basis == "wavelet" else 64
-    assert work == 2 * planes * b * n * n + 2 * b * nblk + 4 * b
+    assert work == 2 * 2 * b * n * n + 2 * b * nblk + 4 * b
     assert 4 * work + 3 * pair <= 8 * pair
 
 

@@ -226,11 +226,47 @@ def _check_solve(truth, z, mask, decay, op, version, **kw):
 @pytest.mark.cuda
 @pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
 @pytest.mark.parametrize("version", ["regular", "fast"])
-@pytest.mark.parametrize("h,w", [(512, 512), (384, 512), (100, 130)])
+@pytest.mark.parametrize("h,w", [(512, 512), (384, 512), (100, 130),
+                                 (97, 130), (8, 4096), (4096, 16)])
 def test_dct_kernel_matches_plain(device, h, w, version, op):
+    """The DCT solve's line passes with Makhoul's steps: powers of two
+    (the register FFT), 384, and sides of the direct DFT, odd ones too;
+    up to the engine's longest line (4096) along either side, where a
+    column block holds its three 4096-entry twiddle tables."""
     truth, z, mask, _ = _inputs(4, h, w, 10, device)
     _check_solve(truth, z, mask, _basis_decay(z, "dct", 10), op, version,
                  basis="dct")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("basis", ["fft", "dct"])
+def test_line_solves_refuse_a_side_past_the_longest_line(device, basis):
+    _, z, mask, decay = _inputs(1, 8, 4097, 1, device)
+    before = ks.pocs_solve.launches_by_basis[basis]
+    with pytest.raises(ValueError, match="longer than 4096"):
+        ks.pocs_solve(z, mask, decay, basis=basis)
+    assert ks.pocs_solve.launches_by_basis[basis] == before
+
+
+@pytest.mark.cuda
+def test_dct_solve_runs_the_line_passes_and_no_gemm(device):
+    """A DCT solve's profile: the three line passes and the state kernel
+    an iteration, and no dense product (``gemm`` in a kernel's name)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    _, z, mask, _ = _inputs(2, 128, 96, 3, device)
+    decay = _basis_decay(z, "dct", 3)
+    ks.pocs_solve(z, mask, decay, basis="dct")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ks.pocs_solve(z, mask, decay, basis="dct")
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()]
+    assert not [n for n in names if "gemm" in n.lower()], names
+    for kernel in ("solve_rows_forward_kernel", "solve_cols_shrink_kernel",
+                   "solve_rows_inverse_kernel", "state_kernel"):
+        calls = sum(e.count for e in prof.key_averages() if kernel in e.key)
+        assert calls == 3, (kernel, names)
 
 
 @pytest.mark.cuda
