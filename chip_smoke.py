@@ -92,10 +92,24 @@ Phases, each of which exits non-zero on failure:
    ``box_group_update`` launches per batch per iteration, no
    ``subband_update``, the same checks and an SNR within 0.1 dB of
    phase 5's.
+11. the stage-2 chain: a 512x512x1024 time cube (0.25 ms samples, ten
+   dipping band-limited reflectors over a 1% noise floor, made on the
+   card from a seed) with about half its ilines live, chosen
+   irregularly, through ``preprocess`` (rms balance, a bandpass inside
+   the reflectors' band), ``apply_fft`` (513 bins), ``interpolate`` at
+   its production defaults, ``apply_ifft`` and ``postprocess`` (2x2
+   upsampling, footprint removal, gaussian smoothing, a 0.05 s rms AGC),
+   in memory, each with ``device`` left to its default; asserts 17
+   ``pocs_solve[fft]`` launches and no other kernel, an SNR after
+   ``apply_ifft`` against the preprocessed truth better than the masked
+   input's, a finite 1023x1023x1024 output, and each of the four steps
+   around the solve on the first 32 ilines on the card within
+   1e-4·max|cpu| of the same call with ``device="cpu"``; prints each
+   step's wall and device peak and the chain's total.
 Phases 4 to 10 print the wall time, slice-iterations/s and device peak
-memory. Before each, every kernel's launch count is set to 0; after it,
-the counts of all seven kernels must be the path's own (zero for the
-others).
+memory. Before each, and before phase 11's chain, every kernel's launch
+count is set to 0; after it, the counts of all seven kernels must be the
+path's own (zero for the others).
 
 Tolerances, kernel against plain: soft thresholds max|Δ| ≤ 1e-4·max|plain|
 (fp32 sums in another order; for ``pocs_solve`` also √cost within 1e-6);
@@ -108,10 +122,10 @@ the other kernel's plain output, inverted and reinserted.
 
 ``--trace DIR`` runs each main path once more under ``torch.profiler``
 (the SHEARLET, per-iteration, CURVELET and spatial-I/O paths on their
-first two batches, 64 slices), writes the Chrome
+first two batches, 64 slices; the stage-2 chain whole), writes the Chrome
 traces to ``DIR`` (gzipped) and prints the device's busy time (the union
 of kernel, memcpy and memset intervals), its idle share of the traced wall
-time, and the largest device and host entries. Phase 3's profiles of the
+time, the copies by kind, and the largest device and host entries. Phase 3's profiles of the
 solves and of the iteration fail on any device activity but their own
 passes: no dense product runs in them.
 
@@ -832,6 +846,13 @@ def trace_main_path(torch, run, out_dir: pathlib.Path, name: str):
     print(f"trace -> {raw}.gz: traced wall {wall:.3f} s, device busy "
           f"{busy:.3f} s (union of kernel, memcpy and memset intervals), "
           f"idle share {1 - busy / wall:.3f}")
+    copies = {}
+    for e in events:
+        if e["cat"] == "gpu_memcpy":
+            n, t = copies.get(e["name"], (0, 0.0))
+            copies[e["name"]] = (n + 1, t + e["dur"])
+    for kname, (n, t) in sorted(copies.items()):
+        print(f"  copies {t / 1e3:9.1f} ms {n:6d}x  {kname[:60]}")
     for kname, (n, t) in sorted(by_name.items(),
                                 key=lambda kv: -kv[1][1])[:10]:
         print(f"  device {t / 1e3:9.1f} ms {n:6d}x  {kname[:100]}")
@@ -962,6 +983,211 @@ def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
     if not s_out > s_in:
         fail(f"{label} did not improve SNR ({s_in:.2f} -> {s_out:.2f} dB)")
     return wall, counts, s_out, iters
+
+
+# phase 11: the stage-2 chain on the north star's time cube
+CHAIN_NS = 1024  # samples a trace: 513 rfft bins, the slices of phase 4
+CHAIN_DT = 0.25e-3  # 4 kHz sampling, the sub-bottom profiler band
+CHAIN_BANDPASS = [30.0, 80.0, 700.0, 1200.0]  # Hz, inside the reflectors'
+CHAIN_CHECK_IL = 32  # ilines of the sub-cube held against device="cpu"
+CHAIN_TOL = 1e-4  # max|card - cpu| ≤ CHAIN_TOL·max|cpu| per step
+CHAIN_POST = {"upsample_factors": {"iline": 2, "xline": 2}, "footprint": {},
+              "smoothing": {"kind": "gaussian", "sigma": 1},
+              "agc_win": 0.05}
+
+
+def chain_truth(torch, dev, n_il=N, n_xl=N, ns=CHAIN_NS, dt=CHAIN_DT,
+                noise=0.01, seed=0):
+    """(n_il, n_xl, ns) float32 time cube of dipping band-limited reflectors
+    over a noise floor, made on the card: tests/test_pipeline_3d.py's
+    ``dense_truth`` scaled up to a 256 ms record with ten reflectors
+    dipping a few ms across the survey (real records are never silent,
+    and the AGC divides by the moving rms). Returns (cube, twt)."""
+    rng = np.random.default_rng(seed)
+    il = torch.arange(n_il, device=dev, dtype=torch.float32)[:, None, None]
+    xl = torch.arange(n_xl, device=dev, dtype=torch.float32)[None, :, None]
+    t = torch.arange(ns, device=dev, dtype=torch.float32)[None, None, :] * dt
+    cube = torch.zeros((n_il, n_xl, ns), device=dev)
+    for k in range(10):
+        t0 = 0.02 + 0.021 * k
+        amp = rng.uniform(0.4, 1.0) * (-1) ** k
+        f0 = (300.0, 250.0, 200.0)[k % 3]
+        dip_il, dip_xl = rng.uniform(-4e-3, 4e-3, size=2)
+        tt = t0 + dip_il * (il / n_il) + dip_xl * (xl / n_xl)
+        arg = (t - tt) * f0
+        cube += amp * torch.exp(-(arg * arg) * 8) * torch.cos(
+            2 * math.pi * arg)
+        del tt, arg
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cube += noise * torch.randn(cube.shape, device=dev, generator=gen)
+    return cube, np.arange(ns) * dt
+
+
+def chain_fold(n_il=N, n_xl=N, seed=123, keep=0.5) -> np.ndarray:
+    """About half the ilines, chosen irregularly from ``seed`` (the first
+    and last kept): the decimation POCS is for."""
+    rng = np.random.default_rng(seed)
+    rows = {0, n_il - 1} | set(int(i) for i in rng.choice(
+        n_il, size=int(n_il * keep), replace=False))
+    fold = np.zeros((n_il, n_xl), np.int32)
+    fold[sorted(rows)] = 1
+    return fold
+
+
+def time_cube(Cube, amp, fold, twt):
+    n_il, n_xl = amp.shape[:2]
+    return Cube(coords={"iline": np.arange(n_il), "xline": np.arange(n_xl),
+                        "twt": np.asarray(twt, np.float64)},
+                data_vars={"amp": (("iline", "xline", "twt"), amp),
+                           "fold": (("iline", "xline"), fold)},
+                attrs={"history": "BIN;"})
+
+
+def fresh(cube):
+    """A cube whose dicts are new and whose arrays are shared: the steps
+    replace entries of their input cube's dicts."""
+    return dataclasses.replace(
+        cube, coords=dict(cube.coords), data_vars=dict(cube.data_vars),
+        attrs=dict(cube.attrs), var_attrs=dict(cube.var_attrs),
+        coord_attrs=dict(cube.coord_attrs))
+
+
+def sub_cube(Cube, cube, n):
+    """The first ``n`` ilines of a cube, fresh arrays (steps change their
+    cube in place)."""
+    return Cube(coords={k: (v[:n] if k == "iline" else v).copy()
+                        for k, v in cube.coords.items()},
+                data_vars={k: (d, np.array(a[:n]))
+                           for k, (d, a) in cube.data_vars.items()},
+                attrs=dict(cube.attrs),
+                var_attrs={k: dict(v) for k, v in cube.var_attrs.items()},
+                coord_attrs=dict(cube.coord_attrs))
+
+
+def stage2_chain(torch, dev, modules, trace_dir):
+    """Phase 11: preprocess -> fft -> interpolate -> ifft -> postprocess on
+    the 512x512x1024 time cube, in memory, through the entry points with
+    ``device`` left to its default. Asserts the launches (17
+    ``pocs_solve[fft]``, no other kernel), the SNR after the inverse FFT
+    against the masked input's, the postprocessed cube's shape and
+    finiteness, and each step on the first CHAIN_CHECK_IL ilines on the
+    card against ``device="cpu"``; prints each step's wall and device
+    peak and, with ``--trace``, the chain's copies and idle share."""
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.ops import metrics
+    from pseudo_3d_interpolation_torch.pipeline.fft import apply_fft
+    from pseudo_3d_interpolation_torch.pipeline.ifft import apply_ifft
+    from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
+    from pseudo_3d_interpolation_torch.pipeline.postprocess import postprocess
+    from pseudo_3d_interpolation_torch.pipeline.preprocess import preprocess
+
+    pre_kw = {"balance": "rms", "filter_type": "bandpass",
+              "filter_freqs": CHAIN_BANDPASS}
+    truth_t, twt = chain_truth(torch, dev)
+    fold = chain_fold()
+    masked = (truth_t * torch.from_numpy(fold).to(dev)[..., None]).cpu(
+        ).numpy()
+    truth = truth_t.cpu().numpy()
+    del truth_t
+    # the reference of the SNRs: the dense truth through the same
+    # preprocess (on live traces the same traces as the masked input's)
+    truth_pp = preprocess(time_cube(Cube, truth, np.ones_like(fold), twt),
+                          **pre_kw)["amp"]
+    raw = time_cube(Cube, masked, fold, twt)
+    raw_sub = sub_cube(Cube, raw, CHAIN_CHECK_IL)
+    gb = masked.nbytes / 1e9
+
+    steps = [("preprocess", lambda c: preprocess(c, **pre_kw)),
+             ("apply_fft", apply_fft),
+             ("interpolate", interpolate),
+             ("apply_ifft", apply_ifft),
+             ("postprocess", lambda c: postprocess(c, **CHAIN_POST))]
+    torch.cuda.synchronize()
+    reset_counts(*modules)
+    cubes, walls, peaks = [raw], [], []
+    for name, step in steps:
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        cubes.append(step(fresh(cubes[-1])))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        peaks.append((torch.cuda.max_memory_allocated(dev) - held) / 1e9)
+    counts = launch_counts(*modules)
+    want = dict.fromkeys(KERNELS, 0)
+    want["pocs_solve[fft]"] = math.ceil(SLICES / MAIN_BATCH)
+    if counts != want:
+        fail(f"stage-2 chain: kernel launches {counts} != {want}")
+    for (name, _), wall, peak in zip(steps, walls, peaks):
+        print(f"stage-2 chain {name}: {wall:.3f} s wall, device peak "
+              f"{peak:.2f} GB = {peak / gb:.2f} x the {gb:.2f} GB time cube",
+              flush=True)
+    print(f"stage-2 chain: {N}x{N}x{CHAIN_NS} time cube, "
+          f"{int(fold[:, 0].sum())} of {N} ilines live, launches "
+          f"{ {k: v for k, v in counts.items() if v} }, total "
+          f"{sum(walls):.3f} s wall", flush=True)
+
+    pre_c, freq_c, interp_c, ifft_c, post_c = cubes[1:]
+    if freq_c["freq_amp"].shape != (N, N, SLICES):
+        fail(f"apply_fft gave {freq_c['freq_amp'].shape}, not "
+             f"{(N, N, SLICES)}")
+    s_in = float(metrics.snr(truth_pp, pre_c["amp"], device=dev))
+    s_out = float(metrics.snr(truth_pp, ifft_c["amp"], device=dev))
+    print(f"stage-2 chain SNR against the preprocessed truth: {s_in:.2f} dB "
+          f"masked -> {s_out:.2f} dB after apply_ifft", flush=True)
+    if not s_out > s_in:
+        fail(f"stage-2 chain did not improve SNR ({s_in:.2f} -> "
+             f"{s_out:.2f} dB)")
+    out = post_c["amp"]
+    if out.shape != (2 * N - 1, 2 * N - 1, CHAIN_NS):
+        fail(f"postprocess gave {out.shape}, not "
+             f"{(2 * N - 1, 2 * N - 1, CHAIN_NS)}")
+    if not bool(torch.isfinite(torch.from_numpy(out).to(dev)).all()):
+        fail("the postprocessed cube is not finite")
+    del truth, truth_pp, masked
+
+    # each step on the first ilines: the card against device="cpu"
+    inputs = {"preprocess": raw_sub,
+              "apply_fft": sub_cube(Cube, pre_c, CHAIN_CHECK_IL),
+              "apply_ifft": sub_cube(Cube, interp_c, CHAIN_CHECK_IL),
+              "postprocess": sub_cube(Cube, ifft_c, CHAIN_CHECK_IL)}
+    fns = dict(steps)
+    for name, src in inputs.items():
+        t0 = time.perf_counter()
+        on_card = fns[name](sub_cube(Cube, src, CHAIN_CHECK_IL))
+        wall_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if name == "preprocess":
+            on_cpu = preprocess(sub_cube(Cube, src, CHAIN_CHECK_IL),
+                                device="cpu", **pre_kw)
+        elif name == "postprocess":
+            on_cpu = postprocess(sub_cube(Cube, src, CHAIN_CHECK_IL),
+                                 device="cpu", **CHAIN_POST)
+        else:
+            on_cpu = fns[name](sub_cube(Cube, src, CHAIN_CHECK_IL),
+                               device="cpu")
+        wall_cpu = time.perf_counter() - t0
+        for var, (_, ref) in on_cpu.data_vars.items():
+            got = on_card[var]
+            if got.shape != ref.shape:
+                fail(f"{name} {var}: card {got.shape} != cpu {ref.shape}")
+            err = float(np.abs(got - ref).max())
+            scale = float(np.abs(ref).max())
+            print(f"stage-2 {name} on {CHAIN_CHECK_IL} ilines, {var}: "
+                  f"max|card - cpu| {err:.3e} = {err / scale:.2e} "
+                  f"x max|cpu| (card {wall_card:.2f} s, cpu "
+                  f"{wall_cpu:.2f} s)", flush=True)
+            if not err <= CHAIN_TOL * scale:
+                fail(f"{name} {var} on the card is not within {CHAIN_TOL}"
+                     f"·max|cpu| of device='cpu'")
+
+    if trace_dir is not None:
+        def chain():
+            c = raw
+            for _, step in steps:
+                c = step(fresh(c))
+        trace_main_path(torch, chain, trace_dir, "stage2_chain_trace")
 
 
 def main():
@@ -1338,6 +1564,12 @@ def main():
         fail(f"the spatial route's SNR {snr_sp:.3f} dB is not within "
              f"{SNR_TOL_DB} dB of the spectral route's {snr_sh:.3f} dB")
     del sh_cube, sh_truth
+    torch.cuda.empty_cache()
+
+    # phase 11: the stage-2 chain on the 512x512x1024 time cube
+    t11 = time.perf_counter()
+    stage2_chain(torch, dev, modules, args.trace)
+    print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,

@@ -8,14 +8,16 @@ Every kernel the JAX package wrote in Pallas for the TPU gets a counterpart
 written by hand for Hopper (``csrc/``), beside a plain PyTorch version of
 the same function.
 
-Ported so far: the stage-2 frequency-slice solve on the FFT basis,
-``pipeline.pocs.interpolate`` -> ``parallel.solver`` ->
-``models.pocs.pocs_interpolate`` -> ``ops.kernels.pocs_solve``.
+Ported so far: stage 2 on the time cube, ``pipeline.preprocess`` ->
+``pipeline.fft`` -> ``pipeline.pocs.interpolate`` (``parallel.solver`` ->
+``models.pocs.pocs_interpolate`` -> the kernels of ``ops.kernels``) ->
+``pipeline.ifft`` -> ``pipeline.postprocess``, with netCDF cube files on
+the host (``io.ncio``).
 This module imports no submodule, so importing the package needs only
 torch and numpy.
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["compat", "io", "models", "ops", "parallel", "pipeline",
+__all__ = ["compat", "io", "models", "ops", "parallel", "pipeline", "utils",
            "__version__"]

@@ -1,1 +1,1 @@
-"""Host-side data containers (in-memory cube)."""
+"""Host-side data: the in-memory cube and its netCDF files."""

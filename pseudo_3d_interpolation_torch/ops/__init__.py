@@ -1,1 +1,2 @@
-"""Numerics on Cplx pairs (DFT, thresholds, decay); kernels in ``kernels``."""
+"""Numerics on Cplx pairs and traces (DFTs, thresholds, decay, signal
+conditioning, filters, metrics); kernels in ``kernels``."""

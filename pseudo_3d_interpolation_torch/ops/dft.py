@@ -1,8 +1,12 @@
-"""2D DFT and DCT on ``Cplx`` pairs, and their dense matrices.
+"""2D DFT and DCT, and 1-D DFTs along an axis, on ``Cplx`` pairs, and the
+dense matrices.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/ops/dft.py``. Conventions
-match ``numpy.fft``: forward unnormalized, inverse scaled by ``1/(H·W)``;
-the DCT is the orthonormal DCT-II, inverse its transpose.
+match ``numpy.fft``: forward unnormalized, inverse scaled by ``1/N`` per
+axis; the DCT is the orthonormal DCT-II, inverse its transpose. The JAX
+package's 1-D transforms are matmul DFTs at HIGHEST precision; here they
+are ``torch.fft`` calls, which differ from them at about 1e-6 of the
+largest value.
 
 ``fft2``/``ifft2`` and ``dct2_2d``/``idct2_2d`` run outside any kernel (the
 solver derives its decay schedule from one forward transform), so they are
@@ -83,3 +87,39 @@ def idct2_2d(x: torch.Tensor) -> torch.Tensor:
     _, cht = dct_on(x.shape[-2], str(x.device))
     cw, _ = dct_on(x.shape[-1], str(x.device))
     return torch.matmul(torch.matmul(cht, x), cw)
+
+
+def fft1(z: Cplx, axis: int = -1) -> Cplx:
+    """1D DFT along ``axis`` of a (re, im) pair (numpy convention)."""
+    out = torch.fft.fft(_as_complex(z), dim=axis)
+    return Cplx(out.real, out.imag)
+
+
+def ifft1(z: Cplx, axis: int = -1) -> Cplx:
+    """1D inverse DFT along ``axis``; scaled by ``1/N``."""
+    out = torch.fft.ifft(_as_complex(z), dim=axis)
+    return Cplx(out.real, out.imag)
+
+
+def rfft1(x: torch.Tensor, axis: int = -1, n: int | None = None) -> Cplx:
+    """Real-input 1D DFT along ``axis`` -> the first ``n//2+1`` bins as a
+    pair. ``n`` zero-pads (or truncates) the axis first, like
+    ``numpy.fft.rfft(x, n)``."""
+    out = torch.fft.rfft(x.float(), n=n, dim=axis)
+    return Cplx(out.real, out.imag)
+
+
+def irfft1(z: Cplx, n: int, axis: int = -1) -> torch.Tensor:
+    """Inverse of :func:`rfft1`: Hermitian bins -> real signal of length
+    ``n``. Missing bins count as zeros. The imaginary parts of the DC bin
+    and of an even ``n``'s Nyquist bin do not contribute, as in the JAX
+    package's weighted contraction (their sines vanish)."""
+    re = z.re.float().movedim(axis, -1)
+    im = z.im.float().movedim(axis, -1)
+    nb = re.shape[-1]
+    keep = torch.ones(nb, dtype=im.dtype, device=im.device)
+    keep[0] = 0.0
+    if n % 2 == 0 and nb == n // 2 + 1:
+        keep[-1] = 0.0
+    out = torch.fft.irfft(torch.complex(re, im * keep), n=n, dim=-1)
+    return out.movedim(-1, axis)

@@ -17,19 +17,10 @@ import torch
 from ..models.pocs import POCSConfig, pocs_interpolate
 from ..models.transforms import get_transform
 from ..ops.cplx import Cplx, from_complex, to_complex
+from ..utils.device import resolve_device
 
-
-def resolve_device(device=None) -> torch.device:
-    """``device`` as given; by default the first CUDA device. Without a
-    card that raises: the host runs the plain PyTorch versions only when
-    the caller asks for them with ``device='cpu'``."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA card: torch.cuda.is_available() is false. Pass "
-            "device='cpu' to run the plain PyTorch versions on the host")
-    return torch.device("cuda")
+__all__ = ["resolve_device", "fits_resident",
+           "interpolate_cube_resident", "interpolate_cube"]
 
 
 def fits_resident(device, n_slices: int, batch: int, h: int, w: int,

@@ -1,1 +1,1 @@
-"""Workflow steps: stage-2 POCS interpolation."""
+"""Workflow steps: stage 2, preprocess -> fft -> POCS -> ifft -> postprocess."""

@@ -7,19 +7,23 @@ cost) comes back as arrays and can be written as one CSV.
 
 YAML parameter compatibility: the ``metadata`` keys of the reference's
 POCS config map 1:1 onto :class:`POCSConfig`; dask cluster keys and the
-JAX package's TPU-only fields are accepted and ignored. Not ported yet:
-netCDF file input and output, ``interpolate_checkpointed`` (HDF5
-streaming), ``warmup`` and the profiler trace.
+JAX package's TPU-only fields are accepted and ignored. A path input and
+``out_path`` are netCDF cube files (host, h5py), the output written
+slice-major with the solver parameters beside it; ``profile_dir`` traces
+the solve with torch.profiler. Not ported yet: ``interpolate_checkpointed``
+(HDF5 streaming) and ``warmup`` (ROADMAP queue 1 #8).
 """
 
 from __future__ import annotations
 
+import contextlib
 import csv
 import dataclasses
 import logging
 import os
 
 import numpy as np
+import torch
 
 from ..io.cube import Cube
 from ..models.pocs import (TPU_ONLY_FIELDS, POCSConfig, describe_route,
@@ -148,25 +152,34 @@ def config_from_yaml(path_or_dict) -> tuple[POCSConfig, dict]:
 
 
 def interpolate(
-    cube: Cube,
+    cube: Cube | str,
     config: POCSConfig | str | dict = POCSConfig(
         niter=50, thresh_op="hard", thresh_model="exponential",
         p_min="adaptive", version="fast", alpha=0.75, eps=0.0,
     ),
     var: str | None = None,
     batch: int = 64,
+    out_path: str | None = None,
     runtime_csv: str | None = None,
+    profile_dir: str | None = None,
     verbose: int = 0,
     device=None,
 ) -> Cube:
     """Interpolate all slices of a cube; the mask derives from the fold
     (fold > 0 -> 1). ``device`` defaults to the first CUDA device and
     raises without one; ``device='cpu'`` runs the plain PyTorch versions on
-    the host. Returns a new :class:`Cube` with ``<var>_interp``."""
-    if not isinstance(cube, Cube):
-        raise NotImplementedError(
-            "interpolate takes an in-memory Cube; netCDF file input is not "
-            "ported yet (ROADMAP queue 1 #8)")
+    the host. Returns a new :class:`Cube` with ``<var>_interp``.
+
+    ``cube`` may be a path to a cube file; ``out_path`` writes the result
+    with one slice per chunk and ``<out>_parameter.yml`` (every
+    ``POCSConfig`` field) beside it. ``profile_dir`` wraps the solve in
+    ``torch.profiler`` and writes its Chrome trace there as
+    ``interpolate_trace.json``."""
+    device = resolve_device(device)
+    if isinstance(cube, (str, os.PathLike)):
+        from ..io.ncio import read_cube
+
+        cube = read_cube(cube)
     extra = {}
     if not isinstance(config, POCSConfig):
         config, extra = config_from_yaml(config)
@@ -182,7 +195,6 @@ def interpolate(
     slice_dim = dims[-1]
     moved = np.moveaxis(np.asarray(data), -1, 0)
     transform = _production_transform(config, extra)
-    device = resolve_device(device)
     h, w = moved.shape[-2], moved.shape[-1]
     # device-resident driver when the cube fits the device's free memory
     resident_batch = min(batch, 32)
@@ -200,14 +212,15 @@ def interpolate(
     def progress(done, total):
         log.debug("  %d/%d slices", done, total)
 
-    if resident:
-        rec, n_iters, cost = interpolate_cube_resident(
-            moved, mask, config, transform=transform, batch=resident_batch,
-            progress=progress, device=device)
-    else:
-        rec, n_iters, cost = interpolate_cube(
-            moved, mask, config, transform=transform, batch=batch,
-            progress=progress, device=device)
+    with _profiled(profile_dir, device):
+        if resident:
+            rec, n_iters, cost = interpolate_cube_resident(
+                moved, mask, config, transform=transform,
+                batch=resident_batch, progress=progress, device=device)
+        else:
+            rec, n_iters, cost = interpolate_cube(
+                moved, mask, config, transform=transform, batch=batch,
+                progress=progress, device=device)
     rec = np.moveaxis(rec, 0, -1)
 
     out = Cube(
@@ -232,4 +245,34 @@ def interpolate(
             writer.writerow([slice_dim, "niterations", "cost"])
             writer.writerows(zip(np.asarray(cube.coords[slice_dim]).tolist(),
                                  n_iters.tolist(), cost.tolist()))
+    if out_path:
+        import yaml
+
+        from ..io.ncio import write_cube
+
+        write_cube(out_path, out, chunks={slice_dim: 1})
+        # the exact solver parameters beside the output, every field
+        with open(os.path.splitext(out_path)[0] + "_parameter.yml",
+                  "w") as fh:
+            yaml.safe_dump({"metadata": dataclasses.asdict(config)}, fh)
     return out
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir, device):
+    """torch.profiler around the block when ``profile_dir`` is given (the
+    card's activity too on a CUDA device); the Chrome trace lands in
+    ``profile_dir/interpolate_trace.json``."""
+    if not profile_dir:
+        yield
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    prof.export_chrome_trace(os.path.join(profile_dir,
+                                          "interpolate_trace.json"))

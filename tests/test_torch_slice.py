@@ -294,8 +294,9 @@ def test_cube_drivers_agree_and_handle_edges():
     # the host already holds the cube: the CPU always takes the resident
     # driver
     assert solver.fits_resident("cpu", 10**6, 32, 512, 512)
-    with pytest.raises(NotImplementedError, match="netCDF"):
-        pipe.interpolate("cube.nc")
+    # a path is a cube file, read on the host
+    with pytest.raises(FileNotFoundError):
+        pipe.interpolate("missing_cube.nc", device="cpu")
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):
