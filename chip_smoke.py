@@ -106,10 +106,28 @@ Phases, each of which exits non-zero on failure:
    around the solve on the first 32 ilines on the card within
    1e-4·max|cpu| of the same call with ``device="cpu"``; prints each
    step's wall and device peak and the chain's total.
-Phases 4 to 10 print the wall time, slice-iterations/s and device peak
-memory. Before each, and before phase 11's chain, every kernel's launch
-count is set to 0; after it, the counts of all seven kernels must be the
-path's own (zero for the others).
+12. the plain scan route (``xla-scan``: PyTorch ops on the card, no
+   kernel) on phase 4's cube, each path through ``interpolate`` with
+   ``device`` left to its default: (a) DCT at the reference's recommended
+   configuration (the production defaults with eps 1e-16), route
+   ``xla-scan[dct]``; (b) WAVELET (db4, level 3, p_min 1e-5) with eps
+   1e-16, ``xla-scan[wavelet]``; (c) the decimated CURVELET
+   (``decimated: true``, p_min 1e-3, its own 'highest'), ``xla-scan``,
+   under phase 5's cut rule; (d) the FFT basis with ``hard-percentile``
+   (a decay of factors, p_max 99.9, p_min 60), ``xla-scan[fft]``. Each
+   asserts its route, no launch of any of the seven kernels, a finite
+   output and an SNR better than the masked input's, and that
+   ``torch.backends.cuda.matmul.allow_tf32`` is still False; then runs its
+   first 8 slices (4 for the decimated CURVELET) through the same call on
+   the card and with ``device="cpu"``, asserts the two SNRs within 0.1 dB
+   and prints both mean effective iteration counts (at eps 1e-16 the stop
+   sits at the float32 floor, so they may differ); prints the device peak
+   beside the driver's budget for the path.
+Phases 4 to 10 and 12 print the wall time, slice-iterations/s and device
+peak memory. Before each, and before phase 11's chain, every kernel's
+launch count is set to 0; after it, the counts of all seven kernels must
+be the path's own (zero for the others, and for every kernel on phase
+12's paths).
 
 Tolerances, kernel against plain: soft thresholds max|Δ| ≤ 1e-4·max|plain|
 (fp32 sums in another order; for ``pocs_solve`` also √cost within 1e-6);
@@ -121,8 +139,9 @@ SNR is that of one whole POCS iterate: the kernel's output combined with
 the other kernel's plain output, inverted and reinserted.
 
 ``--trace DIR`` runs each main path once more under ``torch.profiler``
-(the SHEARLET, per-iteration, CURVELET and spatial-I/O paths on their
-first two batches, 64 slices; the stage-2 chain whole), writes the Chrome
+(the SHEARLET, per-iteration, CURVELET and spatial-I/O paths and phase
+12's four on their first two batches, 64 slices; the stage-2 chain
+whole), writes the Chrome
 traces to ``DIR`` (gzipped) and prints the device's busy time (the union
 of kernel, memcpy and memset intervals), its idle share of the traced wall
 time, the copies by kind, and the largest device and host entries. Phase 3's profiles of the
@@ -940,19 +959,24 @@ def cut_to_fit(torch, interpolate, Cube, truth, mask, cube, s_in, config,
 
 
 def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
-              modules, expected):
+              modules, expected, default_device=False):
     """Run ``interpolate`` once with every kernel count set to 0 just
     before; check that the counts just after are ``expected`` (zero for
     every other kernel), the output and the SNR; print the wall time, the
-    rate, the mean effective iterations and the device peak. Returns
-    (wall, counts, SNR, mean iterations)."""
+    rate, the mean effective iterations and the device peak. ``config`` is
+    a ``POCSConfig`` or a YAML-style dict; ``default_device`` leaves
+    ``interpolate``'s ``device`` to its default. Returns (wall, counts,
+    SNR, mean iterations, device peak in GB)."""
     f = truth.shape[0]
+    niter = (config["metadata"]["niter"] if isinstance(config, dict)
+             else config.niter)
     torch.cuda.synchronize()
     held = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
     reset_counts(*modules)
     t0 = time.perf_counter()
-    out = interpolate(cube, config=config, device=dev)
+    out = interpolate(cube, config=config,
+                      **({} if default_device else {"device": dev}))
     wall = time.perf_counter() - t0
     counts = launch_counts(*modules)
     want = dict.fromkeys(KERNELS, 0)
@@ -974,15 +998,15 @@ def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
     iters = out.attrs["pocs_mean_iterations"]
     path = {k: v for k, v in counts.items() if v}
     print(f"{label}: {f} slices of {N}x{N} stored (iline, xline, freq), "
-          f"niter {config.niter}, launches {path}, {wall:.2f} s wall, "
-          f"{f * config.niter / wall:.1f} slice-iterations/s; mean "
+          f"niter {niter}, launches {path}, {wall:.2f} s wall, "
+          f"{f * niter / wall:.1f} slice-iterations/s; mean "
           f"iterations {iters:.2f}; SNR {s_in:.2f} dB masked -> "
           f"{s_out:.2f} dB; device peak {peak_gb:.2f} GB = "
           f"{peak_gb / cube_gb:.2f} x the {cube_gb:.2f} GB cube pair",
           flush=True)
     if not s_out > s_in:
         fail(f"{label} did not improve SNR ({s_in:.2f} -> {s_out:.2f} dB)")
-    return wall, counts, s_out, iters
+    return wall, counts, s_out, iters, peak_gb
 
 
 # phase 11: the stage-2 chain on the north star's time cube
@@ -1188,6 +1212,115 @@ def stage2_chain(torch, dev, modules, trace_dir):
             for _, step in steps:
                 c = step(fresh(c))
         trace_main_path(torch, chain, trace_dir, "stage2_chain_trace")
+
+
+# phase 12: the plain scan route (xla-scan), which launches no kernel
+XLA_CHECK = 8  # first slices held against device="cpu" (the decimated
+XLA_CHECK_CV = 4  # CURVELET: these)
+
+
+def xla_scan_paths(torch, Cube, truth, mask, cube, s_in, production, dev,
+                   modules, trace_dir, part, folded):
+    """Phase 12: the four paths of the plain scan through
+    ``interpolate`` with ``device`` left to its default, each asserting
+    its route, no launch of any kernel, a finite output and an SNR better
+    than the masked input's; then the first slices through the same call
+    on the card and with ``device="cpu"``, the two SNRs within 0.1 dB and
+    their mean effective iterations side by side. Prints each path's wall,
+    rate, mean iterations and device peak beside the driver's budget
+    (``fits_resident``'s rule) and, under ``--trace``, its first 64
+    slices' trace. ``folded`` maps a phase to the SNR of the folded kernel
+    solve of the same basis on the same cube (phases 7 and 8), which the
+    scan's SNR must meet within 0.1 dB: a second implementation on the
+    card. Returns each path's (wall, SNR, mean iterations, peak GB, budget
+    GB)."""
+    from pseudo_3d_interpolation_torch.models.pocs import (describe_route,
+                                                           solver_route)
+    from pseudo_3d_interpolation_torch.pipeline.pocs import (
+        _production_transform, _transform_device_bytes, _transform_subbands,
+        config_from_yaml, interpolate)
+
+    prod = dataclasses.asdict(production)
+    paths = [
+        ("12a", "DCT, eps 1e-16", dict(prod, transform_kind="DCT",
+                                       eps=1e-16), "xla-scan[dct]"),
+        ("12b", "WAVELET (db4, level 3), eps 1e-16",
+         dict(prod, transform_kind="WAVELET", p_min=1e-5, eps=1e-16),
+         "xla-scan[wavelet]"),
+        ("12c", "decimated CURVELET",
+         dict(prod, transform_kind="CURVELET", p_min=1e-3, decimated=True),
+         "xla-scan"),
+        ("12d", "FFT, hard-percentile",
+         dict(prod, thresh_op="hard-percentile", decay_kind="factors",
+              p_max=99.9, p_min=60.0), "xla-scan[fft]"),
+    ]
+    results = {}
+    for phase, label, meta, want_route in paths:
+        t_phase = time.perf_counter()
+        if torch.backends.cuda.matmul.allow_tf32:
+            fail(f"phase {phase}: torch.backends.cuda.matmul.allow_tf32 is "
+                 "True: the scan's products would not be full fp32")
+        config = {"metadata": meta}
+        cfg, extra = config_from_yaml(config)
+        tr = _production_transform(cfg, extra)
+        route = describe_route(solver_route((MAIN_BATCH, N, N), (N, N), cfg,
+                                            tr))
+        if route.split(" ")[0] != want_route:
+            fail(f"phase {phase} ({label}) takes {route}, not {want_route}")
+        print(f"phase {phase}, {label}: solver path {route}; {tr}",
+              flush=True)
+        p_truth, p_cube, p_in = truth, cube, s_in
+        if phase == "12c":
+            p_truth, p_cube, p_in = cut_to_fit(
+                torch, interpolate, Cube, truth, mask, cube, s_in, config,
+                dev, "decimated CURVELET")
+        f = p_truth.shape[0]
+        wall, _, snr, iters, peak = main_path(
+            torch, interpolate, p_cube, config, dev, p_truth, p_in,
+            f"{label} main path ({route.split(' ')[0]})", modules, {},
+            default_device=True)
+        budget = ((3 * f + 8 * MAIN_BATCH * _transform_subbands(tr, (N, N),
+                                                                cfg))
+                  * N * N * 8
+                  + _transform_device_bytes(tr, MAIN_BATCH, N, N)) / 1e9
+        if phase in folded:
+            print(f"phase {phase}: SNR {snr:.3f} dB, the folded kernel "
+                  f"solve of the same basis {folded[phase]:.3f} dB",
+                  flush=True)
+            if abs(snr - folded[phase]) > SNR_TOL_DB:
+                fail(f"phase {phase}: the scan's SNR {snr:.3f} dB is not "
+                     f"within {SNR_TOL_DB} dB of the folded kernel solve's "
+                     f"{folded[phase]:.3f} dB")
+        print(f"phase {phase}: device peak {peak:.2f} GB against the "
+              f"driver's budget {budget:.2f} GB ({budget / peak:.2f} x)",
+              flush=True)
+        del p_cube
+        # the first slices on the card and on the host
+        n = XLA_CHECK_CV if phase == "12c" else XLA_CHECK
+        first, _ = make_cube(torch, Cube, truth[:n], mask)
+        snrs, its, walls = [], [], []
+        for where in (None, "cpu"):
+            t0 = time.perf_counter()
+            out = interpolate(first, config=config, device=where)
+            walls.append(time.perf_counter() - t0)
+            rec = out.data_vars["amp_interp"][1]
+            snrs.append(snr_db(torch, truth[:n], torch.from_numpy(
+                np.moveaxis(rec, -1, 0)).to(dev)))
+            its.append(out.attrs["pocs_mean_iterations"])
+        print(f"phase {phase}, first {n} slices: SNR on the card "
+              f"{snrs[0]:.3f} dB, device='cpu' {snrs[1]:.3f} dB; mean "
+              f"iterations {its[0]:.2f} / {its[1]:.2f} (card {walls[0]:.2f} "
+              f"s, cpu {walls[1]:.2f} s)", flush=True)
+        if abs(snrs[0] - snrs[1]) > SNR_TOL_DB:
+            fail(f"phase {phase}: the card's SNR {snrs[0]:.3f} dB is not "
+                 f"within {SNR_TOL_DB} dB of device='cpu''s {snrs[1]:.3f} dB")
+        if trace_dir is not None:
+            trace_main_path(torch, lambda: interpolate(part, config=config),
+                            trace_dir, f"xla_scan_{phase}_trace")
+        results[phase] = (wall, snr, iters, peak, budget)
+        print(f"phase {phase}: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+    return results
 
 
 def main():
@@ -1446,7 +1579,7 @@ def main():
     truth, mask = plane_waves(torch, SLICES, N, N, 0, dev)
     cube, s_in = make_cube(torch, Cube, truth, mask)
     n_batches = math.ceil(SLICES / MAIN_BATCH)
-    _, counts_fft, snr_fft, _ = main_path(
+    _, counts_fft, snr_fft, _, _ = main_path(
         torch, interpolate, cube, production, dev, truth, s_in,
         "FFT main path", modules, {"pocs_solve[fft]": n_batches})
     if args.trace is not None:
@@ -1460,7 +1593,7 @@ def main():
                                           mask, cube, s_in, shearlet, dev,
                                           "SHEARLET")
     sh_batches = math.ceil(sh_truth.shape[0] / MAIN_BATCH)
-    _, counts_sh, snr_sh, _ = main_path(
+    _, counts_sh, snr_sh, _, _ = main_path(
         torch, interpolate, sh_cube, shearlet, dev, sh_truth, sh_in,
         "SHEARLET main path", modules,
         {"subband_update": sh_batches * NITER,
@@ -1479,7 +1612,7 @@ def main():
     if describe_route(route).split(" ")[0] != "fused-periter[fft]":
         fail(f"the recommended configuration takes {describe_route(route)}"
              ", not fused-periter[fft]")
-    _, counts_it, snr_it, iters_it = main_path(
+    _, counts_it, snr_it, iters_it, _ = main_path(
         torch, interpolate, cube, recommended, dev, truth, s_in,
         "FFT per-iteration main path (eps 1e-16)", modules,
         {"pocs_iteration": n_batches * NITER})
@@ -1506,7 +1639,7 @@ def main():
 
     # phases 7 and 8: the DCT and WAVELET folded solves on the same cube
     dct = dataclasses.replace(production, transform_kind="DCT")
-    _, counts_dct, _, _ = main_path(
+    _, counts_dct, snr_dct, _, _ = main_path(
         torch, interpolate, cube, dct, dev, truth, s_in, "DCT main path",
         modules, {"pocs_solve[dct]": n_batches})
     if args.trace is not None:
@@ -1515,7 +1648,7 @@ def main():
                         args.trace, "dct_main_path_trace")
     wavelet = dataclasses.replace(production, transform_kind="WAVELET",
                                   p_min=1e-5)
-    _, counts_wv, _, _ = main_path(
+    _, counts_wv, snr_wv, _, _ = main_path(
         torch, interpolate, cube, wavelet, dev, truth, s_in,
         "WAVELET main path (db4, level 3)", modules,
         {"pocs_solve[wavelet]": n_batches})
@@ -1535,7 +1668,7 @@ def main():
                                           mask, cube, s_in, curvelet, dev,
                                           "CURVELET")
     cv_batches = math.ceil(cv_truth.shape[0] / MAIN_BATCH)
-    _, counts_cv, _, _ = main_path(
+    _, counts_cv, _, _, _ = main_path(
         torch, interpolate, cv_cube, curvelet, dev, cv_truth, cv_in,
         "CURVELET main path", modules,
         {"subband_update": cv_batches * NITER,
@@ -1549,7 +1682,7 @@ def main():
     # phase 10: the SHEARLET main path through the spatial subband kernel,
     # on phase 5's cube
     with spatial_io():
-        _, counts_sp, snr_sp, _ = main_path(
+        _, counts_sp, snr_sp, _, _ = main_path(
             torch, interpolate, sh_cube, shearlet, dev, sh_truth, sh_in,
             "SHEARLET main path, P3D_SPATIAL_IO=1", modules,
             {"subband_update[spatial]": sh_batches * NITER,
@@ -1570,6 +1703,13 @@ def main():
     t11 = time.perf_counter()
     stage2_chain(torch, dev, modules, args.trace)
     print(f"phase 11: {time.perf_counter() - t11:.1f} s", flush=True)
+
+    # phase 12: the plain scan route on phase 4's cube
+    t12 = time.perf_counter()
+    xla_scan_paths(torch, Cube, truth, mask, cube, s_in, production, dev,
+                   modules, args.trace, part,
+                   {"12a": snr_dct, "12b": snr_wv})
+    print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,

@@ -12,7 +12,12 @@ Ported so far: stage 2 on the time cube, ``pipeline.preprocess`` ->
 ``pipeline.fft`` -> ``pipeline.pocs.interpolate`` (``parallel.solver`` ->
 ``models.pocs.pocs_interpolate`` -> the kernels of ``ops.kernels``) ->
 ``pipeline.ifft`` -> ``pipeline.postprocess``, with netCDF cube files on
-the host (``io.ncio``).
+the host (``io.ncio``). The solver runs every route of the JAX package:
+the folded and per-iteration kernels, the directional scan over the
+subband kernels, and the plain scan (``xla-scan``: the DCT and WAVELET
+bases with early stopping, the cost history or APOCS, the percentile
+thresholds, free masks and batches, the decimated CURVELET) as PyTorch
+ops; ``models.pocs_interpolate_numpy`` takes numpy in and out.
 This module imports no submodule, so importing the package needs only
 torch and numpy.
 """

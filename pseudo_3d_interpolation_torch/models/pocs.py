@@ -7,7 +7,7 @@ reinsertion ``x = x_rec·(1 − α·mask) + α·x_obs``; ``version='fast'`` is
 FPOCS (Nesterov with O'Donoghue & Candès adaptive restart). Zero slices
 short-circuit like the reference (POCS.py:515-521).
 
-Three routes are ported:
+Four routes:
 - ``fused-folded[fft|dct|wavelet]``: the whole fixed-iteration solve per
   batch in the CUDA kernel of ``ops/kernels/pocs_solve.py``;
 - ``fused-periter[fft]``: the FFT basis when the configuration needs the
@@ -17,16 +17,20 @@ Three routes are ported:
   each iteration's ``inverse(threshold(forward(·)))`` fused in the
   transform's ``apply_threshold`` (the subband kernels on the card:
   ``subband_update`` and ``box_group_update``, or with ``P3D_SPATIAL_IO``
-  set ``subband_update_spatial`` and ``box_group_update``).
-The last two share one scan, a Python loop over the iterations with the
+  set ``subband_update_spatial`` and ``box_group_update``);
+- ``xla-scan``: the JAX package's plain scan, here PyTorch ops on the
+  device (``torch.fft``, ``torch.matmul``) and no kernel: the DCT or
+  WAVELET basis with eps ≠ 0, cost history, global early stop or
+  'adaptive'; a padded or non-square WAVELET; a mask other than the exact
+  2-D slice mask; a batch that is not 1-D; the ``*-percentile``
+  thresholds; the decimated CURVELET.
+The last three share one scan, a Python loop over the iterations with the
 state on the device. It carries the scan's options: regular / fast /
 adaptive, lane freezing for eps > 0, cost history and ``global_early_stop``
 (the one host synchronisation per iteration, taken only when asked for).
-A configuration the JAX package sends to its XLA scan (the DCT or WAVELET
-basis with eps ≠ 0, cost history, global early stop or 'adaptive'; a
-padded or non-square WAVELET; a mask other than the exact 2-D slice mask;
-a threshold without a kernel) raises :class:`NotImplementedError` with that
-route's reason; nothing falls back.
+A directional basis with a threshold that has no subband kernel (the
+percentile forms) raises :class:`NotImplementedError` with its route's
+reason; nothing falls back.
 """
 
 from __future__ import annotations
@@ -34,11 +38,13 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 
 from ..ops import wavelet as wv
-from ..ops.cplx import Cplx
+from ..ops.cplx import Cplx, from_complex, to_complex
 from ..ops.kernels.pocs_solve import THRESH_OPS, pocs_iteration, pocs_solve
+from ..utils.device import resolve_device
 from .transforms import (DCTTransform, FFTTransform, WaveletTransform,
                          _resolve_precision, get_transform)
 
@@ -82,7 +88,7 @@ class SolverRoute(NamedTuple):
     ``route`` is ``'fused-folded'`` (a solve kernel), ``'fused-periter'``
     (the FFT basis' scan over the iteration kernel), ``'streamed-subband'``
     (SHEARLET's and CURVELET's directional scan over the subband kernels)
-    or ``'xla-scan'`` (the JAX package's plain scan, not ported); ``basis``
+    or ``'xla-scan'`` (the JAX package's plain scan); ``basis``
     the folded kernel's basis ('fft'/'dct'/'wavelet', '' otherwise);
     ``reason`` the first failed folded-kernel condition, worded as in the
     JAX package ('' when the folded kernel runs). :func:`runs` says whether
@@ -94,11 +100,11 @@ class SolverRoute(NamedTuple):
 
 
 def runs(route: SolverRoute) -> bool:
-    """Whether :func:`pocs_interpolate` runs ``route``: the per-iteration
-    route always, the folded and directional routes when no gate failed."""
-    return (route.route == "fused-periter"
-            or (route.route in ("fused-folded", "streamed-subband")
-                and not route.reason))
+    """Whether :func:`pocs_interpolate` runs ``route``: the scans over the
+    iteration kernel and over the transforms always, the folded and
+    directional routes when no gate failed."""
+    return (route.route in ("fused-periter", "xla-scan")
+            or not route.reason)
 
 
 def _wavelet_kernel_ok(transform: WaveletTransform, h: int, w: int) -> bool:
@@ -178,7 +184,9 @@ def solver_route(shape, mask_shape, config: POCSConfig,
 
 
 def describe_route(route: SolverRoute) -> str:
-    """One-line description of a :class:`SolverRoute` for driver logs."""
+    """One-line description of a :class:`SolverRoute` for driver logs: the
+    route, its basis and the first failed kernel gate, and "not ported"
+    where :func:`runs` refuses the route."""
     name = route.route + (f"[{route.basis}]" if route.basis else "")
     if not route.reason:
         return name
@@ -191,10 +199,10 @@ def pocs_interpolate(z: Cplx, mask: torch.Tensor, transform=None,
                      config: POCSConfig = POCSConfig()) -> POCSResult:
     """Run POCS on a batch of slices.
 
-    ``z``: observed data as a ``Cplx`` pair ``(B, H, W)`` (real data has a
-    zero imaginary part); ``mask``: ``(H, W)`` sampling mask (1 observed,
-    0 missing; the directional route also takes one broadcastable to
-    ``z``), on ``z``'s device; ``transform``: defaults to the config's
+    ``z``: observed data as a ``Cplx`` pair ``(..., H, W)`` (real data has
+    a zero imaginary part; the kernel routes take ``(B, H, W)``);
+    ``mask``: sampling mask (1 observed, 0 missing), ``(H, W)`` or
+    broadcastable to ``z``; ``transform``: defaults to the config's
     ``transform_kind``.
     """
     cfg = config
@@ -239,23 +247,37 @@ def pocs_interpolate(z: Cplx, mask: torch.Tensor, transform=None,
     return POCSResult(x_out, n_eff, cost, None)
 
 
+def _tree_map(fn, tree):
+    """``fn`` on every tensor of a decay schedule: a tensor, or the WAVELET
+    basis' list of a tensor and tuples of tensors."""
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tree_map(fn, t) for t in tree)
+    return fn(tree)
+
+
 def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
           route: SolverRoute) -> POCSResult:
     """The scan of the JAX package (models/pocs.py:392-534) as a Python
     loop with the state on the device. Each step is one
-    ``pocs_iteration`` launch on ``fused-periter``, or the transform's
-    fused ``apply_threshold`` and the reinsertion on
-    ``streamed-subband``."""
-    if z.re.dim() != 3:
-        raise ValueError(f"z must be a (B, H, W) pair, got "
-                         f"{tuple(z.re.shape)}")
-    z = Cplx(z.re.contiguous(), z.im.contiguous())
+    ``pocs_iteration`` launch on ``fused-periter``, the transform's fused
+    ``apply_threshold`` and the reinsertion on ``streamed-subband``, or
+    ``forward`` → ``threshold`` → ``inverse`` and the reinsertion on
+    ``xla-scan``. The leading axes of ``(..., H, W)`` slices (and of a
+    mask that has them) are flattened into one batch for the loop and
+    restored on the result, the iteration counts, the costs and the
+    history."""
+    batch, (h, w) = tuple(z.shape[:-2]), tuple(z.shape[-2:])
+    if mask.dim() > 2:
+        mask = torch.broadcast_to(mask, z.shape).reshape(-1, h, w)
+    z = Cplx(z.re.reshape(-1, h, w).contiguous(),
+             z.im.reshape(-1, h, w).contiguous())
     op = "garrote" if cfg.thresh_op == "garotte" else cfg.thresh_op
     b = z.re.shape[0]
     device = z.re.device
     alpha = cfg.alpha
-    # one-time decay schedule, (niter, B) or (niter, B, L): spectral-stack
-    # bases take it from streamed statistics
+    # one-time decay schedule, (niter, B) or (niter, B, L), or the WAVELET
+    # basis' list of them: spectral-stack bases take it from streamed
+    # statistics
     if hasattr(transform, "decay_from_input"):
         decay = transform.decay_from_input(
             z, cfg.thresh_model, cfg.niter, cfg.p_max, cfg.p_min,
@@ -265,8 +287,8 @@ def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
                                 cfg.niter, cfg.p_max, cfg.p_min,
                                 cfg.decay_kind)
     if cfg.sqrt_decay:
-        decay = torch.sqrt(decay)
-    decay = decay.to(torch.float32)
+        decay = _tree_map(torch.sqrt, decay)
+    decay = _tree_map(lambda t: t.to(torch.float32), decay)
     keep = 1.0 - alpha * mask  # reinsertion weights
     a_re, a_im = alpha * z.re, alpha * z.im
 
@@ -276,9 +298,14 @@ def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
         def step(x_in: Cplx, tau: torch.Tensor) -> Cplx:
             return pocs_iteration(x_in, z, mask, tau.contiguous(), alpha, op,
                                   precision)
-    else:
+    elif route.route == "streamed-subband":
         def step(x_in: Cplx, tau: torch.Tensor) -> Cplx:
             rec = transform.apply_threshold(x_in, tau, op)
+            return Cplx(rec.re * keep + a_re, rec.im * keep + a_im)
+    else:
+        def step(x_in: Cplx, tau) -> Cplx:
+            rec = transform.inverse(transform.threshold(
+                transform.forward(x_in), tau, op))
             return Cplx(rec.re * keep + a_re, rec.im * keep + a_im)
 
     def abs_(x: Cplx) -> torch.Tensor:
@@ -312,7 +339,7 @@ def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
                 + (1 - alpha) * (z.im - mask * x_curr.im))
         else:
             raise ValueError(f"unknown POCS version {cfg.version!r}")
-        x_rec = step(x_in, decay[i])
+        x_rec = step(x_in, _tree_map(lambda t: t[i], decay))
 
         # cost (Gao et al. 2013): (Σ(|x_new| − |x_curr|))² / (Σ|x_new|)²
         mag_rec = abs_(x_rec)
@@ -352,8 +379,12 @@ def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
                  torch.where(nz, x_curr.im, z.im))
     n_eff = torch.where(nonzero, n_eff, torch.zeros_like(n_eff))
     cost = torch.where(nonzero, cost_prev, torch.zeros_like(cost_prev))
-    hist = torch.stack(history) if cfg.keep_cost_history else None
-    return POCSResult(x_out, n_eff, cost, hist)
+    hist = (torch.stack(history).reshape((-1,) + batch)
+            if cfg.keep_cost_history else None)
+    return POCSResult(
+        Cplx(x_out.re.reshape(batch + (h, w)),
+             x_out.im.reshape(batch + (h, w))),
+        n_eff.reshape(batch), cost.reshape(batch), hist)
 
 
 # --- named variants mirroring the reference's partials (POCS.py:659-661) ---
@@ -370,3 +401,24 @@ def fpocs(z, mask, transform=None, config=POCSConfig()):
 def apocs(z, mask, transform=None, config=POCSConfig()):
     return pocs_interpolate(z, mask, transform,
                             dataclasses.replace(config, version="adaptive"))
+
+
+def pocs_interpolate_numpy(x, mask, config: POCSConfig = POCSConfig(),
+                           transform=None, device=None):
+    """Host-boundary convenience: numpy (complex or real) in and out.
+
+    ``x``: (..., H, W) slices; ``mask``: (H, W) or broadcastable to ``x``;
+    ``device``: the first CUDA card by default (raising without one),
+    ``'cpu'`` for the plain PyTorch versions on the host. Returns
+    ``(x_inv, n_iterations, cost)`` as numpy arrays; a real input gives a
+    real ``x_inv`` (the imaginary part dropped), as the reference returns
+    (POCS.py:653-656)."""
+    device = resolve_device(device)
+    was_complex = np.iscomplexobj(x)
+    z = from_complex(np.asarray(x), device)
+    res = pocs_interpolate(
+        z, torch.as_tensor(np.asarray(mask, np.float32), device=device),
+        transform if transform is not None
+        else get_transform(config.transform_kind), config)
+    out = to_complex(res.data) if was_complex else res.data.re.cpu().numpy()
+    return out, res.n_iterations.cpu().numpy(), res.cost.cpu().numpy()

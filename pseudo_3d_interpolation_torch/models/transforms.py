@@ -7,8 +7,8 @@ and ``threshold`` over ``Cplx`` pairs, batch first (WAVELET's coefficients
 and decay are pywt-style lists); the spectral-stack bases (SHEARLET,
 CURVELET) add the fused ``apply_threshold`` and ``decay_from_input`` the
 solver's directional route uses. The decimated CURVELET
-(``decimated=True``) raises :class:`NotImplementedError`: its solve is the
-JAX package's plain XLA scan, which is not ported.
+(``decimated=True``, CurveLab's wrapped coefficient storage) has only the
+four methods: the solver runs it on its plain scan.
 """
 
 from __future__ import annotations
@@ -323,6 +323,74 @@ class CurveletTransform(_SpectralStackMixin):
         return decay_ops.schedule(model, niter, p_max * amax, p_min * amax)
 
 
+@dataclasses.dataclass(frozen=True)
+class DecimatedCurveletTransform:
+    """The curvelet frame with CurveLab's wrapped coefficient storage
+    (``ops/curvelet.py``'s decimated section): each band's coefficients are
+    the plain ifft2 on its own support grid, about 2.8x fewer elements
+    than the undecimated frame at 512². Select it with ``decimated: true``
+    among the transform options. A wrapped per-band threshold is another
+    nonlinearity than the full-grid one, so the streamed directional route
+    does not apply: the solver takes its plain scan (``xla-scan``)."""
+
+    nbscales: int | None = None
+    nbangles_coarse: int = 16
+    allcurvelets: bool = False
+    precision: str = "highest"
+    shape: tuple | None = None  # bound by with_shape (the solver calls it)
+    kind: str = "CURVELET"
+    decimated: bool = True
+
+    def __post_init__(self):
+        _resolve_precision(self.precision)
+
+    def with_shape(self, shape):
+        return dataclasses.replace(
+            self, shape=(int(shape[-2]), int(shape[-1])))
+
+    def _layout(self, h, w):
+        return cv.decimated_layout(h, w, self.nbscales,
+                                   self.nbangles_coarse, self.allcurvelets)
+
+    def forward(self, z: Cplx):
+        return cv.decimated_forward(
+            z, self._layout(z.shape[-2], z.shape[-1]))
+
+    def inverse(self, coeffs) -> Cplx:
+        if self.shape is None:
+            raise ValueError("DecimatedCurveletTransform.inverse needs the "
+                             "slice shape: call with_shape first (the "
+                             "solver does)")
+        h, w = self.shape
+        return cv.decimated_inverse(coeffs, self._layout(h, w), h, w)
+
+    def threshold(self, coeffs, t, op: str):
+        # t: (..., L) per-band thresholds in plan band order
+        return [threshold_ops.threshold_pair(c, t[..., l, None, None],
+                                             kind=op)
+                for l, c in enumerate(coeffs)]
+
+    def decay(self, coeffs, model, niter, p_max, p_min, decay_kind):
+        """(niter, ..., L) schedules from each band's maximum; a numeric
+        ``p_min`` only, and no data-driven model (it needs the whole
+        coefficient distribution)."""
+        if isinstance(p_min, str):
+            raise ValueError(
+                "p_min='adaptive' is shearlet-specific (reference "
+                "functions/POCS.py:302-324); use a numeric p_min for "
+                "CURVELET")
+        if model == "data-driven":
+            raise ValueError(
+                "data-driven decay needs the full coefficient distribution "
+                "— unsupported for the decimated curvelet representation; "
+                "use the default (undecimated) CURVELET transform")
+        mags = torch.stack([c.abs().amax(dim=(-2, -1)) for c in coeffs],
+                           dim=-1)
+        return decay_ops.threshold_decay(
+            mags[..., None, None], model, niter, p_max=p_max, p_min=p_min,
+            kind=decay_kind)
+
+
 _REGISTRY = {}
 
 
@@ -355,10 +423,9 @@ def _curvelet_factory(nbscales=None, nbangles_coarse=16, allcurvelets=False,
                 "box_precision does not apply to decimated=True: EVERY "
                 "band is a wrapped/support-cropped grid there — set "
                 "'precision' (uniform) instead")
-        raise NotImplementedError(
-            "the decimated CURVELET (decimated=True) is not ported yet: its "
-            "solve is the JAX package's plain XLA scan (ROADMAP queue 1 "
-            "#12, the xla-scan route)")
+        return DecimatedCurveletTransform(
+            nbscales=nbscales, nbangles_coarse=nbangles_coarse,
+            allcurvelets=allcurvelets, precision=precision)
     return CurveletTransform(
         nbscales=nbscales, nbangles_coarse=nbangles_coarse,
         allcurvelets=allcurvelets, precision=precision,

@@ -17,9 +17,11 @@ wedges (horizontal double-cone interior, vertical interior, the two
 diagonal seam wedges), then the finest isotropic ring (when
 ``allcurvelets=False``).
 
-Not ported yet: the decimated (wrapped) coefficient representation (JAX
-ops/curvelet.py:209-332), whose solve runs the JAX package's plain XLA
-scan (ROADMAP), and the split plans (``split_threshold``).
+The decimated (wrapped) coefficient representation, CurveLab's storage,
+is at the end: each band's coefficients live on a small grid of its
+frequency support (``decimated_layout``, ``decimated_forward``,
+``decimated_inverse``). Not ported yet: the split plans
+(``split_threshold``).
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
+from .cplx import Cplx
 from .shearlet import _meyer_aux, _psi2_hat, build_plan, symmetrize_and_tighten
 
 
@@ -173,3 +177,136 @@ def curvelet_plan(h: int, w: int, nbscales: int | None = None,
     bounds = [int(np.ceil(2.0 * emax * 2.0 ** (s - r + 1))) for s in range(r)]
     bounds[-1] = None  # the finest ring is flat-topped to the corner
     return build_plan(psi, counts, bounds)
+
+
+# ---------------------------------------------------------------------------
+# Decimated (wrapped) coefficients: each band's coefficients are the plain
+# ifft2 on its own small grid, the rows × cols of its (padded) frequency
+# support, frequencies wrapping onto the grid modulo its size:
+#
+#   forward:  c_l = ifft2_{sr×sc}( X[rows_l × cols_l] · ψ_l )
+#   inverse:  X  += scatter_{rows_l × cols_l}( fft2_{sr×sc}(c_l) · ψ_l )
+#
+# Reconstruction is exact (fft∘ifft is the identity on the small grid and
+# Σ_l ψ_l² = 1), and ‖c_l‖² = ‖X·ψ_l‖²/(sr·sc), so the grid size sets
+# which coefficients a hard threshold keeps. Box-group bands keep the
+# plan's box indices; a full-size group's band is cropped to its nonzero
+# rows and columns, each set padded to a multiple of 8 with frequencies
+# where ψ is zero (the JAX package's padding: it fixes the grid, and with
+# it the function computed), or kept at full size when the crop would
+# hold at least half the grid.
+# ---------------------------------------------------------------------------
+
+
+def _pad_index_set(idx: np.ndarray, n: int, mult: int = 8) -> np.ndarray:
+    """Extend a frequency index set to a multiple of ``mult`` with indices
+    outside the set (ψ is zero there, so coefficients are unchanged)."""
+    idx = np.asarray(idx, np.int64)
+    need = (-len(idx)) % mult
+    if need == 0:
+        return idx
+    free = np.setdiff1d(np.arange(n, dtype=np.int64), idx,
+                        assume_unique=False)
+    return np.concatenate([idx, free[:need]])
+
+
+class DecimatedLayout(list):
+    """The per-band wrapped grids, in plan band order: ``(rows, cols,
+    psi)`` numpy, ``psi`` the (len(rows), len(cols)) window crop, or
+    ``rows``/``cols`` None and ``psi`` (H, W) for a band kept at full
+    size. :meth:`bands_on` gives each band's flat gather index and window
+    on a device, copied once per device."""
+
+    def __init__(self, bands, w: int):
+        super().__init__(bands)
+        self.w = w
+        self._dev = {}
+
+    def bands_on(self, device) -> list:
+        """[(flat index (sr·sc,) int64 or None, psi tensor), ...] on
+        ``device``."""
+        key = str(torch.device(device))
+        if key not in self._dev:
+            self._dev[key] = [
+                (None if rows is None else torch.from_numpy(
+                    (rows[:, None] * self.w + cols[None, :]).ravel()
+                ).to(device), torch.from_numpy(psi).to(device))
+                for rows, cols, psi in self]
+        return self._dev[key]
+
+
+@functools.lru_cache(maxsize=8)
+def decimated_layout(h: int, w: int, nbscales: int | None = None,
+                     nbangles_coarse: int = 16,
+                     allcurvelets: bool = False) -> DecimatedLayout:
+    """The wrapped grid of every band of the plan (host, cached), bit-equal
+    to the JAX package's ``decimated_layout``."""
+    plan = curvelet_plan(h, w, nbscales, nbangles_coarse, allcurvelets)
+    layout = []
+    for g in plan:
+        lg = g.psi.shape[0]
+        if g.idx_h is not None:
+            for l in range(lg):
+                layout.append((np.asarray(g.idx_h, np.int64),
+                               np.asarray(g.idx_w, np.int64),
+                               np.asarray(g.psi[l], np.float32)))
+            continue
+        for l in range(lg):
+            nz = np.abs(g.psi[l]) > 0
+            rows = _pad_index_set(np.nonzero(nz.any(axis=1))[0], h)
+            cols = _pad_index_set(np.nonzero(nz.any(axis=0))[0], w)
+            if len(rows) * len(cols) * 2 >= h * w:
+                layout.append((None, None, np.asarray(g.psi[l], np.float32)))
+            else:
+                layout.append((rows, cols, np.ascontiguousarray(
+                    g.psi[l][np.ix_(rows, cols)], np.float32)))
+    return DecimatedLayout(layout, w)
+
+
+def decimated_coeff_elements(h: int, w: int, nbscales: int | None = None,
+                             nbangles_coarse: int = 16,
+                             allcurvelets: bool = False) -> tuple[int, int]:
+    """(decimated, undecimated) coefficient element counts per slice."""
+    lay = decimated_layout(h, w, nbscales, nbangles_coarse, allcurvelets)
+    dec = sum((len(r) * len(c)) if r is not None else h * w
+              for r, c, _ in lay)
+    return dec, len(lay) * h * w
+
+
+def decimated_forward(z: Cplx, layout: DecimatedLayout) -> list:
+    """Wrapped-coefficient forward: ``z`` (..., H, W) pair -> one (...,
+    sr_l, sc_l) pair per band, in plan band order."""
+    batch, (h, w) = z.shape[:-2], z.shape[-2:]
+    zf = torch.fft.fft2(torch.complex(z.re, z.im))
+    flat = zf.reshape(-1, h * w)
+    outs = []
+    for (rows, cols, _), (index, psi) in zip(layout,
+                                             layout.bands_on(zf.device)):
+        if index is None:
+            sub = zf
+        else:
+            sub = flat.index_select(1, index).reshape(
+                batch + (len(rows), len(cols)))
+        c = torch.fft.ifft2(sub * psi)
+        outs.append(Cplx(c.real.contiguous(), c.imag.contiguous()))
+    return outs
+
+
+def decimated_inverse(coeffs, layout: DecimatedLayout, h: int,
+                      w: int) -> Cplx:
+    """Inverse of :func:`decimated_forward` -> (..., H, W) pair. Each
+    band's spectrum is added at its grid's frequencies (distinct within a
+    band, so the sum runs in band order)."""
+    batch = coeffs[0].re.shape[:-2]
+    acc = torch.zeros(batch + (h, w), dtype=torch.complex64,
+                      device=coeffs[0].re.device)
+    flat = torch.view_as_real(acc).view(-1, h * w, 2)
+    for c, (index, psi) in zip(coeffs, layout.bands_on(acc.device)):
+        v = torch.fft.fft2(torch.complex(c.re, c.im)) * psi
+        if index is None:
+            acc += v
+        else:
+            flat.index_add_(1, index, torch.view_as_real(v).reshape(
+                flat.shape[0], -1, 2))
+    out = torch.fft.ifft2(acc)
+    return Cplx(out.real.contiguous(), out.imag.contiguous())

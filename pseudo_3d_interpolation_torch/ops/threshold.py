@@ -3,16 +3,20 @@
 Counterpart of ``pseudo_3d_interpolation_tpu/ops/threshold.py``: same
 semantics (PyWavelets-style), the threshold broadcasts against the input,
 complex inputs are shrunk by magnitude with their phase kept. The
-percentile forms are not ported yet (ROADMAP queue 1 #4).
+``*-percentile`` forms read the threshold as a percentile of ``|x|`` over
+each slice's trailing two axes, interpolated linearly as
+``jnp.percentile`` does.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .cplx import Cplx
 
-THRESHOLD_KINDS = ("soft", "hard", "garrote")
+THRESHOLD_KINDS = ("soft", "hard", "garrote", "soft-percentile",
+                   "hard-percentile", "garrote-percentile")
 
 
 def _is_zero(substitute) -> bool:
@@ -70,32 +74,71 @@ def garrote_pair(z: Cplx, value) -> Cplx:
     return Cplx(z.re * shrink, z.im * shrink)
 
 
-def _not_ported(kind: str):
-    if kind.endswith("-percentile"):
-        return NotImplementedError(
-            f"threshold {kind!r}: the percentile forms are not ported yet "
-            "(ROADMAP queue 1 #4)")
+def _percentile_from_mag(mag: torch.Tensor, perc) -> torch.Tensor:
+    """Per-slice percentile of magnitudes ``(..., H, W)``: shape
+    ``mag.shape[:-2] + (1, 1)``.
+
+    ``perc`` is a scalar or a per-slice array broadcastable to the batch
+    shape (trailing broadcast axes, as a ``(..., 1, 1)`` threshold has, are
+    stripped). Each slice is sorted once and the two neighbours of the rank
+    ``q/100·(n−1)`` are interpolated, all in float32 as ``jnp.percentile``
+    computes it: the indices are clamped to the slice, the weights are not
+    (so a q outside [0, 100] gives an end value), and a slice holding a NaN
+    gives NaN. ``torch.quantile`` is not used: it refuses inputs above 2**24
+    elements and takes one q for all rows."""
+    batch_shape = mag.shape[:-2]
+    flat = mag.reshape(-1, mag.shape[-2] * mag.shape[-1])
+    n = flat.shape[-1]
+    q = torch.as_tensor(perc, dtype=torch.float32, device=mag.device)
+    while q.dim() > len(batch_shape):  # strip trailing broadcast axes
+        q = q[..., 0]
+    # n − 1 rounded as float32 (as JAX computes it), held as a Python
+    # float: a device scalar would cost a host-to-device copy a call
+    top = float(np.float32(n) - np.float32(1))
+    q = torch.broadcast_to(q, batch_shape).reshape(-1, 1) / 100 * top
+    low, high = torch.floor(q), torch.ceil(q)
+    high_weight = q - low
+    low_weight = 1 - high_weight
+    low = low.clamp(0, top).to(torch.int64).clamp(max=n - 1)
+    high = high.clamp(0, top).to(torch.int64).clamp(max=n - 1)
+    ordered = torch.sort(flat.float(), dim=-1).values
+    t = (torch.gather(ordered, -1, low) * low_weight
+         + torch.gather(ordered, -1, high) * high_weight)
+    t = torch.where(torch.isnan(flat).any(dim=-1, keepdim=True),
+                    torch.full_like(t, float("nan")), t)
+    return t.reshape(batch_shape + (1, 1))
+
+
+def _unknown(kind: str) -> ValueError:
     return ValueError(
         f"Unknown threshold kind {kind!r}; choose one of {THRESHOLD_KINDS}")
 
 
 def threshold_pair(z: Cplx, value, kind: str = "soft") -> Cplx:
     """Dispatch a magnitude threshold on a ``Cplx`` pair by name."""
-    if kind == "soft":
+    base = kind.removesuffix("-percentile")
+    if base != kind:
+        value = _percentile_from_mag(z.abs(), value)
+    if base == "soft":
         return soft_pair(z, value)
-    if kind == "hard":
+    if base == "hard":
         return hard_pair(z, value)
-    if kind in ("garrote", "garotte"):
+    if base in ("garrote", "garotte"):
         return garrote_pair(z, value)
-    raise _not_ported(kind)
+    raise _unknown(kind)
 
 
 def threshold(x, value, substitute=0.0, kind: str = "soft"):
-    """Dispatch a threshold operator on a real or complex tensor by name."""
-    if kind == "soft":
+    """Dispatch a threshold operator on a real or complex tensor by name;
+    for the ``*-percentile`` kinds ``value`` is a percentile of ``|x|``
+    per slice (the trailing two axes)."""
+    base = kind.removesuffix("-percentile")
+    if base != kind:
+        value = _percentile_from_mag(torch.abs(x), value)
+    if base == "soft":
         return soft(x, value, substitute)
-    if kind == "hard":
+    if base == "hard":
         return hard(x, value, substitute)
-    if kind in ("garrote", "garotte"):
+    if base in ("garrote", "garotte"):
         return garrote(x, value, substitute)
-    raise _not_ported(kind)
+    raise _unknown(kind)

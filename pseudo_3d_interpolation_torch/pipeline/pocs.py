@@ -66,11 +66,13 @@ def _production_transform(config: POCSConfig, extra: dict):
 
 
 def _is_spectral_stack(transform) -> bool:
-    return getattr(transform, "kind", "FFT") in ("SHEARLET", "CURVELET")
+    """A SHEARLET or an undecimated CURVELET: the streamed directional
+    route and its kernels."""
+    return hasattr(transform, "apply_threshold")
 
 
 def _n_subbands(transform, h: int, w: int) -> int:
-    """The subband count of a spectral-stack basis at (h, w)."""
+    """The subband count of a directional basis at (h, w)."""
     if transform.kind == "CURVELET":
         return cv.n_subbands(transform.nbscales or cv.default_nbscales(h, w),
                              transform.nbangles_coarse,
@@ -81,21 +83,27 @@ def _n_subbands(transform, h: int, w: int) -> int:
 def _transform_subbands(transform, slice_shape, config: POCSConfig) -> int:
     """Per-batch working-set expansion of a basis against the folded
     solve's (``fits_resident``'s ``expansion``). A folded solve (FFT, DCT,
-    WAVELET): 1. The scan over ``pocs_iteration`` (``fused-periter``) keeps
-    about eleven pairs per slice (the observation scaled by α, x_prev,
-    x_curr, the extrapolated input, the kernel's result and its one work
-    pair, their replacements while the old ones live, the cost's
-    temporaries), 2. A spectral-stack basis with the streamed iteration and
-    the streamed decay never holds the (B, L, H, W) stack: its scan keeps
-    about sixteen pairs per slice (the iterates, the spectrum, the
-    accumulator, the inverse and the cost's temporaries), 2. When the
-    decay model needs the coefficients themselves (data-driven,
-    non-'values' kinds, inverse-proportional) the forward stack is
-    materialised once per batch: L."""
+    WAVELET): 1. A scan over the iteration kernel (``fused-periter``) or
+    over the transforms (``xla-scan`` on FFT, DCT and WAVELET) keeps about
+    eleven pairs per slice (the observation scaled by α, x_prev, x_curr,
+    the extrapolated input, the coefficients before and after the
+    threshold or the kernel's work pair, the result, their replacements
+    while the old ones live, the cost's temporaries), 2. The decimated
+    CURVELET has no streamed apply: its scan holds every band's wrapped
+    coefficients, budgeted as L slices as the JAX package does. A
+    spectral-stack basis with the streamed iteration and the streamed
+    decay never holds the (B, L, H, W) stack: its scan keeps about sixteen
+    pairs per slice (the iterates, the spectrum, the accumulator, the
+    inverse and the cost's temporaries), 2. When the decay model needs the
+    coefficients themselves (data-driven, non-'values' kinds,
+    inverse-proportional) the forward stack is materialised once per
+    batch: L."""
     h, w = int(slice_shape[-2]), int(slice_shape[-1])
+    if getattr(transform, "decimated", False):
+        return _n_subbands(transform, h, w)
     if not _is_spectral_stack(transform):
         route = solver_route((1, h, w), (h, w), config, transform)
-        return 2 if route.route == "fused-periter" else 1
+        return 1 if route.route == "fused-folded" else 2
     if not transform._needs_full_forward(
             config.thresh_model, config.decay_kind):
         return 2
@@ -108,7 +116,12 @@ def _transform_device_bytes(transform, batch: int, h: int, w: int) -> int:
     groups and the kernels' full-size pack), the subband kernel's scratch
     (with ``P3D_SPATIAL_IO`` set, ``subband_update_spatial``'s, which adds
     one (B, H, W) spectrum) and what the largest box group's call
-    allocates."""
+    allocates; the decimated CURVELET's cropped windows and gather
+    indices."""
+    if getattr(transform, "decimated", False):
+        # a float32 window and an int64 index per wrapped-grid element
+        return sum(p.size * (4 if r is None else 12)
+                   for r, _, p in transform._layout(h, w))
     if not _is_spectral_stack(transform):
         return 0
     n_bands = _n_subbands(transform, h, w)

@@ -34,7 +34,7 @@ from pseudo_3d_interpolation_torch import compat
 from pseudo_3d_interpolation_torch.io.cube import Cube
 from pseudo_3d_interpolation_torch.models import pocs
 from pseudo_3d_interpolation_torch.models.transforms import (
-    CurveletTransform, get_transform)
+    CurveletTransform, DecimatedCurveletTransform, get_transform)
 from pseudo_3d_interpolation_torch.ops import curvelet as cv
 from pseudo_3d_interpolation_torch.ops import shearlet as sh
 from pseudo_3d_interpolation_torch.ops.cplx import Cplx
@@ -356,8 +356,9 @@ def test_options_that_raise():
                                                         *a[1:])):
         with pytest.raises(ValueError, match="shearlet-specific"):
             fn(z, "exponential", 3, 0.99, "adaptive", "values")
-    with pytest.raises(NotImplementedError, match="XLA scan"):
-        get_transform("CURVELET", decimated=True)
+    # the decimated form runs on the plain scan
+    assert get_transform("CURVELET", decimated=True) == \
+        DecimatedCurveletTransform()
     with pytest.raises(ValueError, match="box_precision does not apply"):
         get_transform("CURVELET", decimated=True, box_precision="high")
     with pytest.raises(ValueError, match="unknown precision"):
@@ -377,8 +378,9 @@ def test_production_precision_mix_applies_only_when_unset():
     assert pipe._production_transform(
         cfg, {"precision": "high", "box_precision": "high"}) == \
         CurveletTransform(precision="high", box_precision="high")
-    with pytest.raises(NotImplementedError):
-        pipe._production_transform(cfg, {"decimated": True})
+    # the decimated form keeps its own 'highest' (JAX pipeline/pocs.py:85)
+    assert pipe._production_transform(cfg, {"decimated": True}) == \
+        DecimatedCurveletTransform(precision="highest")
 
 
 def test_budget_counts_curvelet_as_a_spectral_stack(monkeypatch):

@@ -207,24 +207,31 @@ def test_square_solve_matches_jax_with_a_zero_slice():
     pytest.param({"keep_cost_history": True}, id="history"),
     pytest.param({"global_early_stop": True}, id="global-early-stop"),
     pytest.param({"version": "adaptive"}, id="adaptive"),
-    pytest.param({"thresh_op": "soft-percentile"}, id="percentile"),
+    pytest.param({"thresh_op": "soft-percentile", "decay_kind": "factors",
+                  "p_max": 99.9, "p_min": 60.0}, id="percentile"),
 ])
 def test_scan_configs_take_the_unported_xla_scan(change):
     """A DCT configuration that misses the folded solve runs the JAX
     package's plain XLA scan, not the FFT-only per-iteration kernel
-    (tests/test_pallas_kernel.py:235-260); that scan is not ported, so the
-    port raises with the JAX reason."""
+    (tests/test_pallas_kernel.py:235-260); the port runs the same scan
+    (``xla-scan[dct]``) and solves as it does."""
     jcfg = jpocs.POCSConfig(**dict(META, **change))
     cfg = compat.config_from_reference(dataclasses.asdict(jcfg))
     shape = (2, 128, 128)
     jrt = jpocs.solver_route(shape, shape[1:], jcfg, jget("DCT"))
     rt = pocs.solver_route(shape, shape[1:], cfg, get_transform("DCT"))
     assert tuple(rt) == tuple(jrt) and rt.route == "xla-scan"
-    assert not pocs.runs(rt)
-    z = Cplx(torch.ones(shape), torch.zeros(shape))
-    with pytest.raises(NotImplementedError, match="xla-scan\\[dct\\] — not "
-                       "ported"):
-        pocs.pocs_interpolate(z, torch.ones(shape[1:]), config=cfg)
+    assert pocs.runs(rt)
+    assert pocs.describe_route(rt) == f"xla-scan[dct] — {jrt.reason}"
+    truth, mask = _truth(*shape, seed=9)
+    obs = truth * mask
+    jres, res, _ = _solve_both(obs, mask, **change)
+    _agree(_np(res.data), _np(jres.data),
+           "hard" if cfg.thresh_op == "hard" else "soft", truth)
+    assert res.n_iterations.tolist() == np.asarray(
+        jres.n_iterations).tolist()
+    if cfg.keep_cost_history:
+        assert res.cost_history.shape == (NITER, 2)
 
 
 def test_route_table_matches_jax():

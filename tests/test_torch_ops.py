@@ -134,13 +134,24 @@ def test_array_thresholds_match_jax(kind, substitute, is_complex):
 
 
 def test_threshold_kinds_not_ported_or_unknown_raise():
-    z = _pair(_complex((1, 4, 4)))
-    with pytest.raises(NotImplementedError, match="percentile"):
-        threshold.threshold_pair(z, 0.5, "soft-percentile")
-    with pytest.raises(NotImplementedError, match="percentile"):
-        threshold.threshold(z.re, 0.5, kind="hard-percentile")
+    """The percentile kinds are ported: each matches the JAX package's
+    (a soft or garrote shrink near the threshold within 1e-6 of the
+    largest value); an unknown kind raises."""
+    z = _complex((2, 4, 4))
+    for kind in ("soft-percentile", "hard-percentile",
+                 "garrote-percentile"):
+        got = _np(threshold.threshold_pair(_pair(z), 50.0, kind))
+        want = _np(jthreshold.threshold_pair(_jpair(z), 50.0, kind))
+        np.testing.assert_allclose(got, want, rtol=ELEMENTWISE_RTOL,
+                                   atol=ELEMENTWISE_RTOL * np.abs(want).max())
+        got = threshold.threshold(torch.from_numpy(z.real.copy()), 50.0,
+                                  kind=kind).numpy()
+        want = np.asarray(jthreshold.threshold(jnp.asarray(z.real), 50.0,
+                                               kind=kind))
+        np.testing.assert_allclose(got, want, rtol=ELEMENTWISE_RTOL,
+                                   atol=ELEMENTWISE_RTOL * np.abs(want).max())
     with pytest.raises(ValueError, match="Unknown threshold"):
-        threshold.threshold_pair(z, 0.5, "medium")
+        threshold.threshold_pair(_pair(z), 0.5, "medium")
 
 
 # --- decay ----------------------------------------------------------------

@@ -317,8 +317,8 @@ def test_recommended_config_through_interpolate_matches_jax(precision):
 
 def test_periter_working_set():
     """The driver budgets the per-iteration loop's pairs per slice:
-    expansion 2 (sixteen pairs) on ``fused-periter``, 1 on the folded
-    solves."""
+    expansion 2 (sixteen pairs) on ``fused-periter`` and on the plain
+    scan (``xla-scan``), 1 on the folded solves."""
     cfg, extra = pipe.config_from_yaml({"metadata": RECOMMENDED})
     tr = pipe._production_transform(cfg, extra)
     assert tr == FFTTransform(precision="high")
@@ -326,6 +326,6 @@ def test_periter_working_set():
     folded = dataclasses.replace(cfg, eps=0.0)
     assert pipe._transform_subbands(tr, (512, 512), folded) == 1
     dct = dataclasses.replace(cfg, transform_kind="DCT")
-    # DCT with eps != 0 is the unported XLA scan: no kernel work to budget
+    # DCT with eps != 0 is the plain XLA scan, budgeted as this scan
     assert pipe._transform_subbands(get_transform("DCT"), (512, 512),
-                                    dct) == 1
+                                    dct) == 2

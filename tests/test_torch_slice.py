@@ -159,17 +159,19 @@ def test_zero_slice_short_circuits_like_jax():
                                rtol=1e-3)
 
 
-# each configuration no ported route takes, with the basis and the route
-# the JAX package gives it: the scan options run on the FFT basis' ported
-# per-iteration route, but the DCT and WAVELET bases send them to the XLA
-# scan, which is not ported
+# each configuration the JAX package sends to its plain XLA scan, with the
+# basis and the route it gives it: the scan options run on the FFT basis'
+# per-iteration route, but the DCT and WAVELET bases take the XLA scan, as
+# does a percentile threshold on any basis (WAVELET needs a numeric p_min,
+# percentile thresholds a decay of factors)
 UNPORTED = [
-    pytest.param({"eps": 1e-3}, "WAVELET", id="eps"),
+    pytest.param({"eps": 1e-3, "p_min": 1e-3}, "WAVELET", id="eps"),
     pytest.param({"keep_cost_history": True}, "DCT", id="history"),
-    pytest.param({"global_early_stop": True}, "WAVELET",
+    pytest.param({"global_early_stop": True, "p_min": 1e-3}, "WAVELET",
                  id="global-early-stop"),
     pytest.param({"version": "adaptive"}, "DCT", id="adaptive"),
-    pytest.param({"thresh_op": "soft-percentile"}, "FFT", id="percentile"),
+    pytest.param({"thresh_op": "soft-percentile", "decay_kind": "factors",
+                  "p_max": 99.9, "p_min": 60.0}, "FFT", id="percentile"),
 ]
 
 
@@ -194,40 +196,78 @@ def test_describe_route_of_the_slice_matches_jax():
 
 @pytest.mark.parametrize("change,kind", UNPORTED)
 def test_unported_routes_match_jax_and_raise(change, kind):
+    """Each configuration takes the JAX package's route, which the port
+    now runs (``xla-scan``), and solves as the JAX package does: soft
+    thresholds elementwise, hard ones by SNR against the truth."""
     jcfg = _jax_cfg(**change)
     cfg = compat.config_from_reference(dataclasses.asdict(jcfg))
     shape, mshape = (2, 128, 128), (128, 128)
     jrt = jpocs.solver_route(shape, mshape, jcfg, jget(kind))
     rt = pocs.solver_route(shape, mshape, cfg, get_transform(kind))
     assert tuple(rt) == tuple(jrt) and rt.reason
-    assert rt.route == "xla-scan" and not pocs.runs(rt)
+    assert rt.route == "xla-scan" and pocs.runs(rt)
     assert pocs.describe_route(rt) == \
-        f"xla-scan[{kind.lower()}] — not ported: {jrt.reason}"
-    z = Cplx(torch.ones(shape), torch.zeros(shape))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pocs.pocs_interpolate(z, torch.ones(mshape), config=cfg,
-                              transform=get_transform(kind))
+        f"xla-scan[{kind.lower()}] — {jrt.reason}"
+    truth, mask = _truth(f=2, h=128, w=128)
+    obs = truth * mask
+    jres = jpocs.pocs_interpolate(
+        JCplx(jnp.asarray(obs.real), jnp.asarray(obs.imag)),
+        jnp.asarray(mask), jget(kind), jcfg)
+    res = pocs.pocs_interpolate(
+        Cplx(torch.from_numpy(obs.real.copy()),
+             torch.from_numpy(obs.imag.copy())),
+        torch.from_numpy(mask), get_transform(kind), cfg)
+    got = res.data.re.numpy() + 1j * res.data.im.numpy()
+    want = np.asarray(jres.data.re) + 1j * np.asarray(jres.data.im)
+    if cfg.thresh_op == "hard":
+        assert abs(_snr(truth, got) - _snr(truth, want)) < SNR_TOL_DB
+    else:
+        assert np.abs(got - want).max() <= TIGHT_TOL * np.abs(want).max()
+    assert res.n_iterations.tolist() == np.asarray(
+        jres.n_iterations).tolist()
+    if cfg.keep_cost_history:
+        assert res.cost_history.shape == (NITER, 2)
 
 
 def test_unported_mask_and_basis_raise():
-    cfg = compat.config_from_reference(dataclasses.asdict(_jax_cfg()))
+    """A per-slice (B, H, W) mask on the FFT, DCT and WAVELET bases and the
+    decimated CURVELET take the JAX package's XLA scan, which the port now
+    runs: each solves as the JAX package's (hard thresholds, by SNR
+    against the truth)."""
+    change = dict(p_min=1e-3)
+    cfg = compat.config_from_reference(dataclasses.asdict(
+        _jax_cfg(**change)))
     shape = (2, 64, 64)
-    jrt = jpocs.solver_route(shape, shape, _jax_cfg(), jget("FFT"))
+    jrt = jpocs.solver_route(shape, shape, _jax_cfg(**change), jget("FFT"))
     rt = pocs.solver_route(shape, shape, cfg)
     assert tuple(rt) == tuple(jrt)
-    z = Cplx(torch.ones(shape), torch.zeros(shape))
-    for kind in ("FFT", "DCT", "WAVELET"):
-        with pytest.raises(NotImplementedError, match="exact 2-D"):
-            pocs.pocs_interpolate(z, torch.ones(shape), config=
-                                  dataclasses.replace(cfg,
-                                                      transform_kind=kind))
-    # CURVELET runs; its decimated form waits for the XLA scan
-    with pytest.raises(NotImplementedError, match="ROADMAP queue"):
-        pocs.pocs_interpolate(z, torch.ones(shape[1:]), config=
-                              dataclasses.replace(cfg,
-                                                  transform_kind="CURVELET"),
-                              transform=get_transform("CURVELET",
-                                                      decimated=True))
+    assert rt.route == "xla-scan" and "exact 2-D" in rt.reason
+    truth, _ = _truth(f=2, h=64, w=64)
+    rng = np.random.default_rng(3)
+    mask = np.ascontiguousarray(np.broadcast_to(
+        rng.uniform(size=(2, 1, 64)) < 0.5, shape), np.float32)
+    obs = truth * mask
+    cases = [(kind, dict(transform_kind=kind), mask, jget(kind),
+              get_transform(kind)) for kind in ("FFT", "DCT", "WAVELET")]
+    cases.append(("CURVELET", dict(transform_kind="CURVELET"), mask,
+                  jget("CURVELET", decimated=True),
+                  get_transform("CURVELET", decimated=True)))
+    for kind, over, m, jtr, tr in cases:
+        jcfg = _jax_cfg(**change, **over)
+        jres = jpocs.pocs_interpolate(
+            JCplx(jnp.asarray(obs.real), jnp.asarray(obs.imag)),
+            jnp.asarray(m), jtr, jcfg)
+        res = pocs.pocs_interpolate(
+            Cplx(torch.from_numpy(obs.real.copy()),
+                 torch.from_numpy(obs.imag.copy())),
+            torch.from_numpy(m), tr,
+            compat.config_from_reference(dataclasses.asdict(jcfg)))
+        got = res.data.re.numpy() + 1j * res.data.im.numpy()
+        want = np.asarray(jres.data.re) + 1j * np.asarray(jres.data.im)
+        assert abs(_snr(truth, got) - _snr(truth, want)) < SNR_TOL_DB, kind
+        assert res.n_iterations.tolist() == [NITER, NITER]
+    # a basis the JAX package does not know, and a misspelt option, still
+    # raise as they do there
     with pytest.raises(ValueError, match="Unsupported transform"):
         get_transform("FOURIER")
     with pytest.raises(TypeError, match="unknown transform option"):
@@ -253,8 +293,9 @@ def test_compat_carries_the_jax_configuration_over():
         == FFTTransform(precision="high")
     assert compat.transform_from_reference("fft") == FFTTransform()
     assert compat.transform_from_reference("dct") == DCTTransform()
-    with pytest.raises(NotImplementedError):
-        compat.transform_from_reference("CURVELET", {"decimated": True})
+    assert compat.transform_from_reference(
+        "CURVELET", {"decimated": True}) == get_transform("CURVELET",
+                                                          decimated=True)
 
 
 def test_config_from_yaml_matches_jax(tmp_path):
