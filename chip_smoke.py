@@ -17,7 +17,8 @@ Phases, each of which exits non-zero on failure:
       (batch 32 and the cube's last batch of 1, 50 iterations, hard/fast
       at 'high'); times both at batch 32, and each pass of the kernel there
       (torch.profiler) with its bytes per second and flop rate, and the GB
-      a call moves with the rate it reaches;
+      a call moves with the rate it reaches; runs the batch-32 call once
+      at precision 'default' and asserts it bit-equal to 'high';
    b. the subband kernels' line engine (``csrc/fft_lines.cuh``, through
       ``line_fft``) against ``torch.fft`` at every line length the plans
       use, 8 to 4096 in powers of two, 384 and an odd length, forward and
@@ -123,11 +124,36 @@ Phases, each of which exits non-zero on failure:
    and prints both mean effective iteration counts (at eps 1e-16 the stop
    sits at the float32 floor, so they may differ); prints the device peak
    beside the driver's budget for the path.
+13. SEG-Y in, SEG-Y out (workflow steps 10-16): 256 SEG-Y profiles
+   (format 5) along the xline axis, one on each of phase 11's live ilines
+   of ``examples/pipeline.yml``'s grid (10 m bins over 5120 m, 512x512),
+   2048 traces each about 2.5 m apart (about 4 a live bin), 896 samples
+   at 250 us with ``DelayRecordingTime`` stepping over 0-32 ms by
+   profile (a 1024-sample global axis), phase 11's reflectors sampled at
+   each trace's coordinates with 1% noise, written with the port's
+   ``write_segy`` to a temporary directory (removed at the end; the write
+   is timed apart). (a) ``bin_cube`` with ``stack: average`` and
+   ``device`` left to its default: asserts no kernel launch, the fold
+   equal to a host ``np.bincount`` of the assigned bins and the cube
+   within 1e-5·max|cpu| of the same call with ``device="cpu"``; prints
+   the wall, traces/s, GB/s of samples read, device peak and coverage.
+   (b) ``stack: median`` on the profiles of the first 64 ilines, card
+   against ``device="cpu"`` within 1e-6·max, fold exact. (c) the binned
+   cube through ``preprocess`` (rms balance), ``apply_fft``,
+   ``interpolate`` (production defaults), ``apply_ifft`` and
+   ``postprocess`` (0.05 s AGC) in memory, then ``cube_to_segy`` to a
+   temporary file: asserts 17 ``pocs_solve[fft]`` launches and no other
+   kernel, an SNR after ``apply_ifft`` against the preprocessed truth on
+   the grid better than the binned input's, and the file read back with
+   the port's ``SegyFile``: 512·512 traces, ``INLINE_3D`` and
+   ``CROSSLINE_3D`` the grid's, ``NStackedTraces`` the fold, dt and delay,
+   the samples bit for bit; prints each step's wall and their sum.
 Phases 4 to 10 and 12 print the wall time, slice-iterations/s and device
-peak memory. Before each, and before phase 11's chain, every kernel's
+peak memory. Before each, and before phase 11's and 13c's chains, and
+13a's binning, every kernel's
 launch count is set to 0; after it, the counts of all seven kernels must
 be the path's own (zero for the others, and for every kernel on phase
-12's paths).
+12's paths and 13a's binning).
 
 Tolerances, kernel against plain: soft thresholds max|Δ| ≤ 1e-4·max|plain|
 (fp32 sums in another order; for ``pocs_solve`` also √cost within 1e-6);
@@ -141,7 +167,7 @@ the other kernel's plain output, inverted and reinserted.
 ``--trace DIR`` runs each main path once more under ``torch.profiler``
 (the SHEARLET, per-iteration, CURVELET and spatial-I/O paths and phase
 12's four on their first two batches, 64 slices; the stage-2 chain
-whole), writes the Chrome
+and phase 13a's binning whole), writes the Chrome
 traces to ``DIR`` (gzipped) and prints the device's busy time (the union
 of kernel, memcpy and memset intervals), its idle share of the traced wall
 time, the copies by kind, and the largest device and host entries. Phase 3's profiles of the
@@ -1020,18 +1046,15 @@ CHAIN_POST = {"upsample_factors": {"iline": 2, "xline": 2}, "footprint": {},
               "agc_win": 0.05}
 
 
-def chain_truth(torch, dev, n_il=N, n_xl=N, ns=CHAIN_NS, dt=CHAIN_DT,
-                noise=0.01, seed=0):
-    """(n_il, n_xl, ns) float32 time cube of dipping band-limited reflectors
-    over a noise floor, made on the card: tests/test_pipeline_3d.py's
-    ``dense_truth`` scaled up to a 256 ms record with ten reflectors
-    dipping a few ms across the survey (real records are never silent,
-    and the AGC divides by the moving rms). Returns (cube, twt)."""
+def reflectors(torch, il, xl, t, n_il=N, n_xl=N, seed=0):
+    """Ten dipping band-limited reflectors at 0-based fractional line
+    positions ``il``, ``xl`` and times ``t`` (s), float32 tensors on the
+    card broadcast together: tests/test_pipeline_3d.py's ``dense_truth``
+    scaled up to a 256 ms record, each reflector dipping a few ms across
+    the ``n_il`` x ``n_xl`` survey."""
     rng = np.random.default_rng(seed)
-    il = torch.arange(n_il, device=dev, dtype=torch.float32)[:, None, None]
-    xl = torch.arange(n_xl, device=dev, dtype=torch.float32)[None, :, None]
-    t = torch.arange(ns, device=dev, dtype=torch.float32)[None, None, :] * dt
-    cube = torch.zeros((n_il, n_xl, ns), device=dev)
+    shape = torch.broadcast_shapes(il.shape, xl.shape, t.shape)
+    out = torch.zeros(shape, device=t.device)
     for k in range(10):
         t0 = 0.02 + 0.021 * k
         amp = rng.uniform(0.4, 1.0) * (-1) ** k
@@ -1039,11 +1062,24 @@ def chain_truth(torch, dev, n_il=N, n_xl=N, ns=CHAIN_NS, dt=CHAIN_DT,
         dip_il, dip_xl = rng.uniform(-4e-3, 4e-3, size=2)
         tt = t0 + dip_il * (il / n_il) + dip_xl * (xl / n_xl)
         arg = (t - tt) * f0
-        cube += amp * torch.exp(-(arg * arg) * 8) * torch.cos(
+        out += amp * torch.exp(-(arg * arg) * 8) * torch.cos(
             2 * math.pi * arg)
         del tt, arg
-    gen = torch.Generator(device=dev).manual_seed(seed)
-    cube += noise * torch.randn(cube.shape, device=dev, generator=gen)
+    return out
+
+
+def chain_truth(torch, dev, n_il=N, n_xl=N, ns=CHAIN_NS, dt=CHAIN_DT,
+                noise=0.01, seed=0):
+    """(n_il, n_xl, ns) float32 time cube of the :func:`reflectors` over a
+    noise floor (real records are never silent, and the AGC divides by the
+    moving rms), made on the card. Returns (cube, twt)."""
+    il = torch.arange(n_il, device=dev, dtype=torch.float32)[:, None, None]
+    xl = torch.arange(n_xl, device=dev, dtype=torch.float32)[None, :, None]
+    t = torch.arange(ns, device=dev, dtype=torch.float32)[None, None, :] * dt
+    cube = reflectors(torch, il, xl, t, n_il, n_xl, seed)
+    if noise:
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        cube += noise * torch.randn(cube.shape, device=dev, generator=gen)
     return cube, np.arange(ns) * dt
 
 
@@ -1323,6 +1359,267 @@ def xla_scan_paths(torch, Cube, truth, mask, cube, s_in, production, dev,
     return results
 
 
+# phase 13: SEG-Y in, SEG-Y out (workflow steps 10-16) on the card
+SURVEY_TRACES = 2048  # 2.5 m apart along the xline axis: ~4 a live bin
+SURVEY_STEP = 2.5  # m between traces
+SURVEY_NS = 896  # samples a trace, 224 ms
+SURVEY_DT_US = 250
+SURVEY_DELAYS_MS = 33  # DelayRecordingTime steps over 0..32 ms by profile
+BIN_SPACING = 10.0  # examples/pipeline.yml:15-18: 10 m bins over 5120 m
+BIN_EXTENT = (0.0, 5120.0, 0.0, 5120.0)
+MEDIAN_ILINES = 64  # 13b stacks the median of the profiles on these
+BIN_TOL = 1e-5  # average: max|card - cpu| ≤ BIN_TOL·max|cpu|
+MEDIAN_TOL = 1e-6
+SEGY_CHAIN_PRE = {"balance": "rms"}  # examples/pipeline.yml's steps 11-15
+SEGY_CHAIN_POST = {"agc_win": 0.05}
+
+
+def write_survey(torch, dev, directory: pathlib.Path, ilines, seed=0):
+    """One SEG-Y profile (format 5, coordinates in cm with
+    ``SourceGroupScalar`` -100) along the xline axis of the BIN_EXTENT
+    grid on each of the 0-based ``ilines``, x within 4 m of the iline's
+    center and y every SURVEY_STEP m within 2 m, the delay of the p-th
+    profile p % 33 ms: phase 11's
+    :func:`reflectors` sampled at each trace's stored coordinates and
+    recording times, with 1% noise, made on the card from ``seed``.
+    Returns the paths and the seconds spent in ``write_segy``."""
+    from pseudo_3d_interpolation_torch.io.segy import write_segy
+
+    rng = np.random.default_rng(seed + 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dt = SURVEY_DT_US * 1e-6
+    t_rel = torch.arange(SURVEY_NS, device=dev, dtype=torch.float32) * dt
+    files, t_write = [], 0.0
+    for p, il in enumerate(ilines):
+        x = BIN_SPACING * (il + 0.5) + rng.uniform(-4, 4, SURVEY_TRACES)
+        y = np.clip(SURVEY_STEP * (np.arange(SURVEY_TRACES) + 0.5)
+                    + rng.uniform(-2, 2, SURVEY_TRACES),
+                    0.0, BIN_EXTENT[3] - 0.01)
+        x_cm, y_cm = np.rint(x * 100).astype(np.int64), np.rint(
+            y * 100).astype(np.int64)
+        delay_ms = p % SURVEY_DELAYS_MS
+
+        def line(v_cm):  # 0-based fractional line position
+            return torch.from_numpy(v_cm / 100 / BIN_SPACING - 0.5).to(
+                dev, torch.float32)[:, None]
+
+        data = reflectors(torch, line(x_cm), line(y_cm),
+                          t_rel[None, :] + delay_ms * 1e-3)
+        data += 0.01 * torch.randn(data.shape, device=dev, generator=gen)
+        path = directory / f"profile_il{il:03d}.sgy"
+        host = data.cpu().numpy()
+        t0 = time.perf_counter()
+        write_segy(str(path), host, fmt=5, dt_us=SURVEY_DT_US, headers={
+            "SourceX": x_cm, "SourceY": y_cm, "SourceGroupScalar": -100,
+            "CoordinateUnits": 1, "DelayRecordingTime": delay_ms})
+        t_write += time.perf_counter() - t0
+        files.append(str(path))
+    return files, t_write
+
+
+def assigned_fold(files, geometry) -> np.ndarray:
+    """(n_il, n_xl) host ``np.bincount`` of the bins the geometry assigns
+    the stored coordinates of every trace of ``files``
+    (``assign_bins_indexed``, as ``bin_cube`` assigns them)."""
+    from pseudo_3d_interpolation_torch.io.headers import scale_coordinates
+    from pseudo_3d_interpolation_torch.io.segy import SegyFile
+    from pseudo_3d_interpolation_torch.ops import binning as bn
+
+    t, il_idx, xl_idx = geometry.transforms()
+    n_il, n_xl = len(il_idx), len(xl_idx)
+    fold = np.zeros(n_il * n_xl, np.int64)
+    for path in files:
+        with SegyFile(path) as f:
+            x, y, _ = scale_coordinates(f)
+        pi, px, valid = bn.assign_bins_indexed(x, y, t, il_idx, xl_idx)
+        fold += np.bincount((pi.astype(np.int64) * n_xl + px)[valid],
+                            minlength=n_il * n_xl)
+    return fold.reshape(n_il, n_xl)
+
+
+def timed(torch, dev, fn):
+    """(result, wall s, device peak GB above what was held) of ``fn()``."""
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, (torch.cuda.max_memory_allocated(dev) - held) / 1e9
+
+
+def card_against_cpu(label, card, cpu, tol):
+    """Fold equal and amp within ``tol``·max|cpu| of two binned cubes."""
+    if not np.array_equal(card["fold"], cpu["fold"]):
+        fail(f"{label}: fold on the card differs from device='cpu'")
+    err = float(np.abs(card["amp"] - cpu["amp"]).max())
+    scale = float(np.abs(cpu["amp"]).max())
+    print(f"{label}: max|card - cpu| {err:.3e} = {err / scale:.2e} x "
+          f"max|cpu|, fold equal", flush=True)
+    if not err <= tol * scale:
+        fail(f"{label}: amp on the card is not within {tol}·max|cpu| of "
+             "device='cpu'")
+
+
+def segy_in_segy_out(torch, dev, modules, trace_dir):
+    """Phase 13: SEG-Y profiles binned on the card (13a, average; 13b,
+    median on the first MEDIAN_ILINES ilines), the binned cube through
+    stage 2 in memory and out as a SEG-Y cube (13c), every entry point
+    with ``device`` left to its default. Asserts fold against a host
+    bincount, each binning against ``device='cpu'``, the launches (17
+    ``pocs_solve[fft]``, no other kernel), the SNR after ``apply_ifft``
+    against the truth on the grid, and the exported file read back."""
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.io.segy import SegyFile
+    from pseudo_3d_interpolation_torch.ops import metrics
+    from pseudo_3d_interpolation_torch.pipeline.binning import (
+        BinningGeometry, bin_cube)
+    from pseudo_3d_interpolation_torch.pipeline.export import cube_to_segy
+    from pseudo_3d_interpolation_torch.pipeline.fft import apply_fft
+    from pseudo_3d_interpolation_torch.pipeline.ifft import apply_ifft
+    from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
+    from pseudo_3d_interpolation_torch.pipeline.postprocess import postprocess
+    from pseudo_3d_interpolation_torch.pipeline.preprocess import preprocess
+
+    # the profiles lie on phase 11's live ilines: irregular, as POCS needs
+    ilines = np.flatnonzero(chain_fold(N, N)[:, 0])
+    n_traces = len(ilines) * SURVEY_TRACES
+    with tempfile.TemporaryDirectory(prefix="p3d_segy_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "survey").mkdir()
+        t0 = time.perf_counter()
+        files, t_write = write_survey(torch, dev, tmp / "survey", ilines)
+        gb_in = n_traces * SURVEY_NS * 4 / 1e9
+        print(f"phase 13 survey: {len(ilines)} profiles x "
+              f"{SURVEY_TRACES} traces x {SURVEY_NS} samples at "
+              f"{SURVEY_DT_US} us, delays 0-{SURVEY_DELAYS_MS - 1} ms: "
+              f"{n_traces} traces, {gb_in:.2f} GB of samples; write_segy "
+              f"{t_write:.2f} s, made and written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+
+        # 13a: the average stack on the card against the host
+        geom = BinningGeometry(spacing=BIN_SPACING, extent=BIN_EXTENT,
+                               stacking_method="average")
+        reset_counts(*modules)
+        binned, wall, peak = timed(
+            torch, dev, lambda: bin_cube(str(tmp / "survey"), geom))
+        counts = launch_counts(*modules)
+        if any(counts.values()):
+            fail(f"bin_cube launched kernels: {counts}")
+        n_il, n_xl, ns = binned["amp"].shape
+        if (n_il, n_xl, ns) != (N, N, CHAIN_NS):
+            fail(f"bin_cube gave {binned['amp'].shape}, not "
+                 f"{(N, N, CHAIN_NS)}")
+        fold = assigned_fold(files, geom)
+        if not np.array_equal(binned["fold"], fold):
+            fail("bin_cube's fold differs from a host bincount of the "
+                 "assigned bins")
+        live = binned["fold"][binned["fold"] > 0]
+        print(f"13a bin_cube (average, device default): {wall:.3f} s wall, "
+              f"{n_traces / wall:.0f} traces/s, {gb_in / wall:.2f} GB/s of "
+              f"samples read, device peak {peak:.3f} GB; coverage "
+              f"{binned.attrs['coverage']:.4f}, fold {live.min()}-"
+              f"{live.max()} (mean {live.mean():.2f}) on live bins",
+              flush=True)
+        cpu, wall_cpu, _ = timed(torch, dev, lambda: bin_cube(
+            str(tmp / "survey"), geom, device="cpu"))
+        print(f"13a bin_cube on the host (device='cpu'): {wall_cpu:.3f} s",
+              flush=True)
+        card_against_cpu("13a average", binned, cpu, BIN_TOL)
+        del cpu
+        if trace_dir is not None:
+            trace_main_path(torch, lambda: bin_cube(str(tmp / "survey"),
+                                                    geom),
+                            trace_dir, "bin_cube_trace")
+
+        # 13b: the median of the profiles on the first ilines
+        few = [f for f, il in zip(files, ilines) if il < MEDIAN_ILINES]
+        med = BinningGeometry(spacing=BIN_SPACING, extent=BIN_EXTENT,
+                              stacking_method="median")
+        card, wall_m, peak_m = timed(torch, dev, lambda: bin_cube(few, med))
+        cpu, wall_mc, _ = timed(torch, dev,
+                                lambda: bin_cube(few, med, device="cpu"))
+        print(f"13b bin_cube (median, {len(few)} profiles): card "
+              f"{wall_m:.3f} s, device peak {peak_m:.3f} GB; host "
+              f"{wall_mc:.3f} s", flush=True)
+        if not np.array_equal(card["fold"], assigned_fold(few, med)):
+            fail("the median's fold differs from a host bincount")
+        card_against_cpu("13b median", card, cpu, MEDIAN_TOL)
+        del card, cpu
+
+        # 13c: stage 2 in memory, then the cube out as SEG-Y
+        twt = binned.coords["twt"]
+        il = torch.arange(N, device=dev, dtype=torch.float32)[:, None, None]
+        xl = torch.arange(N, device=dev, dtype=torch.float32)[None, :, None]
+        t = torch.from_numpy(twt).to(dev, torch.float32)[None, None, :]
+        truth = reflectors(torch, il, xl, t).cpu().numpy()
+        truth_pp = preprocess(time_cube(Cube, truth, np.ones_like(fold),
+                                        twt), **SEGY_CHAIN_PRE)["amp"]
+        del truth
+        steps = [("preprocess", lambda c: preprocess(c, **SEGY_CHAIN_PRE)),
+                 ("apply_fft", apply_fft), ("interpolate", interpolate),
+                 ("apply_ifft", apply_ifft),
+                 ("postprocess", lambda c: postprocess(c, **SEGY_CHAIN_POST))]
+        reset_counts(*modules)
+        cubes, walls = [binned], [wall]
+        for name, step in steps:
+            out, w, pk = timed(torch, dev, lambda: step(fresh(cubes[-1])))
+            cubes.append(out)
+            walls.append(w)
+            print(f"13c {name}: {w:.3f} s wall, device peak {pk:.2f} GB",
+                  flush=True)
+        counts = launch_counts(*modules)
+        want = dict.fromkeys(KERNELS, 0)
+        want["pocs_solve[fft]"] = math.ceil(SLICES / MAIN_BATCH)
+        if counts != want:
+            fail(f"13c chain: kernel launches {counts} != {want}")
+        pre_c, ifft_c, post_c = cubes[1], cubes[4], cubes[5]
+        s_in = float(metrics.snr(truth_pp, pre_c["amp"], device=dev))
+        s_out = float(metrics.snr(truth_pp, ifft_c["amp"], device=dev))
+        print(f"13c SNR against the preprocessed truth on the grid: "
+              f"{s_in:.2f} dB binned -> {s_out:.2f} dB after apply_ifft",
+              flush=True)
+        if not s_out > s_in:
+            fail(f"13c did not improve SNR ({s_in:.2f} -> {s_out:.2f} dB)")
+        del truth_pp, cubes
+        out_path = str(tmp / "cube.sgy")
+        _, w_exp, _ = timed(torch, dev,
+                            lambda: cube_to_segy(post_c, out_path))
+        walls.append(w_exp)
+        amp = post_c["amp"]
+        with SegyFile(out_path) as f:
+            if f.n_traces != N * N or f.n_samples != CHAIN_NS:
+                fail(f"the exported SEG-Y holds {f.n_traces} traces of "
+                     f"{f.n_samples} samples")
+            il_hdr = np.repeat(post_c.coords["iline"], N)
+            xl_hdr = np.tile(post_c.coords["xline"], N)
+            checks = {
+                "INLINE_3D": np.array_equal(f.header("INLINE_3D"), il_hdr),
+                "CROSSLINE_3D": np.array_equal(f.header("CROSSLINE_3D"),
+                                               xl_hdr),
+                "NStackedTraces": np.array_equal(
+                    f.header("NStackedTraces"), fold.reshape(-1)),
+                "dt": f.dt_us == SURVEY_DT_US,
+                "DelayRecordingTime": bool(
+                    (f.header("DelayRecordingTime")
+                     == round(float(twt[0]) * 1e3)).all()),
+                "samples": np.array_equal(f.trace_data(),
+                                          amp.reshape(N * N, CHAIN_NS)),
+            }
+        bad = [k for k, ok in checks.items() if not ok]
+        if bad:
+            fail(f"the exported SEG-Y read back wrong: {bad}")
+        print(f"13c cube_to_segy: {w_exp:.3f} s wall, "
+              f"{os.path.getsize(out_path) / 1e9:.2f} GB; read back: "
+              f"{N * N} traces, {', '.join(checks)} equal", flush=True)
+        print(f"13 SEG-Y in, SEG-Y out: bin_cube {walls[0]:.3f} s + "
+              + " + ".join(f"{n} {w:.3f} s" for (n, _), w in
+                           zip(steps, walls[1:]))
+              + f" + cube_to_segy {w_exp:.3f} s = {sum(walls):.3f} s wall",
+              flush=True)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", type=pathlib.Path, default=None,
@@ -1400,6 +1697,17 @@ def main():
           f"{four[0]:.2f} / {four[1]:.2f} ms, plain (torch.fft) "
           f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
     solve_passes(torch, ks, z, mask, tau)
+    # precision 'default' computes in full fp32, as 'high' does
+    res = {p: ks.pocs_solve(z, mask, tau, ALPHA, "hard", "fast", p)
+           for p in ("default", "high")}
+    same = all(torch.equal(a, b) for a, b in zip(
+        (*res["default"][0], res["default"][1]),
+        (*res["high"][0], res["high"][1])))
+    print(f"pocs_solve[fft] {MAIN_BATCH}x{N}x{N} at precision 'default': "
+          f"{'bit-equal' if same else 'NOT equal'} to 'high'", flush=True)
+    if not same:
+        fail("pocs_solve[fft] at precision 'default' differs from 'high'")
+    del res
     # the compulsory bytes of a solve: the observed pair in, the result
     # pair out, the mask, the thresholds, the costs
     solve_bytes = (MAIN_BATCH * N * N * 16 + N * N * 4
@@ -1710,6 +2018,13 @@ def main():
                    modules, args.trace, part,
                    {"12a": snr_dct, "12b": snr_wv})
     print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
+    del truth, mask, cube, part
+    torch.cuda.empty_cache()
+
+    # phase 13: SEG-Y profiles in, a SEG-Y cube out
+    t13 = time.perf_counter()
+    segy_in_segy_out(torch, dev, modules, args.trace)
+    print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,

@@ -8,11 +8,15 @@ Every kernel the JAX package wrote in Pallas for the TPU gets a counterpart
 written by hand for Hopper (``csrc/``), beside a plain PyTorch version of
 the same function.
 
-Ported so far: stage 2 on the time cube, ``pipeline.preprocess`` ->
+Ported so far: SEG-Y profiles binned onto the grid
+(``pipeline.binning.bin_cube``, stacks on the card; ``pipeline.segy2cube``
+and the SEG-Y codec ``io.segy`` on the host), stage 2 on the time cube,
+``pipeline.preprocess`` ->
 ``pipeline.fft`` -> ``pipeline.pocs.interpolate`` (``parallel.solver`` ->
 ``models.pocs.pocs_interpolate`` -> the kernels of ``ops.kernels``) ->
-``pipeline.ifft`` -> ``pipeline.postprocess``, with netCDF cube files on
-the host (``io.ncio``). The solver runs every route of the JAX package:
+``pipeline.ifft`` -> ``pipeline.postprocess``, and the cube out as SEG-Y
+(``pipeline.export.cube_to_segy``), with netCDF cube files on the host
+(``io.ncio``). The solver runs every route of the JAX package:
 the folded and per-iteration kernels, the directional scan over the
 subband kernels, and the plain scan (``xla-scan``: the DCT and WAVELET
 bases with early stopping, the cost history or APOCS, the percentile

@@ -1,1 +1,2 @@
-"""Host-side data: the in-memory cube and its netCDF files."""
+"""Host-side data: the in-memory cube, its netCDF files and the SEG-Y
+codec."""

@@ -26,22 +26,22 @@ from ..ops import shearlet as sh
 from ..ops import threshold as threshold_ops
 from ..ops import wavelet as wv
 from ..ops.cplx import Cplx
-
-_PRECISIONS = ("highest", "high", "default")
+from ..ops.kernels.pocs_solve import PRECISIONS
 
 
 def _resolve_precision(p) -> str:
     """'highest' | 'high' | 'default' (any case) or None -> canonical name.
 
-    On the TPU these named the matmul passes (f32, bf16x3, bf16). Here the
-    solve kernel computes 'high' and 'highest' in full fp32 and refuses
-    'default'; their Hopper mapping is an open ROADMAP item."""
+    On the TPU these named the matmul passes (f32, bf16x3, bf16). Here all
+    three run in full fp32, on every route and device: what the JAX
+    package computes on the CPU. A faster Hopper mapping (TF32, 3xTF32)
+    is an open ROADMAP item."""
     if p is None:
         return "highest"
     name = str(p).lower()
-    if name not in _PRECISIONS:
+    if name not in PRECISIONS:
         raise ValueError(f"unknown precision {p!r}; choose one of "
-                         f"{_PRECISIONS}")
+                         f"{PRECISIONS}")
     return name
 
 

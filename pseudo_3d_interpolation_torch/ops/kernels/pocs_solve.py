@@ -46,7 +46,8 @@ from ..cplx import Cplx
 from . import _build
 
 THRESH_OPS = {"hard": 0, "soft": 1, "garrote": 2}
-PRECISIONS = ("high", "highest")
+# the precision names a transform takes; every one runs in full fp32
+PRECISIONS = ("highest", "high", "default")
 BASES = ("fft", "dct", "wavelet")
 # the longest line of the line-FFT kernels (csrc/fft_lines.cuh MAX_LINE)
 MAX_LINE = 4096
@@ -138,10 +139,8 @@ def _check_op(thresh_op: str, precision: str) -> str:
         raise ValueError(f"the POCS kernels support {sorted(THRESH_OPS)} "
                          f"thresholds, not {thresh_op!r}")
     if precision not in PRECISIONS:
-        raise NotImplementedError(
-            f"precision {precision!r}: the kernels compute 'high' and "
-            "'highest' in full fp32; a Hopper mapping of the other modes "
-            "(TF32, 3xTF32, bf16) is an open ROADMAP item")
+        raise ValueError(f"unknown precision {precision!r}; choose one of "
+                         f"{PRECISIONS}")
     return op
 
 
@@ -403,7 +402,8 @@ def pocs_solve(obs: Cplx, mask: torch.Tensor, decay: torch.Tensor,
     per-slice thresholds, or for ``basis='wavelet'`` (niter, B, 3·level)
     per-band thresholds, deepest level first, each level (cH, cV, cD);
     ``version``: 'regular' or 'fast' (Nesterov with adaptive restart);
-    ``precision``: 'high' or 'highest', both computed in full fp32;
+    ``precision``: 'high', 'highest' or 'default', all computed in full
+    fp32;
     ``basis``: 'fft', 'dct' (orthonormal DCT-II), both with H and W up to
     4096 on the card (a longer side raises ``ValueError``; the JAX kernel
     takes only sides of a multiple of 128 that fit its VMEM, all of them
@@ -487,8 +487,8 @@ def pocs_iteration(x: Cplx, obs: Cplx, mask: torch.Tensor, tau: torch.Tensor,
 
     ``x``/``obs``: (B, H, W) float32 pairs, H and W up to 4096 on the card
     (any on the CPU); ``mask``: (H, W);
-    ``tau``: (B,) per-slice thresholds; ``precision``: 'high' or 'highest',
-    both full fp32. Returns the reinserted iterate (B, H, W). CUDA tensors
+    ``tau``: (B,) per-slice thresholds; ``precision``: 'high', 'highest' or
+    'default', all full fp32. Returns the reinserted iterate (B, H, W). CUDA tensors
     run the CUDA kernel, CPU tensors :func:`pocs_iteration_plain`.
     """
     op = _check_op(thresh_op, precision)

@@ -145,10 +145,8 @@ def _op(thresh_op: str, precision: str) -> str:
         raise ValueError(f"the subband kernels support {sorted(THRESH_OPS)} "
                          f"thresholds, not {thresh_op!r}")
     if precision not in PRECISIONS:
-        raise NotImplementedError(
-            f"precision {precision!r}: the subband kernels compute 'high' "
-            "and 'highest' in full fp32; a Hopper mapping of the other "
-            "modes is an open ROADMAP item")
+        raise ValueError(f"unknown precision {precision!r}; choose one of "
+                         f"{PRECISIONS}")
     return op
 
 
@@ -253,8 +251,8 @@ def subband_update(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
 
     ``x_spec``: (B, H, W) float32 pair, the natural-order ``fft2`` of the
     slices, any H and W up to 4096; ``psi``: (L, H, W) real windows;
-    ``tau``: (B, L) thresholds; ``precision``: 'high' or 'highest', both
-    full fp32; ``support``: ``psi``'s :class:`RowSupport` on its device,
+    ``tau``: (B, L) thresholds; ``precision``: 'high', 'highest' or 'default',
+    all full fp32; ``support``: ``psi``'s :class:`RowSupport` on its device,
     built once per window stack (:func:`row_support_on`). Returns the
     (B, H, W) spectral accumulator, which inverts with ``ifft2``. CUDA
     tensors run the kernel, CPU tensors :func:`subband_update_plain`."""

@@ -542,8 +542,8 @@ def pocs_subband_apply(z: Cplx, plan: Plan, tau, thresh_op: str,
 
     ``z``: (B, H, W) pair; ``tau``: (B, L) or (L,) per-subband thresholds
     in plan order (what the transform's decay emits per iteration);
-    ``precision``/``box_precision``: 'high' or 'highest', both computed in
-    full fp32 (the box groups take ``box_precision``, default
+    ``precision``/``box_precision``: 'high', 'highest' or 'default', all
+    computed in full fp32 (the box groups take ``box_precision``, default
     ``precision``). With ``P3D_SPATIAL_IO`` set (:func:`spatial_io_default`,
     the one reader of the switch, which the device budget reads too) the
     kernel route takes its spatial form (``subband_update_spatial``), for

@@ -1,1 +1,2 @@
-"""Host and device helpers: the device rule, chunking, rescaling."""
+"""Host and device helpers: the device rule, chunking, rescaling, the CRS
+engine and the console logger."""

@@ -788,3 +788,39 @@ def test_subband_kernels_at_batch_32_in_chunks(device, op, spatial):
     assert bool(torch.isfinite(got).all())
     assert float((got - want).abs().max()) <= SOFT_TOL * float(
         want.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("budget", [None, 1 << 20])
+@pytest.mark.parametrize("method", ["average", "idw", "nearest", "median"])
+def test_stack_functions_on_the_card_match_the_cpu(device, method, budget):
+    """The binning stacks (plain PyTorch ops, no kernel) on the card
+    against the same call on the host: bins with folds 0-7 in shuffled
+    order and tied distances; nearest and median exact, average and IDW
+    (atomic sums in another order) within 1e-6 of max; the median also in
+    chunks of 1 MB."""
+    from pseudo_3d_interpolation_torch.ops import binning as bn
+
+    rng = np.random.default_rng(12)
+    n_bins, ns = 4096, 256
+    ids = np.repeat(np.arange(n_bins), rng.integers(0, 8, n_bins))
+    ids = ids[rng.permutation(len(ids))]
+    traces = rng.standard_normal((len(ids), ns)).astype(np.float32)
+    dist = rng.integers(0, 4, len(ids)) * 2.5
+    want = bn.stack_traces(traces, ids, n_bins, method=method, dist=dist,
+                           device="cpu")
+    if method == "median":
+        got = bn.stack_median(traces, ids, n_bins, 7, device=device,
+                              budget=budget)
+    else:
+        got = bn.stack_traces(traces, ids, n_bins, method=method, dist=dist,
+                              device=device)
+    assert got.device.type == "cuda"
+    got = got.cpu()
+    if method in ("nearest", "median"):
+        assert torch.equal(got, want)
+    else:
+        assert float((got - want).abs().max()) <= 1e-6 * float(
+            want.abs().max())
+    assert torch.equal(bn.fold_map(ids, n_bins, device=device).cpu(),
+                       bn.fold_map(ids, n_bins, device="cpu"))

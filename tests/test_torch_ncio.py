@@ -223,12 +223,12 @@ def test_cube_accessors_match_jax():
 
 
 def test_port_imports_without_jax_h5py_or_yaml():
-    """The card's machine has neither jax, h5py nor yaml: every module of
-    the port imports with all three blocked, and reaching a file raises
-    only when a file is asked for."""
+    """The card's machine has neither jax, h5py, yaml nor pandas: every
+    module of the port imports with all four blocked, and reaching a file
+    raises only when a file is asked for."""
     code = (
         "import sys, pkgutil, importlib\n"
-        "for m in ('jax', 'h5py', 'yaml'): sys.modules[m] = None\n"
+        "for m in ('jax', 'h5py', 'yaml', 'pandas'): sys.modules[m] = None\n"
         "import pseudo_3d_interpolation_torch as p\n"
         "mods = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "p.__name__ + '.')]\n"
@@ -236,7 +236,10 @@ def test_port_imports_without_jax_h5py_or_yaml():
         "new = {'io.ncio', 'ops.spectral', 'ops.signal', 'ops.filters',\n"
         "       'ops.metrics', 'utils.rescale', 'utils.device',\n"
         "       'pipeline.fft', 'pipeline.ifft', 'pipeline.preprocess',\n"
-        "       'pipeline.postprocess'}\n"
+        "       'pipeline.postprocess', 'io.segy', 'io.headers',\n"
+        "       'io.textual', 'io.auxiliary', 'ops.affine', 'ops.binning',\n"
+        "       'utils.crs', 'utils.logging', 'pipeline.binning',\n"
+        "       'pipeline.segy2cube', 'pipeline.export'}\n"
         "missing = {p.__name__ + '.' + m for m in new} - set(mods)\n"
         "assert not missing, missing\n"
         "assert not any(k.startswith('pseudo_3d_interpolation_tpu') "

@@ -149,7 +149,7 @@ _Z = torch.zeros(2, 32, 32)
 
 @pytest.mark.parametrize("change,error", [
     ({"thresh_op": "soft-percentile"}, ValueError),
-    ({"precision": "default"}, NotImplementedError),
+    ({"precision": "fastest"}, ValueError),
     ({"mask": torch.ones(64, 64)}, ValueError),
     ({"tau": torch.ones(3)}, ValueError),
     ({"tau": torch.ones(2, dtype=torch.float64)}, TypeError),

@@ -128,7 +128,7 @@ _Z = torch.zeros(2, 32, 32)
 @pytest.mark.parametrize("change,error", [
     ({"thresh_op": "soft-percentile"}, ValueError),
     ({"version": "adaptive"}, ValueError),
-    ({"precision": "default"}, NotImplementedError),
+    ({"precision": "fastest"}, ValueError),
     ({"mask": torch.ones(64, 64)}, ValueError),
     ({"decay": torch.ones(3, 5)}, ValueError),
     ({"decay": torch.ones(3, 2, dtype=torch.float64)}, TypeError),

@@ -303,9 +303,9 @@ def test_shearlet_options_and_errors():
         get_transform("SHEARLET", box_precision="fastest")
     z = Cplx(torch.ones(2, 32, 32), torch.zeros(2, 32, 32))
     plan = sh.shearlet_plan(32, 32)
-    with pytest.raises(NotImplementedError, match="'default'"):
+    with pytest.raises(ValueError, match="unknown precision 'fastest'"):
         sh._pocs_subband_apply_kernels(z, plan, torch.ones(2, 13), "hard",
-                                       "default", "default")
+                                       "fastest", "fastest")
     with pytest.raises(ValueError, match="thresholds"):
         sh._pocs_subband_apply_kernels(z, plan, torch.ones(2, 13),
                                        "soft-percentile", "high", "high")

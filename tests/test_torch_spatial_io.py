@@ -192,8 +192,8 @@ def test_wrapper_checks():
     with pytest.raises(TypeError, match="float32"):
         ksb.subband_update_spatial(Cplx(x.re.double(), x.im.double()), psi,
                                    torch.ones(2, psi.shape[0]), support=sup)
-    with pytest.raises(NotImplementedError, match="'default'"):
+    with pytest.raises(ValueError, match="unknown precision 'fastest'"):
         ksb.subband_update_spatial(x, psi, torch.ones(2, psi.shape[0]),
-                                   "hard", "default", support=sup)
+                                   "hard", "fastest", support=sup)
     assert ksb.scratch_bytes(32, 512, 512, 48, spatial=True) == \
         ksb.scratch_bytes(32, 512, 512, 48) + 32 * 512 * 512 * 8
