@@ -148,6 +148,32 @@ Phases, each of which exits non-zero on failure:
    the port's ``SegyFile``: 512·512 traces, ``INLINE_3D`` and
    ``CROSSLINE_3D`` the grid's, ``NStackedTraces`` the fold, dt and delay,
    the samples bit for bit; prints each step's wall and their sum.
+14. the cube drivers and the out-of-core passes: (a) ``warmup`` of the
+   production FFT and SHEARLET solves at 512x512 with 513 slices, one
+   launch of the resident driver each (one ``pocs_solve[fft]``, or 50
+   ``subband_update`` and 100 ``box_group_update``); (b)
+   ``pocs_interpolate_scanned`` on phase 4's cube held on the card
+   (padded with zero slices to a multiple of the batch) against
+   ``interpolate_cube_resident`` on the same slices; (c) the host-chunked
+   ``interpolate_cube`` against the resident driver on phase 4's FFT cube
+   and phase 5's SHEARLET cube, walls and device peaks; (d)
+   ``pad_to_tile=True`` against ``None`` through ``interpolate`` on a
+   500x500 cut of phase 4's cube, beside phase 4's 512x512 wall, and the
+   padded solve's first 4 slices against ``device="cpu"`` by SNR within
+   0.1 dB; (e) the streamed preprocess and postprocess slab loops
+   (``preprocess_slabs``: phase 11's chain options; ``postprocess_slabs``:
+   2x2 upsampling, footprint removal, gaussian smoothing with
+   ``rescale_percentiles``, a 0.05 s AGC) over phase 11's 512x512x1024
+   time cube from an in-memory source into an in-memory sink
+   (``tests/torch_helpers.py``), each against the in-memory step on the
+   card within 1e-6·max, with walls, bytes read and written and device
+   peaks; and ``streamed_percentiles`` of blocks on the card, which must
+   equal ``numpy.percentile`` on the host exactly; (f) where h5py imports,
+   ``interpolate_checkpointed`` and both streamed passes on files in a
+   temporary directory against the in-memory steps (otherwise one line
+   says that 14f did not run). Each path asserts its launches (none on
+   14e). Drivers are held to equal iteration counts and outputs within
+   1e-6·max (printed as bit-equal when they are).
 Phases 4 to 10 and 12 print the wall time, slice-iterations/s and device
 peak memory. Before each, and before phase 11's and 13c's chains, and
 13a's binning, every kernel's
@@ -166,8 +192,9 @@ the other kernel's plain output, inverted and reinserted.
 
 ``--trace DIR`` runs each main path once more under ``torch.profiler``
 (the SHEARLET, per-iteration, CURVELET and spatial-I/O paths and phase
-12's four on their first two batches, 64 slices; the stage-2 chain
-and phase 13a's binning whole), writes the Chrome
+12's four on their first two batches, 64 slices; the stage-2 chain,
+phase 13a's binning and 14e's slab loops whole; 14c's host-chunked
+driver on the first two batches), writes the Chrome
 traces to ``DIR`` (gzipped) and prints the device's busy time (the union
 of kernel, memcpy and memset intervals), its idle share of the traced wall
 time, the copies by kind, and the largest device and host entries. Phase 3's profiles of the
@@ -1620,6 +1647,307 @@ def segy_in_segy_out(torch, dev, modules, trace_dir):
               flush=True)
 
 
+# phase 14: the cube drivers and the out-of-core passes
+POST14 = {"upsample_factors": {"iline": 2, "xline": 2}, "footprint": {},
+          "smoothing": {"kind": "gaussian", "sigma": 1,
+                        "rescale_percentiles": [2, 98]},
+          "agc_win": 0.05}
+STREAM_TOL = 1e-6  # max|slabs - in memory| ≤ STREAM_TOL·max|in memory|
+PAD_SIDE = 500  # 14d: a side 128 does not divide, padded to 512
+PAD_CHECK = 4  # 14d: first slices held against device="cpu"
+
+
+def expect_counts(modules, label, expected):
+    """Fail unless the launch counts since the last reset are
+    ``expected`` (zero for every other kernel)."""
+    counts = launch_counts(*modules)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(expected)
+    if counts != want:
+        fail(f"{label}: kernel launches {counts} != {want}")
+    return {k: v for k, v in counts.items() if v}
+
+
+def held_equal(label, got, want, tol=STREAM_TOL):
+    """Fail unless ``got`` is within ``tol``·max|want| of ``want``; print
+    the difference (or that the two are bit-equal)."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        fail(f"{label}: shape {got.shape} != {want.shape}")
+    err = float(np.abs(got - want).max())
+    scale = float(np.abs(want).max())
+    print(f"{label}: " + ("bit-equal" if err == 0 else
+                          f"max|Δ| {err:.3e} = {err / scale:.2e} x max"),
+          flush=True)
+    if not err <= tol * scale:
+        fail(f"{label}: not within {tol}·max of the reference")
+
+
+def drivers(torch, dev, modules, production, truth, mask, cube, wall_fft,
+            sh_cube, trace_dir):
+    """Phase 14a-d: ``warmup``, ``pocs_interpolate_scanned``, the
+    host-chunked driver against the resident one, and ``pad_to_tile``."""
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.ops.cplx import Cplx
+    from pseudo_3d_interpolation_torch.parallel import solver
+    from pseudo_3d_interpolation_torch.pipeline.pocs import (
+        _production_transform, interpolate, warmup)
+
+    shearlet = dataclasses.replace(production, transform_kind="SHEARLET")
+    n_batches = math.ceil(SLICES / MAIN_BATCH)
+    # 14a: one launch of the driver a production cube takes
+    for config, want in ((production, {"pocs_solve[fft]": 1}),
+                         (shearlet, {"subband_update": NITER,
+                                     "box_group_update": 2 * NITER})):
+        reset_counts(*modules)
+        wall = warmup(config, (N, N), n_slices=SLICES)
+        path = expect_counts(modules, "14a warmup", want)
+        print(f"14a warmup {config.transform_kind} ({N}, {N}), {SLICES} "
+              f"slices: {wall:.3f} s wall, launches {path}", flush=True)
+
+    # 14b: the whole cube on the card, scanned batch by batch
+    tr = _production_transform(production, {})
+    obs = truth * mask
+    pad = n_batches * MAIN_BATCH - SLICES
+    z = Cplx(torch.cat([obs.real, obs.real.new_zeros((pad, N, N))]),
+             torch.cat([obs.imag, obs.imag.new_zeros((pad, N, N))]))
+    del obs
+    reset_counts(*modules)
+    (rec, iters, _), wall_s, peak_s = timed(
+        torch, dev, lambda: solver.pocs_interpolate_scanned(
+            z, mask, tr, production, batch=MAIN_BATCH))
+    expect_counts(modules, "14b scanned", {"pocs_solve[fft]": n_batches})
+    del z
+    moved = np.moveaxis(cube.data_vars["amp"][1], -1, 0)
+    mask_np = cube.data_vars["fold"][1].astype(np.float32)
+    reset_counts(*modules)
+    (res, wall_r, peak_r) = timed(
+        torch, dev, lambda: solver.interpolate_cube_resident(
+            moved, mask_np, production, transform=tr, batch=MAIN_BATCH))
+    expect_counts(modules, "14b resident", {"pocs_solve[fft]": n_batches})
+    print(f"14b pocs_interpolate_scanned {SLICES}+{pad} zero slices on the "
+          f"card: {wall_s:.3f} s, peak {peak_s:.2f} GB; resident driver "
+          f"(numpy in and out) {wall_r:.3f} s, peak {peak_r:.2f} GB",
+          flush=True)
+    if iters[:SLICES].cpu().numpy().tolist() != res[1].tolist():
+        fail("14b: scanned iteration counts differ from the resident "
+             "driver's")
+    held_equal("14b scanned against resident",
+               torch.complex(rec.re[:SLICES], rec.im[:SLICES]).cpu().numpy(),
+               res[0])
+    del rec, iters
+
+    # 14c: the host-chunked driver against the resident one
+    sh_moved = np.moveaxis(sh_cube.data_vars["amp"][1], -1, 0)
+    sh_tr = _production_transform(shearlet, {})
+    for label, config, transform, data, want in (
+            ("FFT", production, tr, moved, {"pocs_solve[fft]": n_batches}),
+            ("SHEARLET", shearlet, sh_tr, sh_moved, None)):
+        nb = math.ceil(data.shape[0] / MAIN_BATCH)
+        want = want or {"subband_update": nb * NITER,
+                        "box_group_update": 2 * nb * NITER}
+        out = {}
+        for name, driver in (("resident", solver.interpolate_cube_resident),
+                             ("host-chunked", solver.interpolate_cube)):
+            reset_counts(*modules)
+            out[name] = timed(torch, dev, lambda: driver(
+                data, mask_np, config, transform=transform,
+                batch=MAIN_BATCH))
+            expect_counts(modules, f"14c {label} {name}", want)
+        (r_res, w_res, p_res), (r_hc, w_hc, p_hc) = (out["resident"],
+                                                     out["host-chunked"])
+        print(f"14c {label} {data.shape[0]} slices, batch {MAIN_BATCH}: "
+              f"resident {w_res:.3f} s, peak {p_res:.2f} GB; host-chunked "
+              f"{w_hc:.3f} s, peak {p_hc:.2f} GB", flush=True)
+        if r_res[1].tolist() != r_hc[1].tolist():
+            fail(f"14c {label}: iteration counts differ between drivers")
+        held_equal(f"14c {label} host-chunked against resident", r_hc[0],
+                   r_res[0])
+        if trace_dir is not None:
+            trace_main_path(torch, lambda: solver.interpolate_cube(
+                data[:2 * MAIN_BATCH], mask_np, config, transform=transform,
+                batch=MAIN_BATCH), trace_dir,
+                f"host_chunked_{label.lower()}_trace")
+        del out, r_res, r_hc
+
+    # 14d: pad_to_tile on a 500x500 cut of the FFT cube
+    s = PAD_SIDE
+    cut = Cube(coords={"iline": np.arange(s), "xline": np.arange(s),
+                       "freq": np.arange(SLICES, dtype=np.float64)},
+               data_vars={"amp": (("iline", "xline", "freq"),
+                                  np.ascontiguousarray(
+                                      cube.data_vars["amp"][1][:s, :s])),
+                          "fold": (("iline", "xline"),
+                                   cube.data_vars["fold"][1][:s, :s])})
+    truth_cut = truth[:, :s, :s]
+    walls, snrs = {}, {}
+    for pad_to_tile in (True, None):
+        config = dataclasses.replace(production, pad_to_tile=pad_to_tile)
+        reset_counts(*modules)
+        t0 = time.perf_counter()
+        rec = interpolate(cut, config=config)
+        walls[pad_to_tile] = time.perf_counter() - t0
+        expect_counts(modules, f"14d pad_to_tile={pad_to_tile}",
+                      {"pocs_solve[fft]": n_batches})
+        rec = rec.data_vars["amp_interp"][1]
+        if rec.shape != (s, s, SLICES):
+            fail(f"14d: pad_to_tile={pad_to_tile} gave {rec.shape}")
+        snrs[pad_to_tile] = snr_db(torch, truth_cut, torch.from_numpy(
+            np.moveaxis(rec, -1, 0)).to(dev))
+    side = -(-s // 128) * 128
+    print(f"14d {s}x{s}x{SLICES} FFT cube: pad_to_tile=True (solved at "
+          f"{side}x{side}) {walls[True]:.3f} s, SNR {snrs[True]:.2f} dB; None "
+          f"(solved at {s}x{s}) {walls[None]:.3f} s, SNR {snrs[None]:.2f} "
+          f"dB; phase 4's 512x512 cube {wall_fft:.3f} s", flush=True)
+    first = Cube(coords={**cut.coords,
+                         "freq": cut.coords["freq"][:PAD_CHECK]},
+                 data_vars={"amp": (("iline", "xline", "freq"), np.array(
+                     cut.data_vars["amp"][1][..., :PAD_CHECK])),
+                     "fold": cut.data_vars["fold"]})
+    padded = dataclasses.replace(production, pad_to_tile=True)
+    snr_first = []
+    for where in (dev, "cpu"):
+        rec = interpolate(first, config=padded, device=where)
+        snr_first.append(snr_db(torch, truth_cut[:PAD_CHECK], torch.from_numpy(
+            np.moveaxis(rec.data_vars["amp_interp"][1], -1, 0)).to(dev)))
+    print(f"14d padded, first {PAD_CHECK} slices: SNR on the card "
+          f"{snr_first[0]:.3f} dB, device='cpu' {snr_first[1]:.3f} dB",
+          flush=True)
+    if abs(snr_first[0] - snr_first[1]) > SNR_TOL_DB:
+        fail("14d: the padded solve on the card is not within "
+             f"{SNR_TOL_DB} dB of device='cpu'")
+
+
+def streamed_passes(torch, dev, modules, trace_dir):
+    """Phase 14e: the streamed preprocess and postprocess slab loops over
+    phase 11's time cube from an in-memory source into an in-memory
+    sink, each against the in-memory step on the card; and
+    ``streamed_percentiles`` of card blocks against numpy on the host."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent
+                           / "tests"))
+    from torch_helpers import MemoryCube, MemoryStore
+
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.pipeline import postprocess as post
+    from pseudo_3d_interpolation_torch.pipeline import preprocess as pre
+
+    pre_kw = {"balance": "rms", "filter_type": "bandpass",
+              "filter_freqs": CHAIN_BANDPASS}
+    truth_t, twt = chain_truth(torch, dev)
+    fold = chain_fold()
+    masked = (truth_t * torch.from_numpy(fold).to(dev)[..., None]).cpu(
+        ).numpy()
+    del truth_t
+    raw = time_cube(Cube, masked, fold, twt)
+    gb = masked.nbytes / 1e9
+
+    def against_memory(name, step, slabs, cube):
+        """``slabs`` from an in-memory source into an in-memory sink
+        against ``step`` in memory, on the card; returns the latter."""
+        reset_counts(*modules)
+        ram, w_ram, p_ram = timed(torch, dev, lambda: step(fresh(cube)))
+        store = MemoryStore()
+        src = MemoryCube.from_cube(cube)
+        _, w_st, p_st = timed(torch, dev, lambda: slabs(src, store))
+        expect_counts(modules, f"14e {name}", {})
+        moved = src.bytes_read + store.bytes_moved()
+        out = store.final.to_cube()
+        print(f"14e {name} of the {gb:.2f} GB time cube: in memory "
+              f"{w_ram:.3f} s, peak {p_ram:.2f} GB; slab loop {w_st:.3f} "
+              f"s, peak {p_st:.2f} GB, {moved / 1e9:.2f} GB read and "
+              f"written by the source and sink", flush=True)
+        for var, (_, want) in ram.data_vars.items():
+            held_equal(f"14e {name} {var}, slabs against in memory",
+                       out[var], want)
+        del out, store, src
+        if trace_dir is not None:
+            trace_main_path(torch, lambda: slabs(MemoryCube.from_cube(cube),
+                                                 MemoryStore()),
+                            trace_dir, f"streamed_{name}_trace")
+        return ram
+
+    ram_pre = against_memory(
+        "preprocess", lambda c: pre.preprocess(c, **pre_kw),
+        lambda src, st: pre.preprocess_slabs(src, st, "amp", **pre_kw), raw)
+    del raw, masked
+    against_memory(
+        "postprocess", lambda c: post.postprocess(c, **POST14),
+        lambda src, st: post.postprocess_slabs(src, st, "amp", **POST14),
+        ram_pre)
+
+    # streamed_percentiles of blocks on the card against numpy on the host
+    amp = ram_pre["amp"]
+    qs = [0.5, 2, 50, 98, 99.5]
+
+    def blocks():
+        for i in range(0, amp.shape[0], 32):
+            yield torch.from_numpy(amp[i:i + 32]).to(dev)
+    t0 = time.perf_counter()
+    got = post.streamed_percentiles(blocks, qs)
+    w_sp = time.perf_counter() - t0
+    want = np.percentile(amp, qs).tolist()
+    print(f"14e streamed_percentiles {qs} of {amp.size} values in blocks on "
+          f"the card: {w_sp:.3f} s, {got}; numpy.percentile on the host "
+          f"{want}: {'exact' if got == want else 'DIFFERENT'}", flush=True)
+    if got != want:
+        fail("14e: streamed_percentiles on the card is not numpy's")
+
+
+def file_paths(torch, dev, production, cube):
+    """Phase 14f: ``interpolate_checkpointed`` and the two streamed passes
+    on files in a temporary directory, against the in-memory steps; runs
+    only where h5py imports (a host library)."""
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        print("14f did not run: h5py is not installed here (the file "
+              "paths are host code, tested on the CPU)", flush=True)
+        return
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.io.ncio import read_cube, write_cube
+    from pseudo_3d_interpolation_torch.pipeline import postprocess as post
+    from pseudo_3d_interpolation_torch.pipeline import preprocess as pre
+    from pseudo_3d_interpolation_torch.pipeline.pocs import (
+        interpolate, interpolate_checkpointed)
+
+    n = 2 * MAIN_BATCH + 1
+    part = Cube(coords={**cube.coords, "freq": cube.coords["freq"][:n]},
+                data_vars={"amp": (("iline", "xline", "freq"), np.array(
+                    cube.data_vars["amp"][1][..., :n])),
+                    "fold": cube.data_vars["fold"]})
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = pathlib.Path(tmp)
+        write_cube(tmp / "freq.nc", part, chunks={"freq": 1})
+        t0 = time.perf_counter()
+        out = interpolate_checkpointed(str(tmp / "freq.nc"), production,
+                                       str(tmp / "ck"), batch=MAIN_BATCH,
+                                       out_path=str(tmp / "interp.nc"))
+        wall = time.perf_counter() - t0
+        held_equal(f"14f interpolate_checkpointed {n} slices ({wall:.2f} "
+                   "s) against interpolate",
+                   read_cube(out)["amp_interp"],
+                   interpolate(part, config=production)["amp_interp"])
+        truth_t, twt = chain_truth(torch, dev, n_xl=128)
+        fold = chain_fold(n_xl=128)
+        amp = (truth_t * torch.from_numpy(fold).to(dev)[..., None]).cpu(
+            ).numpy()
+        del truth_t
+        write_cube(tmp / "time.nc", time_cube(Cube, amp, fold, twt))
+        pre_kw = {"balance": "rms", "filter_type": "bandpass",
+                  "filter_freqs": CHAIN_BANDPASS}
+        for name, fn, kw, src in (
+                ("preprocess", pre.preprocess, pre_kw, "time.nc"),
+                ("postprocess", post.postprocess, POST14, "pre.nc")):
+            t0 = time.perf_counter()
+            fn(str(tmp / src), out_path=str(tmp / f"{name[:3]}.nc"),
+               out_of_core=True, **kw)
+            wall = time.perf_counter() - t0
+            held_equal(f"14f {name} streamed through files ({wall:.2f} s) "
+                       "against in memory",
+                       read_cube(tmp / f"{name[:3]}.nc")["amp"],
+                       fn(read_cube(tmp / src), **kw)["amp"])
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", type=pathlib.Path, default=None,
@@ -1887,7 +2215,7 @@ def main():
     truth, mask = plane_waves(torch, SLICES, N, N, 0, dev)
     cube, s_in = make_cube(torch, Cube, truth, mask)
     n_batches = math.ceil(SLICES / MAIN_BATCH)
-    _, counts_fft, snr_fft, _, _ = main_path(
+    wall_fft, counts_fft, snr_fft, _, _ = main_path(
         torch, interpolate, cube, production, dev, truth, s_in,
         "FFT main path", modules, {"pocs_solve[fft]": n_batches})
     if args.trace is not None:
@@ -2004,7 +2332,7 @@ def main():
     if abs(snr_sp - snr_sh) > SNR_TOL_DB:
         fail(f"the spatial route's SNR {snr_sp:.3f} dB is not within "
              f"{SNR_TOL_DB} dB of the spectral route's {snr_sh:.3f} dB")
-    del sh_cube, sh_truth
+    del sh_truth
     torch.cuda.empty_cache()
 
     # phase 11: the stage-2 chain on the 512x512x1024 time cube
@@ -2018,13 +2346,24 @@ def main():
                    modules, args.trace, part,
                    {"12a": snr_dct, "12b": snr_wv})
     print(f"phase 12: {time.perf_counter() - t12:.1f} s", flush=True)
-    del truth, mask, cube, part
+    del part
     torch.cuda.empty_cache()
 
     # phase 13: SEG-Y profiles in, a SEG-Y cube out
     t13 = time.perf_counter()
     segy_in_segy_out(torch, dev, modules, args.trace)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+
+    # phase 14: the cube drivers and the out-of-core passes
+    t14 = time.perf_counter()
+    drivers(torch, dev, modules, production, truth, mask, cube, wall_fft,
+            sh_cube, args.trace)
+    del truth, mask, sh_cube
+    torch.cuda.empty_cache()
+    streamed_passes(torch, dev, modules, args.trace)
+    file_paths(torch, dev, production, cube)
+    del cube
+    print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,

@@ -31,8 +31,9 @@ def _plain(value):
 
 def config_from_reference(d: dict) -> POCSConfig:
     """``dataclasses.asdict`` of the JAX package's ``POCSConfig`` -> this
-    package's :class:`POCSConfig`, dropping only :data:`TPU_ONLY_FIELDS`.
-    A field this package does not know raises ``TypeError``."""
+    package's :class:`POCSConfig`, dropping only :data:`TPU_ONLY_FIELDS`
+    (``pad_to_tile`` is carried: the cube drivers honour it). A field
+    this package does not know raises ``TypeError``."""
     fields = {f.name for f in dataclasses.fields(POCSConfig)}
     unknown = set(d) - fields - set(TPU_ONLY_FIELDS)
     if unknown:

@@ -15,13 +15,15 @@ cubes.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 
 from .cube import AUX_VARS, Cube, primary_var_name
 
-__all__ = ["AUX_VARS", "Cube", "CubeFile", "CubeWriter", "apply_attrs",
-           "apply_time_attrs", "load_attrs_config", "primary_var_name",
-           "read_cube", "write_cube"]
+__all__ = ["AUX_VARS", "Cube", "CubeFile", "CubeWriter", "SlabFiles",
+           "apply_attrs", "apply_time_attrs", "load_attrs_config",
+           "primary_var_name", "read_cube", "write_cube"]
 
 # attributes h5py's dimension scales own, never copied into a cube
 _SCALE_ATTRS = ("CLASS", "NAME", "REFERENCE_LIST")
@@ -259,6 +261,18 @@ class CubeFile:
     def is_complex(self, var: str) -> bool:
         return var in self._complex
 
+    def dtype_of(self, var: str) -> np.dtype:
+        """The dtype :meth:`read_slab` returns for ``var``: complex64 for a
+        split pair, the unpacked float for a CF-packed variable, else the
+        stored dtype."""
+        if var in self._complex:
+            return np.dtype(np.complex64)
+        d = self._f[var]
+        if _is_packed(d.attrs, d.dtype):
+            return np.dtype(np.float64 if d.dtype.itemsize >= 4
+                            and d.dtype.kind in "iu" else np.float32)
+        return d.dtype
+
     def read_slab(self, var: str, dim: str | None = None, start: int = 0,
                   stop: int | None = None) -> np.ndarray:
         """Read ``var`` restricted to ``[start:stop]`` along ``dim``."""
@@ -297,6 +311,7 @@ class CubeWriter:
                  coord_attrs: dict | None = None):
         import h5py
 
+        self.path = path
         self._f = h5py.File(path, "w")
         self.coords = {k: np.asarray(v) for k, v in coords.items()}
         for dim, coord in self.coords.items():
@@ -349,6 +364,53 @@ class CubeWriter:
         for k, v in self._attrs.items():
             self._f.attrs[k] = _sanitize_attr(v)
         self._f.close()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+class SlabFiles:
+    """Where a streamed pass writes: its output file, and temporary files
+    beside it for the passes before the last.
+
+    ``writer(coords, attrs, coord_attrs, final)`` opens a
+    :class:`CubeWriter` on ``out_path`` (``final``) or on a new temporary
+    file; ``reader(writer)`` opens what a closed writer wrote as a
+    :class:`CubeFile`; ``close()`` removes the temporary files. The
+    streamed passes take any object with these two methods, so an
+    in-memory store can stand in for the files."""
+
+    def __init__(self, out_path):
+        self.out_path = out_path
+        self._tmps = []
+
+    def writer(self, coords, attrs=None, coord_attrs=None,
+               final: bool = True) -> CubeWriter:
+        if final:
+            path = self.out_path
+        else:
+            import tempfile
+
+            fd, path = tempfile.mkstemp(
+                suffix=".nc", dir=os.path.dirname(os.path.abspath(
+                    self.out_path)))
+            os.close(fd)
+            self._tmps.append(path)
+        return CubeWriter(path, coords, attrs=attrs, coord_attrs=coord_attrs)
+
+    def reader(self, writer: CubeWriter) -> CubeFile:
+        return CubeFile(writer.path)
+
+    def close(self):
+        for p in self._tmps:
+            try:
+                os.remove(p)
+            except OSError:
+                pass
+        self._tmps = []
 
     def __enter__(self):
         return self

@@ -49,16 +49,24 @@ from .transforms import (DCTTransform, FFTTransform, WaveletTransform,
                          _resolve_precision, get_transform)
 
 # fields of the JAX package's POCSConfig that steer the TPU kernels only
-# (Pallas on/off, interpret mode, the %128 padding policy); they have no
-# meaning here and are dropped wherever a JAX config is read
-TPU_ONLY_FIELDS = ("use_pallas", "pallas_interpret", "pad_to_tile")
+# (Pallas on/off, interpret mode); they have no meaning here and are
+# dropped wherever a JAX config is read
+TPU_ONLY_FIELDS = ("use_pallas", "pallas_interpret")
 
 
 @dataclasses.dataclass(frozen=True)
 class POCSConfig:
     """Solver parameters: the JAX package's POCSConfig without
     :data:`TPU_ONLY_FIELDS` (the kernels are the only routes and take any
-    slice shape)."""
+    slice shape).
+
+    ``pad_to_tile`` is read by the cube drivers only: ``True`` zero-pads
+    every slice to 128-multiple sides with an observed-zero frame
+    (amplitude 0, mask 1) before the solve and crops after
+    (``utils/pad.pad_slices_to_tile``), a slightly different, equally
+    valid POCS problem; ``False`` and ``None`` (the JAX package's
+    automatic policy, which engages only for its TPU kernels) solve the
+    slices as they are."""
 
     niter: int = 50
     thresh_op: str = "hard"
@@ -73,6 +81,7 @@ class POCSConfig:
     transform_kind: str = "FFT"
     keep_cost_history: bool = False
     global_early_stop: bool = False
+    pad_to_tile: bool | None = None
 
 
 class POCSResult(NamedTuple):

@@ -4,9 +4,13 @@ Counterpart of ``pseudo_3d_interpolation_tpu/parallel/solver.py``.
 :func:`interpolate_cube_resident` uploads the cube once, solves it batch by
 batch on the device and downloads the result once;
 :func:`interpolate_cube` moves one batch at a time, for cubes that do not
-fit the device. Both run eagerly, so a short last batch needs no zero
-padding (the JAX drivers padded it to keep one compiled program). The
-JAX package's ``mesh`` sharding is not ported yet (ROADMAP queue 1 #14).
+fit the device; :func:`pocs_interpolate_scanned` solves a cube that is
+already on the device and leaves the result there. They run eagerly, so a
+short last batch needs no zero padding (the JAX drivers padded it to keep
+one compiled program). With ``config.pad_to_tile`` the two cube drivers
+solve every slice zero-padded to 128-multiple sides and crop the result
+(``utils/pad``). The JAX package's ``mesh`` sharding is not ported yet
+(ROADMAP queue 1 #14).
 """
 
 from __future__ import annotations
@@ -18,9 +22,10 @@ from ..models.pocs import POCSConfig, pocs_interpolate
 from ..models.transforms import get_transform
 from ..ops.cplx import Cplx, from_complex, to_complex
 from ..utils.device import resolve_device
+from ..utils.pad import auto_pad_to_tile, pad_slices_to_tile
 
-__all__ = ["resolve_device", "fits_resident",
-           "interpolate_cube_resident", "interpolate_cube"]
+__all__ = ["resolve_device", "fits_resident", "interpolate_cube_resident",
+           "interpolate_cube", "pocs_interpolate_scanned"]
 
 
 def fits_resident(device, n_slices: int, batch: int, h: int, w: int,
@@ -35,8 +40,9 @@ def fits_resident(device, n_slices: int, batch: int, h: int, w: int,
     ``extra_bytes`` adds what does not scale with the slices (a
     directional basis's windows and kernel scratch). The rule asks for
     three cubes and eight pairs per slice of the batch times
-    ``expansion``. A CPU "device" is the host memory that already holds
-    the cube: it always fits."""
+    ``expansion``. ``h`` and ``w`` are the sides the driver solves (padded
+    under ``pad_to_tile``). A CPU "device" is the host memory that already
+    holds the cube: it always fits."""
     device = torch.device(device)
     if device.type != "cuda":
         return True
@@ -48,7 +54,17 @@ def fits_resident(device, n_slices: int, batch: int, h: int, w: int,
 
 
 def _to_host(rec: Cplx, was_complex: bool) -> np.ndarray:
-    return to_complex(rec) if was_complex else rec.re.cpu().numpy()
+    return to_complex(rec) if was_complex else rec.re.contiguous().cpu(
+        ).numpy()
+
+
+def _crop(rec: Cplx, crop) -> Cplx:
+    """The (..., h, w) top-left corner of padded slices; ``crop`` None
+    leaves them whole."""
+    if crop is None:
+        return rec
+    h, w = crop
+    return Cplx(rec.re[..., :h, :w], rec.im[..., :h, :w])
 
 
 def _empty(data: np.ndarray, was_complex: bool):
@@ -58,13 +74,16 @@ def _empty(data: np.ndarray, was_complex: bool):
 
 def interpolate_cube_resident(data, mask, config: POCSConfig = POCSConfig(),
                               transform=None, batch: int = 8, progress=None,
-                              device=None):
+                              device=None, _max_launches: int | None = None):
     """Device-resident cube driver: one upload, per-batch solves on the
     device, one download.
 
     ``data``: (F, H, W) complex64 or float32 numpy array; ``mask``: (H, W)
     shared sampling mask; ``progress``: optional ``callable(done, total)``.
     Returns numpy ``(recon, n_iterations, cost)``: (F, H, W), (F,), (F,).
+    ``_max_launches`` solves only the first that many batches of the full
+    cube (``pipeline.pocs.warmup``: one launch at the production shapes);
+    the other slices' results are then undefined.
     """
     if transform is None:
         transform = get_transform(config.transform_kind)
@@ -74,13 +93,19 @@ def interpolate_cube_resident(data, mask, config: POCSConfig = POCSConfig(),
     f_total = data.shape[0]
     if f_total == 0:
         return _empty(data, was_complex)
+    crop = None
+    if auto_pad_to_tile(config, data.shape[-2], data.shape[-1], transform):
+        data, mask, crop = pad_slices_to_tile(data, mask)
     z = from_complex(data, device)
     m = torch.as_tensor(np.asarray(mask, np.float32), device=device)
     rec = Cplx(torch.empty_like(z.re), torch.empty_like(z.im))
     iters = torch.empty(f_total, dtype=torch.int32, device=device)
     cost = torch.empty(f_total, dtype=torch.float32, device=device)
     batch = max(1, min(batch, f_total))
-    for start in range(0, f_total, batch):
+    starts = range(0, f_total, batch)
+    if _max_launches is not None:
+        starts = starts[:_max_launches]
+    for start in starts:
         stop = min(start + batch, f_total)
         res = pocs_interpolate(Cplx(z.re[start:stop], z.im[start:stop]), m,
                                transform, config)
@@ -91,7 +116,7 @@ def interpolate_cube_resident(data, mask, config: POCSConfig = POCSConfig(),
         if progress is not None:
             progress(stop, f_total)
     del z  # the download's staging copy takes its place
-    return (_to_host(rec, was_complex), iters.cpu().numpy(),
+    return (_to_host(_crop(rec, crop), was_complex), iters.cpu().numpy(),
             cost.cpu().numpy())
 
 
@@ -100,7 +125,9 @@ def interpolate_cube(data, mask, config: POCSConfig = POCSConfig(),
                      device=None):
     """Host-chunked cube driver: each batch of slices goes to the device,
     is solved and comes back before the next. Same arguments and returns
-    as :func:`interpolate_cube_resident`."""
+    as :func:`interpolate_cube_resident`. Under ``pad_to_tile`` each batch
+    is padded on its way to the device and cropped on its way back, so the
+    host holds no padded copy of the cube."""
     if transform is None:
         transform = get_transform(config.transform_kind)
     device = resolve_device(device)
@@ -112,15 +139,58 @@ def interpolate_cube(data, mask, config: POCSConfig = POCSConfig(),
     out = np.empty(data.shape, np.complex64 if was_complex else np.float32)
     n_iters = np.empty((f_total,), np.int32)
     costs = np.empty((f_total,), np.float32)
-    m = torch.as_tensor(np.asarray(mask, np.float32), device=device)
+    crop, m = None, mask
+    if auto_pad_to_tile(config, data.shape[-2], data.shape[-1], transform):
+        _, m, crop = pad_slices_to_tile(data[:0], mask)  # the padded mask
+    m = torch.as_tensor(np.asarray(m, np.float32), device=device)
     batch = max(1, min(batch, f_total))
     for start in range(0, f_total, batch):
         stop = min(start + batch, f_total)
-        res = pocs_interpolate(from_complex(data[start:stop], device), m,
-                               transform, config)
-        out[start:stop] = _to_host(res.data, was_complex)
+        chunk = data[start:stop]
+        if crop is not None:
+            chunk = pad_slices_to_tile(chunk, mask)[0]
+        res = pocs_interpolate(from_complex(chunk, device), m, transform,
+                               config)
+        out[start:stop] = _to_host(_crop(res.data, crop), was_complex)
         n_iters[start:stop] = res.n_iterations.cpu().numpy()
         costs[start:stop] = res.cost.cpu().numpy()
         if progress is not None:
             progress(stop, f_total)
     return out, n_iters, costs
+
+
+def pocs_interpolate_scanned(z: Cplx, mask, transform=None,
+                             config: POCSConfig = POCSConfig(),
+                             batch: int = 8):
+    """Solve a whole (F, H, W) cube held on the device, batch by batch,
+    and leave the result there: the JAX package's ``lax.scan`` over
+    batches is a loop over them here, each batch's slices and results
+    staying on the device (no host copy between batches).
+
+    ``z``: a ``Cplx`` of (F, H, W) tensors with F a multiple of ``batch``
+    (pad with zero slices: they short-circuit to zero output); ``mask``:
+    (H, W), on any device. Returns ``(Cplx, n_iterations, cost)`` as
+    F-length tensors on ``z``'s device. ``config.pad_to_tile`` is not
+    read here: it is the cube drivers' option, and the caller's slices
+    are solved at the shape they come in."""
+    if transform is None:
+        transform = get_transform(config.transform_kind)
+    f_total = z.shape[0]
+    if f_total % batch:
+        raise ValueError(f"slices {f_total} not divisible by batch {batch}; "
+                         "pad first")
+    device = z.re.device
+    m = torch.as_tensor(mask, dtype=torch.float32).to(device)
+    rec = Cplx(torch.empty_like(z.re), torch.empty_like(z.im))
+    iters = torch.empty(f_total, dtype=torch.int32, device=device)
+    cost = torch.empty(f_total, dtype=torch.float32, device=device)
+    for start in range(0, f_total, batch):
+        stop = start + batch
+        res = pocs_interpolate(Cplx(z.re[start:stop], z.im[start:stop]), m,
+                               transform, config)
+        rec.re[start:stop] = res.data.re
+        rec.im[start:stop] = res.data.im
+        iters[start:stop] = res.n_iterations
+        cost[start:stop] = res.cost
+    return rec, iters, cost
+

@@ -10,8 +10,10 @@ POCS config map 1:1 onto :class:`POCSConfig`; dask cluster keys and the
 JAX package's TPU-only fields are accepted and ignored. A path input and
 ``out_path`` are netCDF cube files (host, h5py), the output written
 slice-major with the solver parameters beside it; ``profile_dir`` traces
-the solve with torch.profiler. Not ported yet: ``interpolate_checkpointed``
-(HDF5 streaming) and ``warmup`` (ROADMAP queue 1 #8).
+the solve with torch.profiler. :func:`interpolate_checkpointed` solves
+batch by batch into checkpoint files and resumes from them, streaming a
+cube file slab by slab; :func:`warmup` builds the kernels and runs one
+launch of the driver a production cube would take.
 """
 
 from __future__ import annotations
@@ -19,8 +21,11 @@ from __future__ import annotations
 import contextlib
 import csv
 import dataclasses
+import datetime
+import json
 import logging
 import os
+import time
 
 import numpy as np
 import torch
@@ -32,8 +37,10 @@ from ..models.transforms import TRANSFORM_OPTION_KEYS, get_transform
 from ..ops import curvelet as cv
 from ..ops import shearlet as sh
 from ..ops.kernels import subband
+from ..parallel import solver
 from ..parallel.solver import (fits_resident, interpolate_cube,
                                interpolate_cube_resident, resolve_device)
+from ..utils.pad import padded_shape
 
 log = logging.getLogger(__name__)
 
@@ -54,15 +61,22 @@ _PRODUCTION_PRECISION = {"FFT": {"precision": "high"},
                                       "box_precision": "highest"}}
 
 
-def _production_transform(config: POCSConfig, extra: dict):
-    """Build the solve transform from the YAML extras, with the driver's
-    precision default where the user left ``precision`` unset."""
+def _transform_options(config: POCSConfig, extra: dict) -> dict:
+    """The solve transform's options from the YAML extras, with the
+    driver's precision default where the user left ``precision`` unset."""
     kw = {k: extra[k] for k in TRANSFORM_OPTION_KEYS if k in extra}
     if "precision" not in kw and not kw.get("decimated"):
         for key, val in _PRODUCTION_PRECISION.get(config.transform_kind,
                                                   {}).items():
             kw.setdefault(key, val)
-    return get_transform(config.transform_kind, **kw)
+    return kw
+
+
+def _production_transform(config: POCSConfig, extra: dict):
+    """Build the solve transform from the YAML extras
+    (:func:`_transform_options`)."""
+    return get_transform(config.transform_kind,
+                         **_transform_options(config, extra))
 
 
 def _is_spectral_stack(transform) -> bool:
@@ -133,6 +147,27 @@ def _transform_device_bytes(transform, batch: int, h: int, w: int) -> int:
             + subband.scratch_bytes(batch, h, w, n_bands,
                                     spatial=sh.spatial_io_default())
             + box_bytes)
+
+
+def _driver_plan(config: POCSConfig, transform, n_slices: int, h: int,
+                 w: int, batch: int, device):
+    """The cube driver :func:`interpolate` takes: ``(resident, resident
+    batch, solved (h, w))``. The device-resident driver when the cube and
+    one batch's working set at the solved sides (padded under
+    ``pad_to_tile``) fit the device's free memory, else the host-chunked
+    one."""
+    h_b, w_b = padded_shape(config, h, w, transform)
+    resident_batch = min(batch, 32)
+    resident = fits_resident(
+        device, n_slices, resident_batch, h_b, w_b,
+        expansion=_transform_subbands(transform, (h_b, w_b), config),
+        extra_bytes=_transform_device_bytes(transform, resident_batch, h_b,
+                                            w_b))
+    return resident, resident_batch, (h_b, w_b)
+
+
+def _pad_note(solved, shape) -> str:
+    return " (pad_to_tile engaged)" if tuple(solved) != tuple(shape) else ""
 
 
 def config_from_yaml(path_or_dict) -> tuple[POCSConfig, dict]:
@@ -209,18 +244,16 @@ def interpolate(
     moved = np.moveaxis(np.asarray(data), -1, 0)
     transform = _production_transform(config, extra)
     h, w = moved.shape[-2], moved.shape[-1]
-    # device-resident driver when the cube fits the device's free memory
-    resident_batch = min(batch, 32)
-    resident = fits_resident(
-        device, moved.shape[0], resident_batch, h, w,
-        expansion=_transform_subbands(transform, (h, w), config),
-        extra_bytes=_transform_device_bytes(transform, resident_batch, h, w))
-    rt = solver_route((resident_batch, h, w), (h, w), config, transform)
+    resident, resident_batch, (h_b, w_b) = _driver_plan(
+        config, transform, moved.shape[0], h, w, batch, device)
+    rt = solver_route((resident_batch, h_b, w_b), (h_b, w_b), config,
+                      transform)
     level = logging.INFO if verbose else logging.DEBUG
     log.log(level, "POCS: %d slices of %dx%d, %s/%s, niter=%d on %s",
             moved.shape[0], h, w, config.transform_kind, config.version,
             config.niter, device)
-    log.log(level, "solver path: %s", describe_route(rt))
+    log.log(level, "solver path: %s%s", describe_route(rt),
+            _pad_note((h_b, w_b), (h, w)))
 
     def progress(done, total):
         log.debug("  %d/%d slices", done, total)
@@ -253,11 +286,8 @@ def interpolate(
     out.attrs["pocs_mean_cost"] = float(cost.mean())
 
     if runtime_csv:
-        with open(runtime_csv, "w", newline="") as fh:
-            writer = csv.writer(fh)
-            writer.writerow([slice_dim, "niterations", "cost"])
-            writer.writerows(zip(np.asarray(cube.coords[slice_dim]).tolist(),
-                                 n_iters.tolist(), cost.tolist()))
+        _write_runtime_csv(runtime_csv, slice_dim, cube.coords[slice_dim],
+                           n_iters, cost)
     if out_path:
         import yaml
 
@@ -289,3 +319,249 @@ def _profiled(profile_dir, device):
         yield
     prof.export_chrome_trace(os.path.join(profile_dir,
                                           "interpolate_trace.json"))
+
+
+def interpolate_checkpointed(
+    cube: Cube | str,
+    config: POCSConfig | str | dict,
+    checkpoint_dir: str,
+    var: str | None = None,
+    batch: int = 64,
+    out_path: str | None = None,
+    runtime_csv: str | None = None,
+    verbose: int = 0,
+    device=None,
+) -> Cube | str:
+    """Checkpointed interpolation: out of core, with resume.
+
+    Each batch of slices is solved by the host-chunked driver and written
+    to ``checkpoint_dir/slices_<start:05d>_<stop:05d>.nc`` as soon as it
+    completes; a rerun skips the batches whose file exists. The short tail
+    batch is padded with zero slices to the full batch (they short-circuit
+    to zero) and cut back. ``checkpoint_meta.json`` holds the run's
+    fingerprint (``dataclasses.asdict`` of the config, the transform
+    options, the variable, the slice count and the slice shape); a
+    directory whose fingerprint differs raises ``ValueError`` ("different
+    run") instead of merging two runs. This package's config has no
+    TPU-only fields, so a directory the JAX package wrote fingerprints
+    differently and is refused, not merged; the slice files themselves
+    are the same netCDF layout in both packages.
+
+    Out of core: with a path input (``out_path`` required), the slices
+    stream from the file to the device and back to ``out_path`` in
+    ``batch``-sized slabs, and the cube is never whole in host RAM; the
+    return value is ``out_path``. A :class:`Cube` input returns the
+    assembled Cube (also written to ``out_path`` when given). ``device``
+    defaults to the first CUDA card; ``device='cpu'`` runs on the host.
+    """
+    from ..io.ncio import CubeFile, CubeWriter, read_cube, write_cube
+
+    device = resolve_device(device)
+    extra = {}
+    if not isinstance(config, POCSConfig):
+        config, extra = config_from_yaml(config)
+    streaming = isinstance(cube, (str, os.PathLike))
+    if streaming and not out_path:
+        raise ValueError("out-of-core mode (path input) requires out_path")
+    src = CubeFile(cube) if streaming else cube
+    level = logging.INFO if verbose else logging.DEBUG
+    try:
+        if var is None:
+            var = src.primary_var()
+        if streaming:
+            dims = src.dims_of(var)
+            is_complex = src.is_complex(var)
+            fold = np.asarray(src.read("fold"))
+        else:
+            dims, data = src.data_vars[var]
+            is_complex = np.iscomplexobj(data)
+            fold = np.asarray(src.data_vars["fold"][1])
+        mask = (fold > 0).astype(np.float32)
+        slice_dim = dims[-1]
+        coords = {d: np.asarray(src.coords[d]) for d in src.coords}
+        f_total = len(coords[slice_dim])
+
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        batch = max(1, min(batch, f_total))
+        transform_kwargs = _transform_options(config, extra)
+        transform = get_transform(config.transform_kind, **transform_kwargs)
+        fingerprint = {
+            "config": dataclasses.asdict(config),
+            "transform_kwargs": transform_kwargs,
+            "var": var,
+            "f_total": int(f_total),
+            "slice_shape": [int(len(coords[d])) for d in dims[:-1]],
+        }
+        meta_path = os.path.join(checkpoint_dir, "checkpoint_meta.json")
+        if os.path.exists(meta_path):
+            with open(meta_path) as fh:
+                prior = json.load(fh)
+            if prior != fingerprint:
+                raise ValueError(
+                    f"checkpoint_dir {checkpoint_dir!r} holds checkpoints "
+                    f"from a different run (config/transform/var/shape "
+                    f"changed) — clear it or pick another directory. "
+                    f"Prior: {prior}")
+        else:
+            with open(meta_path, "w") as fh:
+                json.dump(fingerprint, fh)
+
+        h, w = fingerprint["slice_shape"]
+        h_b, w_b = padded_shape(config, h, w, transform)
+        rt = solver_route((batch, h_b, w_b), (h_b, w_b), config, transform)
+        log.log(level, "solver path: %s%s", describe_route(rt),
+                _pad_note((h_b, w_b), (h, w)))
+
+        n_iters = np.zeros(f_total, np.int32)
+        costs = np.zeros(f_total, np.float32)
+        ck_paths = []
+        for start in range(0, f_total, batch):
+            stop = min(start + batch, f_total)
+            ck = os.path.join(checkpoint_dir,
+                              f"slices_{start:05d}_{stop:05d}.nc")
+            ck_paths.append((start, stop, ck))
+            if os.path.exists(ck):
+                part = read_cube(ck, variables=["niterations", "cost"])
+                n_iters[start:stop] = part["niterations"]
+                costs[start:stop] = part["cost"]
+                log.log(level, "resume: batch %d-%d from checkpoint", start,
+                        stop)
+                continue
+            if streaming:
+                slab = src.read_slab(var, dim=slice_dim, start=start,
+                                     stop=stop)
+            else:
+                slab = np.asarray(src.data_vars[var][1][..., start:stop])
+            moved = np.moveaxis(slab, -1, 0)
+            nb = stop - start
+            if nb < batch:  # the tail, padded with zero slices
+                moved = np.concatenate(
+                    [moved, np.zeros((batch - nb,) + moved.shape[1:],
+                                     moved.dtype)])
+            rec_c, n_c, c_c = solver.interpolate_cube(
+                moved, mask, config, transform=transform, batch=batch,
+                device=device)
+            rec_c, n_c, c_c = rec_c[:nb], n_c[:nb], c_c[:nb]
+            n_iters[start:stop] = n_c
+            costs[start:stop] = c_c
+            part = Cube(
+                coords={slice_dim: coords[slice_dim][start:stop]},
+                data_vars={"rec": ((slice_dim,) + dims[:-1], rec_c),
+                           "niterations": ((slice_dim,), n_c),
+                           "cost": ((slice_dim,), c_c)})
+            for d in dims[:-1]:
+                part.coords[d] = coords[d]
+            write_cube(ck, part)
+            log.log(level, "batch %d-%d done -> %s", start, stop, ck)
+
+        if runtime_csv:
+            _write_runtime_csv(runtime_csv, slice_dim, coords[slice_dim],
+                               n_iters, costs)
+        history = f"POCS({config.transform_kind},{config.version},checkpointed)"
+        attrs = dict(src.attrs)
+        attrs["history"] = attrs.get("history", "") + f"{history};"
+        attrs["text"] = (attrs.get("text", "")
+                         + f"\n{datetime.date.today().isoformat()}: {history}")
+        attrs["pocs_mean_iterations"] = float(n_iters.mean())
+
+        if streaming:
+            # the checkpoints merged into the output slab by slab
+            with CubeWriter(out_path, coords, attrs=attrs,
+                            coord_attrs=dict(src.coord_attrs)) as wr:
+                wr.create_var(f"{var}_interp", dims,
+                              np.complex64 if is_complex else np.float32,
+                              chunks={slice_dim: 1},
+                              attrs=dict(src.var_attrs.get(var, {})))
+                wr.create_var("fold", src.dims_of("fold"), fold.dtype)
+                wr.write_slab("fold", fold)
+                for start, _, ck in ck_paths:
+                    wr.write_slab(f"{var}_interp",
+                                  np.moveaxis(read_cube(ck)["rec"], 0, -1),
+                                  dim=slice_dim, start=start)
+            return out_path
+    finally:
+        if streaming:
+            src.close()
+
+    rec = np.empty((f_total,) + tuple(len(coords[d]) for d in dims[:-1]),
+                   np.complex64 if is_complex else np.float32)
+    for start, stop, ck in ck_paths:
+        rec[start:stop] = read_cube(ck)["rec"]
+    out = Cube(
+        coords=coords,
+        data_vars={f"{var}_interp": (dims, np.moveaxis(rec, 0, -1)),
+                   "fold": src.data_vars["fold"]},
+        attrs=attrs,
+        var_attrs={f"{var}_interp": dict(src.var_attrs.get(var, {}))},
+        coord_attrs=dict(src.coord_attrs),
+    )
+    if out_path:
+        write_cube(out_path, out, chunks={slice_dim: 1})
+    return out
+
+
+def warmup(config, shape, batch: int = 64, verbose: int = 0,
+           n_slices: int | None = None, device=None) -> float:
+    """Build the kernel libraries and run one launch of the driver a
+    production cube would take; returns the wall seconds.
+
+    ``shape``: the production slice (h, w), unpadded (the drivers pad
+    under ``pad_to_tile`` as in production); ``n_slices``: the production
+    cube's slice count (by default one batch). The choice is
+    :func:`interpolate`'s, on the padded budget: the device-resident
+    driver, one batch of ``min(batch, 32)`` random slices in a cube of
+    ``n_slices`` zero slices, or the host-chunked driver on one batch.
+    The JAX package's persistent compilation cache has no counterpart:
+    the kernels are built once per source and flags
+    (``ops/kernels/_build``), and eager PyTorch compiles nothing else.
+    """
+    device = resolve_device(device)
+    extra = {}
+    if not isinstance(config, POCSConfig):
+        config, extra = config_from_yaml(config)
+    transform = _production_transform(config, extra)
+    h, w = int(shape[0]), int(shape[1])
+    rng = np.random.default_rng(0)
+    mask = (rng.uniform(size=(h, w)) < 0.5).astype(np.float32)
+
+    def noise(b):
+        return (rng.normal(size=(b, h, w)).astype(np.float32)
+                + 1j * rng.normal(size=(b, h, w)).astype(np.float32))
+
+    t0 = time.perf_counter()
+    if device.type == "cuda":
+        from ..ops.kernels import _build
+
+        _build.build()
+    b_res = min(batch, 32)
+    f_total = int(n_slices) if n_slices else b_res
+    resident, _, (h_b, w_b) = _driver_plan(config, transform, f_total, h, w,
+                                           batch, device)
+    if resident:
+        b = min(b_res, f_total)
+        data = np.zeros((f_total, h, w), np.complex64)
+        data[:b] = noise(b)
+        interpolate_cube_resident(data, mask, config, transform=transform,
+                                  batch=b, device=device, _max_launches=1)
+    else:
+        b = min(batch, int(n_slices)) if n_slices else batch
+        interpolate_cube(noise(b).astype(np.complex64), mask, config,
+                         transform=transform, batch=b, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    log.log(logging.INFO if verbose else logging.DEBUG,
+            "warmup: %s/%s, %s driver, (%d,%d,%d)%s built and run in %.1f s",
+            config.transform_kind, config.version,
+            "resident" if resident else "host-chunked", b, h, w,
+            _pad_note((h_b, w_b), (h, w)), dt)
+    return dt
+
+
+def _write_runtime_csv(path, slice_dim, coord, n_iters, costs):
+    """One row per slice: its coordinate, effective iterations, cost."""
+    with open(path, "w", newline="") as fh:
+        writer = csv.writer(fh)
+        writer.writerow([slice_dim, "niterations", "cost"])
+        writer.writerows(zip(np.asarray(coord).tolist(), n_iters.tolist(),
+                             costs.tolist()))

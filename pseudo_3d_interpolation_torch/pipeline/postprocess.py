@@ -1,27 +1,29 @@
 """Step 15 — post-interpolation conditioning.
 
-Counterpart of ``pseudo_3d_interpolation_tpu/pipeline/postprocess.py``, in
-memory: iline/xline upsampling to equal bin size (+ kx-ky spatial
-anti-aliasing), acquisition-footprint removal (a directional kx-ky notch
-convolved with a Gaussian), gaussian/median slice smoothing with an
-optional percentile rescale, and AGC. The filters are built on the host
-exactly as the reference builds them; they are applied on the device.
+Counterpart of ``pseudo_3d_interpolation_tpu/pipeline/postprocess.py``:
+iline/xline upsampling to equal bin size (+ kx-ky spatial anti-aliasing),
+acquisition-footprint removal (a directional kx-ky notch convolved with a
+Gaussian), gaussian/median slice smoothing with an optional percentile
+rescale, and AGC. The filters are built on the host exactly as the
+reference builds them; they are applied on the device.
 
-The cube goes to the device once. The slice operations act on chunks of
-time slices and write one slice-major (T, iline, xline) buffer; the AGC
-acts along time on chunks of ilines of that buffer, and each chunk comes
-back to the host into the (iline, xline, T) result. The device holds the
-input, the upsampled buffer and one chunk's work.
+In memory, the cube goes to the device once. The slice operations act on
+chunks of time slices and write one slice-major (T, iline, xline) buffer;
+the AGC acts along time on chunks of ilines of that buffer, and each chunk
+comes back to the host into the (iline, xline, T) result. The device holds
+the input, the upsampled buffer and one chunk's work.
 
-The streamed out-of-core passes of the JAX package are not ported yet
-(ROADMAP queue 1 #15): ``out_of_core=True``, or a path input whose
-upsampled cube exceeds ``ooc_threshold_bytes``, raises instead of loading
-the cube.
+Out of core (``out_of_core=True``, or a path input whose upsampled cube
+exceeds ``ooc_threshold_bytes``), the same operations stream through
+slabs of time slices and then of ilines, with temporary files beside the
+output (:func:`postprocess_slabs`); the smoothing's percentile rescale
+takes its global percentiles from :func:`streamed_percentiles`, exact.
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import os
 
 import numpy as np
@@ -30,9 +32,10 @@ import torch
 
 from ..io.cube import Cube
 from ..ops import signal as sig
-from ..utils.device import as_tensor, chunk_rows, resolve_device
+from ..utils.device import (CHUNK_BYTES, as_tensor, chunk_rows,
+                            resolve_device)
 from ..utils.rescale import nan_range, rescale
-from .preprocess import OOC_NOT_PORTED, cube_bytes
+from .preprocess import cube_bytes
 
 log = logging.getLogger(__name__)
 
@@ -284,21 +287,186 @@ def _smooth_chunked(x: torch.Tensor, kind: str = "gaussian",
     return out.reshape(x.shape)
 
 
+def _linear_points(n: int, qs):
+    """``numpy.percentile``'s method 'linear' for ``n`` values, with
+    numpy's own arithmetic: per percentile, the ranks (0-based) of the two
+    order statistics it interpolates (its virtual index (n - 1)·q/100 and
+    the next, clipped to [0, n - 1]) and the weight of the second."""
+    q = np.true_divide(np.asarray(qs, np.float64), 100)
+    virtual = (n - 1) * q
+    prev = np.floor(virtual)
+    for v, p in zip(virtual.tolist(), prev.tolist()):
+        if v >= n - 1:
+            yield n - 1, n - 1, v - p
+        elif v < 0:
+            yield 0, 0, v - p
+        else:
+            yield int(p), int(p) + 1, v - p
+
+
+def _linear_percentiles(order_stat, n: int, qs, dtype) -> list[float]:
+    """``numpy.percentile(a, qs)`` (method 'linear') of ``n`` values of
+    ``dtype`` from ``order_stat(k)``, the k-th smallest (0-based): the
+    difference of the two order statistics in ``dtype`` and numpy's
+    two-sided interpolation (``b - d·(1 - g)`` from g = 0.5)."""
+    out = []
+    for k0, k1, g in _linear_points(n, qs):
+        a = np.asarray(order_stat(k0), dtype)
+        b = np.asarray(order_stat(k1), dtype)
+        g = np.asarray(g)
+        diff = np.subtract(b, a)
+        val = (np.subtract(b, diff * (1 - g)) if g >= 0.5
+               else np.add(a, diff * g))
+        out.append(float(val))
+    return out
+
+
+def _numpy_dtype(x) -> np.dtype:
+    if isinstance(x, torch.Tensor):
+        return torch.empty((), dtype=x.dtype).numpy().dtype
+    return np.asarray(x).dtype
+
+
 def percentiles(x: torch.Tensor, qs) -> list[float]:
     """``numpy.percentile`` (linear) of all of ``x`` at each of ``qs``,
-    from ``kthvalue`` order statistics."""
+    exactly: :func:`streamed_percentiles` over chunks of ``x`` where it
+    lies (a few histogram passes; a sort or ``kthvalue`` of a cube-sized
+    tensor is far slower on the card)."""
     flat = x.reshape(-1)
-    n = flat.numel()
-    out = []
-    for q in qs:
-        pos = float(q) / 100.0 * (n - 1)
-        k = int(np.floor(pos))
-        lo = float(torch.kthvalue(flat, k + 1).values)
-        frac = pos - k
-        hi = (float(torch.kthvalue(flat, k + 2).values) if frac > 0
-              else lo)
-        out.append(lo + frac * (hi - lo))
-    return out
+    step = CHUNK_BYTES // 8  # a chunk's float64 copy
+
+    def blocks():
+        for i in range(0, flat.numel(), step):
+            yield flat[i:i + step]
+    return streamed_percentiles(blocks, qs)
+
+
+# the streamed percentiles' histogram: bins a pass, and the most values a
+# bin may hold to be gathered and sorted (more: refine that bin)
+_N_BINS = 1 << 16
+_GATHER_MAX = 4_000_000
+
+
+def _as64(blk, device) -> torch.Tensor:
+    """A block as a flat float64 tensor (on ``device`` when given), so
+    every comparison with the float64 bin edges is exact."""
+    t = blk if isinstance(blk, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(blk))
+    if device is not None:
+        t = t.to(device)
+    return t.reshape(-1).to(torch.float64)
+
+
+def _histogram(x: torch.Tensor, edges: np.ndarray) -> np.ndarray:
+    """Counts of ``x`` in the bins ``[edges[b], edges[b + 1])``, the last
+    closed on the right (``numpy.histogram``'s bins); values outside
+    ``[edges[0], edges[-1]]`` are the caller's to drop."""
+    e = torch.from_numpy(edges).to(x.device)
+    idx = torch.searchsorted(e, x, right=True) - 1
+    idx.clamp_(0, len(edges) - 2)
+    return torch.bincount(idx, minlength=len(edges) - 1).cpu().numpy()
+
+
+def _in_bin(x: torch.Tensor, edges: np.ndarray, b: int) -> torch.Tensor:
+    """The values of ``x`` in bin ``b``: the same comparisons against the
+    same float64 edges as :func:`_histogram` counts with."""
+    lo, hi = float(edges[b]), float(edges[b + 1])
+    last = b == len(edges) - 2
+    return x[(x >= lo) & ((x <= hi) if last else (x < hi))]
+
+
+def _order_stat(block_iter, k: int, lo: float, hi: float, device=None,
+                n_below: int = 0, _depth: int = 0) -> float:
+    """The exact k-th smallest (0-based) of the streamed values, with
+    ``n_below`` of them below ``lo`` and the k-th in ``[lo, hi]``, by
+    histogram refinement: a bin of more than ``_GATHER_MAX`` values is
+    refined (at most four times), a smaller one gathered and sorted."""
+    if lo == hi:
+        return float(lo)
+    edges = np.linspace(lo, hi, _N_BINS + 1)
+    counts = np.zeros(_N_BINS, np.int64)
+    for blk in block_iter():
+        x = _as64(blk, device)
+        x = x[(x >= lo) & (x <= hi)]
+        if x.numel():
+            counts += _histogram(x, edges)
+    cum = n_below + np.cumsum(counts)
+    b = int(np.searchsorted(cum, k + 1))
+    below = int(cum[b - 1]) if b else n_below
+    blo, bhi = float(edges[b]), float(edges[b + 1])
+    if counts[b] > _GATHER_MAX and _depth < 4 and bhi > blo:
+        return _order_stat(block_iter, k, blo, bhi, device, below,
+                           _depth + 1)
+    v = torch.sort(torch.cat([_in_bin(_as64(blk, device), edges, b)
+                              for blk in block_iter()])).values
+    return float(v[k - below])
+
+
+def streamed_percentiles(block_iter, qs, device=None) -> list[float]:
+    """``numpy.percentile(values, qs)`` (method 'linear'), exactly, over a
+    stream too large to hold: ``block_iter()`` yields the blocks anew on
+    every call (numpy arrays or tensors, any shape, one dtype).
+
+    Three passes for any number of percentiles: the count, minimum and
+    maximum; one 65536-bin histogram over [min, max]; one gather of every
+    bin that holds a needed order statistic, sorted. A bin above
+    ``_GATHER_MAX`` values is refined by more passes
+    (:func:`_order_stat`). The histogram and the gathers compare each
+    value, in float64, against the same float64 edges, so a value is
+    gathered from the bin it was counted in. The blocks are compared on
+    ``device`` when given (numpy blocks are uploaded), else where they
+    lie. Memory: one block and the histogram."""
+    n = 0
+    lo, hi = np.inf, -np.inf
+    dtype = None
+    for blk in block_iter():
+        if dtype is None:
+            dtype = _numpy_dtype(blk)
+        x = _as64(blk, device)
+        n += x.numel()
+        if x.numel():
+            lo = min(lo, float(x.min()))
+            hi = max(hi, float(x.max()))
+    if n == 0:
+        raise ValueError("empty stream")
+    if lo == hi:
+        return [float(np.asarray(lo, dtype))] * len(qs)
+
+    edges = np.linspace(lo, hi, _N_BINS + 1)
+    counts = np.zeros(_N_BINS, np.int64)
+    for blk in block_iter():
+        x = _as64(blk, device)
+        if x.numel():
+            counts += _histogram(x, edges)
+    cum = np.cumsum(counts)
+
+    def rank_bin(k):
+        return int(np.searchsorted(cum, k + 1))
+
+    # the bins of the order statistics the percentiles need
+    needed = sorted({rank_bin(k) for k0, k1, _ in _linear_points(n, qs)
+                     for k in (k0, k1)})
+    small = [b for b in needed if counts[b] <= _GATHER_MAX]
+    parts = {b: [] for b in small}
+    if small:
+        for blk in block_iter():
+            x = _as64(blk, device)
+            for b in small:
+                parts[b].append(_in_bin(x, edges, b))
+    sorted_bins = {b: torch.sort(torch.cat(p)).values
+                   for b, p in parts.items()}
+
+    stats = {}
+
+    def order_stat(k):
+        if k not in stats:
+            b = rank_bin(k)
+            below = int(cum[b - 1]) if b else 0
+            stats[k] = (float(sorted_bins[b][k - below]) if b in sorted_bins
+                        else _order_stat(block_iter, k, float(edges[b]),
+                                         float(edges[b + 1]), device, below))
+        return stats[k]
+    return _linear_percentiles(order_stat, n, qs, dtype)
 
 
 def smooth_slices(slices, kind: str = "gaussian", sigma: float = 1.0,
@@ -360,6 +528,253 @@ def _upsampled_bytes(path, var, upsample_factors) -> int:
     return cube_bytes(path, var, mult)
 
 
+class _SlicePlan:
+    """What the postprocess does to a cube of (ny, nx) slices: the
+    upsample factors, the kx-ky filters on the upsampled grid (built on
+    the host, applied on ``device``), the smoothing and its percentile
+    rescale, and the history entries, in chain order."""
+
+    def __init__(self, attrs, ny, nx, upsample_factors, upsample_method,
+                 antialias, footprint, smoothing, agc_win, agc_kind,
+                 agc_sqrt, device):
+        fy = fx = 1
+        if upsample_factors == "auto":
+            upsample_factors = _equal_bin_factors_from_attrs(attrs)
+        if upsample_factors:
+            fy = int(upsample_factors.get("iline", 1))
+            fx = int(upsample_factors.get("xline", 1))
+        self.fy, self.fx, self.method = fy, fx, upsample_method
+        # all-ones factors are a no-op (and keep the fold)
+        self.upsampled = fy > 1 or fx > 1
+        self.ny = (ny - 1) * fy + 1 if fy > 1 else ny
+        self.nx = (nx - 1) * fx + 1 if fx > 1 else nx
+        self.filters, self.history = [], []
+        if self.upsampled:
+            if antialias and fy != fx:
+                direction = "iline" if fy > fx else "xline"
+                self.filters.append(_half_filter(antialias_filter(
+                    self.ny, self.nx, direction, {"iline": fy, "xline": fx}),
+                    device))
+            self.history.append(f"UPSAMPLE(il x{fy}, xl x{fx})")
+        if footprint is not None:
+            self.filters.append(_half_filter(footprint_filter(
+                self.ny, self.nx, **footprint), device))
+            self.history.append("FOOTPRINT_REMOVAL")
+        self.smooth = dict(smoothing or {})
+        self.rescale_p = self.smooth.pop("rescale_percentiles", None)
+        self.smoothing = smoothing is not None
+        if self.smoothing:
+            self.history.append(
+                f"SMOOTH({smoothing.get('kind', 'gaussian')})")
+        if agc_win is not None:
+            self.history.append(
+                f"AGC({agc_win}s,{agc_kind}{',sqrt' if agc_sqrt else ''})")
+
+    def refine(self, coords: dict, attrs: dict, il_dim, xl_dim) -> None:
+        """The upsampled grid's coordinates and bin sizes, in place:
+        (n-1)·f + 1 points over each refined axis, spacing exactly bin/f;
+        an equal-bin ``bin_size`` becomes per-axis keys, as the
+        refinement makes bins anisotropic unless both factors match."""
+        if not self.upsampled:
+            return
+        if "bin_size" in attrs:
+            bs = float(attrs.pop("bin_size"))
+            attrs["bin_size_iline"] = bs
+            attrs["bin_size_xline"] = bs
+        for dim, key, f in ((il_dim, "iline", self.fy),
+                            (xl_dim, "xline", self.fx)):
+            if f > 1:
+                c = np.asarray(coords[dim], np.float64)
+                coords[dim] = np.linspace(c[0], c[-1], (len(c) - 1) * f + 1)
+                if f"bin_size_{key}" in attrs:
+                    attrs[f"bin_size_{key}"] = (
+                        float(attrs[f"bin_size_{key}"]) / f)
+
+    def refined_dims(self, il_dim, xl_dim) -> set:
+        return {d for d, f in ((il_dim, self.fy), (xl_dim, self.fx))
+                if f > 1}
+
+    def slice_ops(self, s: torch.Tensor, smooth: bool) -> torch.Tensor:
+        """Upsampling, the kx-ky filters and, with ``smooth``, the
+        smoothing of a (t, ny, nx) stack of slices."""
+        if self.upsampled:
+            s = upsample_slices_linear(s, self.fy, self.fx,
+                                       method=self.method)
+        for half in self.filters:
+            s = _kxky_apply(s, half)
+        if smooth:
+            s = _smooth_chunked(s, **self.smooth)
+        return s
+
+
+def postprocess_slabs(src, store, var=None, upsample_factors=None,
+                      upsample_method="linear", antialias=True,
+                      footprint=None, smoothing=None, agc_win=None,
+                      agc_kind="rms", agc_sqrt=False, block: int = 32,
+                      verbose: int = 0, device=None):
+    """The streamed postprocess's slab loops, the same operations as the
+    in-memory chain with the cube never whole on the device or the host.
+
+    Pass 1 streams slabs of ``block`` time slices through the slice
+    operations (upsampling, anti-alias, footprint removal, and the
+    smoothing unless it rescales). A smoothing with
+    ``rescale_percentiles`` needs the percentiles of the whole
+    pre-smoothing volume and the range of the whole smoothed one: they
+    come from :func:`streamed_percentiles` over pass 1's output and from a
+    smoothing sub-pass; the rescale, elementwise, is done by the AGC's
+    pass, or by a last sub-pass without an AGC. The AGC acts along time,
+    so it is a second pass over slabs of ilines. Each slab goes to
+    ``device`` once and comes back once; the AGC keeps its float64 sums.
+
+    ``src``: anything with :class:`~..io.ncio.CubeFile`'s slab methods;
+    ``store``: ``writer(coords, attrs, coord_attrs, final)`` opens a sink
+    (the last pass's with ``final``, intermediate ones without) and
+    ``reader(writer)`` opens a closed sink as a source, as
+    :class:`~..io.ncio.SlabFiles` does with files. Returns the final
+    sink, closed."""
+    device = resolve_device(device)
+    if var is None:
+        var = src.primary_var()
+    dims = src.dims_of(var)
+    il_dim, xl_dim, t_dim = dims
+    sizes = src.sizes()
+    ny, nx, nt = sizes[il_dim], sizes[xl_dim], sizes[t_dim]
+    attrs = dict(src.attrs)
+    coords = {d: np.asarray(src.coords[d]) for d in src.coords}
+    plan = _SlicePlan(attrs, ny, nx, upsample_factors, upsample_method,
+                      antialias, footprint, smoothing, agc_win, agc_kind,
+                      agc_sqrt, device)
+    plan.refine(coords, attrs, il_dim, xl_dim)
+    refined = plan.refined_dims(il_dim, xl_dim)
+    dropped = {k for k in src.data_vars
+               if k != var and refined & set(src.dims_of(k))}
+
+    # an iline slab of the AGC pass of about pass 1's slab volume; every
+    # pass's output is chunked in tiles of one time slab by one iline
+    # slab, so a time slab and an iline slab each read or write whole
+    # chunks
+    il_block = max(1, (block * plan.ny) // max(nt, 1))
+    chunks = {il_dim: il_block, t_dim: block}
+
+    def writer(final):
+        w = store.writer(coords, attrs if final else None,
+                         dict(src.coord_attrs) if final else None, final)
+        w.create_var(var, dims, np.float32, chunks=chunks,
+                     attrs=src.var_attrs.get(var, {}) if final else None)
+        return w
+
+    def time_slabs(source):
+        for t0 in range(0, nt, block):
+            t1 = min(t0 + block, nt)
+            yield t0, np.asarray(source.read_slab(var, dim=t_dim, start=t0,
+                                                  stop=t1), np.float32)
+
+    def upload(slab):  # (il, xl, t) on the host -> (t, il, xl)
+        return as_tensor(slab, device).permute(2, 0, 1)
+
+    def download(s):  # (t, il, xl) -> (il, xl, t) on the host
+        return s.permute(1, 2, 0).contiguous().cpu().numpy()
+
+    # pass 1, [percentiles + smoothing], [AGC or rescale]: the last writes
+    # the final sink
+    rescaled = plan.smoothing and plan.rescale_p is not None
+    w = writer(not rescaled and agc_win is None)
+    for t0, slab in time_slabs(src):
+        s = plan.slice_ops(upload(slab),
+                           smooth=plan.smoothing and not rescaled)
+        w.write_slab(var, download(s), dim=t_dim, start=t0)
+        del s
+
+    finish = None  # the rescale, elementwise: done by the pass after
+    if rescaled:
+        w.close()
+        with store.reader(w) as cur:
+            def blocks():
+                for _, slab in time_slabs(cur):
+                    yield slab
+            lo, hi = streamed_percentiles(blocks, sorted(plan.rescale_p),
+                                          device=device)
+            log.debug("streamed percentiles %s -> [%.6g, %.6g]",
+                      sorted(plan.rescale_p), lo, hi)
+            w = writer(False)
+            gmin, gmax = math.inf, -math.inf
+            for t0, slab in time_slabs(cur):
+                s = _smooth_chunked(upload(slab), **plan.smooth)
+                s_lo, s_hi = nan_range(s)
+                if not bool(torch.isnan(s_lo)):
+                    gmin, gmax = min(gmin, float(s_lo)), max(gmax, float(s_hi))
+                w.write_slab(var, download(s), dim=t_dim, start=t0)
+                del s
+        if gmin > gmax:  # every value NaN
+            gmin = gmax = math.nan
+
+        def finish(x):
+            return rescale(x, lo, hi, amin=gmin, amax=gmax)
+        if agc_win is None:
+            w.close()
+            w_r = writer(True)
+            with store.reader(w) as cur:
+                for t0, slab in time_slabs(cur):
+                    w_r.write_slab(var, finish(as_tensor(slab, device)).cpu()
+                                   .numpy(), dim=t_dim, start=t0)
+            w = w_r
+
+    if agc_win is not None:
+        w.close()
+        twt = np.asarray(coords[t_dim], np.float64)
+        win = sig.agc_window_samples(agc_win, float(np.mean(np.diff(twt))))
+        w_agc = writer(True)
+        with store.reader(w) as cur:
+            for i0 in range(0, plan.ny, il_block):
+                i1 = min(i0 + il_block, plan.ny)
+                x = as_tensor(np.asarray(cur.read_slab(
+                    var, dim=il_dim, start=i0, stop=i1), np.float32), device)
+                if finish is not None:
+                    x = finish(x)
+                out = sig.agc(x, win, kind=agc_kind, squared=agc_sqrt)
+                del x
+                w_agc.write_slab(var, out.cpu().numpy(), dim=il_dim,
+                                 start=i0)
+                del out
+        w = w_agc
+
+    # the untouched variables ride through slab by slab, but those whose
+    # grid no longer matches the upsampled coordinates
+    for k in src.data_vars:
+        if k == var:
+            continue
+        if k in dropped:
+            log.debug("dropped %s: its grid no longer matches the "
+                      "upsampled coordinates", k)
+            continue
+        kd = src.dims_of(k)
+        w.create_var(k, kd, src.dtype_of(k), attrs=src.var_attrs.get(k, {}))
+        n_lead = sizes[kd[0]]
+        for s0 in range(0, n_lead, max(1, block)):
+            w.write_slab(k, src.read_slab(k, dim=kd[0], start=s0,
+                                          stop=min(s0 + block, n_lead)),
+                         dim=kd[0], start=s0)
+    w.set_attrs(history=str(attrs.get("history", ""))
+                + "".join(f"{h};" for h in plan.history))
+    w.close()
+    level = logging.INFO if verbose else logging.DEBUG
+    for h in plan.history:
+        log.log(level, "postprocess (streamed): %s", h)
+    return w
+
+
+def _postprocess_streamed(path, out_path: str, device, **kw) -> str:
+    """Streamed postprocess of the cube file at ``path`` into ``out_path``
+    (:func:`postprocess_slabs` over a ``CubeFile`` and ``SlabFiles``,
+    whose temporary files sit beside ``out_path``); returns
+    ``out_path``."""
+    from ..io.ncio import CubeFile, SlabFiles
+
+    with CubeFile(path) as src, SlabFiles(out_path) as store:
+        postprocess_slabs(src, store, device=device, **kw)
+    return out_path
+
+
 def postprocess(
     cube: Cube | str,
     var: str | None = None,
@@ -374,24 +789,39 @@ def postprocess(
     out_path: str | None = None,
     out_of_core: bool | None = None,
     ooc_threshold_bytes: int = 2 << 30,
+    block: int = 32,
     verbose: int = 0,
     device=None,
-) -> Cube:
+) -> Cube | str:
     """Apply the postprocessing chain; slice operations act on (iline,
     xline). The cube is changed in place and returned. ``device`` defaults
     to the first CUDA card and raises without one; ``device='cpu'`` runs
-    on the host."""
+    on the host.
+
+    ``out_of_core=True`` (a path input and ``out_path`` required) streams
+    the cube through bounded passes (:func:`postprocess_slabs`, ``block``
+    time slices a slab) and returns ``out_path``; ``None`` streams when
+    the upsampled cube would exceed ``ooc_threshold_bytes``."""
     device = resolve_device(device)
     is_path = isinstance(cube, (str, os.PathLike))
     if out_of_core is None and is_path and out_path:
         est = _upsampled_bytes(cube, var, upsample_factors)
-        if est > ooc_threshold_bytes:
-            raise NotImplementedError(
-                f"postprocess: ~{est / 2**30:.1f} GiB upsampled cube exceeds "
-                "ooc_threshold_bytes; "
-                + OOC_NOT_PORTED.format(step="postprocess"))
+        out_of_core = est > ooc_threshold_bytes
+        if out_of_core:
+            log.log(logging.INFO if verbose else logging.DEBUG,
+                    "postprocess: ~%.1f GiB upsampled cube — streaming out "
+                    "of core", est / 2**30)
     if out_of_core:
-        raise NotImplementedError(OOC_NOT_PORTED.format(step="postprocess"))
+        if not is_path or not out_path:
+            raise ValueError("out_of_core=True requires a path input and "
+                             "out_path")
+        return _postprocess_streamed(
+            cube, out_path, device, var=var,
+            upsample_factors=upsample_factors,
+            upsample_method=upsample_method, antialias=antialias,
+            footprint=footprint, smoothing=smoothing, agc_win=agc_win,
+            agc_kind=agc_kind, agc_sqrt=agc_sqrt, block=block,
+            verbose=verbose)
     if is_path:
         from ..io.ncio import read_cube
 
@@ -402,53 +832,21 @@ def postprocess(
     level = logging.INFO if verbose else logging.DEBUG
     x = as_tensor(np.asarray(data, np.float32), device)  # (il, xl, T)
     ny, nx, nt = x.shape
-
-    fy = fx = 1
-    if upsample_factors == "auto":
-        upsample_factors = equal_bin_factors(cube)
-    if upsample_factors:
-        fy = int(upsample_factors.get("iline", 1))
-        fx = int(upsample_factors.get("xline", 1))
-    upsampled = fy > 1 or fx > 1  # all-ones factors are a no-op (keep fold)
-    ny_up = (ny - 1) * fy + 1 if fy > 1 else ny
-    nx_up = (nx - 1) * fx + 1 if fx > 1 else nx
-
-    filters = []
-    if upsampled:
-        if "bin_size" in cube.attrs:
-            # the refinement makes bins anisotropic unless both factors
-            # match: the equal-bin key becomes per-axis keys
-            bs = float(cube.attrs.pop("bin_size"))
-            cube.attrs["bin_size_iline"] = bs
-            cube.attrs["bin_size_xline"] = bs
-        for dim, f in (("iline", fy), ("xline", fx)):
-            if f > 1:
-                c = np.asarray(cube.coords[dim], np.float64)
-                # (n-1)*f + 1 points: spacing exactly bin/f
-                cube.coords[dim] = np.linspace(c[0], c[-1],
-                                               (len(c) - 1) * f + 1)
-                if f"bin_size_{dim}" in cube.attrs:
-                    cube.attrs[f"bin_size_{dim}"] = (
-                        float(cube.attrs[f"bin_size_{dim}"]) / f)
-        if antialias and fy != fx:
-            direction = "iline" if fy > fx else "xline"
-            filters.append(_half_filter(antialias_filter(
-                ny_up, nx_up, direction, {"iline": fy, "xline": fx}), device))
-        cube.append_history(f"UPSAMPLE(il x{fy}, xl x{fx})")
+    plan = _SlicePlan(cube.attrs, ny, nx, upsample_factors, upsample_method,
+                      antialias, footprint, smoothing, agc_win, agc_kind,
+                      agc_sqrt, device)
+    plan.refine(cube.coords, cube.attrs, "iline", "xline")
+    ny_up, nx_up = plan.ny, plan.nx
+    if plan.upsampled:
         log.log(level, "upsampled to %dx%d", ny_up, nx_up)
         # variables on the old grid no longer match the refined coords
-        refined = {d for d, f in (("iline", fy), ("xline", fx)) if f > 1}
+        refined = plan.refined_dims("iline", "xline")
         for k in [k for k in cube.data_vars if k != var]:
             if refined & set(cube.data_vars[k][0]):
                 cube.data_vars.pop(k)
                 log.debug("dropped %s: its grid no longer matches the "
                           "upsampled coordinates", k)
-    if footprint is not None:
-        filters.append(_half_filter(footprint_filter(ny_up, nx_up,
-                                                     **footprint), device))
-        cube.append_history("FOOTPRINT_REMOVAL")
-    smooth = dict(smoothing or {})
-    rescale_p = smooth.pop("rescale_percentiles", None)
+    rescaled = plan.smoothing and plan.rescale_p is not None
 
     # slice operations, chunks of time slices -> slice-major buffer; the
     # widest per slice: the upsampled slice, its half spectrum and the
@@ -456,26 +854,18 @@ def postprocess(
     buf = torch.empty((nt, ny_up, nx_up), dtype=torch.float32,
                       device=device)
     for t0, t1 in chunk_rows(nt, 4 * 8 * ny_up * nx_up):
-        s = x[:, :, t0:t1].permute(2, 0, 1)
-        if upsampled:
-            s = upsample_slices_linear(s, fy, fx, method=upsample_method)
-        for half in filters:
-            s = _kxky_apply(s, half)
-        if smoothing is not None and rescale_p is None:
-            s = _smooth_chunked(s, **smooth)
-        buf[t0:t1] = s
+        buf[t0:t1] = plan.slice_ops(x[:, :, t0:t1].permute(2, 0, 1),
+                                    smooth=plan.smoothing and not rescaled)
     del x
-    if smoothing is not None and rescale_p is not None:
+    if rescaled:
         # the percentiles are of the whole pre-smoothing volume, the
         # rescale's range that of the whole smoothed volume
-        lo, hi = percentiles(buf, sorted(rescale_p))
+        lo, hi = percentiles(buf, sorted(plan.rescale_p))
         for t0, t1 in chunk_rows(nt, 4 * 8 * ny_up * nx_up):
-            buf[t0:t1] = _smooth_chunked(buf[t0:t1], **smooth)
+            buf[t0:t1] = _smooth_chunked(buf[t0:t1], **plan.smooth)
         amin, amax = nan_range(buf)
         for t0, t1 in chunk_rows(nt, 4 * 4 * ny_up * nx_up):
             buf[t0:t1] = rescale(buf[t0:t1], lo, hi, amin=amin, amax=amax)
-    if smoothing is not None:
-        cube.append_history(f"SMOOTH({smoothing.get('kind', 'gaussian')})")
 
     win = None
     if agc_win is not None:
@@ -489,9 +879,8 @@ def postprocess(
             blk = sig.agc(blk, win, kind=agc_kind, squared=agc_sqrt)
         torch.from_numpy(out[i0:i1]).copy_(blk)  # straight into the host array
     del buf
-    if agc_win is not None:
-        cube.append_history(
-            f"AGC({agc_win}s,{agc_kind}{',sqrt' if agc_sqrt else ''})")
+    for h in plan.history:
+        cube.append_history(h)
 
     cube.data_vars[var] = (dims, out)
     if out_path:

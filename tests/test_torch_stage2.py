@@ -450,21 +450,26 @@ def test_steps_need_a_card_unless_asked_for_the_cpu(monkeypatch):
 
 @pytest.mark.parametrize("step", ["preprocess", "postprocess"])
 def test_out_of_core_raises_instead_of_loading(tmp_path, step):
-    """The streamed passes are not ported: asking for them, or a path
-    input above the threshold, raises and cites the ROADMAP entry."""
+    """Streaming needs a file in and a file out: an in-memory cube with
+    ``out_of_core=True`` raises (as in the JAX package) before anything
+    runs; a path input above the threshold streams into ``out_path`` and
+    returns it, with the in-memory step's cube."""
     truth, twt = dense_truth(n_il=4, n_xl=4, ns=16)
     _, c = _cubes(truth, twt, np.ones((4, 4), np.int32))
     write_cube(tmp_path / "t.nc", c)
     fn = {"preprocess": pre.preprocess, "postprocess": post.postprocess}[step]
     kw = ({"upsample_factors": {"iline": 2}} if step == "postprocess"
           else {})
-    with pytest.raises(NotImplementedError, match="queue 1 #15"):
-        fn(str(tmp_path / "t.nc"), out_path=str(tmp_path / "o.nc"),
-           ooc_threshold_bytes=100, device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match="queue 1 #15"):
+    with pytest.raises(ValueError, match="requires a path input"):
         fn(c, out_of_core=True, device=CPU)
+    with pytest.raises(ValueError, match="requires a path input"):
+        fn(str(tmp_path / "t.nc"), out_of_core=True, device=CPU)
     assert not os.path.exists(tmp_path / "o.nc")
+    streamed = fn(str(tmp_path / "t.nc"), out_path=str(tmp_path / "s.nc"),
+                  ooc_threshold_bytes=100, device=CPU, **kw)
+    assert streamed == str(tmp_path / "s.nc")
     # under the threshold the path runs in memory
     out = fn(str(tmp_path / "t.nc"), out_path=str(tmp_path / "o.nc"),
              device=CPU, **kw)
     assert read_cube(tmp_path / "o.nc")["amp"].shape == out["amp"].shape
+    np.testing.assert_array_equal(read_cube(streamed)["amp"], out["amp"])
