@@ -15,6 +15,7 @@ cubes.
 
 from __future__ import annotations
 
+import ctypes
 import os
 
 import numpy as np
@@ -98,6 +99,23 @@ def _read_header(f):
     coord_attrs = {k: {a: v for a, v in f[k].attrs.items()
                        if not a.startswith(_SCALE_ATTRS)} for k in dims}
     return dims, coords, coord_attrs
+
+
+def _map_large_blocks(threshold: int = 1 << 20) -> None:
+    """Serve host blocks of ``threshold`` bytes and more from mappings of
+    their own, returned to the system when freed.
+
+    glibc otherwise raises its mapping threshold to the largest block
+    freed so far (up to 32 MB): a streamed pass's slab-sized temporaries
+    then come from the heap, where HDF5's small long-lived allocations
+    pin them, and the resident set grows with the number of slabs
+    instead of holding at a few slabs. Does nothing without glibc's
+    ``mallopt``."""
+    try:
+        mallopt = ctypes.CDLL(None).mallopt
+    except (OSError, AttributeError):
+        return
+    mallopt(-3, int(threshold))  # M_MMAP_THRESHOLD
 
 
 def _chunk_shape(chunks, dims, shape):
@@ -305,14 +323,21 @@ class CubeWriter:
 
     The out-of-core counterpart of :func:`write_cube`, with the same file
     layout; complex dtypes store as ``.real``/``.imag`` float32 halves.
+    A writer streams, so it also keeps large host blocks out of the heap
+    for the rest of the process (:func:`_map_large_blocks`).
+    ``latest=True`` writes HDF5's newest format, whose chunk index holds
+    a many-chunk variable in far less metadata; a file that only this
+    package reads back (a streamed pass's intermediate) takes it.
     """
 
     def __init__(self, path, coords: dict, attrs: dict | None = None,
-                 coord_attrs: dict | None = None):
+                 coord_attrs: dict | None = None, latest: bool = False):
         import h5py
 
+        _map_large_blocks()
         self.path = path
-        self._f = h5py.File(path, "w")
+        self._f = h5py.File(path, "w",
+                            **({"libver": "latest"} if latest else {}))
         self.coords = {k: np.asarray(v) for k, v in coords.items()}
         for dim, coord in self.coords.items():
             d = self._f.create_dataset(dim, data=coord)
@@ -399,7 +424,8 @@ class SlabFiles:
                     self.out_path)))
             os.close(fd)
             self._tmps.append(path)
-        return CubeWriter(path, coords, attrs=attrs, coord_attrs=coord_attrs)
+        return CubeWriter(path, coords, attrs=attrs, coord_attrs=coord_attrs,
+                          latest=not final)
 
     def reader(self, writer: CubeWriter) -> CubeFile:
         return CubeFile(writer.path)
