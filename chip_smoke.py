@@ -197,6 +197,26 @@ Phases, each of which exits non-zero on failure:
    headers and samples bit for bit, sidecars as numbers (misties.csv's
    correlations within 1e-6). Steps 01, 02 and 04 are host numpy and
    take no device.
+16. the command line on the card (``pseudo_3d_interpolation_torch.cli``
+   and ``pipeline.orchestrator``), with ``--device`` left to its
+   default: (a) ``cli.main`` runs each stage-1 subcommand, 01-08, on the
+   inputs phase 15's step got (passed as a datalist) with phase 15's
+   options (``tests/torch_helpers.stage1_cli_steps``), each writing into
+   a directory of its own; every output SEG-Y file must equal phase 15's
+   output of the same step byte for byte, with no kernel launched; then
+   ``run_pipeline`` runs the same eight steps from a dict config on
+   phase 15's survey into a workdir, and the files of its last datalist
+   must equal 16a's despike outputs byte for byte, with no kernel
+   launched; (b) ``cli.main(["warmup", "--transform", FFT or SHEARLET,
+   "--shape", "512", "512", "--slices", "513", "--batch", "32"])``, whose
+   launches must be 14a's (one ``pocs_solve[fft]``; 50
+   ``subband_update`` and 100 ``box_group_update``); (c) ``nav`` over the
+   survey (GeoJSON, no pandas) and ``version``; prints
+   ``backends.summary()`` and asserts platform 'cuda' with the kernels
+   enabled, and that every 16a subcommand wrote its resolved-arguments
+   sidecar, which names its command. The subcommands' own console output
+   goes to a log file in the temporary directory; each one's wall and
+   the phase's total are printed.
 Phases 4 to 10 and 12 print the wall time, slice-iterations/s and device
 peak memory. Before each, and before phase 11's and 13c's chains, 13a's
 binning and phase 15's steps, every kernel's
@@ -249,6 +269,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import glob
 import gzip
 import inspect
 import json
@@ -2014,7 +2035,7 @@ def sample_bytes(files) -> int:
     return total
 
 
-def stage1_survey(torch, dev, modules, trace_dir):
+def stage1_survey(torch, dev, modules, trace_dir, tmp):
     """Phase 15: workflow steps 01-08 through their entry points, with
     ``device`` left to its default, on ``stage1_survey_32``: 30 parallel
     profiles and 2 tie lines crossing all of them, 2048 traces of 896
@@ -2027,7 +2048,9 @@ def stage1_survey(torch, dev, modules, trace_dir):
     (``check_stage1_truth``), and each device step (03, 05-08) on the
     card equal to ``device='cpu'`` on a subset of profiles (07 on a tie
     line and three lines it crosses, both runs on copies of that
-    subset): headers and samples bit for bit, sidecars as numbers."""
+    subset): headers and samples bit for bit, sidecars as numbers. Works
+    in the directory ``tmp``; returns the survey's files, its truth, and
+    each step's inputs and outputs, for phase 16."""
     import shutil
 
     from torch.profiler import ProfilerActivity, profile
@@ -2039,126 +2062,256 @@ def stage1_survey(torch, dev, modules, trace_dir):
 
     from pseudo_3d_interpolation_torch.pipeline import stage1 as st
 
-    with tempfile.TemporaryDirectory(prefix="p3d_stage1_") as tmp:
-        tmp = pathlib.Path(tmp)
-        survey = tmp / "survey"
-        survey.mkdir()
-        t0 = time.perf_counter()
-        truth = write_stage1_survey(survey, n_lines=STAGE1_LINES,
-                                    n_ties=STAGE1_TIES, ntr=STAGE1_TRACES,
-                                    ns=STAGE1_NS, seed=0)
-        files = sorted(str(p) for p in survey.glob("*.sgy"))
-        print(f"phase 15 survey stage1_survey_32: {len(files)} files "
-              f"({STAGE1_LINES} lines + {STAGE1_TIES} ties, line 0 in two), "
-              f"{STAGE1_TRACES} traces x {STAGE1_NS} samples at 250 us, "
-              f"{sample_bytes(files) / 1e6:.1f} MB of samples, written in "
-              f"{time.perf_counter() - t0:.2f} s", flush=True)
-        timings = {}
-        steps = stage1_steps(st, truth["tide"], timings)
-        # the delrt correction's moving medians: two a pass, each a round
-        # trip to the card (numpy in, numpy back)
-        medians = {"n": 0, "s": 0.0}
-        median_f32 = st._moving_median_f32
+    survey = tmp / "survey"
+    survey.mkdir()
+    t0 = time.perf_counter()
+    truth = write_stage1_survey(survey, n_lines=STAGE1_LINES,
+                                n_ties=STAGE1_TIES, ntr=STAGE1_TRACES,
+                                ns=STAGE1_NS, seed=0)
+    files = sorted(str(p) for p in survey.glob("*.sgy"))
+    print(f"phase 15 survey stage1_survey_32: {len(files)} files "
+          f"({STAGE1_LINES} lines + {STAGE1_TIES} ties, line 0 in two), "
+          f"{STAGE1_TRACES} traces x {STAGE1_NS} samples at 250 us, "
+          f"{sample_bytes(files) / 1e6:.1f} MB of samples, written in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    timings = {}
+    steps = stage1_steps(st, truth["tide"], timings)
+    # the delrt correction's moving medians: two a pass, each a round
+    # trip to the card (numpy in, numpy back)
+    medians = {"n": 0, "s": 0.0}
+    median_f32 = st._moving_median_f32
 
-        def counted_median(*a, **kw):
-            t_m = time.perf_counter()
-            out = median_f32(*a, **kw)
-            medians["n"] += 1
-            medians["s"] += time.perf_counter() - t_m
-            return out
-        outs, inputs = {}, {}
+    def counted_median(*a, **kw):
+        t_m = time.perf_counter()
+        out = median_f32(*a, **kw)
+        medians["n"] += 1
+        medians["s"] += time.perf_counter() - t_m
+        return out
+    outs, inputs = {}, {}
+    reset_counts(*modules)
+    total_wall = total_busy = 0.0
+    cur = str(survey)
+    for k, (name, step, _) in enumerate(steps):
+        name = f"{k + 1:02d} {name}"
+        inputs[name] = cur
+        n_bytes = sample_bytes(
+            cur if isinstance(cur, list) else files)
+        st._moving_median_f32 = counted_median
+        try:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                res, wall, peak = timed(torch, dev, lambda: step(cur))
+        finally:
+            st._moving_median_f32 = median_f32
+        raw = tmp / "trace.json"
+        events = device_events(prof, raw)
+        if trace_dir is not None:
+            trace_dir.mkdir(parents=True, exist_ok=True)
+            keep = trace_dir / f"stage1_{name.replace(' ', '_')}.json.gz"
+            with open(raw, "rb") as src, gzip.open(keep, "wb") as dst:
+                dst.write(src.read())
+        raw.unlink()
+        busy = busy_seconds(events)
+        total_wall, total_busy = total_wall + wall, total_busy + busy
+        print(f"15 {name}: {wall:.3f} s wall, {n_bytes / 1e6 / wall:.1f} "
+              f"MB/s of samples, device busy {busy * 1e3:.2f} ms "
+              f"({len(events)} device events), host share (idle share "
+              f"of the traced wall) {1 - busy / wall:.4f}, device peak "
+              f"{peak:.3f} GB", flush=True)
+        if name.startswith("03"):
+            print(f"15 03 moving medians: {medians['n']} calls of "
+                  f"{STAGE1_TRACES} values, {medians['s']:.3f} s, "
+                  f"{medians['s'] / max(medians['n'], 1) * 1e6:.0f} us "
+                  f"a call ({medians['s'] / wall:.3f} of the step)",
+                  flush=True)
+        if name.startswith("07"):
+            t_x = timings["intersections"]
+            print(f"15 07 intersection search (host numpy, "
+                  f"{STAGE1_LINES * STAGE1_TIES} crossings): {t_x:.2f} s, "
+                  f"{t_x / wall:.3f} of the step", flush=True)
+        outs[name] = cur = res
+    print(f"15 steps 01-08: {total_wall:.2f} s wall, device busy "
+          f"{total_busy:.3f} s, host share "
+          f"{1 - total_busy / total_wall:.4f}", flush=True)
+    counts = launch_counts(*modules)
+    if any(counts.values()):
+        fail(f"stage 1 launched kernels: {counts}")
+    found = check_stage1_truth(
+        truth, {name.split()[1]: v for name, v in outs.items()})
+    print(f"15 repairs against the survey: delays {found['delays']} "
+          f"exact, picks {found['picks']} and the flattened seafloor "
+          f"within a sample, tide shifts {found['tide']} exact, "
+          f"the mistie line shifted {found['mistie_ms']:+.3f} ms against "
+          f"the others (recorded {truth['mistie_ms']:.3f} ms deep), "
+          f"{found['spikes']} spikes found and removed", flush=True)
+
+    # each device step on the host, on a subset of its inputs
+    def subset(paths):
+        return [p for p in paths
+                if os.path.basename(p)[:3] in STAGE1_CPU]
+
+    for k, (name, step, device_step) in enumerate(steps):
+        name = f"{k + 1:02d} {name}"
+        if not device_step:
+            continue
+        src = subset(inputs[name])
+        if name.startswith("07"):
+            runs = {}
+            for where in ("card", "cpu"):
+                d = tmp / f"mistie_{where}"
+                d.mkdir()
+                for p in src:
+                    shutil.copy(p, d)
+                kw = {} if where == "card" else {"device": "cpu"}
+                runs[where] = (d, step(sorted(str(d / os.path.basename(p))
+                                              for p in src), **kw))
+            (d_card, card), (d_cpu, cpu) = runs["card"], runs["cpu"]
+            same_outputs(card, cpu, sidecars=(".mst",))
+            same_csv(d_card / "misties.csv", d_cpu / "misties.csv",
+                     atol={"correlation": STAGE1_CORR_TOL})
+        else:
+            out_dir = tmp / f"cpu_{name.split()[0]}"
+            cpu = step(src, device="cpu", output_dir=str(out_dir))
+            card = subset(outs[name])
+            same_outputs(card, cpu, sidecars=(".sta", ".tid"))
+        print(f"15 {name}: card equal to device='cpu' on {len(src)} "
+              f"profiles (headers and samples bit for bit, sidecars "
+              f"as numbers)", flush=True)
+    counts = launch_counts(*modules)
+    if any(counts.values()):
+        fail(f"stage 1 launched kernels: {counts}")
+    # step 01's input was the directory, which now holds every output too
+    step_inputs = [files] + [inputs[f"{k + 1:02d} {name}"]
+                             for k, (name, _, _) in enumerate(steps)][1:]
+    return {"files": files, "truth": truth, "inputs": step_inputs,
+            "outs": [outs[f"{k + 1:02d} {name}"]
+                     for k, (name, _, _) in enumerate(steps)]}
+
+
+# phase 16: the command line on the card
+@contextlib.contextmanager
+def quiet(path: pathlib.Path):
+    """The block's standard output appended to ``path``."""
+    with open(path, "a") as fh, contextlib.redirect_stdout(fh):
+        yield
+
+
+def command_line(torch, dev, modules, stage1, tmp):
+    """Phase 16: stage 1 through ``cli.main`` and ``run_pipeline`` against
+    phase 15's outputs (16a), ``p3d-torch warmup``'s launches (16b),
+    ``nav``, ``version``, ``backends.summary()`` and the sidecars (16c).
+    ``stage1`` is what :func:`stage1_survey` returned; ``tmp`` its
+    directory."""
+    import io
+
+    from torch_helpers import (cli_step_outputs, run_stage1_cli, same_bytes,
+                               stage1_cli_steps, stage1_pipeline_steps)
+
+    from pseudo_3d_interpolation_torch import __version__, backends, cli
+    from pseudo_3d_interpolation_torch.pipeline.orchestrator import \
+        run_pipeline
+
+    tide = stage1["truth"]["tide"]
+    inputs, outs = stage1["inputs"], stage1["outs"]
+    log = tmp / "phase16.log"
+    t16 = time.perf_counter()
+    # 16a: each subcommand on the inputs phase 15's step got
+    (tmp / "cli").mkdir()
+    walls = {}
+    reset_counts(*modules)
+    with quiet(log):
+        dirs = run_stage1_cli(cli.main, inputs, tmp / "cli", tide,
+                              walls=walls)
+    expect_counts(modules, "16a cli", {})
+    for k, (cmd, _) in enumerate(stage1_cli_steps(tide)):
+        got = cli_step_outputs(outs[k], inputs[k], dirs[k])
+        try:
+            same_bytes(got, outs[k])
+        except AssertionError as e:
+            fail(f"16a {cmd}: the command line's output differs from phase "
+                 f"15's: {e}")
+        print(f"16a p3d-torch {cmd}: {walls[cmd]:.3f} s wall, {len(got)} "
+              f"files equal to phase 15's byte for byte", flush=True)
+    print(f"16a stage 1 through cli.main: {sum(walls.values()):.2f} s wall, "
+          f"no kernel launched", flush=True)
+    despiked = cli_step_outputs(outs[-1], inputs[-1], dirs[-1])
+    # ... and from one config, on the survey's original files
+    survey_list = tmp / "survey.txt"
+    survey_list.write_text("".join(p + "\n" for p in stage1["files"]))
+    reset_counts(*modules)
+    t0 = time.perf_counter()
+    with quiet(log):
+        final = run_pipeline({"input": str(survey_list),
+                              "workdir": str(tmp / "run"),
+                              "steps": stage1_pipeline_steps(tide)})
+    wall = time.perf_counter() - t0
+    expect_counts(modules, "16a run_pipeline", {})
+    ran = open(final).read().split()
+    try:
+        same_bytes(ran, despiked)
+    except AssertionError as e:
+        fail(f"16a run_pipeline: its outputs differ from the command "
+             f"line's: {e}")
+    print(f"16a run_pipeline, steps 01-08 from one config: {wall:.2f} s "
+          f"wall, {len(ran)} files of {os.path.basename(final)} equal to "
+          f"16a's despike outputs byte for byte, no kernel launched",
+          flush=True)
+
+    # 16b: p3d-torch warmup, the launches of 14a
+    for transform, want in (("FFT", {"pocs_solve[fft]": 1}),
+                            ("SHEARLET", {"subband_update": NITER,
+                                          "box_group_update": 2 * NITER})):
         reset_counts(*modules)
-        total_wall = total_busy = 0.0
-        cur = str(survey)
-        for k, (name, step, _) in enumerate(steps):
-            name = f"{k + 1:02d} {name}"
-            inputs[name] = cur
-            n_bytes = sample_bytes(
-                cur if isinstance(cur, list) else files)
-            st._moving_median_f32 = counted_median
-            try:
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    res, wall, peak = timed(torch, dev, lambda: step(cur))
-            finally:
-                st._moving_median_f32 = median_f32
-            raw = tmp / "trace.json"
-            events = device_events(prof, raw)
-            if trace_dir is not None:
-                trace_dir.mkdir(parents=True, exist_ok=True)
-                keep = trace_dir / f"stage1_{name.replace(' ', '_')}.json.gz"
-                with open(raw, "rb") as src, gzip.open(keep, "wb") as dst:
-                    dst.write(src.read())
-            raw.unlink()
-            busy = busy_seconds(events)
-            total_wall, total_busy = total_wall + wall, total_busy + busy
-            print(f"15 {name}: {wall:.3f} s wall, {n_bytes / 1e6 / wall:.1f} "
-                  f"MB/s of samples, device busy {busy * 1e3:.2f} ms "
-                  f"({len(events)} device events), host share (idle share "
-                  f"of the traced wall) {1 - busy / wall:.4f}, device peak "
-                  f"{peak:.3f} GB", flush=True)
-            if name.startswith("03"):
-                print(f"15 03 moving medians: {medians['n']} calls of "
-                      f"{STAGE1_TRACES} values, {medians['s']:.3f} s, "
-                      f"{medians['s'] / max(medians['n'], 1) * 1e6:.0f} us "
-                      f"a call ({medians['s'] / wall:.3f} of the step)",
-                      flush=True)
-            if name.startswith("07"):
-                t_x = timings["intersections"]
-                print(f"15 07 intersection search (host numpy, "
-                      f"{STAGE1_LINES * STAGE1_TIES} crossings): {t_x:.2f} s, "
-                      f"{t_x / wall:.3f} of the step", flush=True)
-            outs[name] = cur = res
-        print(f"15 steps 01-08: {total_wall:.2f} s wall, device busy "
-              f"{total_busy:.3f} s, host share "
-              f"{1 - total_busy / total_wall:.4f}", flush=True)
-        counts = launch_counts(*modules)
-        if any(counts.values()):
-            fail(f"stage 1 launched kernels: {counts}")
-        found = check_stage1_truth(
-            truth, {name.split()[1]: v for name, v in outs.items()})
-        print(f"15 repairs against the survey: delays {found['delays']} "
-              f"exact, picks {found['picks']} and the flattened seafloor "
-              f"within a sample, tide shifts {found['tide']} exact, "
-              f"the mistie line shifted {found['mistie_ms']:+.3f} ms against "
-              f"the others (recorded {truth['mistie_ms']:.3f} ms deep), "
-              f"{found['spikes']} spikes found and removed", flush=True)
+        t0 = time.perf_counter()
+        with quiet(log):
+            rc = cli.main(["warmup", "--transform", transform, "--shape",
+                           str(N), str(N), "--slices", str(SLICES),
+                           "--batch", str(MAIN_BATCH)])
+        torch.cuda.synchronize(dev)
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            fail(f"16b warmup {transform}: exit code {rc}")
+        path = expect_counts(modules, f"16b warmup {transform}", want)
+        print(f"16b p3d-torch warmup --transform {transform} --shape {N} {N} "
+              f"--slices {SLICES} --batch {MAIN_BATCH}: {wall:.3f} s wall, "
+              f"launches {path}", flush=True)
 
-        # each device step on the host, on a subset of its inputs
-        def subset(paths):
-            return [p for p in paths
-                    if os.path.basename(p)[:3] in STAGE1_CPU]
-
-        for k, (name, step, device_step) in enumerate(steps):
-            name = f"{k + 1:02d} {name}"
-            if not device_step:
-                continue
-            src = subset(inputs[name])
-            if name.startswith("07"):
-                runs = {}
-                for where in ("card", "cpu"):
-                    d = tmp / f"mistie_{where}"
-                    d.mkdir()
-                    for p in src:
-                        shutil.copy(p, d)
-                    kw = {} if where == "card" else {"device": "cpu"}
-                    runs[where] = (d, step(sorted(str(d / os.path.basename(p))
-                                                  for p in src), **kw))
-                (d_card, card), (d_cpu, cpu) = runs["card"], runs["cpu"]
-                same_outputs(card, cpu, sidecars=(".mst",))
-                same_csv(d_card / "misties.csv", d_cpu / "misties.csv",
-                         atol={"correlation": STAGE1_CORR_TOL})
-            else:
-                out_dir = tmp / f"cpu_{name.split()[0]}"
-                cpu = step(src, device="cpu", output_dir=str(out_dir))
-                card = subset(outs[name])
-                same_outputs(card, cpu, sidecars=(".sta", ".tid"))
-            print(f"15 {name}: card equal to device='cpu' on {len(src)} "
-                  f"profiles (headers and samples bit for bit, sidecars "
-                  f"as numbers)", flush=True)
-        counts = launch_counts(*modules)
-        if any(counts.values()):
-            fail(f"stage 1 launched kernels: {counts}")
+    # 16c: nav, version, the capability flags and the sidecars
+    geojson = tmp / "nav.geojson"
+    t0 = time.perf_counter()
+    with quiet(log):
+        rc = cli.main(["nav", str(survey_list), str(geojson)])
+    wall = time.perf_counter() - t0
+    features = json.loads(geojson.read_text())["features"]
+    n_traces = sum(f["properties"]["n_traces"] for f in features)
+    want = sum(int(v["valid"].sum())
+               for v in stage1["truth"]["lines"].values())
+    if rc != 0 or n_traces != want:
+        fail(f"16c nav: exit code {rc}, {n_traces} traces != {want}")
+    print(f"16c p3d-torch nav: {wall:.3f} s wall, {len(features)} lines, "
+          f"{n_traces} traces (no pandas)", flush=True)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(["version"])
+    if rc != 0 or out.getvalue().strip() != __version__:
+        fail(f"16c version: exit code {rc}, printed {out.getvalue()!r}")
+    summary = backends.summary()
+    print(f"16c p3d-torch version: {__version__}; backends.summary(): "
+          f"{summary}", flush=True)
+    if summary["platform"] != "cuda" or not summary["kernels"]:
+        fail("16c: backends.summary() should report platform 'cuda' with "
+             "the kernels enabled")
+    for (cmd, _), d in zip(stage1_cli_steps(tide), dirs):
+        found = glob.glob(os.path.join(d, f"*_p3d_{cmd}_argparse_"
+                                          "parameter.yml"))
+        if len(found) != 1 or f'command: "{cmd}"' not in open(found[0]).read():
+            fail(f"16c: {cmd} left no sidecar naming it in {d}: {found}")
+    print("16c every 16a subcommand wrote its resolved-arguments sidecar",
+          flush=True)
+    print(f"phase 16 subcommands' console output: "
+          f"{len(log.read_text().splitlines())} lines (not shown)",
+          flush=True)
+    return time.perf_counter() - t16
 
 
 def main():
@@ -2578,16 +2731,22 @@ def main():
     del cube
     print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
 
-    # phase 15: stage 1, SEG-Y profiles repaired on the card
-    t15 = time.perf_counter()
-    try:
-        stage1_survey(torch, dev, modules, args.trace)
-    except AssertionError as e:  # a repair or a card/host comparison missed
-        import traceback
+    with tempfile.TemporaryDirectory(prefix="p3d_stage1_") as tmp:
+        # phase 15: stage 1, SEG-Y profiles repaired on the card
+        t15 = time.perf_counter()
+        try:
+            stage1 = stage1_survey(torch, dev, modules, args.trace,
+                                   pathlib.Path(tmp))
+        except AssertionError as e:  # a repair or a card/host comparison
+            import traceback
 
-        traceback.print_exc()
-        fail(f"phase 15: {e}")
-    print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+            traceback.print_exc()
+            fail(f"phase 15: {e}")
+        print(f"phase 15: {time.perf_counter() - t15:.1f} s", flush=True)
+
+        # phase 16: the command line and the orchestrator on the card
+        t16 = command_line(torch, dev, modules, stage1, pathlib.Path(tmp))
+        print(f"phase 16: {t16:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,

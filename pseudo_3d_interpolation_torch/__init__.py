@@ -22,11 +22,16 @@ subband kernels, and the plain scan (``xla-scan``: the DCT and WAVELET
 bases with early stopping, the cost history or APOCS, the percentile
 thresholds, free masks and batches, the decimated CURVELET) as PyTorch
 ops; ``models.pocs_interpolate_numpy`` takes numpy in and out.
+Stage 1 (``pipeline.stage1``, steps 01-08) repairs the SEG-Y profiles
+first. Users drive every step through ``cli`` (``p3d-torch``, the JAX
+package's ``p3d`` with ``--device``) or one YAML through
+``pipeline.orchestrator.run_pipeline``; ``qc`` draws the figures and
+``backends`` reports what this machine offers.
 This module imports no submodule, so importing the package needs only
 torch and numpy.
 """
 
 __version__ = "0.1.0"
 
-__all__ = ["compat", "io", "models", "ops", "parallel", "pipeline", "utils",
-           "__version__"]
+__all__ = ["backends", "cli", "compat", "io", "models", "ops", "parallel",
+           "pipeline", "qc", "utils", "__version__"]

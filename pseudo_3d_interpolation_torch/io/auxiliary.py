@@ -14,7 +14,8 @@ with the stdlib ``csv`` module: a table is a mapping of column name to
 ``DataFrame.to_csv(index=False)`` does, each float as its shortest
 round-trip repr. The two helpers whose result is a DataFrame
 (:func:`read_auxiliary_files`, :func:`extract_navigation`) import pandas
-inside; the steps use the column forms beside them.
+inside; the steps and ``p3d-torch nav`` use the column forms beside them
+(:func:`read_auxiliary_columns`, :func:`navigation_table`).
 """
 
 from __future__ import annotations
@@ -263,32 +264,46 @@ def export_coords(df, out_path: str, fmt: str | None = None) -> str:
     return out_path
 
 
-def extract_navigation(path, fsuffix: str = "sgy", fnprefix=None,
-                       fnsuffix=None, splitter: str = "UTM",
-                       src_coords_bytes=(73, 77),
-                       write_sidecars: bool = False):
-    """Scrape per-trace navigation (x, y, tracl, line) from SEG-Y headers
-    into a DataFrame (reference utils_IO.py:190-293; pandas, imported
-    here)."""
-    import pandas as pd
-
+def navigation_table(path, fsuffix: str = "sgy", fnprefix=None,
+                     fnsuffix=None, splitter: str = "UTM",
+                     src_coords_bytes=(73, 77),
+                     write_sidecars: bool = False) -> dict:
+    """Scrape per-trace navigation from SEG-Y headers into a table of
+    columns ``tracl``, ``x``, ``y``, ``line``, ``file`` (1-D arrays, the
+    profiles' rows in file order), without pandas: the columns of
+    :func:`extract_navigation`'s DataFrame."""
     from .headers import scale_coordinates
     from .segy import SegyFile
 
     files = resolve_input_files(path, fsuffix, fnprefix, fnsuffix)
-    frames = []
+    parts = []
     for p in files:
         with SegyFile(p) as f:
             x, y, _ = scale_coordinates(f, src_coords_bytes)
             tracl = f.header("TRACE_SEQUENCE_FILE")
             if not tracl.any():
                 tracl = np.arange(1, f.n_traces + 1)
-        df = pd.DataFrame({"tracl": tracl, "x": x, "y": y})
-        df["line"] = line_name(p, splitter)
-        df["file"] = p
         if write_sidecars:
-            write_aux(p, ".nav", df[["tracl", "x", "y"]])
-        frames.append(df)
-    if not frames:
+            write_aux(p, ".nav", {"tracl": tracl, "x": x, "y": y})
+        parts.append({"tracl": tracl, "x": x, "y": y,
+                      "line": np.full(len(x), line_name(p, splitter),
+                                      dtype=object),
+                      "file": np.full(len(x), p, dtype=object)})
+    if not parts:
         raise FileNotFoundError(f"no SEG-Y files found under {path!r}")
-    return pd.concat(frames, ignore_index=True)
+    return {k: np.concatenate([part[k] for part in parts])
+            for k in parts[0]}
+
+
+def extract_navigation(path, fsuffix: str = "sgy", fnprefix=None,
+                       fnsuffix=None, splitter: str = "UTM",
+                       src_coords_bytes=(73, 77),
+                       write_sidecars: bool = False):
+    """Scrape per-trace navigation (x, y, tracl, line) from SEG-Y headers
+    into a DataFrame (reference utils_IO.py:190-293; pandas, imported
+    here): :func:`navigation_table` as a DataFrame."""
+    import pandas as pd
+
+    return pd.DataFrame(navigation_table(
+        path, fsuffix, fnprefix, fnsuffix, splitter, src_coords_bytes,
+        write_sidecars))

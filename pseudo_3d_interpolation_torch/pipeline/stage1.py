@@ -1374,3 +1374,90 @@ def _fill_time_gaps(data: np.ndarray, raws: np.ndarray, factor: float = 1.5):
         out_data.append(data[i : i + 1])
         out_raws.append(raws[i : i + 1])
     return np.concatenate(out_data), np.concatenate(out_raws), n_ins
+
+
+# ===========================================================================
+# CLI dispatch
+# ===========================================================================
+def run_cli(cmd: str, args, verbose: int = 0) -> int:
+    """Run stage-1 step ``cmd`` on the parsed arguments of its ``p3d-torch``
+    subcommand. The five steps that compute on a device get
+    ``args.device`` (None: the first CUDA card); merge, reproject and
+    delrt-pad are host numpy and take none."""
+    # shared batch-selection conventions: resolve directory inputs through
+    # the --suffix / --filename-suffix filters up front (the step functions
+    # accept pre-resolved lists), and thread --txt-suffix / --output-dir
+    inp = args.input
+    fsuffix = getattr(args, "suffix", None) or "sgy"
+    fnsuffix = getattr(args, "filename_suffix", None)
+    if os.path.isdir(str(inp)) and (fsuffix != "sgy" or fnsuffix):
+        inp = resolve_input_files(inp, fsuffix=fsuffix, fnsuffix=fnsuffix)
+    io_kw = dict(txt_suffix=getattr(args, "txt_suffix", None),
+                 output_dir=getattr(args, "output_dir", None))
+    device = getattr(args, "device", None)
+    if cmd == "merge":
+        merge_small_files(inp, min_kb=args.min_kb, max_gap_s=args.max_gap_s,
+                          output_dir=args.output_dir,
+                          txt_suffix=getattr(args, "txt_suffix", None),
+                          verbose=verbose)
+    elif cmd == "reproject":
+        from ..utils.crs import resolve_crs_spec as _crs_arg
+
+        reproject(inp, _crs_arg(args.src_epsg), _crs_arg(args.dst_epsg),
+                  smooth_window=args.smooth_window,
+                  coords_bytes=tuple(args.coords_bytes),
+                  scalar=args.scalar, dst_coords=args.dst_coords,
+                  inplace=args.inplace, verbose=verbose, **io_kw)
+    elif cmd == "delrt-correct":
+        delrt_correct(inp, n_neighbors=args.n_neighbors,
+                      win_samples=args.win_samples, inplace=args.inplace,
+                      byte_delay=getattr(args, "byte_delay", 109),
+                      verbose=verbose, device=device, **io_kw)
+    elif cmd == "delrt-pad":
+        delrt_pad(inp, inplace=args.inplace,
+                  byte_delay=getattr(args, "byte_delay", 109),
+                  verbose=verbose, **io_kw)
+    elif cmd == "static":
+        static_correct(inp, mode=args.mode, win_samples=args.win_samples,
+                       savgol_window=args.savgol_window, nsta=args.nsta,
+                       nlta=args.nlta, win_mad=args.win_mad,
+                       win_median=args.win_median,
+                       limit_shift=args.limit_shift,
+                       n_amp_samples=getattr(args, "n_amp_samples", 5),
+                       limit_depressions=getattr(args, "limit_depressions",
+                                                 (10, 10, 5)),
+                       write_aux_file=not getattr(args, "no_aux", False),
+                       write_seafloor2trace=getattr(args, "write_seafloor2trace", False),
+                       inplace=args.inplace, verbose=verbose, device=device,
+                       **io_kw)
+    elif cmd == "tide":
+        tide_compensate(inp, args.tide_file,
+                        velocity=args.velocity,
+                        src_epsg=getattr(args, "src_epsg", None),
+                        constituents=getattr(args, "constituents", None),
+                        correct_minor=getattr(args, "correct_minor", False),
+                        coords_bytes=tuple(getattr(args, "coords_bytes", (73, 77))),
+                        inplace=args.inplace, verbose=verbose, device=device,
+                        **io_kw)
+    elif cmd == "mistie":
+        mistie_correct(inp, min_correlation=args.min_correlation,
+                       win_cc_ms=getattr(args, "win_cc", None),
+                       write_aux_file=not getattr(args, "no_aux", False),
+                       write_qc=not getattr(args, "no_qc", False),
+                       coords_origin=getattr(args, "coords_origin", "header"),
+                       coords_path=getattr(args, "coords_path", None),
+                       coords_fsuffix=getattr(args, "coords_fsuffix", None),
+                       coords_fnsuffix=getattr(args, "coords_text_suffix", None),
+                       inplace=args.inplace, verbose=verbose, device=device,
+                       **io_kw)
+    elif cmd == "despike":
+        despike(inp, window=tuple(args.window), threshold=args.threshold,
+                mode=args.mode, replace=args.replace,
+                split_at_delrt=args.split_at_delrt,
+                window_time_ms=getattr(args, "window_time", None),
+                byte_delay=getattr(args, "byte_delay", 109),
+                inplace=args.inplace, verbose=verbose, device=device,
+                **io_kw)
+    else:
+        raise SystemExit(f"unknown stage-1 command {cmd!r}")
+    return 0

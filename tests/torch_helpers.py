@@ -399,6 +399,87 @@ def run_stage1(stage1, d, tide, **dev):
     return outs
 
 
+def stage1_pipeline_steps(tide):
+    """The steps of :func:`stage1_steps` as a ``run_pipeline`` step list."""
+    return [{"merge": {"min_kb": 100.0, "max_gap_s": 60.0}},
+            {"reproject": {"src_epsg": 4326, "dst_epsg": 32632}},
+            {"delrt-correct": {"win_samples": 200}},
+            {"delrt-pad": {}},
+            {"static": {"nsta": 4, "nlta": 60, "savgol_window": 15}},
+            {"tide": {"tide_file": str(tide)}},
+            {"mistie": {"min_correlation": 0.5}},
+            {"despike": {"threshold": 5.0}}]
+
+
+def stage1_cli_steps(tide):
+    """:func:`stage1_pipeline_steps` as ``(subcommand, options)``: the
+    same command lines for ``p3d`` and ``p3d-torch`` (each option
+    ``--name value``, its key's underscores as dashes)."""
+    return [(name, [a for k, v in opts.items()
+                    for a in (f"--{k.replace('_', '-')}", str(v))])
+            for step in stage1_pipeline_steps(tide)
+            for name, opts in step.items()]
+
+
+def run_stage1_cli(main, inputs, out_dir, tide, extra=(), walls=None):
+    """Each subcommand of :func:`stage1_cli_steps` through ``main`` (either
+    package's ``cli.main``) on ``inputs[k]``, what step k got in a chain of
+    :func:`stage1_steps` (a directory, or files, passed as a datalist),
+    writing into ``out_dir/NN_<subcommand>``; ``extra`` goes on every
+    command line, ``walls`` (a dict) gets each command's seconds. Returns
+    the output directories in step order."""
+    import os
+    import time
+
+    dirs = []
+    for k, ((cmd, opts), inp) in enumerate(zip(stage1_cli_steps(tide),
+                                               inputs)):
+        d = os.path.join(str(out_dir), f"{k + 1:02d}_{cmd}")
+        os.makedirs(d)
+        if not isinstance(inp, str):
+            lst = d + ".txt"
+            with open(lst, "w") as fh:
+                fh.write("".join(os.path.abspath(p) + "\n" for p in inp))
+            inp = lst
+        t0 = time.perf_counter()
+        rc = main([cmd, inp, "--output-dir", d, *opts, *extra])
+        if walls is not None:
+            walls[cmd] = time.perf_counter() - t0
+        assert rc == 0, (cmd, rc)
+        dirs.append(d)
+    return dirs
+
+
+def cli_step_outputs(outs, inputs, out_dir):
+    """Where a subcommand writing into ``out_dir`` put each output of its
+    step's function (``outs``, from ``inputs``): the file of that name in
+    ``out_dir``, or, for a file merge left alone, the input itself.
+    Asserts that ``out_dir`` holds no other SEG-Y file."""
+    import glob
+    import os
+
+    if isinstance(inputs, str):
+        inputs = glob.glob(os.path.join(inputs, "*.sgy"))
+    keep = {os.path.abspath(p) for p in inputs}
+    got = [p if os.path.abspath(p) in keep
+           else os.path.join(out_dir, os.path.basename(p)) for p in outs]
+    written = set(glob.glob(os.path.join(out_dir, "*.sgy")))
+    assert written == {p for p in got if os.path.dirname(p) == out_dir}, \
+        (sorted(written), got)
+    return got
+
+
+def same_bytes(got, want):
+    """Assert two lists of files equal byte for byte, name by name."""
+    import os
+
+    assert [os.path.basename(p) for p in got] == \
+        [os.path.basename(p) for p in want]
+    for g, w in zip(got, want):
+        with open(g, "rb") as fg, open(w, "rb") as fw:
+            assert fg.read() == fw.read(), (g, w)
+
+
 def check_stage1_truth(truth, outs, dt_ms=0.25, savgol_window=15):
     """Hold the outputs of :func:`run_stage1` on a survey of
     :func:`write_stage1_survey` to what it injected; returns a dict of
