@@ -116,7 +116,7 @@ Phases, each of which exits non-zero on failure:
    (``decimated: true``, p_min 1e-3, its own 'highest'), ``xla-scan``,
    under phase 5's cut rule; (d) the FFT basis with ``hard-percentile``
    (a decay of factors, p_max 99.9, p_min 60), ``xla-scan[fft]``. Each
-   asserts its route, no launch of any of the seven kernels, a finite
+   asserts its route, no launch of any kernel, a finite
    output and an SNR better than the masked input's, and that
    ``torch.backends.cuda.matmul.allow_tf32`` is still False; then runs its
    first 8 slices (4 for the decimated CURVELET) through the same call on
@@ -188,7 +188,7 @@ Phases, each of which exits non-zero on failure:
    step's wall, MB/s of samples, the card's busy time (the union of its
    kernel, memcpy and memset intervals) and the host's share, the device
    peak, and the mistie intersection search's seconds (``--trace`` keeps
-   each step's Chrome trace). Asserts no launch of the seven kernels;
+   each step's Chrome trace). Asserts no launch of any kernel;
    the repairs against what the survey injected (delays exact, picks and
    the flattened seafloor within a sample, tide shifts exact, the mistie
    within a sample, every spike found and removed); and each device step
@@ -217,10 +217,43 @@ Phases, each of which exits non-zero on failure:
    sidecar, which names its command. The subcommands' own console output
    goes to a log file in the temporary directory; each one's wall and
    the phase's total are printed.
+17. SHEARLET and CURVELET with a percentile threshold (the subband
+   kernels split at the threshold around ``band_percentile``): (a) at
+   the main path's shapes (batches 8 and 32 of 512², the 48 full-size
+   SHEARLET bands and its 16- and 40-side box groups, the CURVELET
+   plan's 41 bands and 72-side group; q from iteration 10 of phase 12d's
+   decay of factors), pass 1's keys (``subband_keys``, ``box_keys``)
+   within 1e-4·max of their plain versions, ``band_percentile``
+   bit-equal to its plain version on those keys and on edge cases (q 0
+   and 100, integer ranks, q outside [0, 100], a NaN key, runs of ties),
+   the split ``subband_update`` and ``box_group_update`` against their
+   plain versions (soft within 1e-4·max, hard by iterate SNR); each pass
+   timed at batch 32 (torch.profiler) with its rates, the selection's ms,
+   GB/s and bound beside ``torch.kthvalue``'s on the same keys; (b) the
+   512x512x513 cubes of phase 4 made anew through ``interpolate`` with
+   ``device`` left to its default in phase 12d's configuration
+   (production, ``hard-percentile``, ``decay_kind='factors'``, p_max
+   99.9, p_min 60) on both bases, under phase 5's cut rule: route
+   ``streamed-subband``, the launches of the split passes and the
+   selection (per batch and iteration one of each pass per band chunk,
+   one of each box pass per box group), no plain version called, a
+   finite output (its SNR printed: this configuration does not beat the
+   masked input on plane waves, in the JAX package either), and the
+   first 4 slices within 0.1 dB of ``device="cpu"``.
+18. the 1-D slice mesh on the one card: a world-size-1 NCCL group
+   (``initialize_distributed`` on tcp://127.0.0.1 and a free port) and
+   its mesh; ``pocs_interpolate_sharded`` on phase 4's first batch,
+   ``interpolate(mesh=...)`` on phase 4's FFT cube and on the first 65
+   slices as a SHEARLET cube, and ``interpolate_time_cube_sharded`` on
+   phase 11's preprocessed time cube against ``apply_fft`` ->
+   ``interpolate`` -> ``apply_ifft``: each bit-equal to the
+   single-device call with the same launches. The mesh holds one
+   device: the phase shows the sharded code path on the card, not
+   collectives across cards.
 Phases 4 to 10 and 12 print the wall time, slice-iterations/s and device
 peak memory. Before each, and before phase 11's and 13c's chains, 13a's
 binning and phase 15's steps, every kernel's
-launch count is set to 0; after it, the counts of all seven kernels must
+launch count is set to 0; after it, the counts of every kernel must
 be the path's own (zero for the others, and for every kernel on phase
 12's paths, 13a's binning and phase 15).
 
@@ -261,7 +294,16 @@ on the windows: their ``bound_ms`` counts the 1-D FFTs of the rows that
 hold a nonzero of a window, each way, and of every column of every band,
 each way, plus the spatial kernel's two 2-D FFTs (``subband_bound``); the
 dense count of 2·L full 2-D FFTs per slice (2·L + 2 spatial) is printed
-beside it (3b, 3f).
+beside it (3b, 3f). The percentile route's wrappers count their own
+inputs and outputs: pass 1 (``subband_keys``, ``box_keys``) reads the
+slices' spectra and the windows and writes the float32 keys (4 bytes per
+slice, band and pixel), with one line FFT of each support row and of
+every column (each field row for a box group); pass 2 (``subband_shrink``,
+``box_shrink``) PR 5's column and accumulating passes (a box group's row
+pass both ways and its summing column pass); ``band_percentile`` reads
+its keys once, and its ``library_ms`` is ``torch.kthvalue`` of one rank
+of every segment of the same keys (the selection needs two ranks and the
+interpolation, so that call does less).
 """
 
 from __future__ import annotations
@@ -507,8 +549,10 @@ class SubbandCase:
         p_min = "adaptive" if basis == "SHEARLET" else 1e-3
         tau = tr.decay_from_input(z, "exponential", NITER, 0.99, p_min,
                                   "values")[TAU_ITER]
+        self.basis = basis
         self.full, full_idx, self.boxes = sh._plan_kernel_pack(
             tr._plan(h, w), h, w)
+        self.full_idx = full_idx
         self.psi = self.full.psi_on(dev)
         self.support = self.full.support_on(dev)
         self.chunks = self.support.chunks(b, h, w)[0]
@@ -1016,26 +1060,32 @@ def make_cube(torch, Cube, truth, mask):
 
 KERNELS = ("pocs_solve[fft]", "pocs_solve[dct]", "pocs_solve[wavelet]",
            "pocs_iteration", "subband_update", "subband_update[spatial]",
-           "box_group_update")
+           "box_group_update", "subband_keys", "subband_shrink", "box_keys",
+           "box_shrink", "band_percentile")
+# the wrappers of the subband module counted under their own names
+SUBBAND_WRAPPERS = ("subband_update", "box_group_update", "subband_keys",
+                    "subband_shrink", "box_keys", "box_shrink")
 
 
-def launch_counts(ks, ksb) -> dict:
+def launch_counts(ks, ksb, kp) -> dict:
     """Every kernel's launch count, by the names of the ``kernels`` line."""
     by_basis = ks.pocs_solve.launches_by_basis
-    return {"pocs_solve[fft]": by_basis["fft"],
-            "pocs_solve[dct]": by_basis["dct"],
-            "pocs_solve[wavelet]": by_basis["wavelet"],
-            "pocs_iteration": ks.pocs_iteration.launches,
-            "subband_update": ksb.subband_update.launches,
-            "subband_update[spatial]": ksb.subband_update_spatial.launches,
-            "box_group_update": ksb.box_group_update.launches}
+    counts = {"pocs_solve[fft]": by_basis["fft"],
+              "pocs_solve[dct]": by_basis["dct"],
+              "pocs_solve[wavelet]": by_basis["wavelet"],
+              "pocs_iteration": ks.pocs_iteration.launches,
+              "subband_update[spatial]": ksb.subband_update_spatial.launches,
+              "band_percentile": kp.band_percentile.launches}
+    counts.update({name: getattr(ksb, name).launches
+                   for name in SUBBAND_WRAPPERS})
+    return {name: counts[name] for name in KERNELS}
 
 
-def reset_counts(ks, ksb):
+def reset_counts(ks, ksb, kp):
     ks.reset_launches()
-    ksb.subband_update.launches = 0
-    ksb.subband_update_spatial.launches = 0
-    ksb.box_group_update.launches = 0
+    for name in SUBBAND_WRAPPERS + ("subband_update_spatial",):
+        getattr(ksb, name).launches = 0
+    kp.band_percentile.launches = 0
 
 
 @contextlib.contextmanager
@@ -1080,12 +1130,13 @@ def cut_to_fit(torch, interpolate, Cube, truth, mask, cube, s_in, config,
 
 
 def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
-              modules, expected, default_device=False):
+              modules, expected, default_device=False, beat_masked=True):
     """Run ``interpolate`` once with every kernel count set to 0 just
     before; check that the counts just after are ``expected`` (zero for
-    every other kernel), the output and the SNR; print the wall time, the
-    rate, the mean effective iterations and the device peak. ``config`` is
-    a ``POCSConfig`` or a YAML-style dict; ``default_device`` leaves
+    every other kernel), the output and, with ``beat_masked``, that the
+    SNR beats the masked input's; print the wall time, the rate, the mean
+    effective iterations and the device peak. ``config`` is a
+    ``POCSConfig`` or a YAML-style dict; ``default_device`` leaves
     ``interpolate``'s ``device`` to its default. Returns (wall, counts,
     SNR, mean iterations, device peak in GB)."""
     f = truth.shape[0]
@@ -1125,7 +1176,7 @@ def main_path(torch, interpolate, cube, config, dev, truth, s_in, label,
           f"{s_out:.2f} dB; device peak {peak_gb:.2f} GB = "
           f"{peak_gb / cube_gb:.2f} x the {cube_gb:.2f} GB cube pair",
           flush=True)
-    if not s_out > s_in:
+    if beat_masked and not s_out > s_in:
         fail(f"{label} did not improve SNR ({s_in:.2f} -> {s_out:.2f} dB)")
     return wall, counts, s_out, iters, peak_gb
 
@@ -2314,6 +2365,545 @@ def command_line(torch, dev, modules, stage1, tmp):
     return time.perf_counter() - t16
 
 
+# phase 17: SHEARLET and CURVELET with percentile thresholds
+PCT_META = {"thresh_op": "hard-percentile", "decay_kind": "factors",
+            "p_max": 99.9, "p_min": 60.0}  # phase 12d's configuration
+PCT_CHECK = 4  # 17b: first slices held against device="cpu"
+KEY_PASSES = ("rows_inverse_kernel", "cols_shrink_kernel<2>",
+              "band_percentile_kernel", "cols_shrink_kernel<1>",
+              "rows_forward_acc_kernel")
+BOX_KEY_PASSES = ("box_cols_inverse_kernel", "box_rows_kernel<2>",
+                  "band_percentile_kernel", "box_rows_kernel<1>",
+                  "box_cols_forward_kernel")
+# the plain versions the percentile route has on the host; none may run on
+# the card's main path
+PLAIN_NAMES = ("subband_keys_plain", "subband_shrink_plain",
+               "subband_update_plain", "box_keys_plain",
+               "box_group_update_plain")
+
+
+def percentiles(torch, case):
+    """(q of the full-size bands (B, Lf), [q of each box group (B, lg)]) of
+    a SubbandCase: iteration TAU_ITER of the decay of phase 12d's
+    configuration (factors from p_max 99.9 down to p_min 60)."""
+    from pseudo_3d_interpolation_torch.models.transforms import get_transform
+
+    tr = get_transform(case.basis, precision="high")
+    q = tr.decay_from_input(case.x, "exponential", NITER, PCT_META["p_max"],
+                            PCT_META["p_min"], "factors")[TAU_ITER]
+    idx = torch.from_numpy(case.full_idx).to(case.dev)
+    return (q[:, idx].contiguous(),
+            [q[:, l0:l0 + lg].contiguous() for l0, lg, _ in case.boxes])
+
+
+def bits_equal(torch, a, b) -> bool:
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
+def selection_against_plain(torch, kp, keys, q, label):
+    """Fail unless band_percentile is bit-equal to its plain version on
+    ``keys`` (S, C, H, W) at ``q`` (S, C)."""
+    got, want = kp.band_percentile(keys, q), kp.band_percentile_plain(keys, q)
+    torch.cuda.synchronize()
+    if not bits_equal(torch, got, want):
+        bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        fail(f"band_percentile {label}: {bad} of {got.numel()} thresholds "
+             "differ from the plain version's bits")
+    return got
+
+
+def selection_cases(torch, kp, keys, q):
+    """The selection on the edge cases of its plain version, each bit-equal:
+    q at 0, 100, ranks that land on an integer, a segment holding a NaN,
+    keys with long runs of ties, q above 100 and below 0."""
+    k = keys[:2, :4].clone()
+    s, c = k.shape[:2]
+    n = k.shape[-2] * k.shape[-1]
+    top = float(np.float32(n) - np.float32(1))
+    on_rank = torch.tensor([100.0 * r / top for r in (0, 1, n // 3, n - 2)],
+                           dtype=torch.float32, device=k.device)
+    cases = {"q 0": torch.zeros(s, c), "q 100": torch.full((s, c), 100.0),
+             "integer ranks": on_rank.expand(s, c),
+             "q outside [0, 100]": torch.tensor([-5.0, 150.0]).repeat(
+                 s * c // 2).reshape(s, c)}
+    for label, qq in cases.items():
+        selection_against_plain(torch, kp, k, qq.to(k.device).contiguous(),
+                                label)
+    nan = k.clone()
+    nan[0, 1, 3, 5] = float("nan")
+    t = selection_against_plain(torch, kp, nan, q[:2, :4].contiguous(),
+                                "a NaN key")
+    if not bool(torch.isnan(t[0, 1])) or bool(torch.isnan(t[0, 0])):
+        fail("band_percentile: a NaN key does not give NaN in its segment "
+             "alone")
+    ties = torch.round(k * 4.0) / 4.0
+    selection_against_plain(torch, kp, ties.contiguous(),
+                            q[:2, :4].contiguous(), "ties")
+    print(f"band_percentile: bit-equal to its plain version on q 0 and 100, "
+          f"integer ranks, q outside [0, 100], a NaN key and runs of ties",
+          flush=True)
+
+
+def percentile_kernels(torch, ksb, kp, dev) -> dict:
+    """Phase 17a: the percentile route's kernels at the main path's shapes
+    (32x512x512, the 48 full-size SHEARLET bands, its 16- and 40-side box
+    groups, the CURVELET plan's 41 bands and 72-side group), q from phase
+    12d's configuration. The selection bit-equal to its plain version on
+    the keys of pass 1 and on edge cases; the split subband_update and
+    box_group_update against their plain versions (soft within SOFT_TOL,
+    hard by iterate SNR within SNR_TOL_DB); the passes timed. Returns the
+    numbers of the kernels line."""
+    out = {}
+    err_keys = err_box_keys = err_a = err_b = 0.0
+    for name, b in (("SHEARLET", 8), ("CURVELET", 8),
+                    ("SHEARLET", MAIN_BATCH)):
+        case = SubbandCase(torch, b, N, N, 1700 + b, dev, name)
+        q_full, q_boxes = percentiles(torch, case)
+        # pass 1 of the first chunk and the selection on its keys
+        l0, l1 = (int(v) for v in case.chunks[:2])
+        work = ksb.percentile_work(case.spec, case.support)
+        keys = ksb.subband_keys(case.spec, case.psi, case.support, l0, l1,
+                                work)
+        plain = ksb.subband_keys_plain(case.spec, case.psi[l0:l1])
+        e = float(torch.max(torch.abs(keys - plain)) / torch.max(plain))
+        err_keys = max(err_keys, e)
+        if e > SOFT_TOL:
+            fail(f"subband_keys {name} {b}x{N}x{N}: max|d| {e:.2e} of max")
+        del plain
+        for k, (_, lg, g) in enumerate(case.boxes):
+            _, args, index = case.box_args(k, "hard")
+            work_b = torch.empty(ksb.box_work_floats(b, lg, len(g.idx_w), N),
+                                 device=dev)
+            got = ksb.box_keys(args[0], args[1], args[3], N, N, index=index,
+                               work=work_b)
+            plain = ksb.box_keys_plain(args[0], args[1], args[3], N, N)
+            e = float(torch.max(torch.abs(got - plain)) / torch.max(plain))
+            err_box_keys = max(err_box_keys, e)
+            if e > SOFT_TOL:
+                fail(f"box_keys {name} {b}x{len(g.idx_h)}x{len(g.idx_w)}: "
+                     f"max|d| {e:.2e} of max")
+            selection_against_plain(torch, kp, got, q_boxes[k],
+                                    f"{name} box group of {lg} bands")
+            del got, plain, work_b
+        q = q_full[:, l0:l1].contiguous()
+        selection_against_plain(torch, kp, keys, q,
+                                f"{name} {b}x{l1 - l0} bands of {N}x{N}")
+        if b == 8 and name == "SHEARLET":
+            selection_cases(torch, kp, keys, q)
+        if b == MAIN_BATCH:
+            out["select"] = time_selection(torch, kp, keys, q)
+        del keys, work
+        for op in ("soft", "hard"):
+            ea, eb = percentile_against_plain(torch, ksb, case, op, q_full,
+                                              q_boxes)
+            err_a, err_b = max(err_a, ea), max(err_b, eb)
+        if b == MAIN_BATCH:
+            out.update(percentile_passes(torch, ksb, kp, case, q_full,
+                                         q_boxes))
+        del case
+        torch.cuda.empty_cache()
+    out.update(err_keys=err_keys, err_box_keys=err_box_keys, err_a=err_a,
+               err_b=err_b)
+    return out
+
+
+def percentile_against_plain(torch, ksb, case, op, q_full, q_boxes):
+    """The split subband_update and box_group_update of one SubbandCase
+    against their plain versions; returns their max|d|."""
+    c = case
+    cplx = torch.complex
+    want_a = ksb.subband_update_percentile_plain(c.spec, c.psi, q_full, op)
+    got_a = ksb.subband_update_percentile(c.spec, c.psi, q_full,
+                                          f"{op}-percentile", "high",
+                                          support=c.support)
+    box_plain, box_got = [], []
+    for k in range(len(c.boxes)):
+        sel, args, index = c.box_args(k, op)
+        args = args[:2] + (q_boxes[k],) + args[3:]
+        m = ksb.box_group_update_percentile_plain(*args)
+        box_plain.append((sel, cplx(m.re, m.im)))
+        m = ksb.box_group_update_percentile(*args, "high", index=index)
+        box_got.append(cplx(m.re, m.im))
+    want_a, got_a = cplx(want_a.re, want_a.im), cplx(got_a.re, got_a.im)
+    label = (f"subband_update[percentile] {c.basis} {c.b}x{c.h}x{c.w} "
+             f"({c.psi.shape[0]} bands, {len(c.chunks) - 1} chunks)")
+    err_a = compare(torch, label, op, got_a, want_a,
+                    c.iterate_snr(got_a, box_plain),
+                    c.iterate_snr(want_a, box_plain))
+    err_b = 0.0
+    for k, got_b in enumerate(box_got):
+        sel, want_b = box_plain[k]
+        with_k = [(s, got_b if j == k else m)
+                  for j, (s, m) in enumerate(box_plain)]
+        label = (f"box_group_update[percentile] {c.basis} {c.b}x"
+                 f"{len(sel[1])}x{sel[2].shape[1]} of {c.h}x{c.w}")
+        err_b = max(err_b, compare(torch, label, op, got_b, want_b,
+                                   c.iterate_snr(want_a, with_k),
+                                   c.iterate_snr(want_a, box_plain)))
+    return err_a, err_b
+
+
+def time_selection(torch, kp, keys, q) -> dict:
+    """The selection on the keys of one chunk at the main path's batch:
+    kernel and plain (a sort), torch.kthvalue's one rank of each segment
+    as the library call, the GB/s of one read of the keys and the bound."""
+    s, c, h, w = keys.shape
+    n = h * w
+    flat = keys.view(s * c, n)
+    top = float(np.float32(n) - np.float32(1))
+    k = int(math.floor(float(q[0, 0]) / 100.0 * top)) + 1
+    t_k, t_p, four = time_pair(torch, lambda: kp.band_percentile(keys, q),
+                               lambda: kp.band_percentile_plain(keys, q), 5)
+    torch.kthvalue(flat, k, dim=-1)
+    lib_ms = time_ms(torch, lambda: torch.kthvalue(flat, k, dim=-1), 5)
+    nbytes = keys.numel() * 4 + 2 * q.numel() * 4
+    bnd = bound(0.0, nbytes)
+    print(f"band_percentile {s}x{c} segments of {n} keys: kernel "
+          f"{four[0]:.3f} / {four[1]:.3f} ms ({nbytes / t_k / 1e9:.3f} TB/s "
+          f"of one read), plain (torch.sort) {four[2]:.3f} / {four[3]:.3f} "
+          f"ms, torch.kthvalue (one rank) {lib_ms:.3f} ms, bound "
+          f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return {"ms": t_k, "plain_ms": t_p, "library_ms": lib_ms, "bound": bnd,
+            "segments": s * c, "n": n}
+
+
+def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
+    """Time the split route's wrappers on a SubbandCase at the main path's
+    batch: each pass on the card (torch.profiler), each plain version
+    (CUDA events), and each wrapper's bound: its inputs read and outputs
+    written once, its line FFTs as pass_work counts them. Returns
+    {wrapper: (ms, plain ms, bound)} over every chunk of the full-size
+    bands and, for the box wrappers, the mean over the box groups."""
+    c = case
+    b, h, w = c.b, c.h, c.w
+
+    def run():
+        ksb.subband_update_percentile(c.spec, c.psi, q_full,
+                                      "hard-percentile", "high",
+                                      support=c.support)
+    times = kernel_passes(torch, run, KEY_PASSES)
+    work = pass_work(c, False)
+    nbands = c.psi.shape[0]
+    lh = 5.0 * h * math.log2(h)
+    key_bytes = b * nbands * h * w * 4
+    a_bytes, a_flops = work["rows_inverse_kernel"]
+    keys_work = (a_bytes + key_bytes, a_flops + b * nbands * w * lh)
+    shrink_work = (work["cols_shrink_kernel"][0]
+                   + work["rows_forward_acc_kernel"][0],
+                   work["cols_shrink_kernel"][1]
+                   + work["rows_forward_acc_kernel"][1])
+    print_passes(f"subband_update[percentile] {b}x{h}x{w} ({nbands} bands, "
+                 f"{len(c.chunks) - 1} chunks)", times, {
+                     "rows_inverse_kernel": work["rows_inverse_kernel"],
+                     "cols_shrink_kernel<2>": (
+                         b * int(c.support.offsets[-1]) * w * 8 + key_bytes,
+                         b * nbands * w * lh),
+                     "band_percentile_kernel": (key_bytes, 0.0),
+                     "cols_shrink_kernel<1>": work["cols_shrink_kernel"],
+                     "rows_forward_acc_kernel":
+                         work["rows_forward_acc_kernel"]})
+    tau = kp.band_percentile_plain(ksb.subband_keys_plain(c.spec, c.psi),
+                                   q_full)
+    p_keys = time_ms(torch, lambda: ksb.subband_keys_plain(c.spec, c.psi), 2)
+    p_shrink = time_ms(torch, lambda: ksb.subband_shrink_plain(
+        c.spec, c.psi, tau, "hard"), 2)
+    out = {"subband_keys": (times["rows_inverse_kernel"]
+                            + times["cols_shrink_kernel<2>"], p_keys,
+                            bound(keys_work[1], keys_work[0])),
+           "subband_shrink": (times["cols_shrink_kernel<1>"]
+                              + times["rows_forward_acc_kernel"], p_shrink,
+                              bound(shrink_work[1], shrink_work[0]))}
+    rows = {"box_keys": [], "box_shrink": []}
+    for k, (_, lg, g) in enumerate(c.boxes):
+        sel, args, index = c.box_args(k, "hard")
+        args = args[:2] + (q_boxes[k],) + args[3:]
+        side = len(g.idx_h)
+
+        def run_box():
+            ksb.box_group_update_percentile(*args, "high", index=index)
+        bt = kernel_passes(torch, run_box, BOX_KEY_PASSES)
+        field = b * lg * side * h * 8  # the scratch G, bytes
+        col_flops = b * lg * side * lh
+        row_flops = b * lg * h * 5.0 * w * math.log2(w)
+        keys_b = b * lg * h * w * 4
+        print_passes(f"box_group_update[percentile] {b}x{side}x{side}", bt, {
+            "box_cols_inverse_kernel": (b * side * side * 8 + field,
+                                        col_flops),
+            "box_rows_kernel<2>": (field + keys_b, row_flops),
+            "band_percentile_kernel": (keys_b, 0.0),
+            "box_rows_kernel<1>": (2 * field, 2 * row_flops),
+            "box_cols_forward_kernel": (field + b * side * side * 8,
+                                        col_flops)})
+        box_tau = kp.band_percentile_plain(ksb.box_keys_plain(*args[:2],
+                                                              *args[3:6]),
+                                           q_boxes[k])
+        p_bk = time_ms(torch, lambda: ksb.box_keys_plain(*args[:2],
+                                                         *args[3:6]), 3)
+        p_bs = time_ms(torch, lambda: ksb.box_group_update_plain(
+            args[0], args[1], box_tau, *args[3:6], "hard"), 3)
+        box_in = b * side * side * 8 + lg * side * side * 4
+        rows["box_keys"].append((
+            bt["box_cols_inverse_kernel"] + bt["box_rows_kernel<2>"], p_bk,
+            bound(col_flops + row_flops, box_in + keys_b)))
+        rows["box_shrink"].append((
+            bt["box_rows_kernel<1>"] + bt["box_cols_forward_kernel"], p_bs,
+            bound(col_flops + 2 * row_flops,
+                  box_in + b * lg * 4 + b * side * side * 8)))
+    for name, vals in rows.items():
+        out[name] = (sum(v[0] for v in vals) / len(vals),
+                     sum(v[1] for v in vals) / len(vals),
+                     (sum(v[2][0] for v in vals) / len(vals), vals[0][2][1]))
+    for name, (ms, p_ms, bnd) in out.items():
+        print(f"{name} {b}x{h}x{w}: kernel passes {ms:.3f} ms, plain "
+              f"{p_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return out
+
+
+@contextlib.contextmanager
+def no_plain(ksb, kp):
+    """Count every call of the percentile route's plain versions (and of
+    the plain streamed apply) inside the block; yields the counts."""
+    from pseudo_3d_interpolation_torch.ops import shearlet as sh
+
+    calls = {}
+    patched = [(ksb, name) for name in PLAIN_NAMES]
+    patched += [(kp, "band_percentile_plain"),
+                (sh, "_pocs_subband_apply_streamed")]
+    saved = [(mod, name, getattr(mod, name)) for mod, name in patched]
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            calls[name] = calls.get(name, 0) + 1
+            return fn(*args, **kwargs)
+        return call
+    for mod, name, fn in saved:
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield calls
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def percentile_launches(ksb, basis: str, f: int) -> dict:
+    """The launches of the percentile route on an ``f``-slice cube of the
+    resident driver's batches: per batch and iteration, a subband_keys, a
+    band_percentile and a subband_shrink for each band chunk of the batch,
+    and a box_keys, a band_percentile and a box_shrink for each box
+    group."""
+    from pseudo_3d_interpolation_torch.models.transforms import get_transform
+    from pseudo_3d_interpolation_torch.ops import shearlet as sh
+
+    full, _, boxes = sh._plan_kernel_pack(get_transform(basis)._plan(N, N),
+                                          N, N)
+    from pseudo_3d_interpolation_torch.ops.kernels.subband import (
+        band_chunks, row_support)
+    offsets = row_support(full.psi)[0]
+    sizes = [MAIN_BATCH] * (f // MAIN_BATCH) + ([f % MAIN_BATCH]
+                                                 if f % MAIN_BATCH else [])
+    chunks = sum(len(band_chunks(offsets, b, N, N)) - 1 for b in sizes)
+    nb = len(boxes) * len(sizes)
+    return {"subband_keys": chunks * NITER, "subband_shrink": chunks * NITER,
+            "band_percentile": (chunks + nb) * NITER,
+            "box_keys": nb * NITER, "box_shrink": nb * NITER}
+
+
+def percentile_paths(torch, ksb, kp, Cube, truth, mask, cube, s_in,
+                     production, dev, modules, trace_dir, part) -> dict:
+    """Phase 17b: the SHEARLET and CURVELET cubes through ``interpolate``
+    with ``device`` left to its default in phase 12d's configuration:
+    route ``streamed-subband``, the split passes' and the selection's
+    launches, no plain version called, a finite output (its SNR printed:
+    in this configuration it does not beat the masked input's, in the
+    JAX package either), and the first PCT_CHECK slices within SNR_TOL_DB
+    of ``device="cpu"``. Returns {basis: launches}."""
+    from pseudo_3d_interpolation_torch.models.pocs import (describe_route,
+                                                           solver_route)
+    from pseudo_3d_interpolation_torch.pipeline.pocs import (
+        _production_transform, config_from_yaml, interpolate)
+
+    prod = dataclasses.asdict(production)
+    counts = {}
+    for basis in ("SHEARLET", "CURVELET"):
+        t_path = time.perf_counter()
+        config = {"metadata": dict(prod, transform_kind=basis, **PCT_META)}
+        cfg, extra = config_from_yaml(config)
+        tr = _production_transform(cfg, extra)
+        route = solver_route((MAIN_BATCH, N, N), (N, N), cfg, tr)
+        print(f"phase 17b, {basis} hard-percentile: solver path "
+              f"{describe_route(route)}; {tr}", flush=True)
+        if route.route != "streamed-subband":
+            fail(f"phase 17b {basis}: route {describe_route(route)}, not "
+                 "streamed-subband")
+        p_truth, p_cube, p_in = cut_to_fit(
+            torch, interpolate, Cube, truth, mask, cube, s_in, config, dev,
+            f"{basis} hard-percentile")
+        want = percentile_launches(ksb, basis, p_truth.shape[0])
+        # in this configuration neither package beats the masked input on
+        # plane waves (the percentile falls to 60: 40% of every band's
+        # coefficients kept); the first slices are held to the host below
+        with no_plain(ksb, kp) as calls:
+            _, got, _, _, _ = main_path(
+                torch, interpolate, p_cube, config, dev, p_truth, p_in,
+                f"{basis} hard-percentile main path", modules, want,
+                default_device=True, beat_masked=False)
+        if calls:
+            fail(f"phase 17b {basis}: plain versions ran on the card's main "
+                 f"path: {calls}")
+        counts[basis] = got
+        del p_cube
+        first, _ = make_cube(torch, Cube, truth[:PCT_CHECK], mask)
+        snrs, walls = [], []
+        for where in (None, "cpu"):
+            t0 = time.perf_counter()
+            out = interpolate(first, config=config, device=where)
+            walls.append(time.perf_counter() - t0)
+            rec = out.data_vars["amp_interp"][1]
+            snrs.append(snr_db(torch, truth[:PCT_CHECK], torch.from_numpy(
+                np.moveaxis(rec, -1, 0)).to(dev)))
+        print(f"phase 17b {basis}, first {PCT_CHECK} slices: SNR on the card "
+              f"{snrs[0]:.3f} dB, device='cpu' {snrs[1]:.3f} dB (card "
+              f"{walls[0]:.2f} s, cpu {walls[1]:.2f} s)", flush=True)
+        if abs(snrs[0] - snrs[1]) > SNR_TOL_DB:
+            fail(f"phase 17b {basis}: the card's SNR {snrs[0]:.3f} dB is not "
+                 f"within {SNR_TOL_DB} dB of device='cpu''s {snrs[1]:.3f} dB")
+        if trace_dir is not None:
+            trace_main_path(torch, lambda: interpolate(part, config=config),
+                            trace_dir, f"percentile_{basis.lower()}_trace")
+        print(f"phase 17b {basis}: {time.perf_counter() - t_path:.1f} s",
+              flush=True)
+    return counts
+
+
+# phase 18: the 1-D slice mesh on the one card
+MESH_SHEARLET_SLICES = 2 * MAIN_BATCH + 1  # 18c: two batches and a tail
+
+
+def free_port() -> int:
+    """A free TCP port on 127.0.0.1 (bound as port 0, then released)."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def same_call(torch, modules, label, single, sharded, equal):
+    """Run ``single`` and then ``sharded``, each with every launch count
+    set to 0 just before and read just after; fail unless the launches
+    are the same and ``equal(single's result, sharded's)`` holds. Prints
+    both walls and the launches."""
+    walls, counts, outs = [], [], []
+    for run in (single, sharded):
+        torch.cuda.synchronize()
+        reset_counts(*modules)
+        t0 = time.perf_counter()
+        outs.append(run())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append(launch_counts(*modules))
+    if counts[0] != counts[1]:
+        fail(f"phase 18 {label}: launches {counts[1]} on the mesh, "
+             f"{counts[0]} on one device")
+    if not equal(*outs):
+        fail(f"phase 18 {label}: the mesh's result differs from the "
+             "single-device call's")
+    print(f"phase 18 {label}: bit-equal to the single-device call, "
+          f"launches { {k: v for k, v in counts[0].items() if v} } on "
+          f"both; {walls[0]:.2f} s single, {walls[1]:.2f} s on the mesh",
+          flush=True)
+
+
+def mesh_on_one_card(torch, dev, modules, production, truth, mask, cube):
+    """Phase 18: a world-size-1 NCCL group (tcp://127.0.0.1 on a free
+    port) and its mesh; (a) ``pocs_interpolate_sharded`` on phase 4's
+    first batch, (b) ``interpolate(mesh=...)`` on the FFT cube, (c) on the
+    SHEARLET cube's first MESH_SHEARLET_SLICES slices, (d)
+    ``interpolate_time_cube_sharded`` on phase 11's preprocessed time cube
+    against ``apply_fft`` -> ``interpolate`` -> ``apply_ifft``; each
+    bit-equal to the single-device call with the same launches. The mesh
+    holds one device: this shows the code path on the card, not
+    collectives across cards."""
+    import torch.distributed as dist
+
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.models.pocs import pocs_interpolate
+    from pseudo_3d_interpolation_torch.ops.cplx import Cplx
+    from pseudo_3d_interpolation_torch.parallel import mesh as mesh_lib
+    from pseudo_3d_interpolation_torch.parallel.solver import (
+        pocs_interpolate_sharded)
+    from pseudo_3d_interpolation_torch.pipeline.fft import apply_fft
+    from pseudo_3d_interpolation_torch.pipeline.ifft import apply_ifft
+    from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
+    from pseudo_3d_interpolation_torch.pipeline.preprocess import preprocess
+    from pseudo_3d_interpolation_torch.pipeline.stage2 import (
+        interpolate_time_cube_sharded)
+
+    mesh_lib.initialize_distributed(coordinator=f"127.0.0.1:{free_port()}",
+                                    num_processes=1, process_id=0,
+                                    backend="nccl")
+    try:
+        mesh = mesh_lib.make_mesh()
+        print(f"phase 18: a mesh of {mesh.size} device ({mesh.device}, "
+              f"{dist.get_backend()}): the sharded code path on the card, "
+              "not collectives across cards", flush=True)
+        if mesh.size != 1 or mesh.device != dev:
+            fail(f"phase 18: the mesh is {mesh}")
+
+        obs = truth[:MAIN_BATCH] * mask
+        z = Cplx(obs.real.contiguous(), obs.imag.contiguous())
+
+        def results_equal(a, b):
+            return all(torch.equal(x, y) for x, y in (
+                (a.data.re, b.data.re), (a.data.im, b.data.im),
+                (a.n_iterations, b.n_iterations), (a.cost, b.cost)))
+        same_call(torch, modules, "(a) pocs_interpolate_sharded, FFT batch "
+                  f"of {MAIN_BATCH}",
+                  lambda: pocs_interpolate(z, mask, config=production),
+                  lambda: pocs_interpolate_sharded(z, mask, mesh,
+                                                   config=production),
+                  results_equal)
+        del z, obs
+
+        def cubes_equal(a, b):
+            return np.array_equal(a.data_vars["amp_interp"][1],
+                                  b.data_vars["amp_interp"][1])
+        same_call(torch, modules, f"(b) interpolate, FFT cube of {SLICES}",
+                  lambda: interpolate(cube, config=production,
+                                      batch=MAIN_BATCH),
+                  lambda: interpolate(cube, config=production, mesh=mesh,
+                                      batch=MAIN_BATCH), cubes_equal)
+        shearlet = dataclasses.replace(production,
+                                       transform_kind="SHEARLET")
+        sh_part, _ = make_cube(torch, Cube, truth[:MESH_SHEARLET_SLICES],
+                               mask)
+        same_call(torch, modules, "(c) interpolate, SHEARLET cube of "
+                  f"{MESH_SHEARLET_SLICES}",
+                  lambda: interpolate(sh_part, config=shearlet,
+                                      batch=MAIN_BATCH),
+                  lambda: interpolate(sh_part, config=shearlet, mesh=mesh,
+                                      batch=MAIN_BATCH), cubes_equal)
+        del sh_part
+
+        truth_t, twt = chain_truth(torch, dev)
+        fold = chain_fold()
+        masked = (truth_t * torch.from_numpy(fold).to(dev)[..., None]).cpu(
+            ).numpy()
+        del truth_t
+        pre = preprocess(time_cube(Cube, masked, fold, twt), balance="rms",
+                         filter_type="bandpass", filter_freqs=CHAIN_BANDPASS)
+        same_call(torch, modules, f"(d) interpolate_time_cube_sharded, "
+                  f"{N}x{N}x{CHAIN_NS} time cube",
+                  lambda: apply_ifft(interpolate(apply_fft(fresh(pre)))),
+                  lambda: interpolate_time_cube_sharded(
+                      fresh(pre), production, mesh=mesh),
+                  lambda a, b: np.array_equal(a.data_vars["amp"][1],
+                                              b.data_vars["amp"][1]))
+    finally:
+        dist.destroy_process_group()
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--trace", type=pathlib.Path, default=None,
@@ -2342,6 +2932,7 @@ def main():
     from pseudo_3d_interpolation_torch.ops.kernels import _build
     from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
     from pseudo_3d_interpolation_torch.ops import shearlet as sh
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
     from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
     from pseudo_3d_interpolation_torch.pipeline.pocs import (
         _production_transform, interpolate)
@@ -2364,6 +2955,7 @@ def main():
     libs = _build.build()
     ks._lib()
     ksb._lib()
+    kp._lib()
     print(f"build: {time.perf_counter() - t0:.2f} s -> "
           f"{sorted(p.name for p in libs.values())}", flush=True)
     for lib in libs.values():
@@ -2576,7 +3168,7 @@ def main():
     print(f"phases 1-3: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     # phase 4: the FFT main path, on a cube stored (iline, xline, freq)
-    modules = (ks, ksb)
+    modules = (ks, ksb, kp)
     production = inspect.signature(interpolate).parameters["config"].default
     truth, mask = plane_waves(torch, SLICES, N, N, 0, dev)
     cube, s_in = make_cube(torch, Cube, truth, mask)
@@ -2747,6 +3339,25 @@ def main():
         # phase 16: the command line and the orchestrator on the card
         t16 = command_line(torch, dev, modules, stage1, pathlib.Path(tmp))
         print(f"phase 16: {t16:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 17: SHEARLET and CURVELET with percentile thresholds, (a) the
+    # split kernels and the selection against plain, (b) the cubes through
+    # interpolate, on phase 4's cube made anew
+    t17 = time.perf_counter()
+    pct = percentile_kernels(torch, ksb, kp, dev)
+    truth, mask = plane_waves(torch, SLICES, N, N, 0, dev)
+    cube, s_in = make_cube(torch, Cube, truth, mask)
+    part, _ = make_cube(torch, Cube, truth[:2 * MAIN_BATCH], mask)
+    counts_pct = percentile_paths(torch, ksb, kp, Cube, truth, mask, cube,
+                                  s_in, production, dev, modules, args.trace,
+                                  part)
+    print(f"phase 17: {time.perf_counter() - t17:.1f} s", flush=True)
+
+    # phase 18: the 1-D slice mesh on the one card
+    t18 = time.perf_counter()
+    mesh_on_one_card(torch, dev, modules, production, truth, mask, cube)
+    print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,
@@ -2779,7 +3390,20 @@ def main():
         entry("box_group_update", "subband.py:316",
               counts_sh["box_group_update"], err_b, box_ms, box_plain_ms,
               box_bound, "subband.cu"),
-    ]}))
+    ] + [
+        entry(name, replaces, counts_pct["SHEARLET"][name], err,
+              *pct[name], "subband.cu")
+        for name, replaces, err in (
+            ("subband_keys", "subband.py:392", pct["err_keys"]),
+            ("subband_shrink", "subband.py:392", pct["err_a"]),
+            ("box_keys", "subband.py:316", pct["err_box_keys"]),
+            ("box_shrink", "subband.py:316", pct["err_b"]))
+    ] + [dict(entry("band_percentile", "", counts_pct["SHEARLET"][
+        "band_percentile"], 0.0, pct["select"]["ms"],
+        pct["select"]["plain_ms"], pct["select"]["bound"],
+        "band_percentile.cu"), replaces="none: the JAX package takes this "
+        "percentile in XLA (pseudo_3d_interpolation_tpu/ops/threshold.py:67"
+        ")", library_ms=pct["select"]["library_ms"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

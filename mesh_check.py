@@ -1,0 +1,172 @@
+"""Run the PyTorch port's 1-D slice mesh across the cards of one host and
+hold it to one card.
+
+Run from the root of a checkout, one process per card:
+
+    torchrun --nproc-per-node=4 mesh_check.py
+
+Every rank joins the NCCL group (``parallel.mesh.initialize_distributed``
+reads the variables ``torchrun`` sets), builds the same seeded inputs as
+``chip_smoke.py`` and runs each call twice: alone on its own card, then
+over the mesh of every rank. The calls: ``pocs_interpolate_sharded`` on a
+batch of 32 slices of phase 4's 512x512 plane waves (FFT basis),
+``pipeline.pocs.interpolate(mesh=...)`` on the 513-slice FFT cube and on
+its first 65 slices as a SHEARLET cube, and
+``pipeline.stage2.interpolate_time_cube_sharded`` on phase 11's
+preprocessed 512x512x1024 time cube against ``apply_fft`` ->
+``interpolate`` -> ``apply_ifft``. Each rank solves its slices with the
+same kernels in smaller batches, so a sharded result must equal the
+single-card one within 1e-5 of its largest value, or, for a cube of
+plane waves, reach its SNR against the truth within 0.1 dB (the
+production hard threshold flips coefficients at the threshold when the
+batch's FFTs and reductions round differently). Each call runs once
+untimed first (kernel loading, the windows' plans). Rank 0 prints the
+card's name and power limit, each call's walls, its own launches, the
+difference and the SNRs; any failure exits non-zero on every rank.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import inspect
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+import chip_smoke as cs
+
+TOL = 1e-5  # max|mesh - one card| ≤ TOL·max|one card|, or
+SNR_TOL_DB = 0.1  # the SNRs against the truth this close
+SHEARLET_SLICES = 2 * cs.MAIN_BATCH + 1
+
+
+def main() -> int:
+    import torch
+    import torch.distributed as dist
+
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.models.pocs import pocs_interpolate
+    from pseudo_3d_interpolation_torch.ops.cplx import Cplx
+    from pseudo_3d_interpolation_torch.ops.kernels import _build
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
+    from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
+    from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
+    from pseudo_3d_interpolation_torch.parallel import mesh as mesh_lib
+    from pseudo_3d_interpolation_torch.parallel.solver import (
+        pocs_interpolate_sharded)
+    from pseudo_3d_interpolation_torch.pipeline.fft import apply_fft
+    from pseudo_3d_interpolation_torch.pipeline.ifft import apply_ifft
+    from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
+    from pseudo_3d_interpolation_torch.pipeline.preprocess import preprocess
+    from pseudo_3d_interpolation_torch.pipeline.stage2 import (
+        interpolate_time_cube_sharded)
+
+    if not torch.cuda.is_available():
+        print("mesh_check: no CUDA card", file=sys.stderr)
+        return 1
+    mesh_lib.initialize_distributed(backend="nccl")
+    mesh = mesh_lib.make_mesh()
+    dev = mesh.device
+    torch.cuda.set_device(dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank0 = mesh.index == 0
+    if rank0:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()
+        print(f"{len(smi)} cards: {smi[0]}; a mesh of {mesh.size} ranks, "
+              f"{dist.get_backend()}", flush=True)
+    _build.build()  # each rank (the builds are keyed and atomic)
+    modules = (ks, ksb, kp)
+    production = inspect.signature(interpolate).parameters["config"].default
+    failures = []
+
+    def launches():
+        return {k: v for k, v in cs.launch_counts(*modules).items() if v}
+
+    def check(label, single, sharded, arrays, truth=None):
+        """Run both calls (the single one once untimed first), compare
+        them, print rank 0's line."""
+        single()
+        walls, outs, counts = [], [], []
+        for run in (single, sharded):
+            torch.cuda.synchronize()
+            dist.barrier()
+            cs.reset_counts(*modules)
+            t0 = time.perf_counter()
+            outs.append(run())
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(launches())
+        a, b = (np.asarray(arrays(o)) for o in outs)
+        err = float(np.abs(a - b).max() / np.abs(a).max())
+        snrs = ([cs.snr_db(torch, truth, torch.from_numpy(
+            np.moveaxis(x, -1, 0)).to(dev)) for x in (a, b)]
+                if truth is not None else None)
+        if rank0:
+            print(f"{label}: max|d| {err:.2e} of max"
+                  + (f", SNR {snrs[0]:.3f} / {snrs[1]:.3f} dB" if snrs
+                     else "")
+                  + f"; one card {walls[0]:.2f} s (launches {counts[0]}), "
+                  f"mesh of {mesh.size} {walls[1]:.2f} s (rank 0's "
+                  f"launches {counts[1]})", flush=True)
+        if not (err <= TOL or (snrs is not None
+                               and abs(snrs[0] - snrs[1]) <= SNR_TOL_DB)):
+            failures.append(f"{label}: {err:.2e} of max")
+
+    truth, mask = cs.plane_waves(torch, cs.SLICES, cs.N, cs.N, 0, dev)
+    obs = truth[:cs.MAIN_BATCH] * mask
+    z = Cplx(obs.real.contiguous(), obs.imag.contiguous())
+    check(f"pocs_interpolate_sharded, FFT batch of {cs.MAIN_BATCH}",
+          lambda: pocs_interpolate(z, mask, config=production),
+          lambda: pocs_interpolate_sharded(z, mask, mesh,
+                                           config=production),
+          lambda r: torch.complex(r.data.re, r.data.im).cpu())
+    cube, _ = cs.make_cube(torch, Cube, truth, mask)
+
+    def amp(c):
+        return c.data_vars["amp_interp"][1]
+    check(f"interpolate, FFT cube of {cs.SLICES}",
+          lambda: interpolate(cube, config=production, device=dev),
+          lambda: interpolate(cube, config=production, mesh=mesh,
+                              batch=cs.MAIN_BATCH), amp, truth)
+    shearlet = dataclasses.replace(production, transform_kind="SHEARLET")
+    part, _ = cs.make_cube(torch, Cube, truth[:SHEARLET_SLICES], mask)
+    check(f"interpolate, SHEARLET cube of {SHEARLET_SLICES}",
+          lambda: interpolate(part, config=shearlet, device=dev),
+          lambda: interpolate(part, config=shearlet, mesh=mesh,
+                              batch=cs.MAIN_BATCH), amp,
+          truth[:SHEARLET_SLICES])
+    del truth, z, cube, part
+
+    truth_t, twt = cs.chain_truth(torch, dev)
+    fold = cs.chain_fold()
+    masked = (truth_t * torch.from_numpy(fold).to(dev)[..., None]).cpu(
+        ).numpy()
+    del truth_t
+    pre = preprocess(cs.time_cube(Cube, masked, fold, twt), balance="rms",
+                     filter_type="bandpass", filter_freqs=cs.CHAIN_BANDPASS,
+                     device=dev)
+    check(f"interpolate_time_cube_sharded, {cs.N}x{cs.N}x{cs.CHAIN_NS} "
+          "time cube",
+          lambda: apply_ifft(interpolate(
+              apply_fft(cs.fresh(pre), device=dev), device=dev), device=dev),
+          lambda: interpolate_time_cube_sharded(cs.fresh(pre), production,
+                                                mesh=mesh),
+          lambda c: c.data_vars["amp"][1])
+
+    flags = torch.tensor([len(failures)], device=dev)
+    dist.all_reduce(flags)
+    dist.destroy_process_group()
+    if rank0:
+        verdict = "FAILED " + "; ".join(failures) if failures else "ok"
+        print(f"mesh_check: {verdict} ({int(flags)} failures over the "
+              "ranks)", flush=True)
+    return 1 if int(flags) else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

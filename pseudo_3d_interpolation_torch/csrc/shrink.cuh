@@ -20,3 +20,12 @@ __device__ __forceinline__ float shrink_factor(float mag2, float tau, int op) {
   }
   return mag2 >= tau * tau ? 1.0f : 0.0f;
 }
+
+// |c|² of c = (x, y) with x·x and y·y each rounded before the sum, never
+// fused into a multiply-add: as the plain versions' re·re + im·im rounds
+// it. The percentile route computes its keys, sqrt of this, and tests
+// |c|² >= tau² on it, so the coefficient that sets tau is judged alike on
+// both sides.
+__device__ __forceinline__ float abs2_rn(float2 c) {
+  return __fadd_rn(__fmul_rn(c.x, c.x), __fmul_rn(c.y, c.y));
+}

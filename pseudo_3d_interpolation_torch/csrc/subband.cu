@@ -92,6 +92,22 @@
 //       atomics, so the result does not depend on scheduling.
 // The plan's box indices are distinct (the range around 0, wrapped, and a
 // padded tail just above +bound), so each scatter and gather is exact.
+//
+// The percentile route (p3d_subband_keys / p3d_subband_shrink for kernel
+// A, p3d_box_keys / p3d_box_shrink for kernel B): with a `*-percentile`
+// threshold, tau[b, l] is a percentile of |c_l| over the whole field
+// (JAX ops/shearlet.py :: pocs_subband_apply, its plain apply, which no
+// Pallas kernel takes), so no coefficient can be shrunk before c_l is
+// whole. Each kernel is split at the threshold: pass 1 runs the passes up
+// to c_l and writes |c_l| (sqrt of abs2_rn, as Cplx.abs rounds it) of
+// every pixel of the band into a float32 key buffer, leaving the scratch
+// as it was; band_percentile.cu selects the thresholds from the keys; pass
+// 2 computes c_l again from the scratch (the same code on the same
+// values, so the same bits), shrinks it testing abs2_rn against tau² (the
+// coefficient that sets tau is judged as its key was), and runs the rest
+// of the kernel. Recomputing c_l costs one more inverse line FFT of every
+// column (row, for B); keeping it instead would write and read 16 bytes
+// per (slice, band, pixel) where the keys take 4.
 // What bounds it: the row pass's two N_w-line FFTs of every field row of
 // every band, 2·N_h·5·N_w·log2 N_w flops per (slice, band), at the
 // engine's throughput (about 9 TFLOP/s, 80-90% of a call at batch 32 on
@@ -111,6 +127,10 @@
 namespace {
 
 constexpr int NT = 256;  // threads per block (line kernels: at least)
+
+// the column pass's and the box row pass's forms (cols_shrink_kernel,
+// box_rows_kernel)
+enum LinePass { PASS_SHRINK = 0, PASS_SHRINK_RN = 1, PASS_KEYS = 2 };
 
 // threads of a line kernel's block: NT, or one whole group of a long line
 inline int line_threads(const LineShape& L) { return L.t > NT ? L.t : NT; }
@@ -158,14 +178,21 @@ rows_inverse_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 
 // (b) columns of band l0 + blockIdx.y: inverse FFT along H, scale, shrink,
 // forward FFT along H, the band's support rows in place in the scratch.
-// grid (column blocks, bands of the chunk, batch).
+// grid (column blocks, bands of the chunk, batch). tau[b·tau_ld +
+// blockIdx.y] is the band's threshold. MODE (LinePass) PASS_SHRINK is the
+// pass of p3d_subband_update; PASS_SHRINK_RN the percentile route's pass 2,
+// which tests |c|² as abs2_rn rounds it (as the keys were); PASS_KEYS its
+// pass 1, which stops after the scale and writes |c| of every (row,
+// column) of the band into keys (B, gridDim.y, H, W), the scratch left
+// as it was.
+template <int MODE>
 __global__ void __launch_bounds__(LINE_NT_MAX, 2)
 cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
                    const int* __restrict__ slot,  // (nbands, H)
-                   const float* __restrict__ tau,  // (B, nbands)
+                   const float* __restrict__ tau,  // (B, tau_ld), from l0
                    const float2* __restrict__ tw_h, LineShape L, int w,
-                   int cols, int nrows, int p0, int nbands, int l0,
-                   float scale, int op) {
+                   int cols, int nrows, int p0, int tau_ld, int l0,
+                   float scale, int op, float* __restrict__ keys) {
   extern __shared__ float2 smem[];
   const int h = L.n;
   const int ls = h + 1;  // padded column stride: the transposing stores of
@@ -193,7 +220,8 @@ cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
     }
   }
   load_twiddles(tw, tw_h, h);
-  const float t = tau[(long long)b * nbands + l];
+  const float t = MODE == PASS_KEYS ? 0.0f
+                                   : tau[(long long)b * tau_ld + blockIdx.y];
   for (int c = g.index; c < nc; c += g.count) {
     float2* col = tile + c * ls;
     float2 v[8];
@@ -206,10 +234,16 @@ cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const float2 u = make_float2(v[q].x * scale, v[q].y * scale);
-      const float f = shrink_factor(u.x * u.x + u.y * u.y, t, op);
-      v[q] = make_float2(u.x * f, u.y * f);
+      if (MODE == PASS_KEYS) {
+        v[q] = make_float2(__fsqrt_rn(abs2_rn(u)), 0.0f);
+      } else {
+        const float f = shrink_factor(
+            MODE == PASS_SHRINK_RN ? abs2_rn(u) : u.x * u.x + u.y * u.y, t,
+            op);
+        v[q] = make_float2(u.x * f, u.y * f);
+      }
     }
-    line_fft<false>(v, buf, tw, L, g);
+    if (MODE != PASS_KEYS) line_fft<false>(v, buf, tw, L, g);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int e = g.j + q * g.t;
@@ -218,10 +252,18 @@ cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
   }
   __syncthreads();
   if (tl.active && tl.in) {
+    if (MODE == PASS_KEYS) {
+      float* kb = keys + ((long long)b * gridDim.y + blockIdx.y) * h * w +
+                  c0 + tl.c;
 #pragma unroll 4
-    for (int r = tl.r0; r < h; r += tl.step) {
-      const int k = rs[r];
-      if (k >= 0) s[(long long)(k - p0) * w + tl.c] = tile[tl.c * ls + r];
+      for (int r = tl.r0; r < h; r += tl.step)
+        kb[(long long)r * w] = tile[tl.c * ls + r].x;
+    } else {
+#pragma unroll 4
+      for (int r = tl.r0; r < h; r += tl.step) {
+        const int k = rs[r];
+        if (k >= 0) s[(long long)(k - p0) * w + tl.c] = tile[tl.c * ls + r];
+      }
     }
   }
 }
@@ -447,12 +489,17 @@ box_cols_inverse_kernel(const float* __restrict__ xbr,
 // Kernel B, pass (2): field row n of band l of slice b, in place in G:
 // scatter at idx_w, inverse FFT along W, scale, shrink, forward FFT along
 // W, gather at idx_w; one group per row. grid (row blocks, lg, batch).
+// MODE as cols_shrink_kernel's: PASS_KEYS (the percentile route's pass 1)
+// writes |c| of the row's N_w field values into keys (B, lg, N_h, N_w) and
+// leaves G as it was; PASS_SHRINK_RN (its pass 2) tests |c|² as abs2_rn
+// rounds it.
+template <int MODE>
 __global__ void __launch_bounds__(LINE_NT_MAX, 2)
 box_rows_kernel(float2* __restrict__ g,          // (B, lg, sc, nh)
                 const int* __restrict__ idx_w,   // (sc,)
                 const float* __restrict__ tau,   // (B, lg)
                 const float2* __restrict__ tw_w, LineShape L, int nh, int sc,
-                float scale, int op) {
+                float scale, int op, float* __restrict__ keys) {
   extern __shared__ float2 smem[];
   const int nw = L.n;
   const Group grp = make_group(L.t);
@@ -465,7 +512,7 @@ box_rows_kernel(float2* __restrict__ g,          // (B, lg, sc, nh)
   if (n >= nh) return;
   const int l = blockIdx.y, b = blockIdx.z, lg = gridDim.y;
   float2* row = g + ((long long)b * lg + l) * sc * nh + n;  // k at k·nh
-  const float t = tau[(long long)b * lg + l];
+  const float t = MODE == PASS_KEYS ? 0.0f : tau[(long long)b * lg + l];
   int ks[8];
   float2 v[8];
 #pragma unroll
@@ -475,10 +522,21 @@ box_rows_kernel(float2* __restrict__ g,          // (B, lg, sc, nh)
     v[s] = ks[s] >= 0 ? row[(long long)ks[s] * nh] : make_float2(0.0f, 0.0f);
   }
   line_fft<true>(v, buf, tw, L, grp);
+  if (MODE == PASS_KEYS) {
+    float* kr = keys + (((long long)b * lg + l) * nh + n) * nw;
+#pragma unroll
+    for (int s = 0; s < 8; ++s) {
+      const int e = grp.j + s * grp.t;
+      const float2 u = make_float2(v[s].x * scale, v[s].y * scale);
+      if (e < nw) kr[e] = __fsqrt_rn(abs2_rn(u));
+    }
+    return;
+  }
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
     const float2 u = make_float2(v[s].x * scale, v[s].y * scale);
-    const float f = shrink_factor(u.x * u.x + u.y * u.y, t, op);
+    const float f = shrink_factor(
+        MODE == PASS_SHRINK_RN ? abs2_rn(u) : u.x * u.x + u.y * u.y, t, op);
     v[s] = make_float2(u.x * f, u.y * f);
   }
   line_fft<false>(v, buf, tw, L, grp);
@@ -545,6 +603,64 @@ box_cols_forward_kernel(const float2* __restrict__ g,   // (B, lg, sc, nh)
   }
 }
 
+// Kernel B's line blocks for a box of sr × sc in an nh × nw grid: the
+// column passes' lines along H, the row pass's along W, the lines of a
+// block and the shared memory (twiddles, the groups' buffers and the
+// position table).
+struct BoxLines {
+  LineShape lh, lw;
+  int nt_h, nt_w, per_h, per_w;
+  size_t smem_h, smem_w;
+  float scale;  // 1/(nh·nw), the unscaled inverse's
+};
+
+// 0, or ERR_SHAPE for a grid side out of [1, MAX_LINE] or a box larger than
+// its grid; the column passes' shared memory allowed (ERR_SMEM if too much).
+inline int box_lines(int sr, int sc, int nh, int nw, BoxLines* s) {
+  if (nh < 1 || nw < 1 || nh > MAX_LINE || nw > MAX_LINE || sr < 1 ||
+      sc < 1 || sr > nh || sc > nw)
+    return ERR_SHAPE;
+  s->lh = line_shape(nh);
+  s->lw = line_shape(nw);
+  s->nt_h = line_threads(s->lh);
+  s->nt_w = line_threads(s->lw);
+  s->per_h = s->nt_h / s->lh.t;
+  s->per_w = s->nt_w / s->lw.t;
+  const size_t c8 = sizeof(float2);
+  s->smem_h = c8 * (nh + (size_t)s->per_h * line_buf(nh)) +
+              sizeof(int) * (size_t)nh;
+  s->smem_w = c8 * (nw + (size_t)s->per_w * line_buf(nw)) +
+              sizeof(int) * (size_t)nw;
+  s->scale = 1.0f / (float)((double)nh * (double)nw);
+  int err;
+  if ((err = allow_smem(box_cols_inverse_kernel, s->smem_h)) != 0) return err;
+  return allow_smem(box_cols_forward_kernel, s->smem_h);
+}
+
+// Kernel B's pass (1) into G.
+inline int box_inverse_columns(const BoxLines& s, const float* xb_re,
+                               const float* xb_im, const float* psi,
+                               const int* idx_h, const float2* twh, float2* g,
+                               int batch, int lg, int sr, int sc,
+                               cudaStream_t stream) {
+  box_cols_inverse_kernel<<<dim3(ceil_div(sc, s.per_h), lg, batch), s.nt_h,
+                            s.smem_h, stream>>>(xb_re, xb_im, psi, idx_h, twh,
+                                                g, s.lh, sr, sc);
+  return (int)cudaGetLastError();
+}
+
+// Kernel B's pass (3) from G into (m_re, m_im).
+inline int box_forward_columns(const BoxLines& s, const float2* g,
+                               const float* psi, const int* idx_h,
+                               const float2* twh, float* m_re, float* m_im,
+                               int batch, int lg, int sr, int sc,
+                               cudaStream_t stream) {
+  box_cols_forward_kernel<<<dim3(ceil_div(sc, s.per_h), batch), s.nt_h,
+                            s.smem_h, stream>>>(g, psi, idx_h, twh, m_re, m_im,
+                                                s.lh, lg, sr, sc);
+  return (int)cudaGetLastError();
+}
+
 // Passes (a)-(c) over every band chunk: acc = Σ_l fft2(shrink(ifft2(
 // X·psi_l)))·psi_l from the spectrum planes (xr, xi); with `inv_last` the
 // last chunk's pass (c) also takes the inverse FFT along W. `support`
@@ -559,7 +675,8 @@ int band_passes(const Lines& s, const float* xr, const float* xi,
                 bool inv_last, cudaStream_t stream) {
   int err;
   if ((err = allow_smem(rows_inverse_kernel, s.smem_rows)) != 0) return err;
-  if ((err = allow_smem(cols_shrink_kernel, s.smem_cols)) != 0) return err;
+  if ((err = allow_smem(cols_shrink_kernel<PASS_SHRINK>, s.smem_cols)) != 0)
+    return err;
   if ((err = allow_smem(rows_forward_acc_kernel<false>, s.smem_rows)) != 0)
     return err;
   if (inv_last &&
@@ -580,10 +697,10 @@ int band_passes(const Lines& s, const float* xr, const float* xi,
                                                    bands + p0, tww, scratch,
                                                    s.lw, h, nrows);
       if ((err = (int)cudaGetLastError()) != 0) return err;
-      cols_shrink_kernel<<<dim3(ceil_div(w, s.cols), l1 - l0, batch), s.nt_h,
-                           s.smem_cols, stream>>>(scratch, slot, tau, twh,
-                                                  s.lh, w, s.cols, nrows, p0,
-                                                  nbands, l0, scale, op);
+      cols_shrink_kernel<PASS_SHRINK>
+          <<<dim3(ceil_div(w, s.cols), l1 - l0, batch), s.nt_h, s.smem_cols,
+             stream>>>(scratch, slot, tau + l0, twh, s.lh, w, s.cols, nrows,
+                       p0, nbands, l0, scale, op, nullptr);
       if ((err = (int)cudaGetLastError()) != 0) return err;
     }
     const dim3 grid(ceil_div(h, per_block), batch);
@@ -709,37 +826,152 @@ int p3d_box_group_update(const float* xb_re, const float* xb_im,
                          float* m_re, float* m_im, float* work, int batch,
                          int lg, int sr, int sc, int nh, int nw, int op,
                          void* stream_handle) {
-  if (nh < 1 || nw < 1 || nh > MAX_LINE || nw > MAX_LINE || sr < 1 ||
-      sc < 1 || sr > nh || sc > nw)
-    return ERR_SHAPE;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
-  const LineShape lh = line_shape(nh), lw = line_shape(nw);
-  const int nt_h = line_threads(lh), nt_w = line_threads(lw);
-  const int per_h = nt_h / lh.t, per_w = nt_w / lw.t;  // lines of a block
-  const size_t c8 = sizeof(float2);
-  const size_t smem_h = c8 * (nh + (size_t)per_h * line_buf(nh)) +
-                        sizeof(int) * (size_t)nh;
-  const size_t smem_w = c8 * (nw + (size_t)per_w * line_buf(nw)) +
-                        sizeof(int) * (size_t)nw;
+  BoxLines s;
   int err;
-  if ((err = allow_smem(box_cols_inverse_kernel, smem_h)) != 0) return err;
-  if ((err = allow_smem(box_rows_kernel, smem_w)) != 0) return err;
-  if ((err = allow_smem(box_cols_forward_kernel, smem_h)) != 0) return err;
+  if ((err = box_lines(sr, sc, nh, nw, &s)) != 0) return err;
+  if ((err = allow_smem(box_rows_kernel<PASS_SHRINK>, s.smem_w)) != 0)
+    return err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   float2* g = reinterpret_cast<float2*>(work);
   const float2* twh = reinterpret_cast<const float2*>(tw_h);
   const float2* tww = reinterpret_cast<const float2*>(tw_w);
-  box_cols_inverse_kernel<<<dim3(ceil_div(sc, per_h), lg, batch), nt_h,
-                            smem_h, stream>>>(xb_re, xb_im, psi, idx_h, twh,
-                                              g, lh, sr, sc);
+  if ((err = box_inverse_columns(s, xb_re, xb_im, psi, idx_h, twh, g, batch,
+                                 lg, sr, sc, stream)) != 0)
+    return err;
+  box_rows_kernel<PASS_SHRINK>
+      <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, s.smem_w, stream>>>(
+          g, idx_w, tau, tww, s.lw, nh, sc, s.scale, op, nullptr);
   if ((err = (int)cudaGetLastError()) != 0) return err;
-  box_rows_kernel<<<dim3(ceil_div(nh, per_w), lg, batch), nt_w, smem_w,
-                    stream>>>(g, idx_w, tau, tww, lw, nh, sc,
-                              1.0f / (float)((double)nh * (double)nw), op);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
-  box_cols_forward_kernel<<<dim3(ceil_div(sc, per_h), batch), nt_h, smem_h,
-                            stream>>>(g, psi, idx_h, twh, m_re, m_im, lh, lg,
-                                      sr, sc);
+  return box_forward_columns(s, g, psi, idx_h, twh, m_re, m_im, batch, lg, sr,
+                             sc, stream);
+}
+
+// The percentile route's pass 1 for kernel A, on the band chunk [l0, l1):
+// pass (a) into `work`, then the column pass's PASS_KEYS form, which writes
+// |c_l| of every pixel of each band of the chunk into keys (batch, l1 - l0,
+// h, w) and leaves `work` for p3d_subband_shrink. Returns as
+// p3d_subband_update; `support` and `offsets` as it takes them, `work` as
+// large as for the chunk's support rows.
+int p3d_subband_keys(const float* x_re, const float* x_im, const float* psi,
+                     const float* tw_h, const float* tw_w, const int* support,
+                     const int* offsets, int l0, int l1, float* keys,
+                     float* work, int batch, int h, int w, int nbands,
+                     void* stream_handle) {
+  Lines s;
+  int err;
+  if ((err = lines_for(h, w, NT, h, &s)) != 0) return err;
+  if ((err = allow_smem(rows_inverse_kernel, s.smem_rows)) != 0) return err;
+  if ((err = allow_smem(cols_shrink_kernel<PASS_KEYS>, s.smem_cols)) != 0)
+    return err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const int nnz = offsets[nbands];
+  const int p0 = offsets[l0], nrows = offsets[l1] - p0;
+  float2* scratch = reinterpret_cast<float2*>(work);
+  if (nrows > 0) {
+    rows_inverse_kernel<<<dim3(ceil_div(nrows, s.rows_per_block()), batch),
+                          s.nt_w, s.smem_rows, stream>>>(
+        x_re, x_im, psi, support + p0, support + nnz + p0,
+        reinterpret_cast<const float2*>(tw_w), scratch, s.lw, h, nrows);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+  }
+  // a column with no support row of the band is a zero line: its keys are 0
+  cols_shrink_kernel<PASS_KEYS>
+      <<<dim3(ceil_div(w, s.cols), l1 - l0, batch), s.nt_h, s.smem_cols,
+         stream>>>(scratch, support + 2 * (long long)nnz, nullptr,
+                   reinterpret_cast<const float2*>(tw_h), s.lh, w, s.cols,
+                   nrows, p0, 0, l0, 1.0f / (float)((double)h * (double)w), 0,
+                   keys);
   return (int)cudaGetLastError();
+}
+
+// The percentile route's pass 2 for kernel A, on the band chunk [l0, l1)
+// whose pass 1 left `work`: the column pass with tau (batch, l1 - l0), the
+// thresholds p3d_band_percentile selected, |c|² rounded as the keys were
+// (PASS_SHRINK_RN), then pass (c) into (acc_re, acc_im), written when
+// `first`, else added to. Returns as p3d_subband_update.
+int p3d_subband_shrink(const float* psi, const float* tau, const float* tw_h,
+                       const float* tw_w, const int* support,
+                       const int* offsets, int l0, int l1, float* acc_re,
+                       float* acc_im, float* work, int batch, int h, int w,
+                       int nbands, int op, int first, void* stream_handle) {
+  Lines s;
+  int err;
+  if ((err = lines_for(h, w, NT, h, &s)) != 0) return err;
+  if ((err = allow_smem(cols_shrink_kernel<PASS_SHRINK_RN>, s.smem_cols)) !=
+      0)
+    return err;
+  if ((err = allow_smem(rows_forward_acc_kernel<false>, s.smem_rows)) != 0)
+    return err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  const int* slot = support + 2 * (long long)offsets[nbands];
+  const int p0 = offsets[l0], nrows = offsets[l1] - p0;
+  float2* scratch = reinterpret_cast<float2*>(work);
+  const float2* tww = reinterpret_cast<const float2*>(tw_w);
+  if (nrows > 0) {
+    cols_shrink_kernel<PASS_SHRINK_RN>
+        <<<dim3(ceil_div(w, s.cols), l1 - l0, batch), s.nt_h, s.smem_cols,
+           stream>>>(scratch, slot, tau, reinterpret_cast<const float2*>(tw_h),
+                     s.lh, w, s.cols, nrows, p0, l1 - l0, l0,
+                     1.0f / (float)((double)h * (double)w), op, nullptr);
+    if ((err = (int)cudaGetLastError()) != 0) return err;
+  }
+  rows_forward_acc_kernel<false>
+      <<<dim3(ceil_div(h, s.rows_per_block()), batch), s.nt_w, s.smem_rows,
+         stream>>>(scratch, slot, psi, tww, acc_re, acc_im, s.lw, h, nrows, p0,
+                   l0, l1, first);
+  return (int)cudaGetLastError();
+}
+
+// The percentile route's pass 1 for kernel B: pass (1) into `work`, then
+// the row pass's PASS_KEYS form, which writes |c| of the full N_h × N_w
+// field of every band into keys (batch, lg, nh, nw) and leaves `work` for
+// p3d_box_shrink. Returns and takes its arguments as p3d_box_group_update.
+int p3d_box_keys(const float* xb_re, const float* xb_im, const float* psi,
+                 const int* idx_h, const int* idx_w, const float* tw_h,
+                 const float* tw_w, float* keys, float* work, int batch,
+                 int lg, int sr, int sc, int nh, int nw, void* stream_handle) {
+  BoxLines s;
+  int err;
+  if ((err = box_lines(sr, sc, nh, nw, &s)) != 0) return err;
+  if ((err = allow_smem(box_rows_kernel<PASS_KEYS>, s.smem_w)) != 0)
+    return err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  float2* g = reinterpret_cast<float2*>(work);
+  if ((err = box_inverse_columns(s, xb_re, xb_im, psi, idx_h,
+                                 reinterpret_cast<const float2*>(tw_h), g,
+                                 batch, lg, sr, sc, stream)) != 0)
+    return err;
+  box_rows_kernel<PASS_KEYS>
+      <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, s.smem_w, stream>>>(
+          g, idx_w, nullptr, reinterpret_cast<const float2*>(tw_w), s.lw, nh,
+          sc, s.scale, 0, keys);
+  return (int)cudaGetLastError();
+}
+
+// The percentile route's pass 2 for kernel B on the `work` its pass 1
+// left: the row pass with tau (batch, lg) from p3d_band_percentile, |c|²
+// rounded as the keys were (PASS_SHRINK_RN), then pass (3) into (m_re,
+// m_im). Returns as p3d_box_group_update.
+int p3d_box_shrink(const float* psi, const float* tau, const int* idx_h,
+                   const int* idx_w, const float* tw_h, const float* tw_w,
+                   float* m_re, float* m_im, float* work, int batch, int lg,
+                   int sr, int sc, int nh, int nw, int op,
+                   void* stream_handle) {
+  BoxLines s;
+  int err;
+  if ((err = box_lines(sr, sc, nh, nw, &s)) != 0) return err;
+  if ((err = allow_smem(box_rows_kernel<PASS_SHRINK_RN>, s.smem_w)) != 0)
+    return err;
+  cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
+  float2* g = reinterpret_cast<float2*>(work);
+  box_rows_kernel<PASS_SHRINK_RN>
+      <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, s.smem_w, stream>>>(
+          g, idx_w, tau, reinterpret_cast<const float2*>(tw_w), s.lw, nh, sc,
+          s.scale, op, nullptr);
+  if ((err = (int)cudaGetLastError()) != 0) return err;
+  return box_forward_columns(s, g, psi, idx_h,
+                             reinterpret_cast<const float2*>(tw_h), m_re,
+                             m_im, batch, lg, sr, sc, stream);
 }
 
 }  // extern "C"

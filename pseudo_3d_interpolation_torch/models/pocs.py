@@ -17,7 +17,12 @@ Four routes:
   each iteration's ``inverse(threshold(forward(·)))`` fused in the
   transform's ``apply_threshold`` (the subband kernels on the card:
   ``subband_update`` and ``box_group_update``, or with ``P3D_SPATIAL_IO``
-  set ``subband_update_spatial`` and ``box_group_update``);
+  set ``subband_update_spatial`` and ``box_group_update``). With a
+  ``*-percentile`` threshold, which the JAX package runs through its plain
+  streamed apply (the route's reason names it), the two kernels run split
+  at the threshold, each band's percentile of |c| selected on the card
+  between their passes (``ops/kernels/subband.py``'s percentile route and
+  ``ops/kernels/percentile.py``); ``P3D_SPATIAL_IO`` does not apply there;
 - ``xla-scan``: the JAX package's plain scan, here PyTorch ops on the
   device (``torch.fft``, ``torch.matmul``) and no kernel: the DCT or
   WAVELET basis with eps ≠ 0, cost history, global early stop or
@@ -28,9 +33,7 @@ The last three share one scan, a Python loop over the iterations with the
 state on the device. It carries the scan's options: regular / fast /
 adaptive, lane freezing for eps > 0, cost history and ``global_early_stop``
 (the one host synchronisation per iteration, taken only when asked for).
-A directional basis with a threshold that has no subband kernel (the
-percentile forms) raises :class:`NotImplementedError` with its route's
-reason; nothing falls back.
+Every route :func:`solver_route` gives runs; nothing falls back.
 """
 
 from __future__ import annotations
@@ -100,8 +103,7 @@ class SolverRoute(NamedTuple):
     or ``'xla-scan'`` (the JAX package's plain scan); ``basis``
     the folded kernel's basis ('fft'/'dct'/'wavelet', '' otherwise);
     ``reason`` the first failed folded-kernel condition, worded as in the
-    JAX package ('' when the folded kernel runs). :func:`runs` says whether
-    the route is ported."""
+    JAX package ('' when the folded kernel runs)."""
 
     route: str
     basis: str
@@ -109,11 +111,11 @@ class SolverRoute(NamedTuple):
 
 
 def runs(route: SolverRoute) -> bool:
-    """Whether :func:`pocs_interpolate` runs ``route``: the scans over the
-    iteration kernel and over the transforms always, the folded and
-    directional routes when no gate failed."""
-    return (route.route in ("fused-periter", "xla-scan")
-            or not route.reason)
+    """Whether :func:`pocs_interpolate` runs ``route``: every route
+    :func:`solver_route` gives, the directional route with a percentile
+    threshold (whose reason names the threshold) included."""
+    return route.route in ("fused-folded", "fused-periter",
+                           "streamed-subband", "xla-scan")
 
 
 def _wavelet_kernel_ok(transform: WaveletTransform, h: int, w: int) -> bool:
@@ -140,8 +142,8 @@ def solver_route(shape, mask_shape, config: POCSConfig,
     op = "garrote" if cfg.thresh_op == "garotte" else cfg.thresh_op
     h, w = int(shape[-2]), int(shape[-1])
     if hasattr(transform, "apply_threshold"):
-        # the subband kernels take any slice shape; the threshold is their
-        # one gate
+        # the subband kernels take any slice shape; the percentile forms
+        # take their split kernels, under the JAX package's reason
         if op not in THRESH_OPS:
             return SolverRoute(
                 "streamed-subband", "", f"threshold {cfg.thresh_op!r} has "
@@ -194,14 +196,10 @@ def solver_route(shape, mask_shape, config: POCSConfig,
 
 def describe_route(route: SolverRoute) -> str:
     """One-line description of a :class:`SolverRoute` for driver logs: the
-    route, its basis and the first failed kernel gate, and "not ported"
-    where :func:`runs` refuses the route."""
+    route, its basis and the first failed kernel gate, as the JAX package
+    words it."""
     name = route.route + (f"[{route.basis}]" if route.basis else "")
-    if not route.reason:
-        return name
-    if runs(route):
-        return f"{name} — {route.reason}"
-    return f"{name} — not ported: {route.reason}"
+    return f"{name} — {route.reason}" if route.reason else name
 
 
 def pocs_interpolate(z: Cplx, mask: torch.Tensor, transform=None,
@@ -221,8 +219,6 @@ def pocs_interpolate(z: Cplx, mask: torch.Tensor, transform=None,
         transform = transform.with_shape(z.shape)
     mask = mask.to(device=z.re.device, dtype=torch.float32).contiguous()
     route = solver_route(z.shape, mask.shape, cfg, transform)
-    if not runs(route):
-        raise NotImplementedError(describe_route(route))
     if route.route != "fused-folded":
         return _scan(z, mask, transform, cfg, route)
 

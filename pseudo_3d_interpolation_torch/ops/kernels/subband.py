@@ -26,8 +26,18 @@ the host, :class:`RowSupport` on the device): a row of X·ψ_l whose window
 row is zero is a zero line wherever it would be transformed, so the skip
 is exact.
 
+With a ``*-percentile`` threshold (the JAX package's plain streamed apply
+takes it, ``threshold_pair`` on each band's c_l) each band's threshold is
+a percentile of |c_l| over the whole field, which the kernels cannot know
+before c_l is whole. :func:`subband_update_percentile` and
+:func:`box_group_update_percentile` run kernels A and B split at the
+threshold: pass 1 (:func:`subband_keys`, :func:`box_keys`) writes |c_l|,
+``percentile.band_percentile`` selects the thresholds on the card, pass 2
+(:func:`subband_shrink`, :func:`box_shrink`) computes c_l once more from
+pass 1's scratch and runs the rest of the kernel.
+
 Each wrapper launches its kernel for CUDA tensors and takes its plain
-version only for CPU tensors; a failed build or launch raises. The three
+version only for CPU tensors; a failed build or launch raises. The
 solver kernels' wrappers count their launches (``.launches``).
 """
 
@@ -139,6 +149,12 @@ def band_chunks(offsets: np.ndarray, batch: int, h: int, w: int
     return np.asarray(starts + [nbands], np.int32)
 
 
+def _split_op(thresh_op: str, precision: str) -> str:
+    """:func:`_op` of a percentile route's threshold: 'hard-percentile' or
+    its base 'hard' (soft, garrote alike) name the same pass 2."""
+    return _op(thresh_op.removesuffix("-percentile"), precision)
+
+
 def _op(thresh_op: str, precision: str) -> str:
     op = "garrote" if thresh_op == "garotte" else thresh_op
     if op not in THRESH_OPS:
@@ -179,6 +195,14 @@ def _lib() -> ctypes.CDLL:
     lib.p3d_line_fft.restype = i
     lib.p3d_box_group_update.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.p3d_box_group_update.restype = i
+    lib.p3d_subband_keys.argtypes = [p] * 7 + [i] * 2 + [p] * 2 + [i] * 4 + [p]
+    lib.p3d_subband_keys.restype = i
+    lib.p3d_subband_shrink.argtypes = [p] * 6 + [i] * 2 + [p] * 3 + [i] * 6 + [p]
+    lib.p3d_subband_shrink.restype = i
+    lib.p3d_box_keys.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.p3d_box_keys.restype = i
+    lib.p3d_box_shrink.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.p3d_box_shrink.restype = i
     return lib
 
 
@@ -198,10 +222,10 @@ def subband_update_plain(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
     return Cplx(acc.real.contiguous(), acc.imag.contiguous())
 
 
-def _check_bands(x: Cplx, psi: torch.Tensor, tau: torch.Tensor,
+def _check_bands(x: Cplx, psi: torch.Tensor, tau: torch.Tensor | None,
                  name: str) -> torch.device:
-    """The checks of :func:`subband_update` and
-    :func:`subband_update_spatial`; returns the tensors' device."""
+    """The checks of the subband entry points (``tau`` None: one that takes
+    no thresholds); returns the tensors' device."""
     device = _device(x.re)
     if x.re.dim() != 3 or x.im.shape != x.re.shape:
         raise ValueError(f"{name} must be a (B, H, W) pair, got "
@@ -211,11 +235,13 @@ def _check_bands(x: Cplx, psi: torch.Tensor, tau: torch.Tensor,
         raise ValueError(f"psi must be (L, {h}, {w}), got "
                          f"{tuple(psi.shape)}")
     nbands = psi.shape[0]
-    if tuple(tau.shape) != (b, nbands):
-        raise ValueError(f"tau must be ({b}, {nbands}), got "
-                         f"{tuple(tau.shape)}")
-    _check({f"{name}.re": x.re, f"{name}.im": x.im, "psi": psi, "tau": tau},
-           device)
+    named = {f"{name}.re": x.re, f"{name}.im": x.im, "psi": psi}
+    if tau is not None:
+        if tuple(tau.shape) != (b, nbands):
+            raise ValueError(f"tau must be ({b}, {nbands}), got "
+                             f"{tuple(tau.shape)}")
+        named["tau"] = tau
+    _check(named, device)
     return device
 
 
@@ -375,6 +401,46 @@ def line_fft(x: Cplx, inverse: bool = False) -> Cplx:
     return Cplx(re, im)
 
 
+def _check_box(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor | None,
+               mats, n_h: int, n_w: int, index) -> torch.device:
+    """The checks of the box entry points (``tau`` None: one that takes no
+    thresholds); returns the tensors' device. CPU tensors need ``mats``,
+    CUDA tensors ``index``."""
+    device = _device(xbox.re)
+    if xbox.re.dim() != 3 or xbox.im.shape != xbox.re.shape:
+        raise ValueError(f"xbox must be a (B, sr, sc) pair, got "
+                         f"{tuple(xbox.re.shape)} / {tuple(xbox.im.shape)}")
+    b, sr, sc = xbox.re.shape
+    if psi.dim() != 3 or tuple(psi.shape[1:]) != (sr, sc):
+        raise ValueError(f"psi must be (lg, {sr}, {sc}), got "
+                         f"{tuple(psi.shape)}")
+    lg = psi.shape[0]
+    named = {"xbox.re": xbox.re, "xbox.im": xbox.im, "psi": psi}
+    if tau is not None:
+        if tuple(tau.shape) != (b, lg):
+            raise ValueError(f"tau must be ({b}, {lg}), got "
+                             f"{tuple(tau.shape)}")
+        named["tau"] = tau
+    _check(named, device)
+    if device.type == "cpu":
+        ahr, ahi, awr, awi = mats
+        for name, t, shape in (("ahr", ahr, (sr, n_h)), ("ahi", ahi, (sr, n_h)),
+                               ("awr", awr, (sc, n_w)), ("awi", awi, (sc, n_w))):
+            if tuple(t.shape) != shape:
+                raise ValueError(f"{name} must be {shape}, got "
+                                 f"{tuple(t.shape)}")
+        _check({"ahr": ahr, "ahi": ahi, "awr": awr, "awi": awi}, device)
+        return device
+    if index is None:
+        raise ValueError("a box kernel on a CUDA tensor needs index, the "
+                         "box's (idx_h, idx_w) as int32 on its device")
+    for name, t, n in (("idx_h", index[0], sr), ("idx_w", index[1], sc)):
+        if (t.dtype != torch.int32 or t.device != device
+                or tuple(t.shape) != (n,) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be ({n},) int32 on {device}")
+    return device
+
+
 def box_group_update_plain(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor,
                            mats, n_h: int, n_w: int,
                            thresh_op: str = "hard") -> Cplx:
@@ -412,36 +478,12 @@ def box_group_update(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor, mats,
     slices' spectra at the box. CUDA tensors run the kernel, CPU tensors
     :func:`box_group_update_plain`."""
     op = _op(thresh_op, precision)
-    device = _device(xbox.re)
-    if xbox.re.dim() != 3 or xbox.im.shape != xbox.re.shape:
-        raise ValueError(f"xbox must be a (B, sr, sc) pair, got "
-                         f"{tuple(xbox.re.shape)} / {tuple(xbox.im.shape)}")
-    b, sr, sc = xbox.re.shape
-    if psi.dim() != 3 or tuple(psi.shape[1:]) != (sr, sc):
-        raise ValueError(f"psi must be (lg, {sr}, {sc}), got "
-                         f"{tuple(psi.shape)}")
-    lg = psi.shape[0]
-    if tuple(tau.shape) != (b, lg):
-        raise ValueError(f"tau must be ({b}, {lg}), got {tuple(tau.shape)}")
-    _check({"xbox.re": xbox.re, "xbox.im": xbox.im, "psi": psi, "tau": tau},
-           device)
+    device = _check_box(xbox, psi, tau, mats, n_h, n_w, index)
     if device.type == "cpu":
-        ahr, ahi, awr, awi = mats
-        for name, t, shape in (("ahr", ahr, (sr, n_h)), ("ahi", ahi, (sr, n_h)),
-                               ("awr", awr, (sc, n_w)), ("awi", awi, (sc, n_w))):
-            if tuple(t.shape) != shape:
-                raise ValueError(f"{name} must be {shape}, got "
-                                 f"{tuple(t.shape)}")
-        _check({"ahr": ahr, "ahi": ahi, "awr": awr, "awi": awi}, device)
         return box_group_update_plain(xbox, psi, tau, mats, n_h, n_w, op)
-    if index is None:
-        raise ValueError("box_group_update on a CUDA tensor needs index, the "
-                         "box's (idx_h, idx_w) as int32 on its device")
+    b, sr, sc = xbox.re.shape
+    lg = psi.shape[0]
     idx_h, idx_w = index
-    for name, t, n in (("idx_h", idx_h, sr), ("idx_w", idx_w, sc)):
-        if (t.dtype != torch.int32 or t.device != device
-                or tuple(t.shape) != (n,) or not t.is_contiguous()):
-            raise ValueError(f"{name} must be ({n},) int32 on {device}")
     m_re = torch.empty_like(xbox.re)
     m_im = torch.empty_like(xbox.im)
     if b == 0 or lg == 0:
@@ -462,3 +504,293 @@ def box_group_update(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor, mats,
 
 
 box_group_update.launches = 0
+
+
+# --- the percentile route: each kernel split at the threshold -------------
+#
+# A percentile threshold needs all of c_l before any of it is shrunk, so
+# the route runs each kernel in two passes with the selection between:
+# pass 1 (``subband_keys``, ``box_keys``) the passes up to c_l, writing
+# |c_l| of every pixel (the keys); ``percentile.band_percentile`` one
+# threshold per (slice, band); pass 2 (``subband_shrink``, ``box_shrink``)
+# c_l computed again from pass 1's scratch (the same code on the same
+# values, so the same bits), shrunk, and the rest of the kernel. Each
+# wrapper counts its launches; on CPU tensors it runs its plain version.
+
+
+def subband_keys_plain(x_spec: Cplx, psi: torch.Tensor) -> torch.Tensor:
+    """|ifft2(X·ψ_l)| of each band, (B, L, H, W), rounded as
+    ``Cplx.abs`` rounds it."""
+    x = torch.complex(x_spec.re, x_spec.im)
+    keys = torch.empty((x.shape[0], psi.shape[0]) + tuple(x.shape[1:]),
+                       dtype=torch.float32, device=x.device)
+    for k in range(psi.shape[0]):
+        c = torch.fft.ifft2(x * psi[k])
+        keys[:, k] = torch.sqrt(c.real * c.real + c.imag * c.imag)
+    return keys
+
+
+def subband_keys(x_spec: Cplx, psi: torch.Tensor, support: RowSupport,
+                 l0: int, l1: int, work: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """Pass 1 of the percentile route on the band chunk [l0, l1) of
+    ``psi``: the keys |c_l| (B, l1 − l0, H, W) of c_l = ifft2(X·ψ_l). On
+    the card the kernel's passes (a) and (b) up to the scale, (a) into
+    ``work`` (:func:`percentile_work`), which pass 2 reads; CPU tensors run
+    :func:`subband_keys_plain`."""
+    device = _check_bands(x_spec, psi, None, "x_spec")
+    _check_support(psi, support)
+    if device.type == "cpu":
+        return subband_keys_plain(x_spec, psi[l0:l1])
+    b, h, w = x_spec.re.shape
+    keys = torch.empty((b, l1 - l0, h, w), dtype=torch.float32,
+                       device=device)
+    with torch.cuda.device(device):
+        rc = _lib().p3d_subband_keys(
+            x_spec.re.data_ptr(), x_spec.im.data_ptr(), psi.data_ptr(),
+            twiddles_on(h, str(device)).data_ptr(),
+            twiddles_on(w, str(device)).data_ptr(), support.table.data_ptr(),
+            support.offsets.ctypes.data, l0, l1, keys.data_ptr(),
+            work.data_ptr(), b, h, w, psi.shape[0],
+            torch.cuda.current_stream(device).cuda_stream)
+    raise_on(rc, "subband_keys", tuple(x_spec.re.shape))
+    subband_keys.launches += 1
+    return keys
+
+
+subband_keys.launches = 0
+
+
+def subband_shrink_plain(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
+                         thresh_op: str, acc: Cplx | None = None) -> Cplx:
+    """``acc`` (zero when None) + Σ_l fft2(shrink(ifft2(X·ψ_l), tau[:, l]))·ψ_l
+    over the bands of ``psi``, summed in band order onto ``acc`` as the
+    kernel sums."""
+    x = torch.complex(x_spec.re, x_spec.im)
+    total = (torch.zeros_like(x) if acc is None
+             else torch.complex(acc.re, acc.im))
+    for k in range(psi.shape[0]):
+        p = psi[k]
+        c = torch.fft.ifft2(x * p)
+        c = c * _shrink(c.real * c.real + c.imag * c.imag,
+                        tau[:, k, None, None], thresh_op)
+        total = total + torch.fft.fft2(c) * p
+    return Cplx(total.real.contiguous(), total.imag.contiguous())
+
+
+def subband_shrink(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
+                   support: RowSupport, l0: int, l1: int, acc: Cplx | None,
+                   thresh_op: str, work: torch.Tensor | None = None) -> Cplx:
+    """Pass 2 of the percentile route on the band chunk [l0, l1): c_l once
+    more from pass 1's ``work``, shrunk by ``tau`` (B, l1 − l0) (the
+    thresholds :func:`percentile.band_percentile` selected) with |c|²
+    rounded as the keys were, forward-transformed, weighted by ψ_l and
+    summed in band order onto ``acc`` (None for the first chunk). Returns
+    the accumulator, on the card ``acc``'s planes written in place; CPU
+    tensors run :func:`subband_shrink_plain`."""
+    op = _split_op(thresh_op, "highest")
+    device = _check_bands(x_spec, psi, None, "x_spec")
+    _check_support(psi, support)
+    b, h, w = x_spec.re.shape
+    if tuple(tau.shape) != (b, l1 - l0):
+        raise ValueError(f"tau must be ({b}, {l1 - l0}), got "
+                         f"{tuple(tau.shape)}")
+    _check({"tau": tau}, device)
+    if device.type == "cpu":
+        return subband_shrink_plain(x_spec, psi[l0:l1], tau, op, acc)
+    first = acc is None
+    if first:
+        acc = Cplx(torch.empty_like(x_spec.re), torch.empty_like(x_spec.im))
+    with torch.cuda.device(device):
+        rc = _lib().p3d_subband_shrink(
+            psi.data_ptr(), tau.data_ptr(),
+            twiddles_on(h, str(device)).data_ptr(),
+            twiddles_on(w, str(device)).data_ptr(), support.table.data_ptr(),
+            support.offsets.ctypes.data, l0, l1, acc.re.data_ptr(),
+            acc.im.data_ptr(), work.data_ptr(), b, h, w, psi.shape[0],
+            THRESH_OPS[op], int(first),
+            torch.cuda.current_stream(device).cuda_stream)
+    raise_on(rc, "subband_shrink", tuple(x_spec.re.shape))
+    subband_shrink.launches += 1
+    return acc
+
+
+subband_shrink.launches = 0
+
+
+def percentile_work(x: Cplx, support: RowSupport) -> torch.Tensor | None:
+    """The scratch pass 1 of :func:`subband_keys` writes and pass 2 reads
+    for every band chunk of a (B, H, W) call: the most support rows of one
+    chunk; None on the host, where the plain versions need none."""
+    if x.re.device.type == "cpu":
+        return None
+    return _band_call(x, support, False)[1]
+
+
+def percentile_key_bytes(batch: int, h: int, w: int, nbands: int) -> int:
+    """The keys pass 1 writes for ``nbands`` bands of a (B, H, W) call:
+    float32 (B, nbands, H, W); a chunk of :func:`subband_update_percentile`
+    holds at most every band's."""
+    return 4 * batch * nbands * h * w
+
+
+def subband_update_percentile_plain(x_spec: Cplx, psi: torch.Tensor,
+                                    q: torch.Tensor,
+                                    thresh_op: str = "hard-percentile"
+                                    ) -> Cplx:
+    """The split route's plain versions over every band at once: keys,
+    percentiles, shrink and sum in band order."""
+    from .percentile import band_percentile_plain
+
+    op = _split_op(thresh_op, "highest")
+    tau = band_percentile_plain(subband_keys_plain(x_spec, psi), q)
+    return subband_shrink_plain(x_spec, psi, tau, op)
+
+
+def subband_update_percentile(x_spec: Cplx, psi: torch.Tensor,
+                              q: torch.Tensor,
+                              thresh_op: str = "hard-percentile",
+                              precision: str = "highest", *,
+                              support: RowSupport) -> Cplx:
+    """The full-size bands' subband update with percentile thresholds:
+    Σ_l fft2(shrink(c_l, t[b, l]))·ψ_l, c_l = ifft2(X_b·ψ_l), where
+    t[b, l] is the percentile ``q[b, l]`` of |c_l| over H×W (JAX
+    ``threshold_pair`` with a ``*-percentile`` kind on its streamed
+    apply). ``q``: (B, L) float32; ``thresh_op``: 'hard-percentile',
+    'soft-percentile' or 'garrote-percentile' (or their bases); the rest
+    as :func:`subband_update`. Per band chunk of the scratch:
+    :func:`subband_keys`, :func:`percentile.band_percentile`,
+    :func:`subband_shrink`, the chunks' sums in band order."""
+    from .percentile import band_percentile
+
+    op = _split_op(thresh_op, precision)
+    device = _check_bands(x_spec, psi, q, "x_spec")
+    _check_support(psi, support)
+    b, h, w = x_spec.re.shape
+    if b == 0 or psi.shape[0] == 0:
+        return Cplx(torch.zeros_like(x_spec.re), torch.zeros_like(x_spec.im))
+    chunks = support.chunks(b, h, w)[0]
+    work = percentile_work(x_spec, support)
+    acc = None
+    for l0, l1 in zip(chunks[:-1].tolist(), chunks[1:].tolist()):
+        tau = band_percentile(subband_keys(x_spec, psi, support, l0, l1, work),
+                              q[:, l0:l1].contiguous())
+        acc = subband_shrink(x_spec, psi, tau, support, l0, l1, acc, op, work)
+    return acc
+
+
+def box_keys_plain(xbox: Cplx, psi: torch.Tensor, mats, n_h: int,
+                   n_w: int) -> torch.Tensor:
+    """|A_hᴴ(xb·ψ_l)A_w*/(N_h·N_w)| of each band: the full N_h × N_w field,
+    (B, lg, N_h, N_w), rounded as ``Cplx.abs`` rounds it."""
+    ahr, ahi, awr, awi = mats
+    ah = torch.complex(ahr, ahi)
+    aw = torch.complex(awr, awi)
+    xb = torch.complex(xbox.re, xbox.im)
+    keys = torch.empty((xb.shape[0], psi.shape[0], n_h, n_w),
+                       dtype=torch.float32, device=xb.device)
+    for k in range(psi.shape[0]):
+        c = (ah.conj().T @ (xb * psi[k]) @ aw.conj()) / (n_h * n_w)
+        keys[:, k] = torch.sqrt(c.real * c.real + c.imag * c.imag)
+    return keys
+
+
+def box_keys(xbox: Cplx, psi: torch.Tensor, mats, n_h: int, n_w: int, *,
+             index=None, work: torch.Tensor | None = None) -> torch.Tensor:
+    """Pass 1 of the percentile route for one box group: the keys |c| of
+    each band's full N_h × N_w field, (B, lg, N_h, N_w). On the card the
+    box kernel's pass (1) into ``work`` (``box_work_floats`` floats, which
+    pass 2 reads) and its row pass up to the scale; CPU tensors run
+    :func:`box_keys_plain`. Arguments as :func:`box_group_update`."""
+    b, sr, sc = xbox.re.shape
+    lg = psi.shape[0]
+    device = _check_box(xbox, psi, None, mats, n_h, n_w, index)
+    if device.type == "cpu":
+        return box_keys_plain(xbox, psi, mats, n_h, n_w)
+    keys = torch.empty((b, lg, n_h, n_w), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        rc = _lib().p3d_box_keys(
+            xbox.re.data_ptr(), xbox.im.data_ptr(), psi.data_ptr(),
+            index[0].data_ptr(), index[1].data_ptr(),
+            twiddles_on(n_h, str(device)).data_ptr(),
+            twiddles_on(n_w, str(device)).data_ptr(), keys.data_ptr(),
+            work.data_ptr(), b, lg, sr, sc, n_h, n_w,
+            torch.cuda.current_stream(device).cuda_stream)
+    raise_on(rc, "box_keys", (b, sr, sc, n_h, n_w))
+    box_keys.launches += 1
+    return keys
+
+
+box_keys.launches = 0
+
+
+def box_shrink(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor, mats,
+               n_h: int, n_w: int, thresh_op: str, *, index=None,
+               work: torch.Tensor | None = None) -> Cplx:
+    """Pass 2 of the percentile route for one box group: each band's field
+    once more from pass 1's ``work``, shrunk by ``tau`` (B, lg) with |c|²
+    rounded as the keys were, back to the box, weighted and summed in band
+    order: the window-weighted summed box (B, sr, sc). CPU tensors run
+    :func:`box_group_update_plain`."""
+    op = _split_op(thresh_op, "highest")
+    device = _check_box(xbox, psi, tau, mats, n_h, n_w, index)
+    if device.type == "cpu":
+        return box_group_update_plain(xbox, psi, tau, mats, n_h, n_w, op)
+    b, sr, sc = xbox.re.shape
+    m_re = torch.empty_like(xbox.re)
+    m_im = torch.empty_like(xbox.im)
+    with torch.cuda.device(device):
+        rc = _lib().p3d_box_shrink(
+            psi.data_ptr(), tau.data_ptr(), index[0].data_ptr(),
+            index[1].data_ptr(), twiddles_on(n_h, str(device)).data_ptr(),
+            twiddles_on(n_w, str(device)).data_ptr(), m_re.data_ptr(),
+            m_im.data_ptr(), work.data_ptr(), b, psi.shape[0], sr, sc, n_h,
+            n_w, THRESH_OPS[op],
+            torch.cuda.current_stream(device).cuda_stream)
+    raise_on(rc, "box_shrink", (b, sr, sc, n_h, n_w))
+    box_shrink.launches += 1
+    return Cplx(m_re, m_im)
+
+
+box_shrink.launches = 0
+
+
+def box_group_update_percentile_plain(xbox: Cplx, psi: torch.Tensor,
+                                      q: torch.Tensor, mats, n_h: int,
+                                      n_w: int,
+                                      thresh_op: str = "hard-percentile"
+                                      ) -> Cplx:
+    """The box group's split route in its plain versions: keys of the full
+    fields, percentiles, :func:`box_group_update_plain`."""
+    from .percentile import band_percentile_plain
+
+    op = _split_op(thresh_op, "highest")
+    tau = band_percentile_plain(box_keys_plain(xbox, psi, mats, n_h, n_w), q)
+    return box_group_update_plain(xbox, psi, tau, mats, n_h, n_w, op)
+
+
+def box_group_update_percentile(xbox: Cplx, psi: torch.Tensor,
+                                q: torch.Tensor, mats, n_h: int, n_w: int,
+                                thresh_op: str = "hard-percentile",
+                                precision: str = "highest", *,
+                                index=None) -> Cplx:
+    """One box group's update with percentile thresholds: each band's
+    threshold is the percentile ``q[b, l]`` of |c| over the full
+    N_h × N_w field (JAX ``_box_group_spatial`` with a ``*-percentile``
+    kind), not over the box. :func:`box_keys`,
+    :func:`percentile.band_percentile`, :func:`box_shrink`; arguments as
+    :func:`box_group_update`, ``q`` (B, lg) in place of ``tau``."""
+    from .percentile import band_percentile
+
+    op = _split_op(thresh_op, precision)
+    b, sr, sc = xbox.re.shape
+    device = _check_box(xbox, psi, q, mats, n_h, n_w, index)
+    if b == 0 or psi.shape[0] == 0:
+        return Cplx(torch.zeros_like(xbox.re), torch.zeros_like(xbox.im))
+    work = (None if device.type == "cpu" else torch.empty(
+        box_work_floats(b, psi.shape[0], sc, n_h), dtype=torch.float32,
+        device=device))
+    tau = band_percentile(box_keys(xbox, psi, mats, n_h, n_w, index=index,
+                                   work=work), q)
+    return box_shrink(xbox, psi, tau, mats, n_h, n_w, op, index=index,
+                      work=work)

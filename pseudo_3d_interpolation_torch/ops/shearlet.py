@@ -14,8 +14,10 @@ The POCS hot path is :func:`pocs_subband_apply`, the fused
 route (the top-level ``torch.fft`` spectrum, the ``subband_update`` kernel
 over the full-size bands and one ``box_group_update`` launch per support-
 cropped box group, one inverse; with ``P3D_SPATIAL_IO`` set, the spatial
-route of ``subband_update_spatial``); on a CPU tensor the plain streamed
-route, which never materialises the (B, L, H, W) coefficient stack.
+route of ``subband_update_spatial``; with a ``*-percentile`` threshold,
+the two kernels split at the threshold around a per-band selection); on a
+CPU tensor the plain streamed route, which never materialises the
+(B, L, H, W) coefficient stack.
 Subband order matches FFST: 0 = lowpass, then per scale j (coarse -> fine)
 2^(j+2) directional subbands.
 """
@@ -472,6 +474,13 @@ def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
     instead and adds a partial ifft2 of each box after the inverse: the
     same linear maps, so the two differ by rounding only.
 
+    A ``*-percentile`` ``thresh_op`` (``tau`` then holds the percentiles)
+    takes the split kernels, ``subband_update_percentile`` and
+    ``box_group_update_percentile``, in the same places: each band's
+    threshold is the percentile of |c_l| over the full H×W (the box
+    groups' full N_h × N_w field), selected on the card between the two
+    passes of each kernel.
+
     ``spatial_io`` (JAX ``P3D_SPATIAL_IO``): the JAX structure, one
     ``subband_update_spatial`` launch on the spatial iterate over the
     full-size bands, then per box group the box spectrum from a partial
@@ -479,10 +488,20 @@ def _pocs_subband_apply_kernels(z: Cplx, plan: Plan, tau, thresh_op: str,
     ifft2 of its result added to the spatial output. The JAX package takes
     this route only in its permuted layout (square slices with a fast
     split); the port's kernel takes any H×W, so here it applies to every
-    shape."""
-    from .kernels.subband import (box_group_update, subband_update,
+    shape. It does not apply to the percentile forms, which the JAX
+    package never sends to ``_kernel_spatial`` (its Pallas route refuses
+    them)."""
+    from .kernels.subband import (box_group_update,
+                                  box_group_update_percentile,
+                                  subband_update, subband_update_percentile,
                                   subband_update_spatial)
 
+    percentile = thresh_op.endswith("-percentile")
+    if percentile:
+        # the split kernels; the spatial form has no percentile route
+        spatial_io = False
+        subband_update = subband_update_percentile
+        box_group_update = box_group_update_percentile
     b, h, w = z.re.shape
     full, full_idx, boxes = _plan_kernel_pack(plan, h, w)
     device = z.re.device
@@ -544,10 +563,12 @@ def pocs_subband_apply(z: Cplx, plan: Plan, tau, thresh_op: str,
     in plan order (what the transform's decay emits per iteration);
     ``precision``/``box_precision``: 'high', 'highest' or 'default', all
     computed in full fp32 (the box groups take ``box_precision``, default
-    ``precision``). With ``P3D_SPATIAL_IO`` set (:func:`spatial_io_default`,
-    the one reader of the switch, which the device budget reads too) the
+    ``precision``). A ``*-percentile`` ``thresh_op`` reads ``tau`` as the
+    percentiles of |c| per (slice, subband) and takes the split kernels on
+    the card. With ``P3D_SPATIAL_IO`` set (:func:`spatial_io_default`, the
+    one reader of the switch, which the device budget reads too) the
     kernel route takes its spatial form (``subband_update_spatial``), for
-    every slice shape."""
+    every slice shape, the percentile forms excepted."""
     if box_precision is None:
         box_precision = precision
     if z.re.dim() != 3:

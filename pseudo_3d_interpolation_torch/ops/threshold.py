@@ -80,10 +80,12 @@ def _percentile_from_mag(mag: torch.Tensor, perc) -> torch.Tensor:
 
     ``perc`` is a scalar or a per-slice array broadcastable to the batch
     shape (trailing broadcast axes, as a ``(..., 1, 1)`` threshold has, are
-    stripped). Each slice is sorted once and the two neighbours of the rank
-    ``q/100·(n−1)`` are interpolated, all in float32 as ``jnp.percentile``
-    computes it: the indices are clamped to the slice, the weights are not
-    (so a q outside [0, 100] gives an end value), and a slice holding a NaN
+    stripped). The two neighbours of the rank ``q/100·(n−1)`` of each
+    slice (from one sort of it, or on the host, when every slice asks for
+    the same rank, from one selection) are interpolated, all in float32 as
+    ``jnp.percentile`` computes it: the indices are clamped to the slice,
+    the weights are not (so a q outside [0, 100] gives an end value), and
+    a slice holding a NaN
     gives NaN. ``torch.quantile`` is not used: it refuses inputs above 2**24
     elements and takes one q for all rows."""
     batch_shape = mag.shape[:-2]
@@ -95,15 +97,34 @@ def _percentile_from_mag(mag: torch.Tensor, perc) -> torch.Tensor:
     # n − 1 rounded as float32 (as JAX computes it), held as a Python
     # float: a device scalar would cost a host-to-device copy a call
     top = float(np.float32(n) - np.float32(1))
-    q = torch.broadcast_to(q, batch_shape).reshape(-1, 1) / 100 * top
+    q = torch.broadcast_to(q, batch_shape).reshape(-1, 1)
+    # a true division on every device: on a CUDA tensor, dividing by a
+    # Python number multiplies by its rounded reciprocal instead
+    q = q / torch.full_like(q, 100.0) * top
     low, high = torch.floor(q), torch.ceil(q)
     high_weight = q - low
     low_weight = 1 - high_weight
     low = low.clamp(0, top).to(torch.int64).clamp(max=n - 1)
     high = high.clamp(0, top).to(torch.int64).clamp(max=n - 1)
-    ordered = torch.sort(flat.float(), dim=-1).values
-    t = (torch.gather(ordered, -1, low) * low_weight
-         + torch.gather(ordered, -1, high) * high_weight)
+    flat = flat.float()
+    if (flat.device.type == "cpu" and flat.shape[0]
+            and bool((low == low[0]).all())):
+        # one rank for every row (the solver's percentiles are one value
+        # per iteration): the host's selection beats its sort several
+        # times over. The rank above low is low's value while equal values
+        # last, else the least value above it.
+        v_low = torch.kthvalue(flat, int(low[0]) + 1, dim=-1,
+                               keepdim=True).values
+        above = torch.where(flat > v_low, flat,
+                            torch.full_like(flat, float("inf")))
+        v_high = torch.where(
+            (flat <= v_low).sum(dim=-1, keepdim=True) > high, v_low,
+            above.amin(dim=-1, keepdim=True))
+    else:
+        ordered = torch.sort(flat, dim=-1).values
+        v_low = torch.gather(ordered, -1, low)
+        v_high = torch.gather(ordered, -1, high)
+    t = v_low * low_weight + v_high * high_weight
     t = torch.where(torch.isnan(flat).any(dim=-1, keepdim=True),
                     torch.full_like(t, float("nan")), t)
     return t.reshape(batch_shape + (1, 1))

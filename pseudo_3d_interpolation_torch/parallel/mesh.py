@@ -1,0 +1,185 @@
+"""A 1-D mesh of slice-parallel processes over ``torch.distributed``.
+
+Counterpart of ``pseudo_3d_interpolation_tpu/parallel/mesh.py``. The JAX
+package lays one global array over a ``jax.sharding.Mesh`` and lets XLA
+place the blocks and insert the collectives. The port runs one process per
+card, the model ``torchrun`` starts: NCCL between cards, gloo between CPU
+processes. Its contract, which every sharded entry point states again:
+every rank is given the same full host input, solves its own block of the
+leading (slice) axis, and returns the full result, gathered. Frequency
+slices are independent problems, so the solve itself needs no
+communication; the collectives are the gathers of the results, the
+broadcast of the mask and the all_to_all between a trace-parallel and a
+slice-parallel layout (:func:`reshard_axis`).
+
+Starting it: ``torchrun --nproc-per-node=4 script.py`` on one host sets
+the rendezvous variables, and :func:`initialize_distributed` with no
+arguments reads them; without ``torchrun``, pass ``coordinator``
+('host:port'), ``num_processes`` and ``process_id``. With no process group
+:func:`make_mesh` gives a mesh of one process, on which every collective
+is a no-op.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+
+import torch
+import torch.distributed as dist
+
+SLICE_AXIS = "slices"
+
+
+def initialize_distributed(coordinator: str | None = None,
+                           num_processes: int | None = None,
+                           process_id: int | None = None,
+                           backend: str | None = None) -> None:
+    """Join the process group: ``init_process_group`` over
+    ``tcp://<coordinator>`` with ``num_processes`` ranks, this one
+    ``process_id``; with no ``coordinator``, the ``env://`` variables
+    ``torchrun`` sets (MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK).
+    ``backend``: NCCL where CUDA is available, else gloo. Call it once per
+    process before :func:`make_mesh`; a run of one process skips it."""
+    if backend is None:
+        backend = "nccl" if torch.cuda.is_available() else "gloo"
+    if coordinator is None:
+        dist.init_process_group(backend, init_method="env://")
+        return
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A 1-D mesh: the process ``group`` (None: the default group, or no
+    group at all on a mesh of one process), the global ``ranks`` it holds
+    in mesh order, this process's ``index`` among them (None when it is
+    not a member), the ``device`` this rank solves on and the axis
+    name."""
+
+    group: object
+    ranks: tuple
+    index: int | None
+    device: torch.device
+    axis_name: str = SLICE_AXIS
+
+    @property
+    def size(self) -> int:
+        return len(self.ranks)
+
+
+def _rank_device() -> torch.device:
+    """This rank's device: with NCCL its card (LOCAL_RANK, torchrun's, or
+    the rank, modulo the cards this host has), else the CPU."""
+    if dist.get_backend() != "nccl":
+        return torch.device("cpu")
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def make_mesh(n_devices: int | None = None,
+              axis_name: str = SLICE_AXIS, device=None) -> Mesh:
+    """The 1-D mesh over the process group's ranks, or its first
+    ``n_devices`` (every rank must call it then: the subgroup is made
+    collectively); a mesh of one process when no group is initialized.
+    ``device``: this rank's device (by default its card under NCCL, the
+    CPU under gloo; with no group, the first card or else the CPU)."""
+    if not dist.is_initialized():
+        if n_devices not in (None, 1):
+            raise ValueError(f"requested {n_devices} devices, have 1 "
+                             "process (initialize_distributed first)")
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        return Mesh(None, (0,), 0, torch.device(device), axis_name)
+    world = dist.get_world_size()
+    n = world if n_devices is None else int(n_devices)
+    if not 1 <= n <= world:
+        raise ValueError(f"requested {n_devices} devices, have {world}")
+    ranks = tuple(range(n))
+    group = None if n == world else dist.new_group(list(ranks))
+    rank = dist.get_rank()
+    device = _rank_device() if device is None else torch.device(device)
+    return Mesh(group, ranks, rank if rank < n else None, device, axis_name)
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """Batch size padded so it divides evenly across ``m`` shards."""
+    return -(-n // m) * m
+
+
+def _member(mesh: Mesh) -> int:
+    if mesh.index is None:
+        raise ValueError(f"rank {dist.get_rank()} is not in the mesh "
+                         f"{mesh.ranks}")
+    return mesh.index
+
+
+def block(mesh: Mesh, n: int) -> slice:
+    """This rank's block of a leading axis of length ``n``, which the mesh
+    must divide."""
+    if n % mesh.size:
+        raise ValueError(f"axis of {n} not divisible by mesh size "
+                         f"{mesh.size}; pad first")
+    k = n // mesh.size
+    i = _member(mesh)
+    return slice(i * k, (i + 1) * k)
+
+
+def slice_sharding(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """This rank's block of ``x``'s leading axis on its device (the
+    counterpart of the leading-axis ``NamedSharding``)."""
+    return x[block(mesh, x.shape[0])].to(mesh.device).contiguous()
+
+
+def replicated_sharding(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
+    """``x`` on this rank's device as the mesh's first rank holds it (the
+    counterpart of the replicated ``NamedSharding``): one broadcast."""
+    x = x.to(mesh.device).contiguous()
+    if mesh.size > 1:
+        _member(mesh)
+        dist.broadcast(x, src=mesh.ranks[0], group=mesh.group)
+    return x
+
+
+def gather(mesh: Mesh, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
+    """Every rank's block ``x`` joined along ``axis`` in mesh order, on
+    every rank (all_gather); the blocks have equal shapes."""
+    if mesh.size == 1:
+        return x
+    _member(mesh)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(mesh.size)]
+    dist.all_gather(parts, x, group=mesh.group)
+    return torch.cat(parts, dim=axis)
+
+
+def reshard_axis(x: torch.Tensor, mesh: Mesh, axis: int,
+                 src_axis: int = 0) -> torch.Tensor:
+    """Re-lay a block so that ``axis`` is the sharded one: ``x`` is this
+    rank's block along ``src_axis``, the result its block along ``axis``
+    (the full ``src_axis``), by one ``all_to_all_single``. The device-
+    resident replacement for the reference's on-disk time-major /
+    slice-major transpose (cube_binning_3D.py:1313-1351), between stages
+    that want different parallel axes (a trace-parallel time FFT, the
+    slice-parallel POCS)."""
+    p = mesh.size
+    if p == 1:
+        return x
+    _member(mesh)
+    n = x.shape[axis]
+    if n % p:
+        raise ValueError(f"axis {axis} of {n} not divisible by mesh size "
+                         f"{p}; pad first")
+    send = x.movedim(axis, 0).reshape((p, n // p) + tuple(
+        s for d, s in enumerate(x.shape) if d != axis)).contiguous()
+    recv = torch.empty_like(send)
+    dist.all_to_all_single(recv, send, group=mesh.group)
+    # recv[i]: rank i's block along src_axis of this rank's block along axis
+    return torch.cat(list(recv.movedim(1, axis + 1)), dim=src_axis)
+
+
+def barrier(mesh: Mesh) -> None:
+    """Wait for every rank of the mesh (none on a mesh of one)."""
+    if mesh.size > 1:
+        dist.barrier(group=mesh.group)

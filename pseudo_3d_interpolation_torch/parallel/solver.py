@@ -1,4 +1,5 @@
-"""Cube drivers: solve every slice of a (F, H, W) cube on one device.
+"""Cube drivers: solve every slice of a (F, H, W) cube on one device, or
+over a 1-D mesh of processes.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/parallel/solver.py``.
 :func:`interpolate_cube_resident` uploads the cube once, solves it batch by
@@ -9,8 +10,15 @@ already on the device and leaves the result there. They run eagerly, so a
 short last batch needs no zero padding (the JAX drivers padded it to keep
 one compiled program). With ``config.pad_to_tile`` the two cube drivers
 solve every slice zero-padded to 128-multiple sides and crop the result
-(``utils/pad``). The JAX package's ``mesh`` sharding is not ported yet
-(ROADMAP queue 1 #14).
+(``utils/pad``).
+
+Sharding (``parallel/mesh.py``): :func:`pocs_interpolate_sharded` and
+:func:`interpolate_cube` with a ``mesh`` split each batch's slices over the
+mesh's processes. Every rank is given the same full host input, solves its
+own block of the batch on its device and returns the full result,
+gathered; the batch is padded with zero slices to a multiple of the mesh
+(they short-circuit, so padding is free). ``mesh=None`` keeps the
+single-device drivers.
 """
 
 from __future__ import annotations
@@ -18,14 +26,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.pocs import POCSConfig, pocs_interpolate
+from ..models.pocs import POCSConfig, POCSResult, pocs_interpolate
 from ..models.transforms import get_transform
 from ..ops.cplx import Cplx, from_complex, to_complex
 from ..utils.device import resolve_device
 from ..utils.pad import auto_pad_to_tile, pad_slices_to_tile
+from . import mesh as mesh_lib
 
 __all__ = ["resolve_device", "fits_resident", "interpolate_cube_resident",
-           "interpolate_cube", "pocs_interpolate_scanned"]
+           "interpolate_cube", "pocs_interpolate_scanned",
+           "pocs_interpolate_sharded"]
 
 
 def fits_resident(device, n_slices: int, batch: int, h: int, w: int,
@@ -120,17 +130,60 @@ def interpolate_cube_resident(data, mask, config: POCSConfig = POCSConfig(),
             cost.cpu().numpy())
 
 
+def pocs_interpolate_sharded(z: Cplx, mask, mesh=None, transform=None,
+                             config: POCSConfig = POCSConfig()
+                             ) -> POCSResult:
+    """Solve a batch of slices split over the mesh's slice axis.
+
+    ``z``: (B, H, W) ``Cplx``, the same full batch on every rank, with B a
+    multiple of the mesh size (pad with zero slices: they short-circuit to
+    zero output, reference POCS.py:515-521, so padding is free); ``mask``
+    (H, W), which the mesh's first rank broadcasts. Each rank solves its
+    block on its device (``mesh.device``) and returns the full result
+    gathered there, the history (when kept) gathered along its batch axis.
+    ``mesh`` defaults to :func:`mesh.make_mesh`. ``config.pad_to_tile`` is
+    not read at this layer (the cube drivers pad before calling in)."""
+    if mesh is None:
+        mesh = mesh_lib.make_mesh()
+    if transform is None:
+        transform = get_transform(config.transform_kind)
+    b = z.shape[0]
+    if b % mesh.size:
+        raise ValueError(f"batch {b} not divisible by mesh size "
+                         f"{mesh.size}; pad first")
+    local = Cplx(mesh_lib.slice_sharding(mesh, z.re),
+                 mesh_lib.slice_sharding(mesh, z.im))
+    m = mesh_lib.replicated_sharding(
+        mesh, torch.as_tensor(mask, dtype=torch.float32))
+    res = pocs_interpolate(local, m, transform, config)
+    history = res.cost_history
+    if history is not None:
+        history = mesh_lib.gather(mesh, history, axis=1)
+    return POCSResult(Cplx(mesh_lib.gather(mesh, res.data.re),
+                           mesh_lib.gather(mesh, res.data.im)),
+                      mesh_lib.gather(mesh, res.n_iterations),
+                      mesh_lib.gather(mesh, res.cost), history)
+
+
 def interpolate_cube(data, mask, config: POCSConfig = POCSConfig(),
                      transform=None, batch: int = 128, progress=None,
-                     device=None):
+                     device=None, mesh=None):
     """Host-chunked cube driver: each batch of slices goes to the device,
     is solved and comes back before the next. Same arguments and returns
     as :func:`interpolate_cube_resident`. Under ``pad_to_tile`` each batch
     is padded on its way to the device and cropped on its way back, so the
-    host holds no padded copy of the cube."""
+    host holds no padded copy of the cube.
+
+    With a ``mesh`` (``parallel/mesh.py``) the batch is rounded up to a
+    multiple of the mesh and each batch, the short tail padded with zero
+    slices to a multiple of the mesh, goes through
+    :func:`pocs_interpolate_sharded`: every rank passes the same cube,
+    solves its block of each batch on ``mesh.device`` (``device`` is not
+    read) and returns the whole result."""
     if transform is None:
         transform = get_transform(config.transform_kind)
-    device = resolve_device(device)
+    if mesh is None:
+        device = resolve_device(device)
     data = np.asarray(data)
     was_complex = np.iscomplexobj(data)
     f_total = data.shape[0]
@@ -142,15 +195,33 @@ def interpolate_cube(data, mask, config: POCSConfig = POCSConfig(),
     crop, m = None, mask
     if auto_pad_to_tile(config, data.shape[-2], data.shape[-1], transform):
         _, m, crop = pad_slices_to_tile(data[:0], mask)  # the padded mask
-    m = torch.as_tensor(np.asarray(m, np.float32), device=device)
-    batch = max(1, min(batch, f_total))
+    if mesh is not None:
+        m = np.asarray(m, np.float32)
+        batch = mesh_lib.pad_to_multiple(max(1, min(batch, f_total)),
+                                         mesh.size)
+    else:
+        m = torch.as_tensor(np.asarray(m, np.float32), device=device)
+        batch = max(1, min(batch, f_total))
     for start in range(0, f_total, batch):
         stop = min(start + batch, f_total)
         chunk = data[start:stop]
         if crop is not None:
             chunk = pad_slices_to_tile(chunk, mask)[0]
-        res = pocs_interpolate(from_complex(chunk, device), m, transform,
-                               config)
+        if mesh is not None:
+            # the short tail, padded to a multiple of the mesh
+            pad = mesh_lib.pad_to_multiple(stop - start, mesh.size)
+            if pad > stop - start:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (pad - chunk.shape[0],) + chunk.shape[1:], chunk.dtype)])
+            res = pocs_interpolate_sharded(from_complex(chunk), m, mesh,
+                                           transform, config)
+            res = POCSResult(Cplx(res.data.re[:stop - start],
+                                  res.data.im[:stop - start]),
+                             res.n_iterations[:stop - start],
+                             res.cost[:stop - start], None)
+        else:
+            res = pocs_interpolate(from_complex(chunk, device), m,
+                                   transform, config)
         out[start:stop] = _to_host(_crop(res.data, crop), was_complex)
         n_iters[start:stop] = res.n_iterations.cpu().numpy()
         costs[start:stop] = res.cost.cpu().numpy()

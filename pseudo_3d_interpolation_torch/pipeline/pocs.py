@@ -124,14 +124,17 @@ def _transform_subbands(transform, slice_shape, config: POCSConfig) -> int:
     return _n_subbands(transform, h, w)
 
 
-def _transform_device_bytes(transform, batch: int, h: int, w: int) -> int:
+def _transform_device_bytes(transform, batch: int, h: int, w: int,
+                            thresh_op: str = "hard") -> int:
     """Device memory a basis holds or allocates for one batch beyond its
     slice buffers: a spectral-stack basis's windows, twice (the plan's
     groups and the kernels' full-size pack), the subband kernel's scratch
     (with ``P3D_SPATIAL_IO`` set, ``subband_update_spatial``'s, which adds
     one (B, H, W) spectrum) and what the largest box group's call
-    allocates; the decimated CURVELET's cropped windows and gather
-    indices."""
+    allocates, and with a ``*-percentile`` ``thresh_op`` the split
+    kernels' keys (float32 per slice, band of a chunk or box group and
+    pixel: at most the full-size bands' or the largest group's); the
+    decimated CURVELET's cropped windows and gather indices."""
     if getattr(transform, "decimated", False):
         # a float32 window and an int64 index per wrapped-grid element
         return sum(p.size * (4 if r is None else 12)
@@ -139,14 +142,18 @@ def _transform_device_bytes(transform, batch: int, h: int, w: int) -> int:
     if not _is_spectral_stack(transform):
         return 0
     n_bands = _n_subbands(transform, h, w)
-    boxes = sh._plan_kernel_pack(transform._plan(h, w), h, w)[2]
+    _, full_idx, boxes = sh._plan_kernel_pack(transform._plan(h, w), h, w)
     box_bytes = max((subband.box_scratch_bytes(batch, lg, len(g.idx_h),
                                                len(g.idx_w), h)
                      for _, lg, g in boxes), default=0)
+    percentile = thresh_op.endswith("-percentile")
+    keys = (subband.percentile_key_bytes(batch, h, w, max(
+        [len(full_idx)] + [lg for _, lg, _ in boxes])) if percentile else 0)
     return (2 * n_bands * h * w * 4
             + subband.scratch_bytes(batch, h, w, n_bands,
-                                    spatial=sh.spatial_io_default())
-            + box_bytes)
+                                    spatial=sh.spatial_io_default()
+                                    and not percentile)
+            + box_bytes + keys)
 
 
 def _driver_plan(config: POCSConfig, transform, n_slices: int, h: int,
@@ -162,7 +169,7 @@ def _driver_plan(config: POCSConfig, transform, n_slices: int, h: int,
         device, n_slices, resident_batch, h_b, w_b,
         expansion=_transform_subbands(transform, (h_b, w_b), config),
         extra_bytes=_transform_device_bytes(transform, resident_batch, h_b,
-                                            w_b))
+                                            w_b, config.thresh_op))
     return resident, resident_batch, (h_b, w_b)
 
 
@@ -206,6 +213,7 @@ def interpolate(
         p_min="adaptive", version="fast", alpha=0.75, eps=0.0,
     ),
     var: str | None = None,
+    mesh=None,
     batch: int = 64,
     out_path: str | None = None,
     runtime_csv: str | None = None,
@@ -218,12 +226,19 @@ def interpolate(
     raises without one; ``device='cpu'`` runs the plain PyTorch versions on
     the host. Returns a new :class:`Cube` with ``<var>_interp``.
 
+    ``mesh`` (``parallel/mesh.py``) splits every batch of ``batch`` slices
+    (padded to a multiple of the mesh) over its processes: every rank
+    passes the same cube, solves its block on ``mesh.device`` (``device``
+    is not read) and gets the whole result; only the first rank writes
+    ``out_path``, ``runtime_csv`` and the profile. Without a mesh the
+    device-resident driver runs when the cube fits, as in the JAX package.
+
     ``cube`` may be a path to a cube file; ``out_path`` writes the result
     with one slice per chunk and ``<out>_parameter.yml`` (every
     ``POCSConfig`` field) beside it. ``profile_dir`` wraps the solve in
     ``torch.profiler`` and writes its Chrome trace there as
     ``interpolate_trace.json``."""
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
     if isinstance(cube, (str, os.PathLike)):
         from ..io.ncio import read_cube
 
@@ -246,6 +261,8 @@ def interpolate(
     h, w = moved.shape[-2], moved.shape[-1]
     resident, resident_batch, (h_b, w_b) = _driver_plan(
         config, transform, moved.shape[0], h, w, batch, device)
+    # the device-resident driver is the single-device one
+    resident = resident and mesh is None
     rt = solver_route((resident_batch, h_b, w_b), (h_b, w_b), config,
                       transform)
     level = logging.INFO if verbose else logging.DEBUG
@@ -258,7 +275,8 @@ def interpolate(
     def progress(done, total):
         log.debug("  %d/%d slices", done, total)
 
-    with _profiled(profile_dir, device):
+    writer = mesh is None or mesh.index == 0
+    with _profiled(profile_dir if writer else None, device):
         if resident:
             rec, n_iters, cost = interpolate_cube_resident(
                 moved, mask, config, transform=transform,
@@ -266,7 +284,7 @@ def interpolate(
         else:
             rec, n_iters, cost = interpolate_cube(
                 moved, mask, config, transform=transform, batch=batch,
-                progress=progress, device=device)
+                progress=progress, device=device, mesh=mesh)
     rec = np.moveaxis(rec, 0, -1)
 
     out = Cube(
@@ -285,10 +303,10 @@ def interpolate(
     out.attrs["pocs_mean_iterations"] = float(n_iters.mean())
     out.attrs["pocs_mean_cost"] = float(cost.mean())
 
-    if runtime_csv:
+    if runtime_csv and writer:
         _write_runtime_csv(runtime_csv, slice_dim, cube.coords[slice_dim],
                            n_iters, cost)
-    if out_path:
+    if out_path and writer:
         import yaml
 
         from ..io.ncio import write_cube
@@ -326,6 +344,7 @@ def interpolate_checkpointed(
     config: POCSConfig | str | dict,
     checkpoint_dir: str,
     var: str | None = None,
+    mesh=None,
     batch: int = 64,
     out_path: str | None = None,
     runtime_csv: str | None = None,
@@ -353,10 +372,19 @@ def interpolate_checkpointed(
     return value is ``out_path``. A :class:`Cube` input returns the
     assembled Cube (also written to ``out_path`` when given). ``device``
     defaults to the first CUDA card; ``device='cpu'`` runs on the host.
+
+    ``mesh`` (``parallel/mesh.py``): the batch is padded to a multiple of
+    the mesh and each is solved across it (``interpolate_cube``'s mesh
+    path); every rank passes the same input and gets the same return
+    value. The first rank alone decides which batches to resume (the
+    others follow its broadcast choice) and writes every file; the others
+    read the checkpoints only after a barrier.
     """
     from ..io.ncio import CubeFile, CubeWriter, read_cube, write_cube
+    from ..parallel import mesh as mesh_lib
 
-    device = resolve_device(device)
+    device = mesh.device if mesh is not None else resolve_device(device)
+    writer = mesh is None or mesh.index == 0
     extra = {}
     if not isinstance(config, POCSConfig):
         config, extra = config_from_yaml(config)
@@ -381,8 +409,11 @@ def interpolate_checkpointed(
         coords = {d: np.asarray(src.coords[d]) for d in src.coords}
         f_total = len(coords[slice_dim])
 
-        os.makedirs(checkpoint_dir, exist_ok=True)
+        if writer:
+            os.makedirs(checkpoint_dir, exist_ok=True)
         batch = max(1, min(batch, f_total))
+        if mesh is not None:
+            batch = mesh_lib.pad_to_multiple(batch, mesh.size)
         transform_kwargs = _transform_options(config, extra)
         transform = get_transform(config.transform_kind, **transform_kwargs)
         fingerprint = {
@@ -393,7 +424,10 @@ def interpolate_checkpointed(
             "slice_shape": [int(len(coords[d])) for d in dims[:-1]],
         }
         meta_path = os.path.join(checkpoint_dir, "checkpoint_meta.json")
-        if os.path.exists(meta_path):
+        if mesh is not None:
+            mesh_lib.barrier(mesh)  # the first rank made the directory
+        resumed = os.path.exists(meta_path)
+        if resumed:
             with open(meta_path) as fh:
                 prior = json.load(fh)
             if prior != fingerprint:
@@ -402,7 +436,9 @@ def interpolate_checkpointed(
                     f"from a different run (config/transform/var/shape "
                     f"changed) — clear it or pick another directory. "
                     f"Prior: {prior}")
-        else:
+        if mesh is not None:
+            mesh_lib.barrier(mesh)  # every rank has read the prior one
+        if writer and not resumed:
             with open(meta_path, "w") as fh:
                 json.dump(fingerprint, fh)
 
@@ -420,7 +456,7 @@ def interpolate_checkpointed(
             ck = os.path.join(checkpoint_dir,
                               f"slices_{start:05d}_{stop:05d}.nc")
             ck_paths.append((start, stop, ck))
-            if os.path.exists(ck):
+            if _first_rank_says(mesh, os.path.exists(ck)):
                 part = read_cube(ck, variables=["niterations", "cost"])
                 n_iters[start:stop] = part["niterations"]
                 costs[start:stop] = part["cost"]
@@ -440,7 +476,7 @@ def interpolate_checkpointed(
                                      moved.dtype)])
             rec_c, n_c, c_c = solver.interpolate_cube(
                 moved, mask, config, transform=transform, batch=batch,
-                device=device)
+                device=device, mesh=mesh)
             rec_c, n_c, c_c = rec_c[:nb], n_c[:nb], c_c[:nb]
             n_iters[start:stop] = n_c
             costs[start:stop] = c_c
@@ -451,10 +487,13 @@ def interpolate_checkpointed(
                            "cost": ((slice_dim,), c_c)})
             for d in dims[:-1]:
                 part.coords[d] = coords[d]
-            write_cube(ck, part)
+            if writer:
+                write_cube(ck, part)
             log.log(level, "batch %d-%d done -> %s", start, stop, ck)
+        if mesh is not None:
+            mesh_lib.barrier(mesh)  # every checkpoint is written
 
-        if runtime_csv:
+        if runtime_csv and writer:
             _write_runtime_csv(runtime_csv, slice_dim, coords[slice_dim],
                                n_iters, costs)
         history = f"POCS({config.transform_kind},{config.version},checkpointed)"
@@ -465,6 +504,9 @@ def interpolate_checkpointed(
         attrs["pocs_mean_iterations"] = float(n_iters.mean())
 
         if streaming:
+            if not writer:
+                mesh_lib.barrier(mesh)  # the first rank writes out_path
+                return out_path
             # the checkpoints merged into the output slab by slab
             with CubeWriter(out_path, coords, attrs=attrs,
                             coord_attrs=dict(src.coord_attrs)) as wr:
@@ -478,6 +520,8 @@ def interpolate_checkpointed(
                     wr.write_slab(f"{var}_interp",
                                   np.moveaxis(read_cube(ck)["rec"], 0, -1),
                                   dim=slice_dim, start=start)
+            if mesh is not None:
+                mesh_lib.barrier(mesh)
             return out_path
     finally:
         if streaming:
@@ -495,12 +539,24 @@ def interpolate_checkpointed(
         var_attrs={f"{var}_interp": dict(src.var_attrs.get(var, {}))},
         coord_attrs=dict(src.coord_attrs),
     )
-    if out_path:
+    if out_path and writer:
         write_cube(out_path, out, chunks={slice_dim: 1})
     return out
 
 
-def warmup(config, shape, batch: int = 64, verbose: int = 0,
+def _first_rank_says(mesh, flag: bool) -> bool:
+    """``flag`` as the mesh's first rank has it (one broadcast), so that
+    every rank takes the same branch; ``flag`` itself without a mesh."""
+    if mesh is None or mesh.size == 1:
+        return flag
+    import torch.distributed as dist
+
+    t = torch.tensor([int(flag)], device=mesh.device)
+    dist.broadcast(t, src=mesh.ranks[0], group=mesh.group)
+    return bool(t.item())
+
+
+def warmup(config, shape, batch: int = 64, mesh=None, verbose: int = 0,
            n_slices: int | None = None, device=None) -> float:
     """Build the kernel libraries and run one launch of the driver a
     production cube would take; returns the wall seconds.
@@ -511,11 +567,15 @@ def warmup(config, shape, batch: int = 64, verbose: int = 0,
     :func:`interpolate`'s, on the padded budget: the device-resident
     driver, one batch of ``min(batch, 32)`` random slices in a cube of
     ``n_slices`` zero slices, or the host-chunked driver on one batch.
+    With a ``mesh`` (never the resident driver, as in :func:`interpolate`)
+    the batch is padded to a multiple of the mesh and solved across it.
     The JAX package's persistent compilation cache has no counterpart:
     the kernels are built once per source and flags
     (``ops/kernels/_build``), and eager PyTorch compiles nothing else.
     """
-    device = resolve_device(device)
+    from ..parallel import mesh as mesh_lib
+
+    device = mesh.device if mesh is not None else resolve_device(device)
     extra = {}
     if not isinstance(config, POCSConfig):
         config, extra = config_from_yaml(config)
@@ -537,7 +597,7 @@ def warmup(config, shape, batch: int = 64, verbose: int = 0,
     f_total = int(n_slices) if n_slices else b_res
     resident, _, (h_b, w_b) = _driver_plan(config, transform, f_total, h, w,
                                            batch, device)
-    if resident:
+    if resident and mesh is None:
         b = min(b_res, f_total)
         data = np.zeros((f_total, h, w), np.complex64)
         data[:b] = noise(b)
@@ -545,15 +605,19 @@ def warmup(config, shape, batch: int = 64, verbose: int = 0,
                                   batch=b, device=device, _max_launches=1)
     else:
         b = min(batch, int(n_slices)) if n_slices else batch
+        if mesh is not None:
+            b = mesh_lib.pad_to_multiple(b, mesh.size)
         interpolate_cube(noise(b).astype(np.complex64), mask, config,
-                         transform=transform, batch=b, device=device)
+                         transform=transform, batch=b, device=device,
+                         mesh=mesh)
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
     log.log(logging.INFO if verbose else logging.DEBUG,
             "warmup: %s/%s, %s driver, (%d,%d,%d)%s built and run in %.1f s",
             config.transform_kind, config.version,
-            "resident" if resident else "host-chunked", b, h, w,
+            "resident" if resident and mesh is None else "host-chunked", b,
+            h, w,
             _pad_note((h_b, w_b), (h, w)), dt)
     return dt
 

@@ -1,8 +1,9 @@
 """The CUDA kernels (pseudo_3d_interpolation_torch/csrc/pocs_solve.cu: the
 FFT, DCT and WAVELET solves and the FFT iteration; csrc/subband.cu: the
 subband update, spectral and spatial, their line engine
-csrc/fft_lines.cuh, and the box group update) held against their plain
-PyTorch versions on the card.
+csrc/fft_lines.cuh, the box group update, and the percentile route's split
+passes; csrc/band_percentile.cu: the per-band selection) held against
+their plain PyTorch versions on the card.
 
 Every test here needs a CUDA card and skips without one; the kernels have
 no CPU mode. The file imports no JAX, so on the machine with the card (which
@@ -824,3 +825,129 @@ def test_stack_functions_on_the_card_match_the_cpu(device, method, budget):
             want.abs().max())
     assert torch.equal(bn.fold_map(ids, n_bins, device=device).cpu(),
                        bn.fold_map(ids, n_bins, device="cpu"))
+
+
+# --- the percentile route: the split passes and the selection kernel --
+
+
+def _percentile_case(kind, b, h, w, device, seed=5):
+    """The spectrum of plane waves under a column mask, the plan's kernel
+    packing and per-(slice, band) percentiles in [60, 99.9]."""
+    truth, z, mask, _ = _inputs(b, h, w, 2, device, seed)
+    xf = torch.fft.fft2(torch.complex(z.re, z.im))
+    plan = (sh.shearlet_plan(h, w) if kind == "SHEARLET"
+            else cv.curvelet_plan(h, w))
+    full, full_idx, boxes = sh._plan_kernel_pack(plan, h, w)
+    nbands = len(full_idx) + sum(lg for _, lg, _ in boxes)
+    q = torch.from_numpy(np.random.default_rng(seed).uniform(
+        60.0, 99.9, size=(b, nbands)).astype(np.float32)).to(device)
+    return truth, z, mask, xf, full, full_idx, boxes, q
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 3, 64, 64), (2, 5, 97, 130),
+                                   (1, 2, 512, 512)])
+@pytest.mark.parametrize("keys_of", ["uniform", "ties", "nan"])
+def test_band_percentile_bit_equal_to_plain(device, shape, keys_of):
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
+
+    gen = torch.Generator(device="cpu").manual_seed(sum(shape))
+    keys = torch.rand(shape, generator=gen)
+    if keys_of == "ties":
+        keys = torch.round(keys * 6)
+    if keys_of == "nan":
+        keys[0, 1, 2, 3] = float("nan")
+    keys = keys.to(device)
+    s, c = shape[:2]
+    q = torch.tensor([0.0, 37.5, 99.9, 100.0, 60.0, 150.0, -1.0] * (s * c),
+                     dtype=torch.float32)[:s * c].reshape(s, c).to(device)
+    got = kp.band_percentile(keys, q)
+    want = kp.band_percentile_plain(keys, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,h,w", [("SHEARLET", 128, 128),
+                                      ("SHEARLET", 256, 256),
+                                      ("CURVELET", 256, 256),
+                                      ("SHEARLET", 96, 130)])
+@pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
+def test_split_passes_match_plain(device, kind, h, w, op):
+    """Pass 1's keys, the selection on them, and the whole split update of
+    the full-size bands and each box group against their plain versions:
+    keys within 1e-5·max, soft and garrote within SOFT_TOL·max, hard by
+    the SNR against the truth of the POCS iterate each side's updates make
+    (a coefficient at the threshold flips under reordered arithmetic, and
+    a box group's flip moves its whole box), as chip_smoke.py's phase 17a
+    holds them."""
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
+
+    b = 3
+    truth, z, mask, xf, full, full_idx, boxes, q = _percentile_case(
+        kind, b, h, w, device)
+    spec = Cplx(xf.real.contiguous(), xf.imag.contiguous())
+    psi = full.psi_on(device)
+    support = full.support_on(device)
+    qf = q[:, torch.from_numpy(full_idx).to(device)].contiguous()
+    work = ksb.percentile_work(spec, support)
+    l1 = int(support.chunks(b, h, w)[0][1])
+    keys = ksb.subband_keys(spec, psi, support, 0, l1, work)
+    plain = ksb.subband_keys_plain(spec, psi[:l1])
+    assert (keys - plain).abs().max() <= 1e-5 * plain.max()
+    t = kp.band_percentile(keys, qf[:, :l1].contiguous())
+    assert torch.equal(t.view(torch.int32), kp.band_percentile_plain(
+        keys, qf[:, :l1].contiguous()).view(torch.int32))
+    pairs = [(ksb.subband_update_percentile(
+        spec, psi, qf, f"{op}-percentile", support=support),
+              ksb.subband_update_percentile_plain(spec, psi, qf, op))]
+    sels = [(slice(None),) * 3]
+    for l0, lg, g in boxes:
+        ih, iw = g.index_on(device)
+        sels.append((slice(None), ih[:, None], iw[None, :]))
+        box = xf[:, ih[:, None], iw[None, :]]
+        xb = Cplx(box.real.contiguous(), box.imag.contiguous())
+        qb = q[:, l0:l0 + lg].contiguous()
+        mats = g.box_mats_on(h, w, device)
+        pairs.append((ksb.box_group_update_percentile(
+            xb, g.psi_on(device), qb, mats, h, w, op,
+            index=g.box_index_on(h, w, device)),
+                      ksb.box_group_update_percentile_plain(
+            xb, g.psi_on(device), qb, mats, h, w, op)))
+    torch.cuda.synchronize()
+    if op == "hard":
+        obs = torch.complex(z.re, z.im)
+        snrs = []
+        for side in (0, 1):
+            acc = torch.zeros_like(xf)
+            for sel, pair in zip(sels, pairs):
+                acc[sel] += torch.complex(pair[side].re, pair[side].im)
+            x = torch.fft.ifft2(acc) * (1 - 0.75 * mask) + 0.75 * obs
+            snrs.append(_snr(truth, x.cpu().numpy()))
+        assert abs(snrs[0] - snrs[1]) <= SNR_TOL_DB
+        return
+    for got, want in pairs:
+        got, want = _host(got), _host(want)
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["SHEARLET", "CURVELET"])
+def test_percentile_solve_on_the_card_matches_the_host(device, kind):
+    """The directional solve with a percentile threshold through the split
+    kernels against the plain streamed route on the host, by SNR."""
+    from pseudo_3d_interpolation_torch.models.pocs import (POCSConfig,
+                                                           pocs_interpolate)
+
+    truth, z, mask, _ = _inputs(2, 128, 128, 2, device)
+    cfg = POCSConfig(niter=15, thresh_op="hard-percentile",
+                     decay_kind="factors", p_max=99.9, p_min=60.0,
+                     version="fast", alpha=0.75, transform_kind=kind)
+    ksb.subband_keys.launches = 0
+    card = pocs_interpolate(z, mask, config=cfg)
+    assert ksb.subband_keys.launches == 15
+    host = pocs_interpolate(Cplx(z.re.cpu(), z.im.cpu()), mask.cpu(),
+                            config=cfg)
+    assert abs(_snr(truth, _host(card.data))
+               - _snr(truth, _host(host.data))) <= SNR_TOL_DB

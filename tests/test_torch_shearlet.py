@@ -306,10 +306,21 @@ def test_shearlet_options_and_errors():
     with pytest.raises(ValueError, match="unknown precision 'fastest'"):
         sh._pocs_subband_apply_kernels(z, plan, torch.ones(2, 13), "hard",
                                        "fastest", "fastest")
-    with pytest.raises(ValueError, match="thresholds"):
-        sh._pocs_subband_apply_kernels(z, plan, torch.ones(2, 13),
-                                       "soft-percentile", "high", "high")
+    for op in ("bogus", "bogus-percentile"):
+        with pytest.raises(ValueError, match="thresholds"):
+            sh._pocs_subband_apply_kernels(z, plan, torch.ones(2, 13), op,
+                                           "high", "high")
+    # a percentile threshold takes the split kernels (plain versions here)
+    out = sh._pocs_subband_apply_kernels(z, plan, torch.full((2, 13), 90.0),
+                                         "soft-percentile", "high", "high")
+    assert out.re.shape == (2, 32, 32)
     full, _, _ = sh._plan_kernel_pack(plan, 32, 32)
+    # the unsplit kernels take no percentile threshold
+    with pytest.raises(ValueError, match="thresholds"):
+        ksb.subband_update(z, full.psi_on("cpu"),
+                           torch.ones(2, full.psi.shape[0]),
+                           "soft-percentile",
+                           support=full.support_on("cpu"))
     with pytest.raises(ValueError, match="tau must be"):
         ksb.subband_update(z, full.psi_on("cpu"), torch.ones(2, 3),
                            support=full.support_on("cpu"))

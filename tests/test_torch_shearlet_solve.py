@@ -152,16 +152,19 @@ def test_route_table_matches_jax():
         assert pocs.describe_route(rt) == "streamed-subband"
         if shape[1] % 128 == 0 and shape[2] % 128 == 0:
             assert tuple(jrt) == tuple(rt)
-    # percentile thresholds have no kernel on either side
+    # percentile thresholds: JAX's plain streamed apply, the port's split
+    # subband kernels (plain versions on the CPU), under one reason
     jcfg = dataclasses.replace(jcfg, thresh_op="soft-percentile")
     cfg = dataclasses.replace(cfg, thresh_op="soft-percentile")
     shape = (2, 128, 128)
     jrt = jpocs.solver_route(shape, shape[1:], jcfg, jget("SHEARLET"))
     rt = pocs.solver_route(shape, shape[1:], cfg)
     assert tuple(rt) == tuple(jrt)
+    assert pocs.runs(rt)
     z = Cplx(torch.ones(shape), torch.zeros(shape))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pocs.pocs_interpolate(z, torch.ones(shape[1:]), config=cfg)
+    res = pocs.pocs_interpolate(z, torch.ones(shape[1:]), config=cfg)
+    assert res.data.re.shape == shape
+    assert bool(torch.isfinite(res.data.re).all())
 
 
 def _cubes(obs, mask):

@@ -190,14 +190,20 @@ def test_scan_matches_jax(kind, shape, mask_kind, version):
 TPU_ONLY_REASONS = ("not both %128", "use_pallas=False")
 PORTED_ROWS = [row for row in ROUTING_TABLE
                if not any(r in row[4] for r in TPU_ONLY_REASONS)]
+# the CURVELET percentile row the JAX table lacks, routed as its SHEARLET
+# row
+PORTED_ROWS.append(({"transform_kind": "CURVELET",
+                     "thresh_op": "soft-percentile",
+                     "decay_kind": "factors"}, PORTED_ROWS[0][1],
+                    "streamed-subband", "", "threshold"))
 
 
 @pytest.mark.parametrize("over,shape,route,basis,reason_sub", PORTED_ROWS)
 def test_routing_table_rows_route_and_run(over, shape, route, basis,
                                           reason_sub):
-    """Each row routes as in the JAX package; every row runs but a
-    directional basis with a percentile threshold, which raises naming its
-    route."""
+    """Each row routes as in the JAX package, and every row runs: a
+    directional basis with a percentile threshold too, on the split
+    subband kernels (plain versions here), its reason the JAX wording."""
     jcfg = dataclasses.replace(CLI_DEFAULT, **over)
     cfg = compat.config_from_reference(dataclasses.asdict(jcfg))
     jrt = jpocs.solver_route(shape, shape[-2:], jcfg)
@@ -207,14 +213,14 @@ def test_routing_table_rows_route_and_run(over, shape, route, basis,
     z = Cplx(torch.rand(shape, generator=torch.Generator().manual_seed(0)),
              torch.zeros(shape))
     mask = torch.ones(shape[-2:])
-    if route == "streamed-subband" and rt.reason:
-        assert not pocs.runs(rt)
-        with pytest.raises(NotImplementedError,
-                           match=r"streamed-subband — not ported: threshold"):
-            pocs.pocs_interpolate(z, mask, config=dataclasses.replace(
-                cfg, niter=2))
-        return
     assert pocs.runs(rt)
+    if route == "streamed-subband" and rt.reason:
+        assert pocs.describe_route(rt) == f"streamed-subband — {jrt.reason}"
+        res = pocs.pocs_interpolate(z, mask, config=dataclasses.replace(
+            cfg, niter=2))
+        assert res.data.re.shape == shape
+        assert bool(torch.isfinite(res.data.re).all())
+        return
     if route == "xla-scan":
         assert pocs.describe_route(rt) == f"xla-scan[{basis}] — {jrt.reason}"
     if route in ("xla-scan", "fused-periter"):
