@@ -148,6 +148,14 @@ Phases, each of which exits non-zero on failure:
    the port's ``SegyFile``: 512·512 traces, ``INLINE_3D`` and
    ``CROSSLINE_3D`` the grid's, ``NStackedTraces`` the fold, dt and delay,
    the samples bit for bit; prints each step's wall and their sum.
+   (f) the same survey in IBM float (format 1) on every other live
+   iline, 128 profiles (the sub-phase in about a minute): asserts
+   ``backends.native_segy_enabled()`` (the native decoder, ``io/native``,
+   built with g++) and that every full-file read is decoded by it; decodes
+   every file natively and with numpy, bit for bit, and prints both
+   walls and MB/s; then ``bin_cube`` on the card from the IBM files
+   through the native decoder and through numpy: fold equal, the stack
+   within 1e-5·max, no kernel launched, both walls printed.
 14. the cube drivers and the out-of-core passes: (a) ``warmup`` of the
    production FFT and SHEARLET solves at 512x512 with 513 slices, one
    launch of the resident driver each (one ``pocs_solve[fft]``, or 50
@@ -249,7 +257,36 @@ Phases, each of which exits non-zero on failure:
    ``interpolate`` -> ``apply_ifft``: each bit-equal to the
    single-device call with the same launches. The mesh holds one
    device: the phase shows the sharded code path on the card, not
-   collectives across cards.
+   collectives across cards. (e) the 65-slice SHEARLET cube on one card
+   at batch 8 (a rank's batch on four cards) against batch 32 and 64
+   (``mesh_check.py``'s single-card call takes ``interpolate``'s default
+   64): the max-normalised gaps printed beside ``mesh_check.py``'s
+   four-card 7.95e-3 and the SNRs, which must agree within 0.1 dB
+   (ROADMAP queue 3 #8). (f) ``make_mesh_2d(1, 1)`` on the same group:
+   the FFT cube's first 65 slices through ``interpolate(mesh=...)`` (one
+   space rank: the 1-D slice path, bit-equal to the single-device call
+   with the same launches), and through the space-sharded FFT solve (a
+   distributed line FFT in PyTorch ops, no kernel launched) against the
+   single-device folded solve within 1e-5·max, or by SNR within 0.1 dB
+   (both end at the float32 floor).
+19. the SHEARLET split plan (``shearlet_plan(512, 512,
+   split_threshold=200)``: the finest scale re-grouped by each shear's
+   exact support into box groups of 447x126, 126x447, 447x63 and
+   63x447, non-contiguous index lists; the rest zero-padded into the
+   full-size bands) on the box kernel, on phase 3b's plane waves with a
+   seeded noise floor of rms 0.3 (energy in every band): (a) at batches
+   8 and 32,
+   ``subband_update`` and every box group against their plain versions
+   (soft within 1e-4·max, hard by iterate SNR), the percentile route's
+   ``box_keys`` within 1e-4·max, the selection bit-equal and the split
+   updates likewise; (b) ``pocs_subband_apply`` at 32x512² on the split
+   plan against the box plan: launches (one ``box_group_update`` per box
+   group, no plain version called), ms a call, and the two results
+   (soft within 1e-4·max, hard by iterate SNR); (c) each box group's
+   kernel and plain time and bound at batch 32, both plans; (d)
+   ``shearlet_transform`` and ``inverse_shearlet_transform`` on the card
+   against ``device="cpu"`` within 1e-5·max, and the pair's
+   reconstruction.
 Phases 4 to 10 and 12 print the wall time, slice-iterations/s and device
 peak memory. Before each, and before phase 11's and 13c's chains, 13a's
 binning and phase 15's steps, every kernel's
@@ -281,7 +318,8 @@ The last line of standard output is ``{"ok": true, "device": {...}}``;
 the line before it lists each kernel with its launch count, error, times
 and bound (``bound_ms``: the larger of the bytes the call must move over
 3.35 TB/s and its operations over 67 TFLOP/s fp32, the H100 SXM data
-sheet's rates at 700 W). Operations are counted as a fast transform does
+sheet's rates at 700 W; every count and the rule come from the port's
+``utils/roofline.py``). Operations are counted as a fast transform does
 the work: 5·n·log2 n flops per complex 2-D FFT of n points (the FFT
 solve and iteration), and 5·n·log2 n per complex 1-D FFT of n points;
 2.5·n·log2 n per real 2-D DCT of n points, four per slice-iteration (re
@@ -347,9 +385,6 @@ ALPHA = 0.75
 TAU_ITER = 10  # phase 3b thresholds: this iteration of the schedule
 WALL_LIMIT_S = 600  # the SHEARLET cube is cut to fit this
 DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
-# H100 SXM data sheet at 700 W
-FP32_FLOPS = 67e12
-HBM_BYTES_PER_S = 3.35e12
 
 
 def fail(msg: str):
@@ -357,16 +392,18 @@ def fail(msg: str):
     sys.exit(1)
 
 
+def roofline():
+    """The port's H100 roofline (``utils/roofline.py``): the fp32 peak,
+    the memory rate, the bound rule and every kernel's operation and byte
+    counts, from which each ``bound_ms`` here comes."""
+    from pseudo_3d_interpolation_torch.utils import roofline as rl
+
+    return rl
+
+
 def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    """Least time in ms of a call and what sets it."""
-    t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return (1e3 * max(t_ops, t_bytes),
-            "operations" if t_ops >= t_bytes else "bytes")
-
-
-def fft2_flops(h: int, w: int) -> float:
-    """5·n·log2 n flops of one complex 2-D transform of n = h·w points."""
-    return 5.0 * h * w * math.log2(h * w)
+    """Least time in ms of a call and what sets it (``roofline.bound``)."""
+    return roofline().bound(flops, nbytes)
 
 
 def plane_waves(torch, f, h, w, seed, device):
@@ -534,7 +571,8 @@ class SubbandCase:
     main path's decay schedule (SHEARLET: adaptive p_min; CURVELET: its
     production 1e-3)."""
 
-    def __init__(self, torch, b, h, w, seed, dev, basis="SHEARLET"):
+    def __init__(self, torch, b, h, w, seed, dev, basis="SHEARLET",
+                 split_threshold=None, noise=0.0):
         from pseudo_3d_interpolation_torch.models.transforms import (
             get_transform)
         from pseudo_3d_interpolation_torch.ops import shearlet as sh
@@ -542,6 +580,13 @@ class SubbandCase:
 
         self.torch, self.h, self.w, self.b = torch, h, w, b
         self.truth, self.mask = plane_waves(torch, b, h, w, seed, dev)
+        if noise:
+            # a seeded complex noise floor of rms ``noise``: energy in
+            # every band, where the plane waves' is all at low wavenumbers
+            gen = torch.Generator(device=dev).manual_seed(seed)
+            self.truth += noise * torch.randn(self.truth.shape, device=dev,
+                                              generator=gen,
+                                              dtype=torch.complex64)
         self.obs = self.truth * self.mask
         z = Cplx(self.obs.real.contiguous(), self.obs.imag.contiguous())
         self.x = z
@@ -550,8 +595,13 @@ class SubbandCase:
         tau = tr.decay_from_input(z, "exponential", NITER, 0.99, p_min,
                                   "values")[TAU_ITER]
         self.basis = basis
-        self.full, full_idx, self.boxes = sh._plan_kernel_pack(
-            tr._plan(h, w), h, w)
+        # with ``split_threshold`` the SHEARLET split plan, its thresholds
+        # in plan order (the decay's, permuted by the plan's ``perm``)
+        plan = (tr._plan(h, w) if split_threshold is None else
+                sh.shearlet_plan(h, w, split_threshold=split_threshold))
+        self.perm = torch.from_numpy(plan.perm).to(dev)
+        tau = tau[:, self.perm]
+        self.full, full_idx, self.boxes = sh._plan_kernel_pack(plan, h, w)
         self.full_idx = full_idx
         self.psi = self.full.psi_on(dev)
         self.support = self.full.support_on(dev)
@@ -594,6 +644,9 @@ def compare(torch, label, op, got, want, snr_k, snr_p):
         fail(f"{label}: kernel output not finite")
     err = float(torch.max(torch.abs(got - want)))
     scale = float(torch.max(torch.abs(want)))
+    if scale == 0.0:
+        fail(f"{label} {op}: the plain version's output is all zero: the "
+             "case checks nothing")
     print(f"{label} {op}: max|d|={err:.3e} ({err / scale:.2e} of max), "
           f"iterate SNR kernel {snr_k:.3f} dB, plain {snr_p:.3f} dB",
           flush=True)
@@ -666,26 +719,19 @@ def time_box(torch, ksb, case, k):
     side = len(g.idx_h)
     # a pruned FFT: the field from the box's `side` nonzero columns, then
     # along every row; the same back to the box
-    flops = 2 * case.b * lg * 5.0 * (side * N * math.log2(N)
-                                     + N * N * math.log2(N))
-    bnd = bound(flops, case.b * side * side * 16 + lg * side * side * 4
-                + case.b * lg * 4 + 2 * side * N * 8)
-    print(f"box_group_update {case.b}x{side}x{side} ({lg} bands) of "
+    bnd = bound(*roofline().box_work(case.b, lg, side, len(g.idx_w), N, N))
+    box = f"{side}x{len(g.idx_w)}"
+    print(f"box_group_update {case.b}x{box} ({lg} bands) of "
           f"{case.h}x{case.w}: kernel {four[0]:.3f} / {four[1]:.3f} ms, "
           f"plain (torch.matmul) {four[2]:.3f} / {four[3]:.3f} ms, bound "
           f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
     # the passes: (1) the box columns into field columns, (2) every field
     # row both ways, (3) the field columns back to the box, band-summed
     b, nh, nw = case.b, case.h, case.w
-    field = b * lg * side * nh * 8  # the scratch G, bytes
-    col_flops = b * lg * side * 5.0 * nh * math.log2(nh)
-    print_passes(f"box_group_update {b}x{side}x{side}", kernel_passes(
+    print_passes(f"box_group_update {b}x{box}", kernel_passes(
         torch, lambda: ksb.box_group_update(*bargs, "high", index=index),
-        BOX_PASSES), {
-        "box_cols_inverse_kernel": (b * side * side * 8 + field, col_flops),
-        "box_rows_kernel": (2 * field, 2 * b * lg * nh * 5.0 * nw
-                            * math.log2(nw)),
-        "box_cols_forward_kernel": (field + b * side * side * 8, col_flops)})
+        BOX_PASSES), roofline().box_pass_work(b, lg, side, len(g.idx_w), nh,
+                                              nw))
     return t_k, t_p, bnd
 
 
@@ -818,32 +864,18 @@ def print_passes(label, times: dict, work: dict) -> dict:
 
 
 def pass_work(case, spatial: bool) -> dict:
-    """(bytes, flops) of each pass of one subband call on a SubbandCase,
-    counted on the rows the kernel transforms: S support rows over the
-    bands, L bands, C band chunks. (a) reads X and ψ and writes the
-    scratch on the S rows, one W-line FFT each; (b) reads and writes the
-    scratch's S rows, two H-line FFTs of every column of every band; (c)
-    reads the scratch and ψ on the S rows, one W-line FFT each, and writes
-    the accumulator C times, reading it C − 1 times (and with ``spatial``
-    one more inverse W-line FFT of every row); spatial only: the column
-    passes read and write a plane pair with one H-line FFT per column, the
-    row pass one W-line FFT per row, each twice."""
-    b, h, w = case.b, case.h, case.w
+    """(bytes, flops) of each pass of one subband call on a SubbandCase
+    (``roofline.subband_pass_work`` on its windows' support rows, bands
+    and band chunks)."""
+    return roofline().subband_pass_work(*case_support(case), spatial)
+
+
+def case_support(case) -> tuple:
+    """(batch, h, w, support rows, bands, band chunks) of a
+    SubbandCase."""
     offsets = case.support.offsets
-    s_rows = int(offsets[-1])
-    nbands = len(offsets) - 1
-    chunks = len(case.chunks) - 1
-    lw, lh = 5.0 * w * math.log2(w), 5.0 * h * math.log2(h)
-    work = {
-        "rows_inverse_kernel": (b * s_rows * w * 20, b * s_rows * lw),
-        "cols_shrink_kernel": (b * s_rows * w * 16, b * nbands * w * 2 * lh),
-        "rows_forward_acc_kernel": (
-            b * s_rows * w * 12 + (2 * chunks - 1) * b * h * w * 8,
-            b * s_rows * lw + spatial * b * h * lw)}
-    if spatial:
-        work["cols_fft_kernel"] = (2 * b * h * w * 16, 2 * b * w * lh)
-        work["rows_fft_kernel"] = (b * h * w * 16, b * h * lw)
-    return work
+    return (case.b, case.h, case.w, int(offsets[-1]), len(offsets) - 1,
+            len(case.chunks) - 1)
 
 
 def subband_passes(torch, ksb, case, spatial: bool) -> dict:
@@ -967,12 +999,11 @@ def subband_bound(label, case, spatial: bool) -> tuple[float, str]:
     the thresholds. Prints it with the windows' row-support fraction and,
     beside it, the dense count of 2·L full 2-D FFTs per slice (2·L + 2
     spatial), which ignores the rows the kernels skip."""
+    rl = roofline()
     b, h, w, nbands = case.b, case.h, case.w, case.psi.shape[0]
-    flops = sum(f for _, f in pass_work(case, spatial).values())
-    nbytes = b * h * w * 16 + nbands * h * w * 4 + b * nbands * 4
+    flops, nbytes = rl.subband_work(*case_support(case), spatial)
     bnd = bound(flops, nbytes)
-    dense = bound((2 * nbands + 2 * int(spatial)) * fft2_flops(h, w) * b,
-                  nbytes)
+    dense = bound(rl.subband_dense_flops(b, h, w, nbands, spatial), nbytes)
     frac = float(case.support.offsets[-1]) / (nbands * h)
     print(f"{label} {b}x{h}x{w}: bound_ms {bnd[0]:.4f} ({bnd[1]}, "
           f"{flops / 1e9:.1f} GFLOP on the support rows, support fraction "
@@ -1520,8 +1551,9 @@ SEGY_CHAIN_PRE = {"balance": "rms"}  # examples/pipeline.yml's steps 11-15
 SEGY_CHAIN_POST = {"agc_win": 0.05}
 
 
-def write_survey(torch, dev, directory: pathlib.Path, ilines, seed=0):
-    """One SEG-Y profile (format 5, coordinates in cm with
+def write_survey(torch, dev, directory: pathlib.Path, ilines, seed=0,
+                 fmt=5):
+    """One SEG-Y profile (format ``fmt``, coordinates in cm with
     ``SourceGroupScalar`` -100) along the xline axis of the BIN_EXTENT
     grid on each of the 0-based ``ilines``, x within 4 m of the iline's
     center and y every SURVEY_STEP m within 2 m, the delay of the p-th
@@ -1555,7 +1587,7 @@ def write_survey(torch, dev, directory: pathlib.Path, ilines, seed=0):
         path = directory / f"profile_il{il:03d}.sgy"
         host = data.cpu().numpy()
         t0 = time.perf_counter()
-        write_segy(str(path), host, fmt=5, dt_us=SURVEY_DT_US, headers={
+        write_segy(str(path), host, fmt=fmt, dt_us=SURVEY_DT_US, headers={
             "SourceX": x_cm, "SourceY": y_cm, "SourceGroupScalar": -100,
             "CoordinateUnits": 1, "DelayRecordingTime": delay_ms})
         t_write += time.perf_counter() - t0
@@ -1764,6 +1796,124 @@ def segy_in_segy_out(torch, dev, modules, trace_dir):
                            zip(steps, walls[1:]))
               + f" + cube_to_segy {w_exp:.3f} s = {sum(walls):.3f} s wall",
               flush=True)
+
+
+# phase 13f: the survey in IBM float through the native decoder
+IBM_PROFILES = 128  # every other live iline: the sub-phase in about 60 s
+
+
+def segy_ibm_survey(torch, dev, modules):
+    """Phase 13f: phase 13's survey written in IBM float (format 1, as
+    TOPAS and SBP surveys arrive) on every other live iline
+    (IBM_PROFILES profiles of 2048 x 896). Asserts that the native decoder
+    (``io/native``, built here with g++) is enabled and that every
+    full-file read is decoded by it (its ``decode_traces`` returns 0);
+    decodes every file both ways, native
+    (``SegyFile.trace_data()``) and numpy (``_decode_samples``), bit for
+    bit, and prints both walls and MB/s of decoded samples; then
+    ``bin_cube`` on the card from the format-1 files, once through the
+    native decoder and once with it off (numpy), fold equal and the stack
+    within BIN_TOL of max (``index_add_`` adds in the order its atomics
+    land), with no kernel launched."""
+    from pseudo_3d_interpolation_torch import backends
+    from pseudo_3d_interpolation_torch.io import native
+    from pseudo_3d_interpolation_torch.io.segy import (TRACE_HEADER_SIZE,
+                                                        SegyFile,
+                                                        _decode_samples)
+    from pseudo_3d_interpolation_torch.pipeline.binning import (
+        BinningGeometry, bin_cube)
+
+    if not backends.native_segy_enabled():
+        fail("13f: the native SEG-Y decoder is not enabled on the card's "
+             f"machine: {backends.native_segy_error()}")
+    ilines = np.flatnonzero(chain_fold(N, N)[:, 0])[::2][:IBM_PROFILES]
+    n_traces = len(ilines) * SURVEY_TRACES
+    mb = n_traces * SURVEY_NS * 4 / 1e6
+    with tempfile.TemporaryDirectory(prefix="p3d_ibm_") as tmp:
+        survey = pathlib.Path(tmp) / "survey"
+        survey.mkdir()
+        t0 = time.perf_counter()
+        files, t_write = write_survey(torch, dev, survey, ilines, fmt=1)
+        print(f"13f IBM-float survey: {len(ilines)} profiles x "
+              f"{SURVEY_TRACES} x {SURVEY_NS} (format 1, {mb:.0f} MB of "
+              f"samples); write_segy {t_write:.2f} s, made and written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        real_lib = native.lib
+        used = [0]
+
+        class CountingLib:
+            """The loaded library, counting the full-file decodes that
+            succeed (a nonzero return falls back to numpy in silence)."""
+
+            def __init__(self, cdll):
+                self._cdll = cdll
+
+            def decode_traces(self, *args):
+                rc = self._cdll.decode_traces(*args)
+                used[0] += rc == 0
+                return rc
+
+            def __getattr__(self, name):
+                return getattr(self._cdll, name)
+
+        def counting_lib():
+            cdll = real_lib()
+            return None if cdll is None else CountingLib(cdll)
+        t_native = t_numpy = 0.0
+        native.lib = counting_lib
+        try:
+            for path in files:
+                with SegyFile(path) as f:
+                    if f.format != 1:
+                        fail(f"13f: {path} is format {f.format}")
+                    t1 = time.perf_counter()
+                    a = f.trace_data()
+                    t2 = time.perf_counter()
+                    b = _decode_samples(np.asarray(
+                        f._traces_u8[:, TRACE_HEADER_SIZE:]), 1)
+                    t3 = time.perf_counter()
+                t_native += t2 - t1
+                t_numpy += t3 - t2
+                if not np.array_equal(a.view(np.uint32), b.view(np.uint32)):
+                    fail(f"13f: the native decode of {path} differs from "
+                         "numpy's")
+        finally:
+            native.lib = real_lib
+        if used[0] != len(files):
+            fail(f"13f: {used[0]} of {len(files)} full-file reads were "
+                 "decoded natively")
+        print(f"13f decode of {len(files)} IBM files, bit-equal: native "
+              f"({'OpenMP' if native.openmp() else 'one thread: the '
+                 'compiler has no OpenMP runtime'}) "
+              f"{t_native:.3f} s ({mb / t_native:.0f} MB/s), numpy "
+              f"{t_numpy:.3f} s ({mb / t_numpy:.0f} MB/s), "
+              f"{t_numpy / t_native:.2f}x", flush=True)
+
+        geom = BinningGeometry(spacing=BIN_SPACING, extent=BIN_EXTENT,
+                               stacking_method="average")
+        reset_counts(*modules)
+        binned, wall, peak = timed(torch, dev,
+                                   lambda: bin_cube(str(survey), geom))
+        native.lib = lambda: None  # the numpy decode
+        try:
+            plain, wall_np, _ = timed(torch, dev,
+                                      lambda: bin_cube(str(survey), geom))
+        finally:
+            native.lib = real_lib
+        counts = launch_counts(*modules)
+        if any(counts.values()):
+            fail(f"13f bin_cube launched kernels: {counts}")
+        if not np.array_equal(binned["fold"], plain["fold"]):
+            fail("13f: the fold from the native decode differs from numpy's")
+        err = float(np.abs(binned["amp"] - plain["amp"]).max()
+                    / np.abs(plain["amp"]).max())
+        print(f"13f bin_cube on the card from the IBM files: native decode "
+              f"{wall:.3f} s ({n_traces / wall:.0f} traces/s, device peak "
+              f"{peak:.3f} GB), numpy decode {wall_np:.3f} s; fold equal, "
+              f"stack max|d| {err:.2e} of max", flush=True)
+        if err > BIN_TOL:
+            fail(f"13f: the cube from the native decode is {err:.2e} of max "
+                 "from numpy's")
 
 
 # phase 14: the cube drivers and the out-of-core passes
@@ -2391,6 +2541,7 @@ def percentiles(torch, case):
     tr = get_transform(case.basis, precision="high")
     q = tr.decay_from_input(case.x, "exponential", NITER, PCT_META["p_max"],
                             PCT_META["p_min"], "factors")[TAU_ITER]
+    q = q[:, case.perm]  # in the case's plan order
     idx = torch.from_numpy(case.full_idx).to(case.dev)
     return (q[:, idx].contiguous(),
             [q[:, l0:l0 + lg].contiguous() for l0, lg, _ in case.boxes])
@@ -2557,7 +2708,7 @@ def time_selection(torch, kp, keys, q) -> dict:
                                lambda: kp.band_percentile_plain(keys, q), 5)
     torch.kthvalue(flat, k, dim=-1)
     lib_ms = time_ms(torch, lambda: torch.kthvalue(flat, k, dim=-1), 5)
-    nbytes = keys.numel() * 4 + 2 * q.numel() * 4
+    nbytes = roofline().select_work(s * c, n)[1]
     bnd = bound(0.0, nbytes)
     print(f"band_percentile {s}x{c} segments of {n} keys: kernel "
           f"{four[0]:.3f} / {four[1]:.3f} ms ({nbytes / t_k / 1e9:.3f} TB/s "
@@ -2583,16 +2734,11 @@ def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
                                       "hard-percentile", "high",
                                       support=c.support)
     times = kernel_passes(torch, run, KEY_PASSES)
+    rl = roofline()
     work = pass_work(c, False)
     nbands = c.psi.shape[0]
-    lh = 5.0 * h * math.log2(h)
+    lh = rl.line_flops(h)
     key_bytes = b * nbands * h * w * 4
-    a_bytes, a_flops = work["rows_inverse_kernel"]
-    keys_work = (a_bytes + key_bytes, a_flops + b * nbands * w * lh)
-    shrink_work = (work["cols_shrink_kernel"][0]
-                   + work["rows_forward_acc_kernel"][0],
-                   work["cols_shrink_kernel"][1]
-                   + work["rows_forward_acc_kernel"][1])
     print_passes(f"subband_update[percentile] {b}x{h}x{w} ({nbands} bands, "
                  f"{len(c.chunks) - 1} chunks)", times, {
                      "rows_inverse_kernel": work["rows_inverse_kernel"],
@@ -2610,10 +2756,11 @@ def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
         c.spec, c.psi, tau, "hard"), 2)
     out = {"subband_keys": (times["rows_inverse_kernel"]
                             + times["cols_shrink_kernel<2>"], p_keys,
-                            bound(keys_work[1], keys_work[0])),
+                            bound(*rl.subband_keys_work(*case_support(c)))),
            "subband_shrink": (times["cols_shrink_kernel<1>"]
                               + times["rows_forward_acc_kernel"], p_shrink,
-                              bound(shrink_work[1], shrink_work[0]))}
+                              bound(*rl.subband_shrink_work(
+                                  *case_support(c))))}
     rows = {"box_keys": [], "box_shrink": []}
     for k, (_, lg, g) in enumerate(c.boxes):
         sel, args, index = c.box_args(k, "hard")
@@ -2625,7 +2772,7 @@ def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
         bt = kernel_passes(torch, run_box, BOX_KEY_PASSES)
         field = b * lg * side * h * 8  # the scratch G, bytes
         col_flops = b * lg * side * lh
-        row_flops = b * lg * h * 5.0 * w * math.log2(w)
+        row_flops = b * lg * h * rl.line_flops(w)
         keys_b = b * lg * h * w * 4
         print_passes(f"box_group_update[percentile] {b}x{side}x{side}", bt, {
             "box_cols_inverse_kernel": (b * side * side * 8 + field,
@@ -2642,14 +2789,13 @@ def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
                                                          *args[3:6]), 3)
         p_bs = time_ms(torch, lambda: ksb.box_group_update_plain(
             args[0], args[1], box_tau, *args[3:6], "hard"), 3)
-        box_in = b * side * side * 8 + lg * side * side * 4
+        sc = len(g.idx_w)
         rows["box_keys"].append((
             bt["box_cols_inverse_kernel"] + bt["box_rows_kernel<2>"], p_bk,
-            bound(col_flops + row_flops, box_in + keys_b)))
+            bound(*rl.box_keys_work(b, lg, side, sc, h, w))))
         rows["box_shrink"].append((
             bt["box_rows_kernel<1>"] + bt["box_cols_forward_kernel"], p_bs,
-            bound(col_flops + 2 * row_flops,
-                  box_in + b * lg * 4 + b * side * side * 8)))
+            bound(*rl.box_shrink_work(b, lg, side, sc, h, w))))
     for name, vals in rows.items():
         out[name] = (sum(v[0] for v in vals) / len(vals),
                      sum(v[1] for v in vals) / len(vals),
@@ -2815,6 +2961,121 @@ def same_call(torch, modules, label, single, sharded, equal):
           flush=True)
 
 
+# 18e: a rank's batch on four cards (65 slices at batch 32 over 4 ranks)
+MESH_CHECK_BATCH = MAIN_BATCH // 4
+MESH_CHECK_GAP = 7.95e-3  # mesh_check.py's four-card SHEARLET gap (PERF.md §6)
+# mesh_check.py's single-card call takes interpolate's default batch
+MESH_CHECK_SINGLE = 64
+# 18f: max|2-D mesh - one device| ≤ MESH_2D_TOL·max, or the SNRs within
+# SNR_TOL_DB (mesh_check.py's rule)
+MESH_2D_TOL = 1e-5
+
+
+def cube_snr(torch, truth, amp) -> float:
+    """SNR of a cube's (iline, xline, freq) result against the (f, h, w)
+    truth."""
+    return snr_db(torch, truth, torch.from_numpy(
+        np.moveaxis(amp, -1, 0)).to(truth.device))
+
+
+def batch_gap(torch, truth, part, config, interpolate):
+    """18e: the SHEARLET cube ``part`` on one card at batch
+    MESH_CHECK_BATCH against batch MAIN_BATCH (the mesh's batch, split
+    four ways on four cards) and MESH_CHECK_SINGLE (mesh_check.py's
+    single-card call): the max-normalised gaps and the SNRs, beside
+    mesh_check.py's four-card gap. The same slices
+    solved in smaller batches round their FFTs and sums otherwise, and a
+    hard threshold flips where a coefficient sits at it: a gap of the
+    four-card one's order shows that account; bit-equal results would
+    point at the multi-rank path. Fails unless both SNRs agree within
+    SNR_TOL_DB."""
+    outs = {}
+    for b in (MESH_CHECK_BATCH, MAIN_BATCH, MESH_CHECK_SINGLE):
+        outs[b] = interpolate(part, config=config,
+                              batch=b).data_vars["amp_interp"][1]
+    a = outs[MESH_CHECK_BATCH]
+    snr_a = cube_snr(torch, truth, a)
+    for ref in (MAIN_BATCH, MESH_CHECK_SINGLE):
+        b = outs[ref]
+        gap = float(np.abs(a - b).max() / np.abs(b).max())
+        snr_b = cube_snr(torch, truth, b)
+        verdict = ("bit-equal: the batch does not explain mesh_check's gap"
+                   if gap == 0.0 else "the same order as mesh_check's"
+                   if 0.1 <= gap / MESH_CHECK_GAP <= 10.0 else
+                   "not of mesh_check's order")
+        print(f"phase 18 (e) SHEARLET cube of {len(part.coords['freq'])} on "
+              f"one card, batch {MESH_CHECK_BATCH} against {ref}: max|d| "
+              f"{gap:.3e} of max (mesh_check.py's four cards: "
+              f"{MESH_CHECK_GAP:.2e}; {verdict}), SNR {snr_a:.3f} / "
+              f"{snr_b:.3f} dB", flush=True)
+        if abs(snr_a - snr_b) > SNR_TOL_DB:
+            fail(f"phase 18 (e): batch {MESH_CHECK_BATCH} and {ref} reach "
+                 f"{snr_a:.3f} and {snr_b:.3f} dB")
+
+
+def mesh_2d_on_one_card(torch, dev, modules, production, truth, mask,
+                        interpolate, Cube):
+    """18f: ``make_mesh_2d(1, 1)`` on the world-size-1 group and the FFT
+    cube's first MESH_SHEARLET_SLICES slices. ``interpolate`` on it splits
+    no space axis, so it takes the 1-D slice path: bit-equal to the
+    single-device call (the folded solve kernel) with the same launches.
+    Then the space-sharded FFT solve (``SpaceShardedFFT`` over the mesh's
+    space axis, the distributed line FFT a split space axis runs: PyTorch
+    ops and no kernel) through ``interpolate_cube`` on the same slices,
+    held to the single-device cube by SNR against the truth. Launches and
+    walls printed."""
+    from pseudo_3d_interpolation_torch.parallel import mesh as mesh_lib
+    from pseudo_3d_interpolation_torch.parallel import solver
+
+    mesh = mesh_lib.make_mesh_2d(1, 1)
+    if mesh.shape != (1, 1) or mesh.device != dev or mesh.index != 0:
+        fail(f"phase 18 (f): the 2-D mesh is {mesh}")
+    part, _ = make_cube(torch, Cube, truth[:MESH_SHEARLET_SLICES], mask)
+    obs = (truth[:MESH_SHEARLET_SLICES] * mask).cpu().numpy()
+    line_fft = solver.SpaceShardedFFT(mesh.space)
+    walls, outs, counts = [], [], []
+    for run in (lambda: interpolate(part, config=production,
+                                    batch=MAIN_BATCH
+                                    ).data_vars["amp_interp"][1],
+                lambda: interpolate(part, config=production, mesh=mesh,
+                                    batch=MAIN_BATCH
+                                    ).data_vars["amp_interp"][1],
+                lambda: np.moveaxis(solver.interpolate_cube(
+                    obs, mask.cpu().numpy(), production, transform=line_fft,
+                    batch=MAIN_BATCH, device=dev)[0], 0, -1)):
+        torch.cuda.synchronize()
+        reset_counts(*modules)
+        t0 = time.perf_counter()
+        outs.append(run())
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append({k: v for k, v in launch_counts(*modules).items()
+                       if v})
+    gap = float(np.abs(outs[2] - outs[0]).max() / np.abs(outs[0]).max())
+    snrs = [cube_snr(torch, truth[:MESH_SHEARLET_SLICES], x) for x in outs]
+    print(f"phase 18 (f) make_mesh_2d(1, 1): FFT cube of "
+          f"{MESH_SHEARLET_SLICES}, single device {walls[0]:.2f} s "
+          f"(launches {counts[0]}); the 2-D mesh of one space rank "
+          f"{walls[1]:.2f} s (launches {counts[1]}), "
+          f"{'bit-equal' if np.array_equal(outs[1], outs[0]) else 'DIFFERS'};"
+          f" the space-sharded line FFT {walls[2]:.2f} s (launches "
+          f"{counts[2]}), max|d| {gap:.3e} of max, SNR {snrs[2]:.3f} / "
+          f"{snrs[0]:.3f} dB", flush=True)
+    if not np.array_equal(outs[1], outs[0]) or counts[1] != counts[0]:
+        fail("phase 18 (f): the 2-D mesh of one space rank is not the "
+             f"single-device solve (launches {counts[1]} against "
+             f"{counts[0]})")
+    if counts[2]:
+        fail(f"phase 18 (f): the space-sharded solve launched {counts[2]}")
+    # both solves end at the float32 floor on these plane waves, where
+    # the SNRs' difference measures rounding alone: there the elementwise
+    # bound holds instead, as for pocs_solve in phase 3a
+    if gap > MESH_2D_TOL and abs(snrs[0] - snrs[2]) > SNR_TOL_DB:
+        fail(f"phase 18 (f): SNR {snrs[2]:.3f} dB through the space-"
+             f"sharded line FFT against {snrs[0]:.3f} on one device, "
+             f"max|d| {gap:.3e} of max")
+
+
 def mesh_on_one_card(torch, dev, modules, production, truth, mask, cube):
     """Phase 18: a world-size-1 NCCL group (tcp://127.0.0.1 on a free
     port) and its mesh; (a) ``pocs_interpolate_sharded`` on phase 4's
@@ -2824,7 +3085,14 @@ def mesh_on_one_card(torch, dev, modules, production, truth, mask, cube):
     against ``apply_fft`` -> ``interpolate`` -> ``apply_ifft``; each
     bit-equal to the single-device call with the same launches. The mesh
     holds one device: this shows the code path on the card, not
-    collectives across cards."""
+    collectives across cards. Then (e) the SHEARLET cube of (c) on one
+    card at batch MESH_CHECK_BATCH (a rank's batch on four cards) against
+    batches 32 and 64: the gaps beside mesh_check.py's four-card one; and
+    (f) ``make_mesh_2d(1, 1)`` on the same group, the FFT cube's first
+    MESH_SHEARLET_SLICES slices through it (the 1-D path, bit-equal) and
+    through the space-sharded FFT solve (the distributed line FFT, PyTorch
+    ops and no kernel) against the single-device folded solve
+    (:func:`mesh_2d_on_one_card`)."""
     import torch.distributed as dist
 
     from pseudo_3d_interpolation_torch.io.cube import Cube
@@ -2884,7 +3152,11 @@ def mesh_on_one_card(torch, dev, modules, production, truth, mask, cube):
                                       batch=MAIN_BATCH),
                   lambda: interpolate(sh_part, config=shearlet, mesh=mesh,
                                       batch=MAIN_BATCH), cubes_equal)
+        batch_gap(torch, truth[:MESH_SHEARLET_SLICES], sh_part, shearlet,
+                  interpolate)
         del sh_part
+        mesh_2d_on_one_card(torch, dev, modules, production, truth, mask,
+                            interpolate, Cube)
 
         truth_t, twt = chain_truth(torch, dev)
         fold = chain_fold()
@@ -2902,6 +3174,214 @@ def mesh_on_one_card(torch, dev, modules, production, truth, mask, cube):
                                               b.data_vars["amp"][1]))
     finally:
         dist.destroy_process_group()
+
+
+# phase 19: the SHEARLET split plan on the box kernel
+SPLIT_THRESHOLD = 200  # 512²: only the finest scale (a 512 side) splits
+SPLIT_GROUPS = [(2, 447, 126), (2, 126, 447), (1, 447, 63), (1, 63, 447)]
+# rms of phase 19's noise floor beside plane waves of amplitude 0.5-2:
+# the fine scale's narrow bands hold energy the thresholds keep
+SPLIT_NOISE = 0.3
+
+
+def split_plans(torch, ksb, kp, dev, modules) -> dict:
+    """Phase 19: the 512² SHEARLET plan split at SPLIT_THRESHOLD (its
+    finest scale re-grouped by each shear's exact support: box groups of
+    447 x 126, 126 x 447, 447 x 63 and 63 x 447 with non-contiguous index
+    lists, the rest zero-padded into the full-size bands), on plane
+    waves with a noise floor of rms SPLIT_NOISE. (a) At batch 8
+    and the main path's 32: subband_update and every box group, the split
+    ones among them, against their plain versions, soft within SOFT_TOL
+    and hard by iterate SNR; the percentile route's box_keys (within
+    SOFT_TOL), the selection (bit-equal) and the split update (soft and
+    hard) likewise. (b) ``pocs_subband_apply`` at 32x512² on the split
+    plan against the box plan: its launches (no plain version may run),
+    its time, and the result held to the box plan's (soft within
+    SOFT_TOL; hard by the SNR of the POCS iterate within SNR_TOL_DB).
+    (c) Each box group's time and bound at batch 32 (the split groups
+    beside the box plan's two). (d) ``shearlet_transform`` and its
+    inverse on the card against ``device="cpu"``, within 1e-5 of max.
+    Returns the group times."""
+    from pseudo_3d_interpolation_torch.models.transforms import get_transform
+    from pseudo_3d_interpolation_torch.ops import shearlet as sh
+    from pseudo_3d_interpolation_torch.ops.cplx import Cplx
+
+    err_a = err_b = err_keys = 0.0
+    for b in (8, MAIN_BATCH):
+        case = SubbandCase(torch, b, N, N, 1900 + b, dev,
+                           split_threshold=SPLIT_THRESHOLD,
+                           noise=SPLIT_NOISE)
+        split = [(lg, len(g.idx_h), len(g.idx_w))
+                 for _, lg, g in case.boxes if len(g.idx_h) != len(g.idx_w)]
+        if split != SPLIT_GROUPS:
+            fail(f"phase 19: the split plan's narrow box groups are {split}"
+                 f", not {SPLIT_GROUPS}")
+        print(f"19a split plan at {b}x{N}x{N}: {case.psi.shape[0]} full-size "
+              f"bands, box groups "
+              f"{[(lg, len(g.idx_h), len(g.idx_w)) for _, lg, g in case.boxes]}"
+              f", perm {case.perm.tolist()[29:60]} (bands 29-59)", flush=True)
+        ea, eb = subband_kernels_against_plain(torch, ksb, case,
+                                               ("soft", "hard"), True)
+        err_a, err_b = max(err_a, ea), max(err_b, eb)
+        q_full, q_boxes = percentiles(torch, case)
+        for k, (_, lg, g) in enumerate(case.boxes):
+            _, args, index = case.box_args(k, "hard")
+            work_b = torch.empty(ksb.box_work_floats(b, lg, len(g.idx_w), N),
+                                 device=dev)
+            got = ksb.box_keys(args[0], args[1], args[3], N, N, index=index,
+                               work=work_b)
+            plain = ksb.box_keys_plain(args[0], args[1], args[3], N, N)
+            e = float(torch.max(torch.abs(got - plain)) / torch.max(plain))
+            err_keys = max(err_keys, e)
+            if e > SOFT_TOL:
+                fail(f"19a box_keys {b}x{len(g.idx_h)}x{len(g.idx_w)}: "
+                     f"max|d| {e:.2e} of max")
+            selection_against_plain(torch, kp, got, q_boxes[k],
+                                    f"19a split box group {len(g.idx_h)}x"
+                                    f"{len(g.idx_w)} of {lg} bands")
+            del got, plain, work_b
+        for op in ("soft", "hard"):
+            ea, eb = percentile_against_plain(torch, ksb, case, op, q_full,
+                                              q_boxes)
+            err_a, err_b = max(err_a, ea), max(err_b, eb)
+        if b == MAIN_BATCH:
+            split_case = case
+        else:
+            del case
+        torch.cuda.empty_cache()
+    print(f"19a split plan against plain: largest max|d| subband "
+          f"{err_a:.3e}, box groups {err_b:.3e} (absolute, on spectra), box "
+          f"keys {err_keys:.2e} of max", flush=True)
+
+    # (b) the whole apply on both plans at the main path's batch
+    case = split_case
+    box_plan = get_transform("SHEARLET")._plan(N, N)
+    # the percentiles of phase 12d's decay of factors, canonical order
+    q = get_transform("SHEARLET", precision="high").decay_from_input(
+        case.x, "exponential", NITER, PCT_META["p_max"], PCT_META["p_min"],
+        "factors")[TAU_ITER]
+    inv = torch.argsort(case.perm)
+    plans = {"box plan": (box_plan, case.tau[:, inv], q),
+             "split plan": (sh.shearlet_plan(N, N,
+                                             split_threshold=SPLIT_THRESHOLD),
+                            case.tau, q[:, case.perm])}
+    ops = ("soft", "hard", "hard-percentile")
+    x = case.x
+    outs, times, counts = {}, {}, {}
+    for name, (plan, tau, q_plan) in plans.items():
+        for op in ops:
+            t = q_plan if op.endswith("-percentile") else tau
+            with no_plain(ksb, kp) as calls:
+                torch.cuda.synchronize()
+                reset_counts(*modules)
+                out = sh.pocs_subband_apply(x, plan, t, op, "high")
+                torch.cuda.synchronize()
+                counts[name, op] = {k: v for k, v in launch_counts(
+                    *modules).items() if v}
+            if calls:
+                fail(f"19b {name} {op}: plain versions ran on the card: "
+                     f"{calls}")
+            outs[name, op] = torch.complex(out.re, out.im)
+            times[name, op] = time_ms(torch, lambda: sh.pocs_subband_apply(
+                x, plan, t, op, "high"), 5)
+            print(f"19b pocs_subband_apply {MAIN_BATCH}x{N}x{N} {op} on the "
+                  f"{name}: {times[name, op]:.3f} ms a call, launches "
+                  f"{counts[name, op]}", flush=True)
+    n_boxes = len(case.boxes)
+    for op, wrappers in (("hard", ("box_group_update",)),
+                         ("hard-percentile", ("box_keys", "box_shrink"))):
+        got = counts["split plan", op]
+        if any(got.get(w) != n_boxes for w in wrappers):
+            fail(f"19b the split plan's {op} apply launched {got}, not "
+                 f"{n_boxes} of each of {wrappers}")
+    truth = case.truth
+
+    def iterate_snr(acc_spatial):
+        xr = acc_spatial * (1.0 - ALPHA * case.mask) + ALPHA * case.obs
+        return snr_db(torch, truth, xr)
+    for op in ops:
+        a, bb = outs["split plan", op], outs["box plan", op]
+        err = float(torch.max(torch.abs(a - bb)) / torch.max(torch.abs(bb)))
+        snr_s, snr_b = iterate_snr(a), iterate_snr(bb)
+        print(f"19b {op}: split plan against box plan max|d| {err:.2e} of "
+              f"max, iterate SNR {snr_s:.3f} / {snr_b:.3f} dB", flush=True)
+        if op == "soft" and err > SOFT_TOL:
+            fail(f"19b soft: the split plan is {err:.2e} of max from the "
+                 "box plan")
+        if op != "soft" and abs(snr_s - snr_b) > SNR_TOL_DB:
+            fail(f"19b {op}: iterate SNR {snr_s:.3f} vs {snr_b:.3f} dB")
+    del outs
+
+    # (c) each box group's time at the main path's batch, both plans
+    groups = []
+    box_case = SubbandCase(torch, MAIN_BATCH, N, N, 1900 + MAIN_BATCH, dev,
+                           noise=SPLIT_NOISE)
+    for label, c in (("box plan", box_case), ("split plan", case)):
+        for k, (_, lg, g) in enumerate(c.boxes):
+            t_k, t_p, bnd = time_box(torch, ksb, c, k)
+            groups.append((label, lg, len(g.idx_h), len(g.idx_w), t_k, t_p,
+                           bnd))
+    print(f"19c box groups at batch {MAIN_BATCH} (plan, bands, sr x sc: "
+          "kernel ms, plain ms, bound ms): " + "; ".join(
+              f"{p}, {lg}, {sr}x{sc}: {t:.3f}, {tp:.3f}, {bd[0]:.4f}"
+              for p, lg, sr, sc, t, tp, bd in groups), flush=True)
+    # the percentile route's split box passes on the split groups
+    rl = roofline()
+    _, q_boxes = percentiles(torch, case)
+    pct_groups = []
+    for k, (_, lg, g) in enumerate(case.boxes):
+        sr, sc = len(g.idx_h), len(g.idx_w)
+        if sr == sc:
+            continue
+        _, args, index = case.box_args(k, "hard")
+        args = args[:2] + (q_boxes[k],) + args[3:]
+        t_k, t_p, _ = time_pair(
+            torch, lambda: ksb.box_group_update_percentile(
+                *args, "high", index=index),
+            lambda: ksb.box_group_update_percentile_plain(*args), 3)
+        keys_w = rl.box_keys_work(MAIN_BATCH, lg, sr, sc, N, N)
+        shrink_w = rl.box_shrink_work(MAIN_BATCH, lg, sr, sc, N, N)
+        sel_w = rl.select_work(MAIN_BATCH * lg, N * N)
+        bnd = (bound(*keys_w)[0] + bound(*sel_w)[0] + bound(*shrink_w)[0],
+               "bytes and operations")
+        pct_groups.append((lg, sr, sc, t_k, t_p, bnd))
+    print(f"19c percentile box route (box_keys + band_percentile + "
+          f"box_shrink) at batch {MAIN_BATCH} on the split groups (bands, sr "
+          "x sc: kernel ms, plain ms, bound ms as the sum of the three): "
+          + "; ".join(f"{lg}, {sr}x{sc}: {t:.3f}, {tp:.3f}, {bd[0]:.4f}"
+                      for lg, sr, sc, t, tp, bd in pct_groups), flush=True)
+    del box_case, case, split_case
+    torch.cuda.empty_cache()
+
+    # (d) the unplanned transform pair against the host
+    psi = sh.shearlet_spectra(N, N)
+    obs = plane_waves(torch, 2, N, N, 1990, dev)[0]
+    z = Cplx(obs.real.contiguous(), obs.imag.contiguous())
+    zc = Cplx(z.re.cpu(), z.im.cpu())
+    for name, card, host in (
+            ("shearlet_transform", lambda: sh.shearlet_transform(z, psi),
+             lambda: sh.shearlet_transform(zc, psi)),
+            ("inverse_shearlet_transform",
+             lambda: sh.inverse_shearlet_transform(
+                 sh.shearlet_transform(z, psi), psi),
+             lambda: sh.inverse_shearlet_transform(
+                 sh.shearlet_transform(zc, psi), psi))):
+        got, want = card(), host()
+        got = torch.complex(got.re, got.im).cpu()
+        want = torch.complex(want.re, want.im)
+        err = float(torch.max(torch.abs(got - want))
+                    / torch.max(torch.abs(want)))
+        print(f"19d {name} 2x{N}x{N} ({psi.shape[0]} bands): card against "
+              f"device='cpu' max|d| {err:.2e} of max", flush=True)
+        if not err <= 1e-5:
+            fail(f"19d {name}: {err:.2e} of max from the host")
+    back = sh.inverse_shearlet_transform(sh.shearlet_transform(z, psi), psi)
+    err = float(torch.max(torch.abs(torch.complex(back.re, back.im) - obs))
+                / torch.max(torch.abs(obs)))
+    print(f"19d the pair reconstructs to {err:.2e} of max", flush=True)
+    if not err <= 1e-5:
+        fail(f"19d the unplanned pair reconstructs to {err:.2e} of max")
+    return {"times": times, "groups": groups, "percentile": pct_groups}
 
 
 def main():
@@ -2994,12 +3474,8 @@ def main():
     if not same:
         fail("pocs_solve[fft] at precision 'default' differs from 'high'")
     del res
-    # the compulsory bytes of a solve: the observed pair in, the result
-    # pair out, the mask, the thresholds, the costs
-    solve_bytes = (MAIN_BATCH * N * N * 16 + N * N * 4
-                   + NITER * MAIN_BATCH * 4 + MAIN_BATCH * 4)
-    solve_bound = bound(2 * fft2_flops(N, N) * NITER * MAIN_BATCH,
-                        solve_bytes)
+    rl = roofline()
+    solve_bound = bound(*rl.solve_work(MAIN_BATCH, N, N, NITER, "fft"))
     del z, mask, tau
 
     # phase 3b: the subband kernels' line engine, then the kernels,
@@ -3054,9 +3530,7 @@ def main():
           f"{four[1]:.3f} ms, plain (torch.fft) {four[2]:.3f} / "
           f"{four[3]:.3f} ms", flush=True)
     iteration_passes(torch, ks, z, mask, tau)
-    # x and obs pairs in, the result pair out, the mask, the thresholds
-    iter_bound = bound(2 * fft2_flops(N, N) * MAIN_BATCH,
-                       MAIN_BATCH * N * N * 24 + N * N * 4 + MAIN_BATCH * 4)
+    iter_bound = bound(*rl.iteration_work(MAIN_BATCH, N, N))
     del z, mask, tau
 
     # phase 3d: the DCT solve against plain, ending at the main path's
@@ -3081,9 +3555,7 @@ def main():
           f"kernel {four[0]:.2f} / {four[1]:.2f} ms, plain (torch.matmul) "
           f"{four[2]:.2f} / {four[3]:.2f} ms", flush=True)
     solve_passes(torch, ks, z, mask, tau, "dct")
-    # four real 2-D DCTs per slice-iteration at 2.5·n·log2 n each
-    dct_bound = bound(4 * 2.5 * N * N * math.log2(N * N) * NITER
-                      * MAIN_BATCH, solve_bytes)
+    dct_bound = bound(*rl.solve_work(MAIN_BATCH, N, N, NITER, "dct"))
     del z, mask, tau
 
     # phase 3e: the wavelet solve against plain, ending at the main path's
@@ -3110,11 +3582,9 @@ def main():
           f"iterations: kernel {four[0]:.2f} / {four[1]:.2f} ms, plain "
           f"(torch.matmul) {four[2]:.2f} / {four[3]:.2f} ms", flush=True)
     wavelet_passes(torch, ks, z, mask, tau, mats)
-    # db4's filter length 8: 2·8 flops per output per 1-D pass, two passes
-    # per level, forward and inverse, re and im
-    wv_flops = sum(16 * 8 * (N >> lv) ** 2 for lv in range(3))
-    wv_bound = bound(wv_flops * NITER * MAIN_BATCH,
-                     solve_bytes + NITER * MAIN_BATCH * 8 * 4)
+    # db4's filter length 8, level 3
+    wv_bound = bound(*rl.solve_work(MAIN_BATCH, N, N, NITER, "wavelet",
+                                    taps=8, level=3))
     del z, mask, tau
 
     # phase 3f: the spatial subband kernel, and both subband kernels on the
@@ -3310,6 +3780,9 @@ def main():
     # phase 13: SEG-Y profiles in, a SEG-Y cube out
     t13 = time.perf_counter()
     segy_in_segy_out(torch, dev, modules, args.trace)
+    t13f = time.perf_counter()
+    segy_ibm_survey(torch, dev, modules)
+    print(f"phase 13f: {time.perf_counter() - t13f:.1f} s", flush=True)
     print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
 
     # phase 14: the cube drivers and the out-of-core passes
@@ -3358,6 +3831,13 @@ def main():
     t18 = time.perf_counter()
     mesh_on_one_card(torch, dev, modules, production, truth, mask, cube)
     print(f"phase 18: {time.perf_counter() - t18:.1f} s", flush=True)
+    del truth, mask, cube, part
+    torch.cuda.empty_cache()
+
+    # phase 19: the SHEARLET split plan on the box kernel
+    t19 = time.perf_counter()
+    split_plans(torch, ksb, kp, dev, modules)
+    print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,

@@ -3,7 +3,9 @@ hold it to one card.
 
 Run from the root of a checkout, one process per card:
 
-    torchrun --nproc-per-node=4 mesh_check.py
+    torchrun --nproc-per-node=4 mesh_check.py [--only-2d]
+
+(``--only-2d`` runs the last call alone.)
 
 Every rank joins the NCCL group (``parallel.mesh.initialize_distributed``
 reads the variables ``torchrun`` sets), builds the same seeded inputs as
@@ -19,7 +21,12 @@ same kernels in smaller batches, so a sharded result must equal the
 single-card one within 1e-5 of its largest value, or, for a cube of
 plane waves, reach its SNR against the truth within 0.1 dB (the
 production hard threshold flips coefficients at the threshold when the
-batch's FFTs and reductions round differently). Each call runs once
+batch's FFTs and reductions round differently). Last, the 2 x 2 slice x
+space mesh (``make_mesh_2d(2, 2)``): the FFT cube's first 65 slices
+through ``interpolate(mesh=...)``, each rank holding half the slices of
+a batch and half the ilines of each, solved as a distributed line FFT
+(PyTorch ops, one ``all_to_all_single`` over the space pair each way an
+iteration), against the single-card folded solve by SNR. Each call runs once
 untimed first (kernel loading, the windows' plans). Rank 0 prints the
 card's name and power limit, each call's walls, its own launches, the
 difference and the SNRs; any failure exits non-zero on every rank.
@@ -27,6 +34,7 @@ difference and the SNRs; any failure exits non-zero on every rank.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import inspect
 import subprocess
@@ -43,25 +51,20 @@ SHEARLET_SLICES = 2 * cs.MAIN_BATCH + 1
 
 
 def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--only-2d", action="store_true",
+                        help="run the 2 x 2 slice x space mesh's call alone")
+    args = parser.parse_args()
     import torch
     import torch.distributed as dist
 
     from pseudo_3d_interpolation_torch.io.cube import Cube
-    from pseudo_3d_interpolation_torch.models.pocs import pocs_interpolate
-    from pseudo_3d_interpolation_torch.ops.cplx import Cplx
     from pseudo_3d_interpolation_torch.ops.kernels import _build
     from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
     from pseudo_3d_interpolation_torch.ops.kernels import pocs_solve as ks
     from pseudo_3d_interpolation_torch.ops.kernels import subband as ksb
     from pseudo_3d_interpolation_torch.parallel import mesh as mesh_lib
-    from pseudo_3d_interpolation_torch.parallel.solver import (
-        pocs_interpolate_sharded)
-    from pseudo_3d_interpolation_torch.pipeline.fft import apply_fft
-    from pseudo_3d_interpolation_torch.pipeline.ifft import apply_ifft
     from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
-    from pseudo_3d_interpolation_torch.pipeline.preprocess import preprocess
-    from pseudo_3d_interpolation_torch.pipeline.stage2 import (
-        interpolate_time_cube_sharded)
 
     if not torch.cuda.is_available():
         print("mesh_check: no CUDA card", file=sys.stderr)
@@ -118,6 +121,48 @@ def main() -> int:
             failures.append(f"{label}: {err:.2e} of max")
 
     truth, mask = cs.plane_waves(torch, cs.SLICES, cs.N, cs.N, 0, dev)
+    truth_fft = truth[:SHEARLET_SLICES].clone()
+
+    def amp(c):
+        return c.data_vars["amp_interp"][1]
+    if not args.only_2d:
+        one_d_calls(torch, dev, mesh, production, truth, mask, check, amp)
+    del truth
+
+    mesh2 = mesh_lib.make_mesh_2d(2, 2)
+    part, _ = cs.make_cube(torch, Cube, truth_fft, mask)
+    check(f"interpolate on a 2x2 slice x space mesh, FFT cube of "
+          f"{SHEARLET_SLICES}",
+          lambda: interpolate(part, config=production, device=dev),
+          lambda: interpolate(part, config=production, mesh=mesh2,
+                              batch=cs.MAIN_BATCH), amp, truth_fft)
+    del part, truth_fft
+
+    flags = torch.tensor([len(failures)], device=dev)
+    dist.all_reduce(flags)
+    dist.destroy_process_group()
+    if rank0:
+        verdict = "FAILED " + "; ".join(failures) if failures else "ok"
+        print(f"mesh_check: {verdict} ({int(flags)} failures over the "
+              "ranks)", flush=True)
+    return 1 if int(flags) else 0
+
+
+def one_d_calls(torch, dev, mesh, production, truth, mask, check, amp):
+    """The 1-D mesh's calls: the FFT batch and cube, the SHEARLET cube of
+    SHEARLET_SLICES and the sharded stage 2, each against one card."""
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.models.pocs import pocs_interpolate
+    from pseudo_3d_interpolation_torch.ops.cplx import Cplx
+    from pseudo_3d_interpolation_torch.parallel.solver import (
+        pocs_interpolate_sharded)
+    from pseudo_3d_interpolation_torch.pipeline.fft import apply_fft
+    from pseudo_3d_interpolation_torch.pipeline.ifft import apply_ifft
+    from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
+    from pseudo_3d_interpolation_torch.pipeline.preprocess import preprocess
+    from pseudo_3d_interpolation_torch.pipeline.stage2 import (
+        interpolate_time_cube_sharded)
+
     obs = truth[:cs.MAIN_BATCH] * mask
     z = Cplx(obs.real.contiguous(), obs.imag.contiguous())
     check(f"pocs_interpolate_sharded, FFT batch of {cs.MAIN_BATCH}",
@@ -126,9 +171,6 @@ def main() -> int:
                                            config=production),
           lambda r: torch.complex(r.data.re, r.data.im).cpu())
     cube, _ = cs.make_cube(torch, Cube, truth, mask)
-
-    def amp(c):
-        return c.data_vars["amp_interp"][1]
     check(f"interpolate, FFT cube of {cs.SLICES}",
           lambda: interpolate(cube, config=production, device=dev),
           lambda: interpolate(cube, config=production, mesh=mesh,
@@ -140,7 +182,7 @@ def main() -> int:
           lambda: interpolate(part, config=shearlet, mesh=mesh,
                               batch=cs.MAIN_BATCH), amp,
           truth[:SHEARLET_SLICES])
-    del truth, z, cube, part
+    del z, cube, part
 
     truth_t, twt = cs.chain_truth(torch, dev)
     fold = cs.chain_fold()
@@ -157,15 +199,6 @@ def main() -> int:
           lambda: interpolate_time_cube_sharded(cs.fresh(pre), production,
                                                 mesh=mesh),
           lambda c: c.data_vars["amp"][1])
-
-    flags = torch.tensor([len(failures)], device=dev)
-    dist.all_reduce(flags)
-    dist.destroy_process_group()
-    if rank0:
-        verdict = "FAILED " + "; ".join(failures) if failures else "ok"
-        print(f"mesh_check: {verdict} ({int(flags)} failures over the "
-              "ranks)", flush=True)
-    return 1 if int(flags) else 0
 
 
 if __name__ == "__main__":

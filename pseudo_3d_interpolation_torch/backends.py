@@ -3,9 +3,9 @@
 Counterpart of ``pseudo_3d_interpolation_tpu/backends.py``.
 reference: pseudo_3D_interpolation/functions/backends.py:1-11 (optional-
 dependency flags). Here the optional capabilities are the native C++ SEG-Y
-core (not ported: the port decodes SEG-Y with numpy), the hand-written
-CUDA kernels (they need ``nvcc`` and a card), and the device platform
-itself. Nothing here builds a kernel; only torch is imported.
+core (built with g++ at first use, ``io/native``), the hand-written CUDA
+kernels (they need ``nvcc`` and a card), and the device platform itself.
+Nothing here builds a CUDA kernel; only torch is imported.
 """
 
 from __future__ import annotations
@@ -15,10 +15,22 @@ import functools
 TRANSFORMS = ["FFT", "DCT", "WAVELET", "SHEARLET", "CURVELET"]
 
 
+@functools.lru_cache(maxsize=1)
 def native_segy_enabled() -> bool:
-    """C++/OpenMP SEG-Y decode core built and loadable: never in the port,
-    which decodes with numpy (``io/segy``)."""
-    return False
+    """C++/OpenMP SEG-Y decode core built and loadable (``io/native``; it
+    is built here on the first call). When it is not,
+    :func:`native_segy_error` says why."""
+    from .io import native
+
+    return native.lib() is not None
+
+
+def native_segy_error() -> str | None:
+    """The native core's build or load error, None when it loads."""
+    from .io import native
+
+    native.lib()
+    return native.build_error()
 
 
 @functools.lru_cache(maxsize=1)
@@ -59,6 +71,7 @@ def summary() -> dict:
         "platform": platform(),
         "n_devices": n,
         "native_segy": native_segy_enabled(),
+        "native_segy_error": native_segy_error(),
         "kernels": kernels_enabled(),
         "transforms": list(TRANSFORMS),
     }

@@ -7,9 +7,10 @@ reference's stage-1 scripts. Reads are vectorized over all traces (one
 strided view per header field instead of per-trace Python loops), the file
 is memory-mapped so header scrapes touch only the bytes they need, and
 trace data lands directly in float32 blocks ready for device upload.
-Samples decode with numpy only; the JAX package's optional C++ decoder
-(``native/segy_core.cpp``, which it too falls back from to numpy) is not
-ported (ROADMAP #19).
+Full-file sample reads use the native C++/OpenMP decoder (``io/native``:
+the package's copy of ``native/segy_core.cpp``, built with g++ at first
+use) as the JAX package does; partial reads, and a machine without a C++
+compiler, decode with numpy, bit for bit the same.
 pandas is imported only by :meth:`SegyFile.headers_dataframe`.
 
 Supported sample formats: 1 (IBM float), 2 (int32), 3 (int16), 5 (IEEE
@@ -346,7 +347,27 @@ class SegyFile:
     # -- trace data --
     def trace_data(self, traces=None) -> np.ndarray:
         """Decoded samples as float32 (ntraces, ns), of every trace or of
-        the ``traces`` given."""
+        the ``traces`` given.
+
+        Full-file reads use the native C++/OpenMP decoder when it builds
+        (``io/native``); otherwise, and for partial reads, the vectorized
+        numpy path."""
+        if traces is None:
+            from . import native
+
+            cdll = native.lib()
+            if cdll is not None:
+                out = np.empty((self.n_traces, self.n_samples), np.float32)
+                rc = cdll.decode_traces(
+                    self._traces_u8.ctypes.data + TRACE_HEADER_SIZE,
+                    self.trace_size,
+                    self.n_traces,
+                    self.n_samples,
+                    self.format,
+                    out.ctypes.data,
+                )
+                if rc == 0:
+                    return out
         raw = self._traces_u8[:, TRACE_HEADER_SIZE:]
         if traces is not None:
             raw = raw[np.asarray(traces)]

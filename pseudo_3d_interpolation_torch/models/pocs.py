@@ -270,7 +270,10 @@ def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
     ``xla-scan``. The leading axes of ``(..., H, W)`` slices (and of a
     mask that has them) are flattened into one batch for the loop and
     restored on the result, the iteration counts, the costs and the
-    history."""
+    history. A transform with a ``slice_sum`` method (the space-sharded
+    FFT basis of ``parallel/solver.py``, whose slices are spread over
+    processes) takes the per-slice sums of the cost and of the zero-slice
+    test."""
     batch, (h, w) = tuple(z.shape[:-2]), tuple(z.shape[-2:])
     if mask.dim() > 2:
         mask = torch.broadcast_to(mask, z.shape).reshape(-1, h, w)
@@ -295,6 +298,8 @@ def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
         decay = _tree_map(torch.sqrt, decay)
     decay = _tree_map(lambda t: t.to(torch.float32), decay)
     keep = 1.0 - alpha * mask  # reinsertion weights
+    slice_sum = getattr(transform, "slice_sum", None) or (
+        lambda t: torch.sum(t, dim=(-2, -1)))
     a_re, a_im = alpha * z.re, alpha * z.im
 
     if route.route == "fused-periter":
@@ -348,8 +353,8 @@ def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
 
         # cost (Gao et al. 2013): (Σ(|x_new| − |x_curr|))² / (Σ|x_new|)²
         mag_rec = abs_(x_rec)
-        d = torch.sum(mag_rec - abs_(x_curr), dim=(-2, -1))
-        s = torch.sum(mag_rec, dim=(-2, -1))
+        d = slice_sum(mag_rec - abs_(x_curr))
+        s = slice_sum(mag_rec)
         cost = (d * d) / torch.where(s == 0, torch.ones_like(s), s * s)
 
         if cfg.version == "fast":
@@ -378,7 +383,7 @@ def _scan(z: Cplx, mask: torch.Tensor, transform, cfg: POCSConfig,
             active = active & ~(cost < cfg.eps)
 
     # zero-input short-circuit (reference POCS.py:515-521)
-    nonzero = torch.sum(z.abs2(), dim=(-2, -1)) > 0
+    nonzero = slice_sum(z.abs2()) > 0
     nz = nonzero[:, None, None]
     x_out = Cplx(torch.where(nz, x_curr.re, z.re),
                  torch.where(nz, x_curr.im, z.im))

@@ -78,3 +78,14 @@ def to_complex(z: Cplx) -> np.ndarray:
     pair's device, then one copy)."""
     return torch.complex(z.re.detach().float(),
                          z.im.detach().float()).cpu().numpy()
+
+
+def zeros(shape, dtype=torch.float32, device=None) -> Cplx:
+    """A pair of zero tensors of ``shape`` on ``device``."""
+    return Cplx(torch.zeros(shape, dtype=dtype, device=device),
+                torch.zeros(shape, dtype=dtype, device=device))
+
+
+def where(cond, a: Cplx, b: Cplx) -> Cplx:
+    """``a`` where ``cond`` holds, else ``b``, part by part."""
+    return Cplx(torch.where(cond, a.re, b.re), torch.where(cond, a.im, b.im))

@@ -20,8 +20,8 @@ diagonal seam wedges), then the finest isotropic ring (when
 The decimated (wrapped) coefficient representation, CurveLab's storage,
 is at the end: each band's coefficients live on a small grid of its
 frequency support (``decimated_layout``, ``decimated_forward``,
-``decimated_inverse``). Not ported yet: the split plans
-(``split_threshold``).
+``decimated_inverse``). ``curvelet_plan(split_threshold=...)`` builds the
+split plans of ``ops.shearlet.build_plan``.
 """
 
 from __future__ import annotations
@@ -161,11 +161,9 @@ def curvelet_plan(h: int, w: int, nbscales: int | None = None,
     """Support-cropped plan (host, cached): ring s vanishes outside
     |ω| <= 2·c_s, the lowpass shares ring 0's box and the flat-topped
     finest ring is full size. The plan format is the shearlet one, so
-    ``ops.shearlet``'s planned transforms and apply take it."""
-    if split_threshold is not None:
-        raise NotImplementedError(
-            "split plans (split_threshold) are not ported yet (ROADMAP); "
-            "the JAX package builds none by default")
+    ``ops.shearlet``'s planned transforms and apply take it.
+    ``split_threshold`` re-groups large rings into per-wedge exact-support
+    groups (``ops.shearlet.build_plan``); off by default."""
     if nbscales is None:
         nbscales = default_nbscales(h, w)
     psi = curvelet_spectra(h, w, nbscales, nbangles_coarse, allcurvelets)
@@ -176,7 +174,7 @@ def curvelet_plan(h: int, w: int, nbscales: int | None = None,
     counts = [1 + subbands[0]] + subbands[1:]
     bounds = [int(np.ceil(2.0 * emax * 2.0 ** (s - r + 1))) for s in range(r)]
     bounds[-1] = None  # the finest ring is flat-topped to the corner
-    return build_plan(psi, counts, bounds)
+    return build_plan(psi, counts, bounds, split_threshold)
 
 
 # ---------------------------------------------------------------------------

@@ -160,6 +160,23 @@ def symmetrize_and_tighten(psi: np.ndarray, what: str) -> np.ndarray:
     return psi.astype(np.float32)
 
 
+def shearlet_transform(z: Cplx, psi) -> Cplx:
+    """Forward transform without a plan: (..., H, W) -> (..., L, H, W)
+    subband coefficients ``ifft2(fft2(z)·ψ_l)``. ``psi``: the (L, H, W)
+    windows, numpy or a tensor."""
+    zf = torch.fft.fft2(_complex(z))
+    p = torch.as_tensor(psi, dtype=torch.float32, device=zf.device)
+    return _pair(torch.fft.ifft2(zf[..., None, :, :] * p))
+
+
+def inverse_shearlet_transform(coeffs: Cplx, psi) -> Cplx:
+    """Adjoint and inverse (tight frame) without a plan: the sum of the
+    re-windowed subband spectra, (..., L, H, W) -> (..., H, W)."""
+    cf = torch.fft.fft2(_complex(coeffs))
+    p = torch.as_tensor(psi, dtype=torch.float32, device=cf.device)
+    return _pair(torch.fft.ifft2(torch.sum(cf * p, dim=-3)))
+
+
 # ---------------------------------------------------------------------------
 # Support-cropped plan. Every subband of scale j lives in the centred
 # frequency box |ω| <= 4^(j+1); the coefficient fields keep full H×W
@@ -245,9 +262,15 @@ class _ScaleGroup:
 
 
 class Plan(tuple):
-    """A tuple of :class:`_ScaleGroup` plus ``perm``, the canonical subband
-    index at each planned position (the identity: the port builds no
-    split plans)."""
+    """A tuple of :class:`_ScaleGroup` plus ``perm``: the planned subband
+    order.
+
+    The planned transforms emit subbands in plan order (groups
+    concatenated); ``perm[i]`` is the canonical (FFST/curvelet) subband
+    index at planned position i. Fine-scale splitting only reorders within
+    a scale block, so scale-indexed consumers (the adaptive minimum's
+    ``j_of_band``) are unaffected; thresholds ``tau`` are in plan order,
+    and ``perm`` maps them to the unplanned transform's."""
 
     def __new__(cls, groups, perm):
         return super().__new__(cls, groups)
@@ -271,18 +294,53 @@ def _box_indices(n: int, bound: int, mult: int = 8) -> np.ndarray:
     return idx
 
 
-def build_plan(psi: np.ndarray, counts, bounds) -> Plan:
+def build_plan(psi: np.ndarray, counts, bounds,
+               split_threshold: int | None = None) -> Plan:
     """Group a (L, H, W) window stack into support-cropped plan entries:
     ``counts[g]`` consecutive subbands form group g, whose windows are zero
     outside the centred box |ω| <= ``bounds[g]`` (None = full size). A
-    window with energy outside its box raises."""
+    window with energy outside its box raises.
+
+    Fine-scale splitting (``split_threshold=<box side>``; off by default,
+    JAX ops/shearlet.py:293-363): a scale group of more than one subband
+    whose box side (``min(H, W)`` for a full-size group) reaches the
+    threshold is re-grouped by each subband's exact nonzero row and column
+    support, subbands with identical supports batched together (the ±k
+    shear pairs). Such a group's index lists are the exact support, not a
+    centred box: the k=0 shear at 512² lives on 450 rows × 65 columns. A
+    group whose support is the whole grid stays full size. The subband
+    order is recorded in ``Plan.perm`` (the identity when nothing is
+    split)."""
     h, w = psi.shape[-2:]
     groups = []
+    perm = []
     l0 = 0
     for cnt, bound in zip(counts, bounds):
-        sub = psi[l0:l0 + cnt]
+        idxs = np.arange(l0, l0 + cnt)
         l0 += cnt
-        if bound is None or 2 * bound + 1 >= min(h, w):
+        side = 2 * bound + 1 if bound is not None else min(h, w)
+        if (split_threshold is not None and side >= split_threshold
+                and cnt > 1):
+            keymap = {}
+            for l in idxs:
+                nz = np.abs(psi[l]) > 0
+                rows = np.nonzero(nz.any(axis=1))[0].astype(np.int32)
+                cols = np.nonzero(nz.any(axis=0))[0].astype(np.int32)
+                key = (rows.tobytes(), cols.tobytes())
+                if key not in keymap:
+                    keymap[key] = (rows, cols, [])
+                keymap[key][2].append(int(l))
+            for rows, cols, members in keymap.values():
+                perm.extend(members)
+                if len(rows) >= h and len(cols) >= w:
+                    groups.append(_ScaleGroup(None, None, psi[members]))
+                else:
+                    groups.append(_ScaleGroup(rows, cols, np.ascontiguousarray(
+                        psi[members][:, rows][:, :, cols])))
+            continue
+        perm.extend(idxs.tolist())
+        sub = psi[idxs[0]:idxs[-1] + 1]
+        if bound is None or side >= min(h, w):
             groups.append(_ScaleGroup(None, None, sub))
             continue
         ih = _box_indices(h, bound)
@@ -299,12 +357,14 @@ def build_plan(psi: np.ndarray, counts, bounds) -> Plan:
     if l0 != psi.shape[0]:
         raise ValueError(f"plan counts cover {l0} of {psi.shape[0]} "
                          "subbands")
-    return Plan(groups, np.arange(psi.shape[0]))
+    return Plan(groups, perm)
 
 
 @functools.lru_cache(maxsize=8)
-def shearlet_plan(h: int, w: int, n_scales: int | None = None) -> Plan:
-    """Per-scale support-cropped window groups (host, cached)."""
+def shearlet_plan(h: int, w: int, n_scales: int | None = None,
+                  split_threshold: int | None = None) -> Plan:
+    """Per-scale support-cropped window groups (host, cached);
+    ``split_threshold`` as :func:`build_plan`'s."""
     if n_scales is None:
         n_scales = default_scales(h, w)
     psi = shearlet_spectra(h, w, n_scales)
@@ -312,7 +372,7 @@ def shearlet_plan(h: int, w: int, n_scales: int | None = None) -> Plan:
     bounds = [4] + [4 ** (j + 1) for j in range(1, n_scales)]
     # the finest radial window is flat out to the grid corner: full size
     bounds[-1] = None
-    return build_plan(psi, counts, bounds)
+    return build_plan(psi, counts, bounds, split_threshold)
 
 
 def _plan_kernel_pack(plan: Plan, h: int, w: int):

@@ -14,8 +14,10 @@ matrix product ``M_h @ x @ M_wᵀ`` (the same linear map as the JAX package's
 strided circular convolution), with fixed per-level shapes. Decomposition
 returns the pywt-style list ``[cA_n, (cH_n, cV_n, cD_n), ..., (cH_1, cV_1,
 cD_1)]``; cH is the horizontal detail (lowpass columns, highpass rows).
-The pywt general-mode functions (``wavedec2_mode`` and friends) are not
-ported yet: they are host-side and not on the solver's path.
+The pywt general-mode functions (``dwt2_mode``, ``idwt2_mode``,
+``wavedec2_mode``, ``waverec2_mode``) are the JAX module's numpy code,
+copied: host-side, float64, pywt's ragged per-level shapes, for users and
+golden tests; the solver keeps the periodized path.
 """
 
 from __future__ import annotations
@@ -341,4 +343,151 @@ def waverec2(coeffs, name: str = "db4") -> torch.Tensor:
     cur = coeffs[0]
     for det in coeffs[1:]:
         cur = idwt2(cur, det, name)
+    return cur
+
+
+# ---------------------------------------------------------------------------
+# pywt-compatible general boundary modes ('smooth', 'symmetric', 'zero')
+#
+# replaces: pywt's padded dwt/idwt semantics — the reference's WAVELET
+# production default is coif5 with mode='smooth'
+# (cube_POCS_interpolation_3D.py:260-266). These produce pywt's ragged
+# per-level coefficient lengths floor((N+L-1)/2), so they are host-side /
+# non-batched by design; the POCS solver keeps the periodized fixed-shape
+# path, whose boundary handling is immaterial to reconstruction SNR, while
+# this path provides drop-in pywt-compatible decompositions for users and
+# golden tests. dwt convention: out[i] = sum_j f[j] x_ext[2i+1-j]
+# (PyWavelets downsampling_convolution); idwt = upsampled full synthesis
+# convolution trimmed by L-2 per side.
+# ---------------------------------------------------------------------------
+
+def _extend(x, p: int, mode: str):
+    """Pad the last axis by ``p`` samples each side per boundary mode."""
+    if p == 0:
+        return x
+    if mode == "zero":
+        pad = [(0, 0)] * (x.ndim - 1) + [(p, p)]
+        return np.pad(x, pad)
+    if mode == "symmetric":  # half-sample symmetry: ... x1 x0 | x0 x1 ...
+        pad = [(0, 0)] * (x.ndim - 1) + [(p, p)]
+        return np.pad(x, pad, mode="symmetric")
+    if mode == "smooth":  # linear extrapolation with the edge slope
+        k = np.arange(1, p + 1)
+        left_slope = x[..., 1] - x[..., 0]
+        right_slope = x[..., -1] - x[..., -2]
+        left = x[..., :1] - left_slope[..., None] * k[::-1]
+        right = x[..., -1:] + right_slope[..., None] * k
+        return np.concatenate([left, x, right], axis=-1)
+    raise ValueError(f"unsupported boundary mode {mode!r} "
+                     "(use 'periodization' via wavedec2, or smooth/symmetric/zero)")
+
+
+def _dwt1_mode(x, filt, mode: str):
+    """1D analysis along the last axis, pywt general-mode convention."""
+    x = np.asarray(x, np.float64)
+    f = np.asarray(filt, np.float64)
+    L = f.size
+    n = x.shape[-1]
+    n_out = (n + L - 1) // 2
+    xp = _extend(x, L - 1, mode)
+    # out[i] = sum_j f[j] * xp[2i + 1 - j + (L-1)] == correlate(xp, f[::-1])
+    # windows starting at 2i+1
+    idx = (2 * np.arange(n_out) + 1)[:, None] + np.arange(L)[None, :]
+    return np.einsum("...nw,w->...n", xp[..., idx], f[::-1])
+
+
+def _idwt1_mode(a, d, filt_lo, filt_hi, n_out: int):
+    """1D synthesis (mode-independent): upsample, full conv, trim L-2/side."""
+    lo = np.asarray(filt_lo, np.float64)
+    hi = np.asarray(filt_hi, np.float64)
+    L = lo.size
+    o = a.shape[-1]
+    up_len = 2 * o - 1
+
+    def _acc(c, f):
+        u = np.zeros(c.shape[:-1] + (up_len,), np.float64)
+        u[..., ::2] = c
+        full = np.apply_along_axis(lambda v: np.convolve(v, f), -1, u) \
+            if u.ndim > 1 else np.convolve(u, f)
+        return full
+
+    # synthesis filters of an orthogonal bank = time-reversed analysis pair
+    rec = _acc(a, lo[::-1]) + _acc(d, hi[::-1])
+    if L > 2:
+        rec = rec[..., L - 2 : -(L - 2)]
+    return rec[..., :n_out]
+
+
+def _filters_f64(name: str):
+    """(dec_lo, dec_hi) in float64 — the general-mode path is host-side and
+    keeps full precision (the f32 cast in wavelet_filters is for device)."""
+    name = name.lower()
+    if name not in _FAMILIES:
+        raise ValueError(
+            f"Wavelet {name!r} not available; choose one of {sorted(_FAMILIES)}")
+    if name.startswith("sym"):
+        h = symlet(_FAMILIES[name]).astype(np.float64)
+    elif name.startswith("coif"):
+        h = coiflet(_FAMILIES[name]).astype(np.float64)
+    else:
+        h = daubechies(_FAMILIES[name]).astype(np.float64)
+    L = h.size
+    g = h[::-1] * np.array([(-1.0) ** k for k in range(L)])
+    return h, g
+
+
+def dwt2_mode(x, name: str = "coif5", mode: str = "smooth"):
+    """One pywt-style 2D analysis level with a general boundary mode."""
+    h, g = _filters_f64(name)
+    lo = _dwt1_mode(x, h, mode)
+    hi = _dwt1_mode(x, g, mode)
+    swap = lambda arr: np.swapaxes(arr, -1, -2)
+    ll = swap(_dwt1_mode(swap(lo), h, mode))
+    lh = swap(_dwt1_mode(swap(lo), g, mode))
+    hl = swap(_dwt1_mode(swap(hi), h, mode))
+    hh = swap(_dwt1_mode(swap(hi), g, mode))
+    return ll, (lh, hl, hh)
+
+
+def idwt2_mode(ll, details, name: str = "coif5", shape=None):
+    """Inverse of :func:`dwt2_mode`; ``shape`` = target (H, W)."""
+    lh, hl, hh = details
+    h, g = _filters_f64(name)
+    L = h.size
+    th = shape[0] if shape else 2 * ll.shape[-2] - L + 2
+    tw = shape[1] if shape else 2 * ll.shape[-1] - L + 2
+    swap = lambda arr: np.swapaxes(arr, -1, -2)
+    lo = swap(_idwt1_mode(swap(ll), swap(lh), h, g, th))
+    hi = swap(_idwt1_mode(swap(hl), swap(hh), h, g, th))
+    return _idwt1_mode(lo, hi, h, g, tw)
+
+
+def wavedec2_mode(x, name: str = "coif5", level: int | None = None,
+                  mode: str = "smooth"):
+    """pywt-style multilevel 2D DWT with general boundary modes.
+
+    Returns [cA_n, (cH_n, cV_n, cD_n), ...] with pywt's ragged per-level
+    shapes; shapes are recorded for exact reconstruction."""
+    x = np.asarray(x, np.float64)
+    L = filter_length(name)
+    if level is None:
+        level = int(np.log2(min(x.shape[-2:]) / (L - 1))) if min(x.shape[-2:]) >= L else 0
+        level = max(level, 1)
+    coeffs = []
+    shapes = []
+    cur = x
+    for _ in range(level):
+        shapes.append(cur.shape[-2:])
+        cur, det = dwt2_mode(cur, name, mode)
+        coeffs.append(det)
+    out = [cur] + coeffs[::-1]
+    out_shapes = shapes[::-1]
+    return out, out_shapes
+
+
+def waverec2_mode(coeffs, shapes, name: str = "coif5"):
+    """Inverse of :func:`wavedec2_mode` (exact perfect reconstruction)."""
+    cur = coeffs[0]
+    for det, shp in zip(coeffs[1:], shapes):
+        cur = idwt2_mode(cur, det, name, shape=shp)
     return cur

@@ -1,4 +1,5 @@
-"""A 1-D mesh of slice-parallel processes over ``torch.distributed``.
+"""Meshes of slice-parallel processes over ``torch.distributed``: the 1-D
+slice mesh and the 2-D slice × space mesh.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/parallel/mesh.py``. The JAX
 package lays one global array over a ``jax.sharding.Mesh`` and lets XLA
@@ -18,6 +19,14 @@ arguments reads them; without ``torchrun``, pass ``coordinator``
 ('host:port'), ``num_processes`` and ``process_id``. With no process group
 :func:`make_mesh` gives a mesh of one process, on which every collective
 is a no-op.
+
+:func:`make_mesh_2d` lays the ranks out as an n_slices × n_space grid (the
+JAX package's ``make_mesh_2d``, a device array reshaped row-major): the
+slice axis shards the batch of slices, the space axis the ilines of every
+slice. Each rank belongs to one 1-D mesh along each axis, so the
+collectives of one axis run over that axis' group only; the barriers and
+broadcasts of the drivers above the solve run over the whole grid
+(:func:`whole`).
 """
 
 from __future__ import annotations
@@ -29,6 +38,7 @@ import torch
 import torch.distributed as dist
 
 SLICE_AXIS = "slices"
+SPACE_AXIS = "space"
 
 
 def initialize_distributed(coordinator: str | None = None,
@@ -68,6 +78,43 @@ class Mesh:
     def size(self) -> int:
         return len(self.ranks)
 
+    @property
+    def slice_shards(self) -> int:
+        """The blocks a batch of slices is split into: the mesh's size."""
+        return self.size
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A slice × space mesh: ``slices``, the 1-D mesh of the ranks that
+    hold this rank's iline block (one per slice block, in order);
+    ``space``, the 1-D mesh of the ranks that hold this rank's slice block
+    (one per iline block, in order); ``grid``, the 1-D mesh of all its
+    ranks in row-major order; ``shape`` (n_slices, n_space); this rank's
+    ``device``. A rank outside the grid has ``index`` None on all
+    three."""
+
+    slices: Mesh
+    space: Mesh
+    grid: Mesh
+    shape: tuple
+    device: torch.device
+
+    @property
+    def size(self) -> int:
+        return self.shape[0] * self.shape[1]
+
+    @property
+    def slice_shards(self) -> int:
+        """The blocks a batch of slices is split into: n_slices."""
+        return self.shape[0]
+
+    @property
+    def index(self) -> int | None:
+        """This rank's place in the grid, row-major (None outside it)."""
+        i, j = self.slices.index, self.space.index
+        return None if i is None else i * self.shape[1] + j
+
 
 def _rank_device() -> torch.device:
     """This rank's device: with NCCL its card (LOCAL_RANK, torchrun's, or
@@ -101,6 +148,67 @@ def make_mesh(n_devices: int | None = None,
     rank = dist.get_rank()
     device = _rank_device() if device is None else torch.device(device)
     return Mesh(group, ranks, rank if rank < n else None, device, axis_name)
+
+
+def make_mesh_2d(n_slices: int, n_space: int,
+                 axis_names=(SLICE_AXIS, SPACE_AXIS), device=None) -> Mesh2D:
+    """The n_slices × n_space mesh over the process group's first
+    n_slices·n_space ranks, rank ``i·n_space + j`` at slice block i and
+    iline block j; every rank must call it (the groups are made
+    collectively). With no process group it is the 1 × 1 mesh of this
+    process. ``device`` as :func:`make_mesh`'s."""
+    n_slices, n_space = int(n_slices), int(n_space)
+    if n_slices < 1 or n_space < 1:
+        raise ValueError(f"mesh {n_slices}x{n_space} has no devices")
+    if not dist.is_initialized():
+        if n_slices * n_space != 1:
+            raise ValueError(f"mesh {n_slices}x{n_space} needs more than 1 "
+                             "process (initialize_distributed first)")
+        one = make_mesh(1, axis_names[0], device)
+        return Mesh2D(one, dataclasses.replace(one, axis_name=axis_names[1]),
+                      one, (1, 1), one.device)
+    world = dist.get_world_size()
+    if n_slices * n_space > world:
+        raise ValueError(f"mesh {n_slices}x{n_space} needs more than {world} "
+                         "processes")
+    rank = dist.get_rank()
+    device = _rank_device() if device is None else torch.device(device)
+
+    def groups(rank_lists):
+        """A group for each list of ranks, made by every rank in the same
+        order (None for the whole world, or a single rank, which needs no
+        collective); this rank's (group, ranks)."""
+        mine = (None, None)
+        for ranks in rank_lists:
+            g = (dist.new_group(list(ranks))
+                 if 1 < len(ranks) < world else None)
+            if rank in ranks:
+                mine = (g, tuple(ranks))
+        return mine
+
+    rows = [[i * n_space + j for j in range(n_space)]
+            for i in range(n_slices)]
+    cols = [[i * n_space + j for i in range(n_slices)]
+            for j in range(n_space)]
+    space_group, space_ranks = groups(rows)
+    slice_group, slice_ranks = groups(cols)
+    n = n_slices * n_space
+    grid_group, _ = groups([range(n)])
+    inside = rank < n
+    i, j = divmod(rank, n_space) if inside else (None, None)
+    slices = Mesh(slice_group, slice_ranks or tuple(cols[0]), i, device,
+                  axis_names[0])
+    space = Mesh(space_group, space_ranks or tuple(rows[0]), j, device,
+                 axis_names[1])
+    grid = Mesh(grid_group, tuple(range(n)), rank if inside else None,
+                device, axis_names[0])
+    return Mesh2D(slices, space, grid, (n_slices, n_space), device)
+
+
+def whole(mesh) -> Mesh:
+    """The 1-D mesh of every rank of ``mesh``: a 1-D mesh itself, a 2-D
+    mesh's grid. The drivers' barriers and broadcasts run over it."""
+    return mesh.grid if isinstance(mesh, Mesh2D) else mesh
 
 
 def pad_to_multiple(n: int, m: int) -> int:
@@ -179,7 +287,9 @@ def reshard_axis(x: torch.Tensor, mesh: Mesh, axis: int,
     return torch.cat(list(recv.movedim(1, axis + 1)), dim=src_axis)
 
 
-def barrier(mesh: Mesh) -> None:
-    """Wait for every rank of the mesh (none on a mesh of one)."""
+def barrier(mesh) -> None:
+    """Wait for every rank of the mesh, 1-D or 2-D (none on a mesh of
+    one)."""
+    mesh = whole(mesh)
     if mesh.size > 1:
         dist.barrier(group=mesh.group)

@@ -19,6 +19,15 @@ own block of the batch on its device and returns the full result,
 gathered; the batch is padded with zero slices to a multiple of the mesh
 (they short-circuit, so padding is free). ``mesh=None`` keeps the
 single-device drivers.
+
+On a 2-D slice × space mesh (``mesh.make_mesh_2d``) the FFT basis also
+spreads the ilines of every slice over the space axis: the solve is a
+distributed line FFT (:class:`SpaceShardedFFT`), each iteration's
+per-slice sums ``all_reduce``d over the space group. The JAX package gets
+the same from XLA partitioning its DFT matmuls; no kernel runs there
+(the folded solve needs a whole slice). The other bases raise on a 2-D
+mesh whose space axis is split; a 2-D mesh of one space rank is the 1-D
+path over its slice axis.
 """
 
 from __future__ import annotations
@@ -26,8 +35,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.pocs import POCSConfig, POCSResult, pocs_interpolate
-from ..models.transforms import get_transform
+from ..models.pocs import (POCSConfig, POCSResult, SolverRoute, _scan,
+                           pocs_interpolate)
+from ..models.transforms import FFTTransform, get_transform
+from ..ops import decay as decay_ops
+from ..ops import threshold as threshold_ops
 from ..ops.cplx import Cplx, from_complex, to_complex
 from ..utils.device import resolve_device
 from ..utils.pad import auto_pad_to_tile, pad_slices_to_tile
@@ -35,7 +47,12 @@ from . import mesh as mesh_lib
 
 __all__ = ["resolve_device", "fits_resident", "interpolate_cube_resident",
            "interpolate_cube", "pocs_interpolate_scanned",
-           "pocs_interpolate_sharded"]
+           "pocs_interpolate_sharded", "SpaceShardedFFT"]
+
+# where the bases a 2-D mesh does not run are listed
+MESH_2D_TODO = ("the other bases on a slice x space mesh are not built "
+                "(ROADMAP queue 1, 'the other bases on a 2-D mesh'); use a "
+                "1-D mesh (parallel.mesh.make_mesh)")
 
 
 def fits_resident(device, n_slices: int, batch: int, h: int, w: int,
@@ -130,6 +147,108 @@ def interpolate_cube_resident(data, mask, config: POCSConfig = POCSConfig(),
             cost.cpu().numpy())
 
 
+class SpaceShardedFFT:
+    """The FFT basis on slices whose ilines are spread over the ranks of a
+    1-D mesh (a 2-D mesh's space axis), as a distributed line FFT.
+
+    Each rank holds (B, H/p, W) rows of every slice. :meth:`forward`
+    transforms its rows along the xlines (``torch.fft``), re-lays them by
+    one ``all_to_all_single`` so it holds (B, H, W/p) columns, and
+    transforms those along the ilines: the coefficients of a column block.
+    :meth:`inverse` runs the same steps backwards, so the reinsertion acts
+    on the local rows. The decay (once a solve) and the ``*-percentile``
+    thresholds (once an iteration) read the whole slice's magnitudes,
+    their column blocks gathered over the space group; :meth:`slice_sum`
+    (the cost and the zero-slice test) is an ``all_reduce`` over it: every
+    rank of a slice block takes the same thresholds and the same
+    decisions. The layouts match
+    ``models.transforms.FFTTransform`` (``torch.fft`` unscaled forward,
+    1/(H·W) inverse), so the solve is the single-device one up to the
+    order of its float32 sums."""
+
+    def __init__(self, space: mesh_lib.Mesh):
+        self.space = space
+
+    def _relay(self, x: torch.Tensor, axis: int, src_axis: int
+               ) -> torch.Tensor:
+        # gloo's all_to_all takes no complex tensors: move (re, im) pairs
+        y = mesh_lib.reshard_axis(torch.view_as_real(x), self.space, axis,
+                                  src_axis)
+        return torch.view_as_complex(y.contiguous())
+
+    def forward(self, z: Cplx) -> Cplx:
+        x = torch.fft.fft(torch.complex(z.re, z.im), dim=-1)
+        x = torch.fft.fft(self._relay(x, x.dim() - 1, x.dim() - 2), dim=-2)
+        return Cplx(x.real.contiguous(), x.imag.contiguous())
+
+    def inverse(self, coeffs: Cplx) -> Cplx:
+        x = torch.fft.ifft(torch.complex(coeffs.re, coeffs.im), dim=-2)
+        x = torch.fft.ifft(self._relay(x, x.dim() - 2, x.dim() - 1), dim=-1)
+        return Cplx(x.real.contiguous(), x.imag.contiguous())
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        if self.space.size > 1:
+            import torch.distributed as dist
+
+            t = t.contiguous()
+            dist.all_reduce(t, op=op, group=self.space.group)
+        return t
+
+    def slice_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """Σ over each whole slice of a (B, rows, cols) block."""
+        import torch.distributed as dist
+
+        return self._all_reduce(torch.sum(t, dim=(-2, -1)), dist.ReduceOp.SUM)
+
+    def decay(self, coeffs: Cplx, model, niter, p_max, p_min, decay_kind):
+        return decay_ops.threshold_decay(
+            mesh_lib.gather(self.space, coeffs.abs(), axis=-1), model, niter,
+            p_max=p_max, p_min=p_min, kind=decay_kind)
+
+    def threshold(self, coeffs: Cplx, t, op: str) -> Cplx:
+        t = t[..., None, None]
+        base = op.removesuffix("-percentile")
+        if base != op:  # the percentile of the whole slice's magnitudes
+            t = threshold_ops._percentile_from_mag(
+                mesh_lib.gather(self.space, coeffs.abs(), axis=-1), t)
+        return threshold_ops.threshold_pair(coeffs, t, kind=base)
+
+
+def _sharded_2d(z: Cplx, mask, mesh: mesh_lib.Mesh2D, transform,
+                config: POCSConfig) -> POCSResult:
+    """:func:`pocs_interpolate_sharded` on a slice × space mesh: this
+    rank's slice block and iline block, the distributed FFT solve through
+    the scan, the result gathered over both axes."""
+    if not isinstance(transform, FFTTransform):
+        kind = getattr(transform, "kind", type(transform).__name__)
+        raise NotImplementedError(f"basis {kind!r} on a 2-D mesh: "
+                                  + MESH_2D_TODO)
+    b, h, w = z.shape
+    n_space = mesh.shape[1]
+    if h % n_space or w % n_space:
+        raise ValueError(f"slices of {h}x{w} do not split over {n_space} "
+                         "space ranks (both sides must divide)")
+    rows = mesh_lib.block(mesh.space, h)
+    sl = mesh_lib.block(mesh.slices, b)
+    local = Cplx(z.re[sl, rows].to(mesh.device).contiguous(),
+                 z.im[sl, rows].to(mesh.device).contiguous())
+    m = torch.as_tensor(mask, dtype=torch.float32)[rows].to(
+        mesh.device).contiguous()
+    res = _scan(local, m, SpaceShardedFFT(mesh.space), config,
+                SolverRoute("xla-scan", "fft", "slices spread over a 2-D "
+                            "mesh's space axis"))
+
+    def whole(t):  # the iline blocks, then the slice blocks
+        return mesh_lib.gather(mesh.slices, mesh_lib.gather(mesh.space, t,
+                                                            axis=1))
+    history = res.cost_history
+    if history is not None:
+        history = mesh_lib.gather(mesh.slices, history, axis=1)
+    return POCSResult(Cplx(whole(res.data.re), whole(res.data.im)),
+                      mesh_lib.gather(mesh.slices, res.n_iterations),
+                      mesh_lib.gather(mesh.slices, res.cost), history)
+
+
 def pocs_interpolate_sharded(z: Cplx, mask, mesh=None, transform=None,
                              config: POCSConfig = POCSConfig()
                              ) -> POCSResult:
@@ -142,15 +261,28 @@ def pocs_interpolate_sharded(z: Cplx, mask, mesh=None, transform=None,
     block on its device (``mesh.device``) and returns the full result
     gathered there, the history (when kept) gathered along its batch axis.
     ``mesh`` defaults to :func:`mesh.make_mesh`. ``config.pad_to_tile`` is
-    not read at this layer (the cube drivers pad before calling in)."""
+    not read at this layer (the cube drivers pad before calling in).
+
+    On a 2-D mesh (:func:`mesh.make_mesh_2d`) the slices go over its slice
+    axis and the ilines over its space axis (both sides of a slice must
+    divide by it), and the FFT basis is solved as a distributed line FFT
+    (:class:`SpaceShardedFFT`) through the plain scan: regular, fast and
+    adaptive, with early stopping and cost history. Any other basis
+    raises ``NotImplementedError`` there. A 2-D mesh with one space rank
+    splits nothing but slices: it takes the 1-D path over its slice axis,
+    every basis and the folded kernels included."""
     if mesh is None:
         mesh = mesh_lib.make_mesh()
     if transform is None:
         transform = get_transform(config.transform_kind)
     b = z.shape[0]
-    if b % mesh.size:
+    if b % mesh.slice_shards:
         raise ValueError(f"batch {b} not divisible by mesh size "
-                         f"{mesh.size}; pad first")
+                         f"{mesh.slice_shards} (its slice axis); pad first")
+    if isinstance(mesh, mesh_lib.Mesh2D):
+        if mesh.shape[1] > 1:
+            return _sharded_2d(z, mask, mesh, transform, config)
+        mesh = mesh.slices  # no space split: the 1-D path, every basis
     local = Cplx(mesh_lib.slice_sharding(mesh, z.re),
                  mesh_lib.slice_sharding(mesh, z.im))
     m = mesh_lib.replicated_sharding(
@@ -198,7 +330,7 @@ def interpolate_cube(data, mask, config: POCSConfig = POCSConfig(),
     if mesh is not None:
         m = np.asarray(m, np.float32)
         batch = mesh_lib.pad_to_multiple(max(1, min(batch, f_total)),
-                                         mesh.size)
+                                         mesh.slice_shards)
     else:
         m = torch.as_tensor(np.asarray(m, np.float32), device=device)
         batch = max(1, min(batch, f_total))
@@ -209,7 +341,7 @@ def interpolate_cube(data, mask, config: POCSConfig = POCSConfig(),
             chunk = pad_slices_to_tile(chunk, mask)[0]
         if mesh is not None:
             # the short tail, padded to a multiple of the mesh
-            pad = mesh_lib.pad_to_multiple(stop - start, mesh.size)
+            pad = mesh_lib.pad_to_multiple(stop - start, mesh.slice_shards)
             if pad > stop - start:
                 chunk = np.concatenate([chunk, np.zeros(
                     (pad - chunk.shape[0],) + chunk.shape[1:], chunk.dtype)])

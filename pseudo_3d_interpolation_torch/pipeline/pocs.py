@@ -226,10 +226,11 @@ def interpolate(
     raises without one; ``device='cpu'`` runs the plain PyTorch versions on
     the host. Returns a new :class:`Cube` with ``<var>_interp``.
 
-    ``mesh`` (``parallel/mesh.py``) splits every batch of ``batch`` slices
-    (padded to a multiple of the mesh) over its processes: every rank
-    passes the same cube, solves its block on ``mesh.device`` (``device``
-    is not read) and gets the whole result; only the first rank writes
+    ``mesh`` (``parallel/mesh.py``, 1-D or 2-D) splits every batch of
+    ``batch`` slices (padded to a multiple of its slice axis) over its
+    processes: every rank passes the same cube, solves its block on
+    ``mesh.device`` (``device`` is not read) and gets the whole result;
+    only the first rank writes
     ``out_path``, ``runtime_csv`` and the profile. Without a mesh the
     device-resident driver runs when the cube fits, as in the JAX package.
 
@@ -373,8 +374,9 @@ def interpolate_checkpointed(
     assembled Cube (also written to ``out_path`` when given). ``device``
     defaults to the first CUDA card; ``device='cpu'`` runs on the host.
 
-    ``mesh`` (``parallel/mesh.py``): the batch is padded to a multiple of
-    the mesh and each is solved across it (``interpolate_cube``'s mesh
+    ``mesh`` (``parallel/mesh.py``, 1-D or 2-D): the batch is padded to a
+    multiple of its slice axis and each is solved across it
+    (``interpolate_cube``'s mesh
     path); every rank passes the same input and gets the same return
     value. The first rank alone decides which batches to resume (the
     others follow its broadcast choice) and writes every file; the others
@@ -413,7 +415,7 @@ def interpolate_checkpointed(
             os.makedirs(checkpoint_dir, exist_ok=True)
         batch = max(1, min(batch, f_total))
         if mesh is not None:
-            batch = mesh_lib.pad_to_multiple(batch, mesh.size)
+            batch = mesh_lib.pad_to_multiple(batch, mesh.slice_shards)
         transform_kwargs = _transform_options(config, extra)
         transform = get_transform(config.transform_kind, **transform_kwargs)
         fingerprint = {
@@ -545,9 +547,15 @@ def interpolate_checkpointed(
 
 
 def _first_rank_says(mesh, flag: bool) -> bool:
-    """``flag`` as the mesh's first rank has it (one broadcast), so that
-    every rank takes the same branch; ``flag`` itself without a mesh."""
-    if mesh is None or mesh.size == 1:
+    """``flag`` as the mesh's first rank has it (one broadcast over all
+    its ranks, 1-D or 2-D), so that every rank takes the same branch;
+    ``flag`` itself without a mesh."""
+    from ..parallel import mesh as mesh_lib
+
+    if mesh is None:
+        return flag
+    mesh = mesh_lib.whole(mesh)
+    if mesh.size == 1:
         return flag
     import torch.distributed as dist
 
@@ -568,7 +576,8 @@ def warmup(config, shape, batch: int = 64, mesh=None, verbose: int = 0,
     driver, one batch of ``min(batch, 32)`` random slices in a cube of
     ``n_slices`` zero slices, or the host-chunked driver on one batch.
     With a ``mesh`` (never the resident driver, as in :func:`interpolate`)
-    the batch is padded to a multiple of the mesh and solved across it.
+    the batch is padded to a multiple of its slice axis and solved across
+    it.
     The JAX package's persistent compilation cache has no counterpart:
     the kernels are built once per source and flags
     (``ops/kernels/_build``), and eager PyTorch compiles nothing else.
@@ -606,7 +615,7 @@ def warmup(config, shape, batch: int = 64, mesh=None, verbose: int = 0,
     else:
         b = min(batch, int(n_slices)) if n_slices else batch
         if mesh is not None:
-            b = mesh_lib.pad_to_multiple(b, mesh.size)
+            b = mesh_lib.pad_to_multiple(b, mesh.slice_shards)
         interpolate_cube(noise(b).astype(np.complex64), mask, config,
                          transform=transform, batch=b, device=device,
                          mesh=mesh)

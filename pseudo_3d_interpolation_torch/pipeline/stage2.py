@@ -106,7 +106,9 @@ def interpolate_time_cube_sharded(
     batch: int = 32,
 ) -> Cube:
     """Run steps 12-14 (FFT, POCS, IFFT) over ``mesh`` (default
-    :func:`parallel.mesh.make_mesh`), each rank on ``mesh.device``.
+    :func:`parallel.mesh.make_mesh`), each rank on ``mesh.device``. A 2-D
+    mesh is taken only with one space rank, as the 1-D mesh of its slice
+    axis; a split space axis raises ``NotImplementedError``.
 
     Equivalent to ``apply_ifft(interpolate(apply_fft(cube)))`` with the
     same options (the same operations, scaling and solver; the frequency
@@ -143,6 +145,13 @@ def interpolate_time_cube_sharded(
     mask = (np.asarray(cube.data_vars["fold"][1]) > 0).astype(np.float32)
     if mesh is None:
         mesh = mesh_lib.make_mesh()
+    if isinstance(mesh, mesh_lib.Mesh2D):
+        if mesh.shape[1] > 1:
+            raise NotImplementedError(
+                "stage 2 on a slice x space mesh is not built (ROADMAP "
+                "queue 1, 'the other bases on a 2-D mesh'); use a 1-D mesh "
+                "(parallel.mesh.make_mesh)")
+        mesh = mesh.slices  # no space split: the 1-D mesh of its slices
     n_dev, device = mesh.size, mesh.device
     transform = _production_transform(config, transform_kwargs or {})
 

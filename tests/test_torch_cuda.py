@@ -951,3 +951,91 @@ def test_percentile_solve_on_the_card_matches_the_host(device, kind):
                             config=cfg)
     assert abs(_snr(truth, _host(card.data))
                - _snr(truth, _host(host.data))) <= SNR_TOL_DB
+
+
+# --- the split plans on the box kernel, and the native SEG-Y decoder ------
+
+def _split_boxes(h, w, split):
+    """The box groups of the h × w SHEARLET split plan that are not
+    centred square boxes (the fine scale's narrow shears: exact,
+    non-contiguous index lists)."""
+    plan = sh.shearlet_plan(h, w, split_threshold=split)
+    boxes = [(l0, lg, g) for l0, lg, g in sh._plan_kernel_pack(plan, h, w)[2]
+             if len(g.idx_h) != len(g.idx_w)]
+    assert boxes, f"the {h}x{w} plan split at {split} has no narrow box"
+    return plan, boxes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
+@pytest.mark.parametrize("h,w,b,split", [(128, 128, 4, 60),
+                                         (512, 512, 4, 200),
+                                         (512, 512, 32, 200)])
+def test_box_kernel_on_split_plan_groups(device, h, w, b, split, op):
+    """Kernel B on the split plan's sr × sc groups (at 512²: 447 × 126,
+    126 × 447, 447 × 63 and 63 × 447), against plain within 1e-4 of max;
+    the hard threshold on taus away from every coefficient."""
+    plan, boxes = _split_boxes(h, w, split)
+    _check_box_groups(device, plan, h, w, op, boxes, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["soft", "hard-percentile"])
+def test_split_plan_apply_on_the_card_matches_the_host(device, op,
+                                                       monkeypatch):
+    """``pocs_subband_apply`` on the 256² SHEARLET split plan: on the card
+    one subband update (or its split passes) and one box launch per box
+    group, and no plain version; against the host's plain streamed route
+    within 1e-4 of max (soft) or 3e-3 (a hard percentile lands on a
+    coefficient and may flip it)."""
+    h = w = 256
+    plan = sh.shearlet_plan(h, w, split_threshold=100)
+    _, _, boxes = sh._plan_kernel_pack(plan, h, w)
+    x, _ = _slices(3, h, w, device, 6)
+    if op == "soft":
+        tau = _taus(x, plan)
+    else:
+        tau = torch.full((3, len(plan.perm)), 90.0, device=device)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain version ran on the card's route")
+    for name in ("subband_update_plain", "box_group_update_plain",
+                 "subband_keys_plain", "subband_shrink_plain",
+                 "box_keys_plain"):
+        monkeypatch.setattr(ksb, name, refuse)
+    boxes_of = ("box_keys" if op.endswith("percentile")
+                else "box_group_update")
+    before = getattr(ksb, boxes_of).launches
+    got = sh.pocs_subband_apply(x, plan, tau, op)
+    torch.cuda.synchronize()
+    assert getattr(ksb, boxes_of).launches - before == len(boxes)
+    monkeypatch.undo()
+    want = sh.pocs_subband_apply(Cplx(x.re.cpu(), x.im.cpu()), plan,
+                                 tau.cpu(), op)
+    got, want = _host(got), _host(want)
+    tol = SOFT_TOL if op == "soft" else 3e-3
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= tol * np.abs(want).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", [1, 2, 3, 5, 8])
+def test_native_decoder_on_the_card_machine(device, tmp_path, fmt):
+    """The card's machine builds the native decoder (g++) and decodes every
+    format bit for bit as the numpy path does."""
+    from pseudo_3d_interpolation_torch import backends
+    from pseudo_3d_interpolation_torch.io import segy
+
+    assert backends.native_segy_enabled(), backends.native_segy_error()
+    rng = np.random.default_rng(fmt)
+    data = rng.normal(size=(300, 700)) * {1: 1e3, 2: 1e6, 3: 1e3, 5: 1e3,
+                                          8: 30}[fmt]
+    if fmt in (2, 3, 8):
+        data = np.clip(np.round(data), -120 if fmt == 8 else -3e4,
+                       120 if fmt == 8 else 3e4)
+    path = str(tmp_path / f"f{fmt}.sgy")
+    segy.write_segy(path, data.astype(np.float32), fmt=fmt, dt_us=100)
+    with segy.SegyFile(path) as f:
+        got = f.trace_data()
+        want = segy._decode_samples(np.asarray(f._traces_u8[:, 240:]), fmt)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))

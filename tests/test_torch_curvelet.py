@@ -121,8 +121,18 @@ def test_ring_angles_subbands_and_scales_match_jax():
         cv.ring_angles(4, 6)
     with pytest.raises(ValueError, match=">= 2"):
         cv.curvelet_spectra(64, 64, 1)
-    with pytest.raises(NotImplementedError, match="split"):
-        cv.curvelet_plan(64, 64, split_threshold=64)
+    # the split plan (the finest ring re-grouped by each wedge's exact
+    # support) is the JAX package's: groups, index lists, perm, windows
+    plan = cv.curvelet_plan(64, 64, split_threshold=64)
+    jplan = jcv.curvelet_plan(64, 64, split_threshold=64)
+    assert len(plan) == len(jplan) > len(cv.curvelet_plan(64, 64))
+    np.testing.assert_array_equal(plan.perm, jplan.perm)
+    for g, jg in zip(plan, jplan):
+        assert (g.idx_h is None) == (jg.idx_h is None)
+        if g.idx_h is not None:
+            np.testing.assert_array_equal(g.idx_h, jg.idx_h)
+            np.testing.assert_array_equal(g.idx_w, jg.idx_w)
+        np.testing.assert_array_equal(g.psi, jg.psi)
 
 
 def test_kernel_pack_matches_jax():

@@ -224,8 +224,9 @@ def test_cube_accessors_match_jax():
 
 def test_port_imports_without_jax_h5py_or_yaml():
     """The card's machine has neither jax, h5py, yaml nor pandas: every
-    module of the port imports with all four blocked, and reaching a file
-    raises only when a file is asked for."""
+    module of the port (the native decoder's loader, the segyio and pyproj
+    facades and the roofline among them) imports with all four blocked,
+    and reaching a file raises only when a file is asked for."""
     code = (
         "import sys, pkgutil, importlib\n"
         "for m in ('jax', 'h5py', 'yaml', 'pandas'): sys.modules[m] = None\n"
@@ -239,7 +240,9 @@ def test_port_imports_without_jax_h5py_or_yaml():
         "       'pipeline.postprocess', 'io.segy', 'io.headers',\n"
         "       'io.textual', 'io.auxiliary', 'ops.affine', 'ops.binning',\n"
         "       'utils.crs', 'utils.logging', 'pipeline.binning',\n"
-        "       'pipeline.segy2cube', 'pipeline.export'}\n"
+        "       'pipeline.segy2cube', 'pipeline.export', 'io.native',\n"
+        "       'io.segyio_compat', 'utils.pyproj_compat',\n"
+        "       'utils.roofline'}\n"
         "missing = {p.__name__ + '.' + m for m in new} - set(mods)\n"
         "assert not missing, missing\n"
         "assert not any(k.startswith('pseudo_3d_interpolation_tpu') "

@@ -14,11 +14,14 @@ Tolerances: soft and garrote solves within 1.5e-6·max of the JAX
 package's on SHEARLET, with equal iteration counts (fp32 rounding of two
 FFT libraries over 10-25 iterations; the percentile's rank is a float32
 place apart where XLA reassociates q/100·(n−1), which moves a soft
-threshold by about 1e-7 of the coefficients). CURVELET within 1e-5·max:
-its solves drift apart faster whatever the threshold (at 130×70 the
-garrote solve with a plain threshold is 1.5e-6, 3.1e-6 and 7.7e-6 of max
-apart after 5, 10 and 20 iterations; the percentile garrote 1.3e-6,
-1.2e-6 and 4.4e-6). A hard percentile threshold lands on a
+threshold by about 1e-7 of the coefficients). CURVELET within 1e-5·max,
+its tolerance from the start; it does not drift from the JAX package
+faster than SHEARLET: both drift alike, growing with the iterations
+(fp32 rounding of two FFT libraries; at 130×70, 2 slices, FPOCS with
+plain thresholds, after 1, 5 and 20 iterations the solves are 9.8e-8,
+1.2e-6 and 7.0e-6 of max apart on SHEARLET with garrote, 2.2e-7, 1.7e-6
+and 8.0e-6 on CURVELET; with soft 4.9e-8, 1.2e-6, 4.9e-6 and 1.1e-7,
+1.1e-6, 6.4e-6). A hard percentile threshold lands on a
 coefficient by construction, so a reordered sum flips it: hard solves are
 held by SNR against the dense truth, within 0.05 dB of the JAX package's.
 The split schedule replayed through ``_pocs_subband_apply_kernels`` takes
