@@ -231,13 +231,17 @@ Phases, each of which exits non-zero on failure:
    SHEARLET bands and its 16- and 40-side box groups, the CURVELET
    plan's 41 bands and 72-side group; q from iteration 10 of phase 12d's
    decay of factors), pass 1's keys (``subband_keys``, ``box_keys``)
-   within 1e-4·max of their plain versions, ``band_percentile``
-   bit-equal to its plain version on those keys and on edge cases (q 0
-   and 100, integer ranks, q outside [0, 100], a NaN key, runs of ties),
-   the split ``subband_update`` and ``box_group_update`` against their
-   plain versions (soft within 1e-4·max, hard by iterate SNR); each pass
-   timed at batch 32 (torch.profiler) with its rates, the selection's ms,
-   GB/s and bound beside ``torch.kthvalue``'s on the same keys; (b) the
+   within 1e-4·max of their plain versions and the first-digit
+   histogram pass 1 counts equal to the plain version's,
+   ``band_percentile`` bit-equal to its plain version on those keys and
+   on edge cases (q 0 and 100, integer ranks, q outside [0, 100], a NaN
+   key, runs of ties, first-digit bins past the candidate buffer), the
+   split ``subband_update`` and ``box_group_update`` against their plain
+   versions (soft within 1e-4·max, hard by iterate SNR); each pass
+   timed at batch 32 (torch.profiler) with its rates, the selection's
+   kernels over a call's bands against their
+   bound, and the selection's ms, GB/s and bound on one chunk's keys
+   beside ``torch.kthvalue``'s on the same keys; (b) the
    512x512x513 cubes of phase 4 made anew through ``interpolate`` with
    ``device`` left to its default in phase 12d's configuration
    (production, ``hard-percentile``, ``decay_kind='factors'``, p_max
@@ -338,7 +342,9 @@ slices' spectra and the windows and writes the float32 keys (4 bytes per
 slice, band and pixel), with one line FFT of each support row and of
 every column (each field row for a box group); pass 2 (``subband_shrink``,
 ``box_shrink``) PR 5's column and accumulating passes (a box group's row
-pass both ways and its summing column pass); ``band_percentile`` reads
+pass both ways and its summing column pass); the c_l pass 1 keeps for
+pass 2 is the implementation's traffic, not the function's, and is not
+counted; ``band_percentile`` reads
 its keys once, and its ``library_ms`` is ``torch.kthvalue`` of one rank
 of every segment of the same keys (the selection needs two ranks and the
 interpolation, so that call does less).
@@ -780,16 +786,21 @@ WAVELET_PASSES = ("wavelet_forward_kernel", "wavelet_inverse_kernel",
                   "state_kernel", "init_kernel")
 
 
-PROFILE_ATTEMPTS = 3  # profiles taken of one run before a missing pass fails
+# profiles taken of one run before a missing pass fails (the card's
+# machine has handed back two empty traces of three in a row)
+PROFILE_ATTEMPTS = 5
 
 
-def profiled_events(torch, run, reps: int, want=()) -> list:
+def profiled_events(torch, run, reps: int, want=(), launches=None) -> list:
     """The device events of ``reps`` calls of ``run`` under torch.profiler,
     after one untimed call, in the order they started. The profiler now
-    and then hands back a trace without the device's kernels, so the
-    profile is taken again, up to PROFILE_ATTEMPTS times, while no event
-    names a kernel of ``want``; each such attempt is printed with what
-    its trace held. The caller fails on a pass still missing."""
+    and then hands back a trace without the device's kernels, or with the
+    kernels of only some calls, so the profile is taken again, up to
+    PROFILE_ATTEMPTS times, while no event names a kernel of ``want``, or
+    while the trace holds another count than ``reps`` times ``launches``
+    (a pass, its launches a call) of that pass; each such attempt is
+    printed with what its trace held. The caller fails on a pass still
+    missing; an incomplete count still fails here."""
     from torch.profiler import ProfilerActivity, profile
 
     run()
@@ -803,12 +814,20 @@ def profiled_events(torch, run, reps: int, want=()) -> list:
             events = device_events(prof, pathlib.Path(tmp) / "passes.json")
         missing = [n for n in want
                    if not any(n in e["name"] for e in events)]
-        if not missing:
+        held = (None if launches is None
+                else sum(launches[0] in e["name"] for e in events))
+        whole = launches is None or held == reps * launches[1]
+        if not missing and whole:
             break
         seen = sorted({e["name"][:40] for e in events})[:4]
         print(f"profile attempt {attempt} of {PROFILE_ATTEMPTS}: the trace "
-              f"({len(events)} device events, e.g. {seen}) holds no "
-              f"{', '.join(missing)}", flush=True)
+              f"({len(events)} device events, e.g. {seen}) holds "
+              + (f"no {', '.join(missing)}" if missing else
+                 f"{held} {launches[0]} launches, not {reps} calls' "
+                 f"{reps * launches[1]}"), flush=True)
+    if not whole:
+        fail(f"no profile of {PROFILE_ATTEMPTS} held the {reps} calls' "
+             f"{reps * launches[1]} {launches[0]} launches (last {held})")
     return sorted(events, key=lambda e: e["ts"])
 
 
@@ -821,16 +840,18 @@ def only_passes(events: list, names) -> list:
 
 
 def kernel_passes(torch, run, names, reps: int = 3,
-                  exclusive: bool = False, want=None) -> dict:
+                  exclusive: bool = False, want=None, launches=None) -> dict:
     """ms per call of each pass (device kernel, by a name in ``names``
     that its trace name contains, the longest such name) of ``reps``
     calls of ``run`` under torch.profiler, after one untimed call, taken
     again while a pass of ``want`` (all of ``names`` by default) is
-    missing; with ``exclusive`` fails when anything else ran on the
+    missing or, with ``launches`` (a pass, its launches a call), while
+    the trace holds another count of that pass than the ``reps`` calls
+    launched; with ``exclusive`` fails when anything else ran on the
     device."""
     times = dict.fromkeys(names, 0.0)
     events = profiled_events(torch, run, reps,
-                             names if want is None else want)
+                             names if want is None else want, launches)
     if exclusive:
         only_passes(events, names)
     for e in events:
@@ -2519,12 +2540,16 @@ def command_line(torch, dev, modules, stage1, tmp):
 PCT_META = {"thresh_op": "hard-percentile", "decay_kind": "factors",
             "p_max": 99.9, "p_min": 60.0}  # phase 12d's configuration
 PCT_CHECK = 4  # 17b: first slices held against device="cpu"
-KEY_PASSES = ("rows_inverse_kernel", "cols_shrink_kernel<2>",
-              "band_percentile_kernel", "cols_shrink_kernel<1>",
-              "rows_forward_acc_kernel")
-BOX_KEY_PASSES = ("box_cols_inverse_kernel", "box_rows_kernel<2>",
-                  "band_percentile_kernel", "box_rows_kernel<1>",
-                  "box_cols_forward_kernel")
+# the selection's kernels (band_percentile.cu): the plan from the first
+# digit's histogram, the gather of the rank's bin, the finishing digits
+SELECT_PASSES = ("select_plan_kernel", "select_gather_kernel",
+                 "select_finish_kernel")
+# the split route: pass 1 writes the keys and keeps c_l, pass 2 reads it
+KEY_PASSES = (("rows_inverse_kernel", "cols_keys_kernel")
+              + SELECT_PASSES + ("cols_kept_kernel", "rows_forward_acc_kernel"))
+BOX_KEY_PASSES = (("box_cols_inverse_kernel", "box_rows_kernel<2>")
+                  + SELECT_PASSES
+                  + ("box_rows_kernel<1>", "box_cols_forward_kernel"))
 # the plain versions the percentile route has on the host; none may run on
 # the card's main path
 PLAIN_NAMES = ("subband_keys_plain", "subband_shrink_plain",
@@ -2552,10 +2577,14 @@ def bits_equal(torch, a, b) -> bool:
                                               b.view(torch.int32))
 
 
-def selection_against_plain(torch, kp, keys, q, label):
+def selection_against_plain(torch, kp, keys, q, label, hist=None):
     """Fail unless band_percentile is bit-equal to its plain version on
-    ``keys`` (S, C, H, W) at ``q`` (S, C)."""
-    got, want = kp.band_percentile(keys, q), kp.band_percentile_plain(keys, q)
+    ``keys`` (S, C, H, W) at ``q`` (S, C); ``hist``: the keys' first-digit
+    histogram as pass 1 counted it, else the plain version's."""
+    if hist is None:
+        hist = kp.key_histogram_plain(keys)
+    got = kp.band_percentile(keys, q, hist)
+    want = kp.band_percentile_plain(keys, q)
     torch.cuda.synchronize()
     if not bits_equal(torch, got, want):
         bad = int((got.view(torch.int32) != want.view(torch.int32)).sum())
@@ -2564,10 +2593,43 @@ def selection_against_plain(torch, kp, keys, q, label):
     return got
 
 
+def histogram_against_plain(torch, kp, hist, keys, label):
+    """Fail unless pass 1's first-digit histogram equals the plain
+    version's of the keys it wrote."""
+    torch.cuda.synchronize()
+    want = kp.key_histogram_plain(keys)
+    if not torch.equal(hist, want):
+        bad = int((hist != want).any(dim=-1).sum())
+        fail(f"{label}: pass 1's histogram differs from the plain version's "
+             f"in {bad} of {want.shape[0] * want.shape[1]} segments")
+
+
+def bin_sizes(torch, kp, hist, q, label):
+    """Print how many keys the first-digit bin of rank lo holds in each
+    segment (what the selection gathers as candidates), and the share of
+    segments past the candidate buffer."""
+    n_cols = hist.shape[-1]
+    counts = hist.reshape(-1, n_cols)[:, :kp.KEY_BINS].long()
+    n = int(counts[0].sum())
+    top = float(np.float32(n) - np.float32(1))
+    lo = torch.floor(q.reshape(-1) / torch.full_like(q.reshape(-1), 100.0)
+                     * top).clamp(0, n - 1).long()
+    digit = torch.searchsorted(torch.cumsum(counts, 1), lo[:, None],
+                               right=True)
+    held = counts.gather(1, digit)[:, 0].double() / n
+    cap = kp.candidate_capacity(n)
+    print(f"{label}: rank lo's first-digit bin holds {float(held.mean()):.3f} "
+          f"of a segment's keys on average, {float(held.max()):.3f} at most; "
+          f"{float((held * n > cap).double().mean()):.3f} of the segments "
+          f"past the candidate buffer", flush=True)
+
+
 def selection_cases(torch, kp, keys, q):
     """The selection on the edge cases of its plain version, each bit-equal:
     q at 0, 100, ranks that land on an integer, a segment holding a NaN,
-    keys with long runs of ties, q above 100 and below 0."""
+    keys with long runs of ties, q above 100 and below 0; and bins past
+    the candidate buffer (all-equal keys, keys inside one quarter of an
+    exponent), which the finishing block takes over the keys."""
     k = keys[:2, :4].clone()
     s, c = k.shape[:2]
     n = k.shape[-2] * k.shape[-1]
@@ -2591,8 +2653,21 @@ def selection_cases(torch, kp, keys, q):
     ties = torch.round(k * 4.0) / 4.0
     selection_against_plain(torch, kp, ties.contiguous(),
                             q[:2, :4].contiguous(), "ties")
+    over = k.clone()
+    over[0] = 0.37  # all equal
+    over[1] = 1.0 + 0.25 * torch.rand(over[1].shape, device=k.device,
+                                      generator=torch.Generator(
+                                          device=k.device).manual_seed(17))
+    hist = kp.key_histogram_plain(over)
+    first = hist[..., :kp.KEY_BINS].max(dim=-1).values
+    if int(first.min()) <= kp.candidate_capacity(n):
+        fail("band_percentile: the over-capacity case fits the candidates")
+    selection_against_plain(torch, kp, over, q[:2, :4].contiguous(),
+                            "bins past the candidate buffer", hist)
     print(f"band_percentile: bit-equal to its plain version on q 0 and 100, "
-          f"integer ranks, q outside [0, 100], a NaN key and runs of ties",
+          f"integer ranks, q outside [0, 100], a NaN key, runs of ties and "
+          f"8 segments whose bin holds {int(first.min())}-{int(first.max())} "
+          f"keys, past the candidate buffer's {kp.candidate_capacity(n)}",
           flush=True)
 
 
@@ -2614,8 +2689,10 @@ def percentile_kernels(torch, ksb, kp, dev) -> dict:
         # pass 1 of the first chunk and the selection on its keys
         l0, l1 = (int(v) for v in case.chunks[:2])
         work = ksb.percentile_work(case.spec, case.support)
-        keys = ksb.subband_keys(case.spec, case.psi, case.support, l0, l1,
-                                work)
+        keys, hist = ksb.subband_keys(case.spec, case.psi, case.support, l0,
+                                      l1, work)
+        histogram_against_plain(torch, kp, hist, keys,
+                                f"subband_keys {name} {b}x{N}x{N}")
         plain = ksb.subband_keys_plain(case.spec, case.psi[l0:l1])
         e = float(torch.max(torch.abs(keys - plain)) / torch.max(plain))
         err_keys = max(err_keys, e)
@@ -2626,8 +2703,10 @@ def percentile_kernels(torch, ksb, kp, dev) -> dict:
             _, args, index = case.box_args(k, "hard")
             work_b = torch.empty(ksb.box_work_floats(b, lg, len(g.idx_w), N),
                                  device=dev)
-            got = ksb.box_keys(args[0], args[1], args[3], N, N, index=index,
-                               work=work_b)
+            got, hist_b = ksb.box_keys(args[0], args[1], args[3], N, N,
+                                       index=index, work=work_b)
+            histogram_against_plain(torch, kp, hist_b, got,
+                                    f"box_keys {name} {b}x{lg} bands")
             plain = ksb.box_keys_plain(args[0], args[1], args[3], N, N)
             e = float(torch.max(torch.abs(got - plain)) / torch.max(plain))
             err_box_keys = max(err_box_keys, e)
@@ -2635,16 +2714,21 @@ def percentile_kernels(torch, ksb, kp, dev) -> dict:
                 fail(f"box_keys {name} {b}x{len(g.idx_h)}x{len(g.idx_w)}: "
                      f"max|d| {e:.2e} of max")
             selection_against_plain(torch, kp, got, q_boxes[k],
-                                    f"{name} box group of {lg} bands")
+                                    f"{name} box group of {lg} bands", hist_b)
+            if b == MAIN_BATCH:
+                bin_sizes(torch, kp, hist_b, q_boxes[k],
+                          f"{name} {b}x{lg} box group")
             del got, plain, work_b
         q = q_full[:, l0:l1].contiguous()
         selection_against_plain(torch, kp, keys, q,
-                                f"{name} {b}x{l1 - l0} bands of {N}x{N}")
+                                f"{name} {b}x{l1 - l0} bands of {N}x{N}",
+                                hist)
         if b == 8 and name == "SHEARLET":
-            selection_cases(torch, kp, keys, q)
+            selection_cases(torch, kp, keys.contiguous(), q)
         if b == MAIN_BATCH:
-            out["select"] = time_selection(torch, kp, keys, q)
-        del keys, work
+            bin_sizes(torch, kp, hist, q, f"{name} {b}x{l1 - l0} bands")
+            out["select"] = time_selection(torch, kp, keys, q, hist)
+        del keys, work, hist
         for op in ("soft", "hard"):
             ea, eb = percentile_against_plain(torch, ksb, case, op, q_full,
                                               q_boxes)
@@ -2695,16 +2779,18 @@ def percentile_against_plain(torch, ksb, case, op, q_full, q_boxes):
     return err_a, err_b
 
 
-def time_selection(torch, kp, keys, q) -> dict:
-    """The selection on the keys of one chunk at the main path's batch:
-    kernel and plain (a sort), torch.kthvalue's one rank of each segment
-    as the library call, the GB/s of one read of the keys and the bound."""
+def time_selection(torch, kp, keys, q, hist) -> dict:
+    """The selection on the keys of one chunk at the main path's batch
+    (pass 1's histogram): kernel and plain (a sort), torch.kthvalue's one
+    rank of each segment as the library call, the GB/s of one read of the
+    keys and the bound."""
     s, c, h, w = keys.shape
     n = h * w
-    flat = keys.view(s * c, n)
+    flat = keys.transpose(-1, -2).reshape(s * c, n)
     top = float(np.float32(n) - np.float32(1))
     k = int(math.floor(float(q[0, 0]) / 100.0 * top)) + 1
-    t_k, t_p, four = time_pair(torch, lambda: kp.band_percentile(keys, q),
+    t_k, t_p, four = time_pair(torch,
+                               lambda: kp.band_percentile(keys, q, hist),
                                lambda: kp.band_percentile_plain(keys, q), 5)
     torch.kthvalue(flat, k, dim=-1)
     lib_ms = time_ms(torch, lambda: torch.kthvalue(flat, k, dim=-1), 5)
@@ -2719,57 +2805,79 @@ def time_selection(torch, kp, keys, q) -> dict:
             "segments": s * c, "n": n}
 
 
+def select_work(rl, kp, segments, n) -> dict:
+    """(bytes, flops) of the selection's kernels as print_passes takes
+    them: the plan reads the histograms, the gather the keys once, the
+    finish the candidates (not counted: they depend on the data)."""
+    return {"select_plan_kernel": (4 * segments * (kp.HIST_COLS + 1), 0.0),
+            "select_gather_kernel": (rl.select_work(segments, n)[1], 0.0),
+            "select_finish_kernel": (0, 0.0)}
+
+
 def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
     """Time the split route's wrappers on a SubbandCase at the main path's
     batch: each pass on the card (torch.profiler), each plain version
     (CUDA events), and each wrapper's bound: its inputs read and outputs
     written once, its line FFTs as pass_work counts them. Returns
     {wrapper: (ms, plain ms, bound)} over every chunk of the full-size
-    bands and, for the box wrappers, the mean over the box groups."""
+    bands and, for the box wrappers, the mean over the box groups;
+    "select_call": the selection's kernels over a call's bands."""
     c = case
     b, h, w = c.b, c.h, c.w
-
-    def run():
-        ksb.subband_update_percentile(c.spec, c.psi, q_full,
-                                      "hard-percentile", "high",
-                                      support=c.support)
-    times = kernel_passes(torch, run, KEY_PASSES)
     rl = roofline()
     work = pass_work(c, False)
     nbands = c.psi.shape[0]
     lh = rl.line_flops(h)
     key_bytes = b * nbands * h * w * 4
-    print_passes(f"subband_update[percentile] {b}x{h}x{w} ({nbands} bands, "
-                 f"{len(c.chunks) - 1} chunks)", times, {
-                     "rows_inverse_kernel": work["rows_inverse_kernel"],
-                     "cols_shrink_kernel<2>": (
-                         b * int(c.support.offsets[-1]) * w * 8 + key_bytes,
-                         b * nbands * w * lh),
-                     "band_percentile_kernel": (key_bytes, 0.0),
-                     "cols_shrink_kernel<1>": work["cols_shrink_kernel"],
-                     "rows_forward_acc_kernel":
-                         work["rows_forward_acc_kernel"]})
+    rows_bytes = b * int(c.support.offsets[-1]) * w * 8
+    cl_bytes = 8 * b * nbands * h * w
+
+    def run():
+        ksb.subband_update_percentile(c.spec, c.psi, q_full,
+                                      "hard-percentile", "high",
+                                      support=c.support)
+    times = kernel_passes(torch, run, KEY_PASSES,
+                          launches=("select_plan_kernel", len(c.chunks) - 1))
+    print_passes(
+        f"subband_update[percentile] {b}x{h}x{w} ({nbands} bands, "
+        f"{len(c.chunks) - 1} chunks)", times, {
+            "rows_inverse_kernel": work["rows_inverse_kernel"],
+            "cols_keys_kernel": (rows_bytes + key_bytes + cl_bytes,
+                                 b * nbands * w * lh),
+            **select_work(rl, kp, b * nbands, h * w),
+            "cols_kept_kernel": (cl_bytes + rows_bytes, b * nbands * w * lh),
+            "rows_forward_acc_kernel": work["rows_forward_acc_kernel"]})
+    p1 = times["rows_inverse_kernel"] + times["cols_keys_kernel"]
+    p2 = times["cols_kept_kernel"] + times["rows_forward_acc_kernel"]
+    selt = sum(times[n] for n in SELECT_PASSES)
+    print(f"subband_update[percentile] {b}x{h}x{w}: pass 1 {p1:.3f} ms, "
+          f"pass 2 {p2:.3f} ms, passes 1 + 2 {p1 + p2:.3f} ms, the "
+          f"selection {selt:.3f} ms, the update {p1 + p2 + selt:.3f} ms",
+          flush=True)
     tau = kp.band_percentile_plain(ksb.subband_keys_plain(c.spec, c.psi),
                                    q_full)
     p_keys = time_ms(torch, lambda: ksb.subband_keys_plain(c.spec, c.psi), 2)
     p_shrink = time_ms(torch, lambda: ksb.subband_shrink_plain(
         c.spec, c.psi, tau, "hard"), 2)
-    out = {"subband_keys": (times["rows_inverse_kernel"]
-                            + times["cols_shrink_kernel<2>"], p_keys,
+    out = {"subband_keys": (p1, p_keys,
                             bound(*rl.subband_keys_work(*case_support(c)))),
-           "subband_shrink": (times["cols_shrink_kernel<1>"]
-                              + times["rows_forward_acc_kernel"], p_shrink,
+           "subband_shrink": (p2, p_shrink,
                               bound(*rl.subband_shrink_work(
-                                  *case_support(c))))}
+                                  *case_support(c)))),
+           "select_call": (selt, bound(*rl.select_work(b * nbands, h * w)))}
+    print(f"band_percentile over the {nbands} bands of a call: "
+          f"{selt:.3f} ms, bound {out['select_call'][1][0]:.4f} ms",
+          flush=True)
     rows = {"box_keys": [], "box_shrink": []}
     for k, (_, lg, g) in enumerate(c.boxes):
-        sel, args, index = c.box_args(k, "hard")
+        sel_b, args, index = c.box_args(k, "hard")
         args = args[:2] + (q_boxes[k],) + args[3:]
         side = len(g.idx_h)
 
         def run_box():
             ksb.box_group_update_percentile(*args, "high", index=index)
-        bt = kernel_passes(torch, run_box, BOX_KEY_PASSES)
+        bt = kernel_passes(torch, run_box, BOX_KEY_PASSES,
+                           launches=("select_plan_kernel", 1))
         field = b * lg * side * h * 8  # the scratch G, bytes
         col_flops = b * lg * side * lh
         row_flops = b * lg * h * rl.line_flops(w)
@@ -2778,7 +2886,7 @@ def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
             "box_cols_inverse_kernel": (b * side * side * 8 + field,
                                         col_flops),
             "box_rows_kernel<2>": (field + keys_b, row_flops),
-            "band_percentile_kernel": (keys_b, 0.0),
+            **select_work(rl, kp, b * lg, h * w),
             "box_rows_kernel<1>": (2 * field, 2 * row_flops),
             "box_cols_forward_kernel": (field + b * side * side * 8,
                                         col_flops)})
@@ -2796,11 +2904,17 @@ def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
         rows["box_shrink"].append((
             bt["box_rows_kernel<1>"] + bt["box_cols_forward_kernel"], p_bs,
             bound(*rl.box_shrink_work(b, lg, side, sc, h, w))))
-    for name, vals in rows.items():
+        b_sel = sum(bt[n] for n in SELECT_PASSES)
+        b_bnd = bound(*rl.select_work(b * lg, h * w))
+        print(f"band_percentile over the {lg} bands of the {side}-side box "
+              f"group: {b_sel:.3f} ms, bound {b_bnd[0]:.4f} ms", flush=True)
+    for name in ("box_keys", "box_shrink"):
+        vals = rows[name]
         out[name] = (sum(v[0] for v in vals) / len(vals),
                      sum(v[1] for v in vals) / len(vals),
                      (sum(v[2][0] for v in vals) / len(vals), vals[0][2][1]))
-    for name, (ms, p_ms, bnd) in out.items():
+    for name in ("subband_keys", "subband_shrink", "box_keys", "box_shrink"):
+        ms, p_ms, bnd = out[name]
         print(f"{name} {b}x{h}x{w}: kernel passes {ms:.3f} ms, plain "
               f"{p_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
     return out
@@ -3228,8 +3342,11 @@ def split_plans(torch, ksb, kp, dev, modules) -> dict:
             _, args, index = case.box_args(k, "hard")
             work_b = torch.empty(ksb.box_work_floats(b, lg, len(g.idx_w), N),
                                  device=dev)
-            got = ksb.box_keys(args[0], args[1], args[3], N, N, index=index,
-                               work=work_b)
+            got, hist_b = ksb.box_keys(args[0], args[1], args[3], N, N,
+                                       index=index, work=work_b)
+            histogram_against_plain(
+                torch, kp, hist_b, got, f"19a box_keys {b}x{len(g.idx_h)}x"
+                f"{len(g.idx_w)} of {lg} bands")
             plain = ksb.box_keys_plain(args[0], args[1], args[3], N, N)
             e = float(torch.max(torch.abs(got - plain)) / torch.max(plain))
             err_keys = max(err_keys, e)
@@ -3238,7 +3355,7 @@ def split_plans(torch, ksb, kp, dev, modules) -> dict:
                      f"max|d| {e:.2e} of max")
             selection_against_plain(torch, kp, got, q_boxes[k],
                                     f"19a split box group {len(g.idx_h)}x"
-                                    f"{len(g.idx_w)} of {lg} bands")
+                                    f"{len(g.idx_w)} of {lg} bands", hist_b)
             del got, plain, work_b
         for op in ("soft", "hard"):
             ea, eb = percentile_against_plain(torch, ksb, case, op, q_full,

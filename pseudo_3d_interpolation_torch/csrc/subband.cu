@@ -100,14 +100,20 @@
 // Pallas kernel takes), so no coefficient can be shrunk before c_l is
 // whole. Each kernel is split at the threshold: pass 1 runs the passes up
 // to c_l and writes |c_l| (sqrt of abs2_rn, as Cplx.abs rounds it) of
-// every pixel of the band into a float32 key buffer, leaving the scratch
-// as it was; band_percentile.cu selects the thresholds from the keys; pass
-// 2 computes c_l again from the scratch (the same code on the same
-// values, so the same bits), shrinks it testing abs2_rn against tau² (the
-// coefficient that sets tau is judged as its key was), and runs the rest
-// of the kernel. Recomputing c_l costs one more inverse line FFT of every
-// column (row, for B); keeping it instead would write and read 16 bytes
-// per (slice, band, pixel) where the keys take 4.
+// every pixel of the band into a float32 key buffer, straight from the
+// registers of the line FFT, and counts the keys' first digit into the
+// band's histogram as it writes them (order_keys.cuh), so that
+// band_percentile.cu reads the keys once; pass 2 shrinks c_l testing
+// abs2_rn against tau² (the coefficient that sets tau is judged as its
+// key was) and runs the rest of the kernel. For kernel A, c_l is kept:
+// pass 1 (cols_keys_kernel) writes it, column by column beside the keys,
+// into a (B, chunk bands, W, H) complex buffer, and pass 2
+// (cols_kept_kernel) loads it and runs only the forward column FFT: 8
+// bytes written and read per (slice, band, pixel) in place of one inverse
+// H-line FFT of every column (1.8 ms less a 32×512² SHEARLET call on an
+// H100 than computing c_l again from pass 1's scratch).
+// For kernel B, pass 2 computes c_l again from G (one more W-line FFT of
+// every field row).
 // What bounds it: the row pass's two N_w-line FFTs of every field row of
 // every band, 2·N_h·5·N_w·log2 N_w flops per (slice, band), at the
 // engine's throughput (about 9 TFLOP/s, 80-90% of a call at batch 32 on
@@ -122,14 +128,14 @@
 #include <stddef.h>
 
 #include "fft_lines.cuh"
+#include "order_keys.cuh"
 #include "shrink.cuh"
 
 namespace {
 
 constexpr int NT = 256;  // threads per block (line kernels: at least)
 
-// the column pass's and the box row pass's forms (cols_shrink_kernel,
-// box_rows_kernel)
+// the box row pass's forms (box_rows_kernel)
 enum LinePass { PASS_SHRINK = 0, PASS_SHRINK_RN = 1, PASS_KEYS = 2 };
 
 // threads of a line kernel's block: NT, or one whole group of a long line
@@ -179,20 +185,14 @@ rows_inverse_kernel(const float* __restrict__ xr, const float* __restrict__ xi,
 // (b) columns of band l0 + blockIdx.y: inverse FFT along H, scale, shrink,
 // forward FFT along H, the band's support rows in place in the scratch.
 // grid (column blocks, bands of the chunk, batch). tau[b·tau_ld +
-// blockIdx.y] is the band's threshold. MODE (LinePass) PASS_SHRINK is the
-// pass of p3d_subband_update; PASS_SHRINK_RN the percentile route's pass 2,
-// which tests |c|² as abs2_rn rounds it (as the keys were); PASS_KEYS its
-// pass 1, which stops after the scale and writes |c| of every (row,
-// column) of the band into keys (B, gridDim.y, H, W), the scratch left
-// as it was.
-template <int MODE>
+// blockIdx.y] is the band's threshold.
 __global__ void __launch_bounds__(LINE_NT_MAX, 2)
 cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
                    const int* __restrict__ slot,  // (nbands, H)
                    const float* __restrict__ tau,  // (B, tau_ld), from l0
                    const float2* __restrict__ tw_h, LineShape L, int w,
                    int cols, int nrows, int p0, int tau_ld, int l0,
-                   float scale, int op, float* __restrict__ keys) {
+                   float scale, int op) {
   extern __shared__ float2 smem[];
   const int h = L.n;
   const int ls = h + 1;  // padded column stride: the transposing stores of
@@ -220,8 +220,7 @@ cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
     }
   }
   load_twiddles(tw, tw_h, h);
-  const float t = MODE == PASS_KEYS ? 0.0f
-                                   : tau[(long long)b * tau_ld + blockIdx.y];
+  const float t = tau[(long long)b * tau_ld + blockIdx.y];
   for (int c = g.index; c < nc; c += g.count) {
     float2* col = tile + c * ls;
     float2 v[8];
@@ -234,16 +233,10 @@ cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const float2 u = make_float2(v[q].x * scale, v[q].y * scale);
-      if (MODE == PASS_KEYS) {
-        v[q] = make_float2(__fsqrt_rn(abs2_rn(u)), 0.0f);
-      } else {
-        const float f = shrink_factor(
-            MODE == PASS_SHRINK_RN ? abs2_rn(u) : u.x * u.x + u.y * u.y, t,
-            op);
-        v[q] = make_float2(u.x * f, u.y * f);
-      }
+      const float f = shrink_factor(u.x * u.x + u.y * u.y, t, op);
+      v[q] = make_float2(u.x * f, u.y * f);
     }
-    if (MODE != PASS_KEYS) line_fft<false>(v, buf, tw, L, g);
+    line_fft<false>(v, buf, tw, L, g);
 #pragma unroll
     for (int q = 0; q < 8; ++q) {
       const int e = g.j + q * g.t;
@@ -252,18 +245,141 @@ cols_shrink_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
   }
   __syncthreads();
   if (tl.active && tl.in) {
-    if (MODE == PASS_KEYS) {
-      float* kb = keys + ((long long)b * gridDim.y + blockIdx.y) * h * w +
-                  c0 + tl.c;
 #pragma unroll 4
-      for (int r = tl.r0; r < h; r += tl.step)
-        kb[(long long)r * w] = tile[tl.c * ls + r].x;
-    } else {
+    for (int r = tl.r0; r < h; r += tl.step) {
+      const int k = rs[r];
+      if (k >= 0) s[(long long)(k - p0) * w + tl.c] = tile[tl.c * ls + r];
+    }
+  }
+}
+
+// (b) of the percentile route's pass 1, band l0 + blockIdx.y: the inverse
+// FFT along H of its columns and the scale, as cols_shrink_kernel takes
+// them, then from each group's registers: |c| of every (row, column) into
+// keys, column by column, (B, gridDim.y, W, H) (a segment's keys serve the
+// selection in any order, and a column's are one coalesced run), their
+// first digits into the band's row of hist (B, gridDim.y, HIST_COLS), and
+// c itself into cl, laid out as the keys, for cols_kept_kernel. The
+// scratch is left as it was. grid as cols_shrink_kernel's; shared memory
+// as its, and the block's packed histogram after the slot table (its
+// column tile sized with it, so it may hold fewer columns).
+__global__ void __launch_bounds__(LINE_NT_MAX, 2)
+cols_keys_kernel(const float2* __restrict__ scratch,  // (B, nrows, W)
+                 const int* __restrict__ slot,        // (nbands, H)
+                 const float2* __restrict__ tw_h, LineShape L, int w,
+                 int cols, int nrows, int p0, int l0, float scale,
+                 float* __restrict__ keys, unsigned* __restrict__ hist,
+                 float2* __restrict__ cl) {
+  extern __shared__ float2 smem[];
+  const int h = L.n;
+  const int ls = h + 1;
+  const Group g = make_group(L.t);
+  float2* tw = smem;
+  float2* tile = tw + h;
+  float2* bufs = tile + cols * ls;
+  float2* buf = bufs + g.index * line_buf(h);
+  int* rs = reinterpret_cast<int*>(bufs + g.count * line_buf(h));
+  unsigned* bins = reinterpret_cast<unsigned*>(rs + h);
+  const int b = blockIdx.z, l = l0 + blockIdx.y;
+  const int c0 = blockIdx.x * cols;
+  const int nc = min(cols, w - c0);
+  const int* sl = slot + (long long)l * h;
+  const float2* s = scratch + (long long)b * nrows * w + c0;
+  for (int r = threadIdx.x; r < h; r += blockDim.x) rs[r] = sl[r];
+  hist_zero(bins);
+  __syncthreads();
+  const TileWalk tl(cols, nc);
+  if (tl.active) {
 #pragma unroll 4
-      for (int r = tl.r0; r < h; r += tl.step) {
-        const int k = rs[r];
-        if (k >= 0) s[(long long)(k - p0) * w + tl.c] = tile[tl.c * ls + r];
+    for (int r = tl.r0; r < h; r += tl.step) {
+      const int k = rs[r];
+      tile[tl.c * ls + r] = k >= 0 && tl.in ? s[(long long)(k - p0) * w + tl.c]
+                                            : make_float2(0.0f, 0.0f);
+    }
+  }
+  load_twiddles(tw, tw_h, h);
+  const long long seg = (long long)b * gridDim.y + blockIdx.y;
+  for (int c = g.index; c < nc; c += g.count) {
+    const float2* col = tile + c * ls;
+    float2 v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = g.j + q * g.t;
+      v[q] = e < h ? col[e] : make_float2(0.0f, 0.0f);
+    }
+    line_fft<true>(v, buf, tw, L, g);
+    const long long o = (seg * w + c0 + c) * h;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = g.j + q * g.t;
+      const float2 u = make_float2(v[q].x * scale, v[q].y * scale);
+      const float key = __fsqrt_rn(abs2_rn(u));
+      if (e < h) {
+        keys[o + e] = key;
+        cl[o + e] = u;
       }
+      hist_add(bins, key, e < h, g.mask, g.t);
+    }
+  }
+  __syncthreads();
+  hist_flush(bins, hist + seg * HIST_COLS);
+}
+
+// (b) of the percentile route's pass 2 with c_l kept, band l0 +
+// blockIdx.y: c of its columns loaded from cl (cols_keys_kernel's),
+// shrunk with tau[b·tau_ld + blockIdx.y] testing |c|² as abs2_rn rounds it,
+// forward FFT along H, the band's support rows stored into the scratch.
+// grid and shared memory as cols_shrink_kernel's.
+__global__ void __launch_bounds__(LINE_NT_MAX, 2)
+cols_kept_kernel(float2* __restrict__ scratch,  // (B, nrows, W)
+                 const int* __restrict__ slot,  // (nbands, H)
+                 const float* __restrict__ tau,  // (B, tau_ld), from l0
+                 const float2* __restrict__ tw_h, LineShape L, int w,
+                 int cols, int nrows, int p0, int tau_ld, int l0, int op,
+                 const float2* __restrict__ cl) {
+  extern __shared__ float2 smem[];
+  const int h = L.n;
+  const int ls = h + 1;
+  const Group g = make_group(L.t);
+  float2* tw = smem;
+  float2* tile = tw + h;
+  float2* bufs = tile + cols * ls;
+  float2* buf = bufs + g.index * line_buf(h);
+  int* rs = reinterpret_cast<int*>(bufs + g.count * line_buf(h));
+  const int b = blockIdx.z, l = l0 + blockIdx.y;
+  const int c0 = blockIdx.x * cols;
+  const int nc = min(cols, w - c0);
+  const int* sl = slot + (long long)l * h;
+  for (int r = threadIdx.x; r < h; r += blockDim.x) rs[r] = sl[r];
+  load_twiddles(tw, tw_h, h);
+  const float t = tau[(long long)b * tau_ld + blockIdx.y];
+  const long long seg = (long long)b * gridDim.y + blockIdx.y;
+  for (int c = g.index; c < nc; c += g.count) {
+    const float2* cc = cl + (seg * w + c0 + c) * h;
+    float2 v[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = g.j + q * g.t;
+      const float2 u = e < h ? cc[e] : make_float2(0.0f, 0.0f);
+      const float f = shrink_factor(abs2_rn(u), t, op);
+      v[q] = make_float2(u.x * f, u.y * f);
+    }
+    line_fft<false>(v, buf, tw, L, g);
+    float2* col = tile + c * ls;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int e = g.j + q * g.t;
+      if (e < h) col[e] = v[q];
+    }
+  }
+  __syncthreads();
+  const TileWalk tl(cols, nc);
+  if (tl.active && tl.in) {
+    float2* s = scratch + (long long)b * nrows * w + c0;
+#pragma unroll 4
+    for (int r = tl.r0; r < h; r += tl.step) {
+      const int k = rs[r];
+      if (k >= 0) s[(long long)(k - p0) * w + tl.c] = tile[tl.c * ls + r];
     }
   }
 }
@@ -489,30 +605,61 @@ box_cols_inverse_kernel(const float* __restrict__ xbr,
 // Kernel B, pass (2): field row n of band l of slice b, in place in G:
 // scatter at idx_w, inverse FFT along W, scale, shrink, forward FFT along
 // W, gather at idx_w; one group per row. grid (row blocks, lg, batch).
-// MODE as cols_shrink_kernel's: PASS_KEYS (the percentile route's pass 1)
-// writes |c| of the row's N_w field values into keys (B, lg, N_h, N_w) and
-// leaves G as it was; PASS_SHRINK_RN (its pass 2) tests |c|² as abs2_rn
-// rounds it.
+// MODE (LinePass): PASS_SHRINK is kernel B's; PASS_KEYS (the percentile
+// route's pass 1) writes |c| of the row's N_w field values into keys (B,
+// lg, N_h, N_w), counts their first digits into the band's row of hist
+// (B, lg, HIST_COLS; the block's packed histogram after the shared memory
+// of the other forms) and leaves G as it was; PASS_SHRINK_RN (its pass 2) tests
+// |c|² as abs2_rn rounds it.
 template <int MODE>
 __global__ void __launch_bounds__(LINE_NT_MAX, 2)
 box_rows_kernel(float2* __restrict__ g,          // (B, lg, sc, nh)
                 const int* __restrict__ idx_w,   // (sc,)
                 const float* __restrict__ tau,   // (B, lg)
                 const float2* __restrict__ tw_w, LineShape L, int nh, int sc,
-                float scale, int op, float* __restrict__ keys) {
+                float scale, int op, float* __restrict__ keys,
+                unsigned* __restrict__ hist) {
   extern __shared__ float2 smem[];
   const int nw = L.n;
   const Group grp = make_group(L.t);
   float2* tw = smem;
   float2* buf = tw + nw + grp.index * line_buf(nw);
   int* pos = reinterpret_cast<int*>(tw + nw + grp.count * line_buf(nw));
+  unsigned* bins = reinterpret_cast<unsigned*>(pos + nw);
+  if (MODE == PASS_KEYS) hist_zero(bins);
   box_positions(pos, idx_w, nw, sc);
   load_twiddles(tw, tw_w, nw);
   const int n = blockIdx.x * grp.count + grp.index;
-  if (n >= nh) return;
   const int l = blockIdx.y, b = blockIdx.z, lg = gridDim.y;
+  if (MODE == PASS_KEYS) {
+    // every thread stays for the histogram's flush
+    if (n < nh) {
+      const float2* row = g + ((long long)b * lg + l) * sc * nh + n;
+      float2 v[8];
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int e = grp.j + s * grp.t;
+        const int k = e < nw ? pos[e] : -1;
+        v[s] = k >= 0 ? row[(long long)k * nh] : make_float2(0.0f, 0.0f);
+      }
+      line_fft<true>(v, buf, tw, L, grp);
+      float* kr = keys + (((long long)b * lg + l) * nh + n) * nw;
+#pragma unroll
+      for (int s = 0; s < 8; ++s) {
+        const int e = grp.j + s * grp.t;
+        const float2 u = make_float2(v[s].x * scale, v[s].y * scale);
+        const float key = __fsqrt_rn(abs2_rn(u));
+        if (e < nw) kr[e] = key;
+        hist_add(bins, key, e < nw, grp.mask, grp.t);
+      }
+    }
+    __syncthreads();
+    hist_flush(bins, hist + ((long long)b * lg + l) * HIST_COLS);
+    return;
+  }
+  if (n >= nh) return;
   float2* row = g + ((long long)b * lg + l) * sc * nh + n;  // k at k·nh
-  const float t = MODE == PASS_KEYS ? 0.0f : tau[(long long)b * lg + l];
+  const float t = tau[(long long)b * lg + l];
   int ks[8];
   float2 v[8];
 #pragma unroll
@@ -522,16 +669,6 @@ box_rows_kernel(float2* __restrict__ g,          // (B, lg, sc, nh)
     v[s] = ks[s] >= 0 ? row[(long long)ks[s] * nh] : make_float2(0.0f, 0.0f);
   }
   line_fft<true>(v, buf, tw, L, grp);
-  if (MODE == PASS_KEYS) {
-    float* kr = keys + (((long long)b * lg + l) * nh + n) * nw;
-#pragma unroll
-    for (int s = 0; s < 8; ++s) {
-      const int e = grp.j + s * grp.t;
-      const float2 u = make_float2(v[s].x * scale, v[s].y * scale);
-      if (e < nw) kr[e] = __fsqrt_rn(abs2_rn(u));
-    }
-    return;
-  }
 #pragma unroll
   for (int s = 0; s < 8; ++s) {
     const float2 u = make_float2(v[s].x * scale, v[s].y * scale);
@@ -675,8 +812,7 @@ int band_passes(const Lines& s, const float* xr, const float* xi,
                 bool inv_last, cudaStream_t stream) {
   int err;
   if ((err = allow_smem(rows_inverse_kernel, s.smem_rows)) != 0) return err;
-  if ((err = allow_smem(cols_shrink_kernel<PASS_SHRINK>, s.smem_cols)) != 0)
-    return err;
+  if ((err = allow_smem(cols_shrink_kernel, s.smem_cols)) != 0) return err;
   if ((err = allow_smem(rows_forward_acc_kernel<false>, s.smem_rows)) != 0)
     return err;
   if (inv_last &&
@@ -697,10 +833,10 @@ int band_passes(const Lines& s, const float* xr, const float* xi,
                                                    bands + p0, tww, scratch,
                                                    s.lw, h, nrows);
       if ((err = (int)cudaGetLastError()) != 0) return err;
-      cols_shrink_kernel<PASS_SHRINK>
+      cols_shrink_kernel
           <<<dim3(ceil_div(w, s.cols), l1 - l0, batch), s.nt_h, s.smem_cols,
              stream>>>(scratch, slot, tau + l0, twh, s.lh, w, s.cols, nrows,
-                       p0, nbands, l0, scale, op, nullptr);
+                       p0, nbands, l0, scale, op);
       if ((err = (int)cudaGetLastError()) != 0) return err;
     }
     const dim3 grid(ceil_div(h, per_block), batch);
@@ -840,29 +976,32 @@ int p3d_box_group_update(const float* xb_re, const float* xb_im,
     return err;
   box_rows_kernel<PASS_SHRINK>
       <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, s.smem_w, stream>>>(
-          g, idx_w, tau, tww, s.lw, nh, sc, s.scale, op, nullptr);
+          g, idx_w, tau, tww, s.lw, nh, sc, s.scale, op, nullptr, nullptr);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   return box_forward_columns(s, g, psi, idx_h, twh, m_re, m_im, batch, lg, sr,
                              sc, stream);
 }
 
 // The percentile route's pass 1 for kernel A, on the band chunk [l0, l1):
-// pass (a) into `work`, then the column pass's PASS_KEYS form, which writes
-// |c_l| of every pixel of each band of the chunk into keys (batch, l1 - l0,
-// h, w) and leaves `work` for p3d_subband_shrink. Returns as
+// pass (a) into `work`, then cols_keys_kernel, which writes |c_l| of every
+// pixel of each band of the chunk into keys (batch, l1 - l0, w, h), column
+// by column, adds their first digits to hist (batch, l1 - l0, HIST_COLS),
+// zeroed by the caller, and writes c_l itself into cl (batch, l1 - l0, w,
+// h) complex values; `work` is left for p3d_subband_shrink. Returns as
 // p3d_subband_update; `support` and `offsets` as it takes them, `work` as
 // large as for the chunk's support rows.
 int p3d_subband_keys(const float* x_re, const float* x_im, const float* psi,
                      const float* tw_h, const float* tw_w, const int* support,
                      const int* offsets, int l0, int l1, float* keys,
-                     float* work, int batch, int h, int w, int nbands,
-                     void* stream_handle) {
+                     unsigned* hist, float* work, float* cl, int batch, int h,
+                     int w, int nbands, void* stream_handle) {
   Lines s;
   int err;
-  if ((err = lines_for(h, w, NT, h, &s)) != 0) return err;
+  // the column tile sized with the block's packed histogram after the
+  // slot table (pass 2 sizes its own, without it)
+  if ((err = lines_for(h, w, NT, h + HIST_WORDS, &s)) != 0) return err;
   if ((err = allow_smem(rows_inverse_kernel, s.smem_rows)) != 0) return err;
-  if ((err = allow_smem(cols_shrink_kernel<PASS_KEYS>, s.smem_cols)) != 0)
-    return err;
+  if ((err = allow_smem(cols_keys_kernel, s.smem_cols)) != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const int nnz = offsets[nbands];
   const int p0 = offsets[l0], nrows = offsets[l1] - p0;
@@ -875,44 +1014,45 @@ int p3d_subband_keys(const float* x_re, const float* x_im, const float* psi,
     if ((err = (int)cudaGetLastError()) != 0) return err;
   }
   // a column with no support row of the band is a zero line: its keys are 0
-  cols_shrink_kernel<PASS_KEYS>
-      <<<dim3(ceil_div(w, s.cols), l1 - l0, batch), s.nt_h, s.smem_cols,
-         stream>>>(scratch, support + 2 * (long long)nnz, nullptr,
-                   reinterpret_cast<const float2*>(tw_h), s.lh, w, s.cols,
-                   nrows, p0, 0, l0, 1.0f / (float)((double)h * (double)w), 0,
-                   keys);
+  const dim3 grid(ceil_div(w, s.cols), l1 - l0, batch);
+  const int* slot = support + 2 * (long long)nnz;
+  const float2* twh = reinterpret_cast<const float2*>(tw_h);
+  const float scale = 1.0f / (float)((double)h * (double)w);
+  cols_keys_kernel<<<grid, s.nt_h, s.smem_cols, stream>>>(
+      scratch, slot, twh, s.lh, w, s.cols, nrows, p0, l0, scale, keys, hist,
+      reinterpret_cast<float2*>(cl));
   return (int)cudaGetLastError();
 }
 
 // The percentile route's pass 2 for kernel A, on the band chunk [l0, l1)
-// whose pass 1 left `work`: the column pass with tau (batch, l1 - l0), the
-// thresholds p3d_band_percentile selected, |c|² rounded as the keys were
-// (PASS_SHRINK_RN), then pass (c) into (acc_re, acc_im), written when
-// `first`, else added to. Returns as p3d_subband_update.
+// whose pass 1 left `work` and `cl`: the column pass on the kept c_l
+// (cols_kept_kernel) with tau (batch, l1 - l0), the thresholds
+// p3d_band_percentile selected, |c|² rounded as the keys were, then pass
+// (c) into (acc_re, acc_im), written when `first`, else added to. Returns
+// as p3d_subband_update.
 int p3d_subband_shrink(const float* psi, const float* tau, const float* tw_h,
                        const float* tw_w, const int* support,
                        const int* offsets, int l0, int l1, float* acc_re,
-                       float* acc_im, float* work, int batch, int h, int w,
-                       int nbands, int op, int first, void* stream_handle) {
+                       float* acc_im, float* work, const float* cl, int batch,
+                       int h, int w, int nbands, int op, int first,
+                       void* stream_handle) {
   Lines s;
   int err;
   if ((err = lines_for(h, w, NT, h, &s)) != 0) return err;
-  if ((err = allow_smem(cols_shrink_kernel<PASS_SHRINK_RN>, s.smem_cols)) !=
-      0)
-    return err;
+  if ((err = allow_smem(cols_kept_kernel, s.smem_cols)) != 0) return err;
   if ((err = allow_smem(rows_forward_acc_kernel<false>, s.smem_rows)) != 0)
     return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   const int* slot = support + 2 * (long long)offsets[nbands];
   const int p0 = offsets[l0], nrows = offsets[l1] - p0;
   float2* scratch = reinterpret_cast<float2*>(work);
+  const float2* twh = reinterpret_cast<const float2*>(tw_h);
   const float2* tww = reinterpret_cast<const float2*>(tw_w);
   if (nrows > 0) {
-    cols_shrink_kernel<PASS_SHRINK_RN>
-        <<<dim3(ceil_div(w, s.cols), l1 - l0, batch), s.nt_h, s.smem_cols,
-           stream>>>(scratch, slot, tau, reinterpret_cast<const float2*>(tw_h),
-                     s.lh, w, s.cols, nrows, p0, l1 - l0, l0,
-                     1.0f / (float)((double)h * (double)w), op, nullptr);
+    const dim3 grid(ceil_div(w, s.cols), l1 - l0, batch);
+    cols_kept_kernel<<<grid, s.nt_h, s.smem_cols, stream>>>(
+        scratch, slot, tau, twh, s.lh, w, s.cols, nrows, p0, l1 - l0, l0, op,
+        reinterpret_cast<const float2*>(cl));
     if ((err = (int)cudaGetLastError()) != 0) return err;
   }
   rows_forward_acc_kernel<false>
@@ -924,17 +1064,20 @@ int p3d_subband_shrink(const float* psi, const float* tau, const float* tw_h,
 
 // The percentile route's pass 1 for kernel B: pass (1) into `work`, then
 // the row pass's PASS_KEYS form, which writes |c| of the full N_h × N_w
-// field of every band into keys (batch, lg, nh, nw) and leaves `work` for
-// p3d_box_shrink. Returns and takes its arguments as p3d_box_group_update.
+// field of every band into keys (batch, lg, nh, nw), adds their first
+// digits to hist (batch, lg, HIST_COLS), zeroed by the caller, and leaves
+// `work` for p3d_box_shrink. Returns and takes its arguments as
+// p3d_box_group_update.
 int p3d_box_keys(const float* xb_re, const float* xb_im, const float* psi,
                  const int* idx_h, const int* idx_w, const float* tw_h,
-                 const float* tw_w, float* keys, float* work, int batch,
-                 int lg, int sr, int sc, int nh, int nw, void* stream_handle) {
+                 const float* tw_w, float* keys, unsigned* hist, float* work,
+                 int batch, int lg, int sr, int sc, int nh, int nw,
+                 void* stream_handle) {
   BoxLines s;
   int err;
   if ((err = box_lines(sr, sc, nh, nw, &s)) != 0) return err;
-  if ((err = allow_smem(box_rows_kernel<PASS_KEYS>, s.smem_w)) != 0)
-    return err;
+  const size_t smem = s.smem_w + sizeof(unsigned) * HIST_WORDS;
+  if ((err = allow_smem(box_rows_kernel<PASS_KEYS>, smem)) != 0) return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   float2* g = reinterpret_cast<float2*>(work);
   if ((err = box_inverse_columns(s, xb_re, xb_im, psi, idx_h,
@@ -942,9 +1085,9 @@ int p3d_box_keys(const float* xb_re, const float* xb_im, const float* psi,
                                  batch, lg, sr, sc, stream)) != 0)
     return err;
   box_rows_kernel<PASS_KEYS>
-      <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, s.smem_w, stream>>>(
+      <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, smem, stream>>>(
           g, idx_w, nullptr, reinterpret_cast<const float2*>(tw_w), s.lw, nh,
-          sc, s.scale, 0, keys);
+          sc, s.scale, 0, keys, hist);
   return (int)cudaGetLastError();
 }
 
@@ -967,7 +1110,7 @@ int p3d_box_shrink(const float* psi, const float* tau, const int* idx_h,
   box_rows_kernel<PASS_SHRINK_RN>
       <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, s.smem_w, stream>>>(
           g, idx_w, tau, reinterpret_cast<const float2*>(tw_w), s.lw, nh, sc,
-          s.scale, op, nullptr);
+          s.scale, op, nullptr, nullptr);
   if ((err = (int)cudaGetLastError()) != 0) return err;
   return box_forward_columns(s, g, psi, idx_h,
                              reinterpret_cast<const float2*>(tw_h), m_re,

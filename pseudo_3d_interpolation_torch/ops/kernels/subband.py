@@ -31,10 +31,13 @@ takes it, ``threshold_pair`` on each band's c_l) each band's threshold is
 a percentile of |c_l| over the whole field, which the kernels cannot know
 before c_l is whole. :func:`subband_update_percentile` and
 :func:`box_group_update_percentile` run kernels A and B split at the
-threshold: pass 1 (:func:`subband_keys`, :func:`box_keys`) writes |c_l|,
-``percentile.band_percentile`` selects the thresholds on the card, pass 2
-(:func:`subband_shrink`, :func:`box_shrink`) computes c_l once more from
-pass 1's scratch and runs the rest of the kernel.
+threshold: pass 1 (:func:`subband_keys`, :func:`box_keys`) writes |c_l|
+and the histogram of its first digit, ``percentile.band_percentile``
+selects the thresholds on the card, pass 2 (:func:`subband_shrink`,
+:func:`box_shrink`) shrinks c_l and runs the rest of the kernel. Kernel A
+keeps c_l from pass 1 (the faster design on the card; computing it again
+stays selectable as its bit-for-bit reference); kernel B computes it once
+more from pass 1's scratch.
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors; a failed build or launch raises. The
@@ -195,11 +198,11 @@ def _lib() -> ctypes.CDLL:
     lib.p3d_line_fft.restype = i
     lib.p3d_box_group_update.argtypes = [p] * 11 + [i] * 7 + [p]
     lib.p3d_box_group_update.restype = i
-    lib.p3d_subband_keys.argtypes = [p] * 7 + [i] * 2 + [p] * 2 + [i] * 4 + [p]
+    lib.p3d_subband_keys.argtypes = [p] * 7 + [i] * 2 + [p] * 4 + [i] * 4 + [p]
     lib.p3d_subband_keys.restype = i
-    lib.p3d_subband_shrink.argtypes = [p] * 6 + [i] * 2 + [p] * 3 + [i] * 6 + [p]
+    lib.p3d_subband_shrink.argtypes = [p] * 6 + [i] * 2 + [p] * 4 + [i] * 6 + [p]
     lib.p3d_subband_shrink.restype = i
-    lib.p3d_box_keys.argtypes = [p] * 9 + [i] * 6 + [p]
+    lib.p3d_box_keys.argtypes = [p] * 10 + [i] * 6 + [p]
     lib.p3d_box_keys.restype = i
     lib.p3d_box_shrink.argtypes = [p] * 9 + [i] * 7 + [p]
     lib.p3d_box_shrink.restype = i
@@ -511,11 +514,13 @@ box_group_update.launches = 0
 # A percentile threshold needs all of c_l before any of it is shrunk, so
 # the route runs each kernel in two passes with the selection between:
 # pass 1 (``subband_keys``, ``box_keys``) the passes up to c_l, writing
-# |c_l| of every pixel (the keys); ``percentile.band_percentile`` one
-# threshold per (slice, band); pass 2 (``subband_shrink``, ``box_shrink``)
-# c_l computed again from pass 1's scratch (the same code on the same
-# values, so the same bits), shrunk, and the rest of the kernel. Each
-# wrapper counts its launches; on CPU tensors it runs its plain version.
+# |c_l| of every pixel (the keys) and counting their first digit
+# (``percentile.key_histogram_plain``'s histogram); ``percentile.
+# band_percentile`` one threshold per (slice, band); pass 2
+# (``subband_shrink``, ``box_shrink``) c_l shrunk and the rest of the
+# kernel, on c_l as pass 1 kept it (kernel A) or computed again from pass
+# 1's scratch (kernel B). Each wrapper counts its launches; on CPU tensors
+# it runs its plain version.
 
 
 def subband_keys_plain(x_spec: Cplx, psi: torch.Tensor) -> torch.Tensor:
@@ -530,32 +535,50 @@ def subband_keys_plain(x_spec: Cplx, psi: torch.Tensor) -> torch.Tensor:
     return keys
 
 
+def _new_hist(lead: tuple, device) -> torch.Tensor:
+    """Pass 1's histogram on the card, (lead + (HIST_COLS,)) int32, zeroed
+    on the current stream for the kernel to add to."""
+    from .percentile import HIST_COLS
+
+    return torch.zeros(tuple(lead) + (HIST_COLS,), dtype=torch.int32,
+                       device=device)
+
+
 def subband_keys(x_spec: Cplx, psi: torch.Tensor, support: RowSupport,
-                 l0: int, l1: int, work: torch.Tensor | None = None
-                 ) -> torch.Tensor:
+                 l0: int, l1: int, work=None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Pass 1 of the percentile route on the band chunk [l0, l1) of
-    ``psi``: the keys |c_l| (B, l1 − l0, H, W) of c_l = ifft2(X·ψ_l). On
-    the card the kernel's passes (a) and (b) up to the scale, (a) into
-    ``work`` (:func:`percentile_work`), which pass 2 reads; CPU tensors run
-    :func:`subband_keys_plain`."""
+    ``psi``: (the keys |c_l| (B, l1 − l0, H, W) of c_l = ifft2(X·ψ_l),
+    their first-digit histogram (B, l1 − l0, HIST_COLS) int32, as
+    ``percentile.key_histogram_plain`` counts it). On the card the
+    kernel's passes (a) and (b) up to the scale, (a) into ``work``'s
+    scratch and c_l into its kept buffer (:func:`percentile_work`), which
+    pass 2 reads; the keys are written column by column and returned as a
+    transposed view, each segment one contiguous block. CPU tensors run
+    :func:`subband_keys_plain` and the plain histogram."""
+    from .percentile import key_histogram_plain
+
     device = _check_bands(x_spec, psi, None, "x_spec")
     _check_support(psi, support)
     if device.type == "cpu":
-        return subband_keys_plain(x_spec, psi[l0:l1])
+        keys = subband_keys_plain(x_spec, psi[l0:l1])
+        return keys, key_histogram_plain(keys)
     b, h, w = x_spec.re.shape
-    keys = torch.empty((b, l1 - l0, h, w), dtype=torch.float32,
+    scratch, cl = work
+    keys = torch.empty((b, l1 - l0, w, h), dtype=torch.float32,
                        device=device)
+    hist = _new_hist((b, l1 - l0), device)
     with torch.cuda.device(device):
         rc = _lib().p3d_subband_keys(
             x_spec.re.data_ptr(), x_spec.im.data_ptr(), psi.data_ptr(),
             twiddles_on(h, str(device)).data_ptr(),
             twiddles_on(w, str(device)).data_ptr(), support.table.data_ptr(),
             support.offsets.ctypes.data, l0, l1, keys.data_ptr(),
-            work.data_ptr(), b, h, w, psi.shape[0],
-            torch.cuda.current_stream(device).cuda_stream)
+            hist.data_ptr(), scratch.data_ptr(), cl.data_ptr(), b, h, w,
+            psi.shape[0], torch.cuda.current_stream(device).cuda_stream)
     raise_on(rc, "subband_keys", tuple(x_spec.re.shape))
     subband_keys.launches += 1
-    return keys
+    return keys.transpose(-1, -2), hist
 
 
 subband_keys.launches = 0
@@ -580,14 +603,14 @@ def subband_shrink_plain(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
 
 def subband_shrink(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
                    support: RowSupport, l0: int, l1: int, acc: Cplx | None,
-                   thresh_op: str, work: torch.Tensor | None = None) -> Cplx:
-    """Pass 2 of the percentile route on the band chunk [l0, l1): c_l once
-    more from pass 1's ``work``, shrunk by ``tau`` (B, l1 − l0) (the
-    thresholds :func:`percentile.band_percentile` selected) with |c|²
-    rounded as the keys were, forward-transformed, weighted by ψ_l and
-    summed in band order onto ``acc`` (None for the first chunk). Returns
-    the accumulator, on the card ``acc``'s planes written in place; CPU
-    tensors run :func:`subband_shrink_plain`."""
+                   thresh_op: str, work=None) -> Cplx:
+    """Pass 2 of the percentile route on the band chunk [l0, l1): c_l as
+    pass 1 kept it in ``work`` (:func:`percentile_work`), shrunk by ``tau``
+    (B, l1 − l0) (the thresholds :func:`percentile.band_percentile`
+    selected) with |c|² rounded as the keys were, forward-transformed,
+    weighted by ψ_l and summed in band order onto ``acc`` (None for the
+    first chunk). Returns the accumulator, on the card ``acc``'s planes
+    written in place; CPU tensors run :func:`subband_shrink_plain`."""
     op = _split_op(thresh_op, "highest")
     device = _check_bands(x_spec, psi, None, "x_spec")
     _check_support(psi, support)
@@ -601,14 +624,15 @@ def subband_shrink(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
     first = acc is None
     if first:
         acc = Cplx(torch.empty_like(x_spec.re), torch.empty_like(x_spec.im))
+    scratch, cl = work
     with torch.cuda.device(device):
         rc = _lib().p3d_subband_shrink(
             psi.data_ptr(), tau.data_ptr(),
             twiddles_on(h, str(device)).data_ptr(),
             twiddles_on(w, str(device)).data_ptr(), support.table.data_ptr(),
             support.offsets.ctypes.data, l0, l1, acc.re.data_ptr(),
-            acc.im.data_ptr(), work.data_ptr(), b, h, w, psi.shape[0],
-            THRESH_OPS[op], int(first),
+            acc.im.data_ptr(), scratch.data_ptr(), cl.data_ptr(), b, h, w,
+            psi.shape[0], THRESH_OPS[op], int(first),
             torch.cuda.current_stream(device).cuda_stream)
     raise_on(rc, "subband_shrink", tuple(x_spec.re.shape))
     subband_shrink.launches += 1
@@ -618,20 +642,40 @@ def subband_shrink(x_spec: Cplx, psi: torch.Tensor, tau: torch.Tensor,
 subband_shrink.launches = 0
 
 
-def percentile_work(x: Cplx, support: RowSupport) -> torch.Tensor | None:
-    """The scratch pass 1 of :func:`subband_keys` writes and pass 2 reads
-    for every band chunk of a (B, H, W) call: the most support rows of one
-    chunk; None on the host, where the plain versions need none."""
+def percentile_work(x: Cplx, support: RowSupport) -> tuple | None:
+    """The buffers pass 1 of :func:`subband_keys` writes and pass 2 reads
+    for every band chunk of a (B, H, W) call: (the scratch of the most
+    support rows of one chunk, the kept c_l of the most bands of one chunk
+    (B, bands, W, H) complex); None on the host, where the plain versions
+    need none."""
     if x.re.device.type == "cpu":
         return None
-    return _band_call(x, support, False)[1]
+    b, h, w = x.re.shape
+    scratch = _band_call(x, support, False)[1]
+    chunks = support.chunks(b, h, w)[0]
+    bands = int(np.max(np.diff(chunks)))
+    return scratch, torch.empty(b * bands * h * w * 2, dtype=torch.float32,
+                                device=x.re.device)
 
 
 def percentile_key_bytes(batch: int, h: int, w: int, nbands: int) -> int:
-    """The keys pass 1 writes for ``nbands`` bands of a (B, H, W) call:
-    float32 (B, nbands, H, W); a chunk of :func:`subband_update_percentile`
-    holds at most every band's."""
-    return 4 * batch * nbands * h * w
+    """What pass 1 and the selection hold for ``nbands`` bands of a
+    (B, H, W) call: the float32 keys (B, nbands, H, W), their histogram
+    and the selection's candidates and state; a chunk of
+    :func:`subband_update_percentile` holds at most every band's."""
+    from .percentile import HIST_COLS, select_bytes
+
+    segments = batch * nbands
+    return (4 * segments * (h * w + HIST_COLS)
+            + select_bytes(segments, h * w))
+
+
+def kept_cl_bytes(batch: int, h: int, w: int, nbands: int) -> int:
+    """The c_l pass 1 keeps for pass 2, for ``nbands`` full-size bands of
+    a (B, H, W) call (a chunk holds at most every band's): complex64
+    (B, nbands, W, H). Keeping it beats computing it again in pass 2 by
+    1.8 ms a 32×512² SHEARLET call on an H100 (PERF.md §6)."""
+    return 8 * batch * nbands * h * w
 
 
 def subband_update_percentile_plain(x_spec: Cplx, psi: torch.Tensor,
@@ -673,8 +717,9 @@ def subband_update_percentile(x_spec: Cplx, psi: torch.Tensor,
     work = percentile_work(x_spec, support)
     acc = None
     for l0, l1 in zip(chunks[:-1].tolist(), chunks[1:].tolist()):
-        tau = band_percentile(subband_keys(x_spec, psi, support, l0, l1, work),
-                              q[:, l0:l1].contiguous())
+        keys, hist = subband_keys(x_spec, psi, support, l0, l1, work)
+        tau = band_percentile(keys, q[:, l0:l1].contiguous(), hist)
+        del keys, hist
         acc = subband_shrink(x_spec, psi, tau, support, l0, l1, acc, op, work)
     return acc
 
@@ -696,29 +741,35 @@ def box_keys_plain(xbox: Cplx, psi: torch.Tensor, mats, n_h: int,
 
 
 def box_keys(xbox: Cplx, psi: torch.Tensor, mats, n_h: int, n_w: int, *,
-             index=None, work: torch.Tensor | None = None) -> torch.Tensor:
-    """Pass 1 of the percentile route for one box group: the keys |c| of
-    each band's full N_h × N_w field, (B, lg, N_h, N_w). On the card the
-    box kernel's pass (1) into ``work`` (``box_work_floats`` floats, which
-    pass 2 reads) and its row pass up to the scale; CPU tensors run
-    :func:`box_keys_plain`. Arguments as :func:`box_group_update`."""
+             index=None, work: torch.Tensor | None = None
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Pass 1 of the percentile route for one box group: (the keys |c| of
+    each band's full N_h × N_w field, (B, lg, N_h, N_w), their first-digit
+    histogram (B, lg, HIST_COLS) int32). On the card the box kernel's pass
+    (1) into ``work`` (``box_work_floats`` floats, which pass 2 reads) and
+    its row pass up to the scale; CPU tensors run :func:`box_keys_plain`
+    and the plain histogram. Arguments as :func:`box_group_update`."""
+    from .percentile import key_histogram_plain
+
     b, sr, sc = xbox.re.shape
     lg = psi.shape[0]
     device = _check_box(xbox, psi, None, mats, n_h, n_w, index)
     if device.type == "cpu":
-        return box_keys_plain(xbox, psi, mats, n_h, n_w)
+        keys = box_keys_plain(xbox, psi, mats, n_h, n_w)
+        return keys, key_histogram_plain(keys)
     keys = torch.empty((b, lg, n_h, n_w), dtype=torch.float32, device=device)
+    hist = _new_hist((b, lg), device)
     with torch.cuda.device(device):
         rc = _lib().p3d_box_keys(
             xbox.re.data_ptr(), xbox.im.data_ptr(), psi.data_ptr(),
             index[0].data_ptr(), index[1].data_ptr(),
             twiddles_on(n_h, str(device)).data_ptr(),
             twiddles_on(n_w, str(device)).data_ptr(), keys.data_ptr(),
-            work.data_ptr(), b, lg, sr, sc, n_h, n_w,
+            hist.data_ptr(), work.data_ptr(), b, lg, sr, sc, n_h, n_w,
             torch.cuda.current_stream(device).cuda_stream)
     raise_on(rc, "box_keys", (b, sr, sc, n_h, n_w))
     box_keys.launches += 1
-    return keys
+    return keys, hist
 
 
 box_keys.launches = 0
@@ -790,7 +841,8 @@ def box_group_update_percentile(xbox: Cplx, psi: torch.Tensor,
     work = (None if device.type == "cpu" else torch.empty(
         box_work_floats(b, psi.shape[0], sc, n_h), dtype=torch.float32,
         device=device))
-    tau = band_percentile(box_keys(xbox, psi, mats, n_h, n_w, index=index,
-                                   work=work), q)
+    keys, hist = box_keys(xbox, psi, mats, n_h, n_w, index=index, work=work)
+    tau = band_percentile(keys, q, hist)
+    del keys, hist
     return box_shrink(xbox, psi, tau, mats, n_h, n_w, op, index=index,
                       work=work)

@@ -132,9 +132,11 @@ def _transform_device_bytes(transform, batch: int, h: int, w: int,
     (with ``P3D_SPATIAL_IO`` set, ``subband_update_spatial``'s, which adds
     one (B, H, W) spectrum) and what the largest box group's call
     allocates, and with a ``*-percentile`` ``thresh_op`` the split
-    kernels' keys (float32 per slice, band of a chunk or box group and
-    pixel: at most the full-size bands' or the largest group's); the
-    decimated CURVELET's cropped windows and gather indices."""
+    kernels' keys with the selection's buffers (float32 per slice, band of
+    a chunk or box group and pixel, with each band's histogram and
+    candidates: at most the full-size bands' or the largest group's) and
+    the full-size bands' kept c_l (complex64 per slice, band and pixel);
+    the decimated CURVELET's cropped windows and gather indices."""
     if getattr(transform, "decimated", False):
         # a float32 window and an int64 index per wrapped-grid element
         return sum(p.size * (4 if r is None else 12)
@@ -148,7 +150,9 @@ def _transform_device_bytes(transform, batch: int, h: int, w: int,
                      for _, lg, g in boxes), default=0)
     percentile = thresh_op.endswith("-percentile")
     keys = (subband.percentile_key_bytes(batch, h, w, max(
-        [len(full_idx)] + [lg for _, lg, _ in boxes])) if percentile else 0)
+        [len(full_idx)] + [lg for _, lg, _ in boxes]))
+            + subband.kept_cl_bytes(batch, h, w, len(full_idx))
+            if percentile else 0)
     return (2 * n_bands * h * w * 4
             + subband.scratch_bytes(batch, h, w, n_bands,
                                     spatial=sh.spatial_io_default()

@@ -147,7 +147,9 @@ def subband_keys_work(batch: int, h: int, w: int, support_rows: int,
                       nbands: int, nchunks: int) -> tuple[float, int]:
     """(flops, bytes) of the percentile route's pass 1 over every chunk
     (``subband_keys``): pass (a), and the column pass's inverse half
-    writing |c| of every pixel of every band as float32 keys."""
+    writing |c| of every pixel of every band as float32 keys. The c_l the
+    kernel keeps for pass 2, and the keys' histogram, are its own traffic,
+    not the function's: not counted."""
     a_bytes, a_flops = subband_pass_work(batch, h, w, support_rows, nbands,
                                          nchunks)["rows_inverse_kernel"]
     return (a_flops + batch * nbands * w * line_flops(h),
@@ -157,7 +159,8 @@ def subband_keys_work(batch: int, h: int, w: int, support_rows: int,
 def subband_shrink_work(batch: int, h: int, w: int, support_rows: int,
                         nbands: int, nchunks: int) -> tuple[float, int]:
     """(flops, bytes) of the percentile route's pass 2 over every chunk
-    (``subband_shrink``): the column and accumulating passes of row 3."""
+    (``subband_shrink``): the column and accumulating passes of row 3,
+    c_l's forward half; reading a kept c_l is the kernel's own traffic."""
     work = subband_pass_work(batch, h, w, support_rows, nbands, nchunks)
     return (work["cols_shrink_kernel"][1]
             + work["rows_forward_acc_kernel"][1],

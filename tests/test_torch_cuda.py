@@ -861,10 +861,111 @@ def test_band_percentile_bit_equal_to_plain(device, shape, keys_of):
     s, c = shape[:2]
     q = torch.tensor([0.0, 37.5, 99.9, 100.0, 60.0, 150.0, -1.0] * (s * c),
                      dtype=torch.float32)[:s * c].reshape(s, c).to(device)
-    got = kp.band_percentile(keys, q)
+    got = kp.band_percentile(keys, q, kp.key_histogram_plain(keys))
     want = kp.band_percentile_plain(keys, q)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw", [(64, 64), (512, 512), (97, 130)])
+def test_band_percentile_over_capacity(device, hw):
+    """Segments whose rank falls in a first-digit bin holding more than the
+    candidate buffer (all-equal keys, keys inside one quarter of an
+    exponent) are finished over their keys, beside segments that fit and
+    a segment whose rank lo is the last key of its bin: all bit-equal to
+    the plain version."""
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
+
+    h, w = hw
+    n = h * w
+    gen = torch.Generator(device="cpu").manual_seed(n)
+    keys = torch.rand((2, 4, h, w), generator=gen)
+    keys[0, 0] = 0.37
+    keys[0, 1] = 1.0 + 0.25 * keys[0, 1]
+    half = n // 2
+    split = torch.cat([1.0 + 0.25 * torch.rand(half, generator=gen),
+                       4.0 + torch.rand(n - half, generator=gen)])
+    keys[1, 0] = split[torch.randperm(n, generator=gen)].reshape(h, w)
+    keys = keys.to(device)
+    top = float(np.float32(n) - np.float32(1))
+    # q that puts rank lo on the last key of the lower half in keys[1, 0]
+    q_last = float(np.float32((half - 0.5) / top * 100.0))
+    q = torch.tensor([[0.0, 60.0, 99.9, 37.5], [q_last, 60.0, 100.0, 50.0]],
+                     dtype=torch.float32, device=device)
+    hist = kp.key_histogram_plain(keys)
+    cap = kp.candidate_capacity(n)
+    first = torch.argmax(hist[..., :kp.KEY_BINS], dim=-1)
+    assert int(hist[0, 0, first[0, 0]]) > cap
+    assert int(hist[0, 1, first[0, 1]]) > cap
+    got = kp.band_percentile(keys, q, hist)
+    want = kp.band_percentile_plain(keys, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,h,w", [("SHEARLET", 128, 128),
+                                      ("SHEARLET", 96, 130),
+                                      ("CURVELET", 256, 256)])
+def test_pass_1_histogram_matches_plain(device, kind, h, w):
+    """The first-digit histogram pass 1 counts as it writes the keys
+    (subband_keys, box_keys) equals the plain histogram of the keys it
+    returns, NaN column included."""
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
+
+    b = 3
+    _, _, _, xf, full, _, boxes, _ = _percentile_case(kind, b, h, w, device)
+    spec = Cplx(xf.real.contiguous(), xf.imag.contiguous())
+    psi = full.psi_on(device)
+    support = full.support_on(device)
+    l1 = int(support.chunks(b, h, w)[0][1])
+    keys, hist = ksb.subband_keys(spec, psi, support, 0, l1,
+                                  ksb.percentile_work(spec, support))
+    torch.cuda.synchronize()
+    assert keys.shape == (b, l1, h, w)
+    assert torch.equal(hist, kp.key_histogram_plain(keys))
+    for l0, lg, g in boxes:
+        ih, iw = g.index_on(device)
+        box = xf[:, ih[:, None], iw[None, :]]
+        xb = Cplx(box.real.contiguous(), box.imag.contiguous())
+        work = torch.empty(ksb.box_work_floats(b, lg, len(iw), h),
+                           device=device)
+        keys, hist = ksb.box_keys(xb, g.psi_on(device), None, h, w,
+                                  index=g.box_index_on(h, w, device),
+                                  work=work)
+        torch.cuda.synchronize()
+        assert torch.equal(hist, kp.key_histogram_plain(keys))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [3000, 1536])
+@pytest.mark.parametrize("op", ["soft", "garrote"])
+def test_split_update_on_tall_slices(device, h, op):
+    """Sides whose column tile leaves less than the block's histogram free
+    in shared memory when sized without it (3000 and 1536 rows): pass 1
+    sizes its own tile with the histogram counted, so its histogram equals
+    the plain one of its keys and the split update matches its plain
+    version within SOFT_TOL·max."""
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
+
+    b, w = 2, 64
+    psi_np = _edge_windows(h, w, h + w)
+    psi = torch.from_numpy(psi_np).to(device)
+    support = ksb.row_support_on(psi_np, device)
+    _, spec = _slices(b, h, w, device, 9)
+    q = torch.from_numpy(np.random.default_rng(h).uniform(
+        60.0, 99.9, size=(b, psi.shape[0])).astype(np.float32)).to(device)
+    l1 = int(support.chunks(b, h, w)[0][1])
+    keys, hist = ksb.subband_keys(spec, psi, support, 0, l1,
+                                  ksb.percentile_work(spec, support))
+    torch.cuda.synchronize()
+    assert torch.equal(hist, kp.key_histogram_plain(keys))
+    got = _host(ksb.subband_update_percentile(
+        spec, psi, q, f"{op}-percentile", support=support))
+    want = _host(ksb.subband_update_percentile_plain(spec, psi, q, op))
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
 
 
 @pytest.mark.cuda
@@ -892,10 +993,10 @@ def test_split_passes_match_plain(device, kind, h, w, op):
     qf = q[:, torch.from_numpy(full_idx).to(device)].contiguous()
     work = ksb.percentile_work(spec, support)
     l1 = int(support.chunks(b, h, w)[0][1])
-    keys = ksb.subband_keys(spec, psi, support, 0, l1, work)
+    keys, hist = ksb.subband_keys(spec, psi, support, 0, l1, work)
     plain = ksb.subband_keys_plain(spec, psi[:l1])
     assert (keys - plain).abs().max() <= 1e-5 * plain.max()
-    t = kp.band_percentile(keys, qf[:, :l1].contiguous())
+    t = kp.band_percentile(keys, qf[:, :l1].contiguous(), hist)
     assert torch.equal(t.view(torch.int32), kp.band_percentile_plain(
         keys, qf[:, :l1].contiguous()).view(torch.int32))
     pairs = [(ksb.subband_update_percentile(
