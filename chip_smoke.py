@@ -237,8 +237,12 @@ Phases, each of which exits non-zero on failure:
    on edge cases (q 0 and 100, integer ranks, q outside [0, 100], a NaN
    key, runs of ties, first-digit bins past the candidate buffer), the
    split ``subband_update`` and ``box_group_update`` against their plain
-   versions (soft within 1e-4·max, hard by iterate SNR); each pass
-   timed at batch 32 (torch.profiler) with its rates, the selection's
+   versions (soft within 1e-4·max, hard by iterate SNR), the box passes
+   in the form each group's indices plan (``box_line_plan``: pruned on
+   the 16-, 40- and 72-side groups, printed) and in the general form
+   beside it; each pass timed at batch 32 (torch.profiler) with its
+   rates, the box passes on the SHEARLET groups and on CURVELET's
+   72-side group, the selection's
    kernels over a call's bands against their
    bound, and the selection's ms, GB/s and bound on one chunk's keys
    beside ``torch.kthvalue``'s on the same keys; (b) the
@@ -287,7 +291,10 @@ Phases, each of which exits non-zero on failure:
    plan against the box plan: launches (one ``box_group_update`` per box
    group, no plain version called), ms a call, and the two results
    (soft within 1e-4·max, hard by iterate SNR); (c) each box group's
-   kernel and plain time and bound at batch 32, both plans; (d)
+   kernel and plain time and bound at batch 32, both plans, and the
+   percentile route's box passes on the split groups with the form each
+   takes (general, but pruned on 447x63, whose columns are a wrapped
+   range of 63); (d)
    ``shearlet_transform`` and ``inverse_shearlet_transform`` on the card
    against ``device="cpu"`` within 1e-5·max, and the pair's
    reconstruction.
@@ -340,9 +347,11 @@ beside it (3b, 3f). The percentile route's wrappers count their own
 inputs and outputs: pass 1 (``subband_keys``, ``box_keys``) reads the
 slices' spectra and the windows and writes the float32 keys (4 bytes per
 slice, band and pixel), with one line FFT of each support row and of
-every column (each field row for a box group); pass 2 (``subband_shrink``,
-``box_shrink``) PR 5's column and accumulating passes (a box group's row
-pass both ways and its summing column pass); the c_l pass 1 keeps for
+every column (each field row for a box group: a full line FFT in the
+general form, n/s′ s′-point FFTs and 6·n twiddle flops in the pruned
+one); pass 2 (``subband_shrink``, ``box_shrink``) the subband kernel's
+column and accumulating passes (a box group's row pass both ways in its
+form and its summing column pass); the c_l pass 1 keeps for
 pass 2 is the implementation's traffic, not the function's, and is not
 counted; ``band_percentile`` reads
 its keys once, and its ``library_ms`` is ``torch.kthvalue`` of one rank
@@ -798,11 +807,14 @@ def profiled_events(torch, run, reps: int, want=(), launches=None) -> list:
     kernels of only some calls, so the profile is taken again, up to
     PROFILE_ATTEMPTS times, while no event names a kernel of ``want``, or
     while the trace holds another count than ``reps`` times ``launches``
-    (a pass, its launches a call) of that pass; each such attempt is
-    printed with what its trace held. The caller fails on a pass still
-    missing; an incomplete count still fails here."""
+    of a pass (``launches``: a pass and its launches a call, or a dict of
+    such); each such attempt is printed with what its trace held. The
+    caller fails on a pass still missing; an incomplete count still fails
+    here."""
     from torch.profiler import ProfilerActivity, profile
 
+    counts = (dict([launches]) if isinstance(launches, tuple)
+              else dict(launches or {}))
     run()
     torch.cuda.synchronize()
     for attempt in range(1, PROFILE_ATTEMPTS + 1):
@@ -814,20 +826,20 @@ def profiled_events(torch, run, reps: int, want=(), launches=None) -> list:
             events = device_events(prof, pathlib.Path(tmp) / "passes.json")
         missing = [n for n in want
                    if not any(n in e["name"] for e in events)]
-        held = (None if launches is None
-                else sum(launches[0] in e["name"] for e in events))
-        whole = launches is None or held == reps * launches[1]
-        if not missing and whole:
+        short = [(name, sum(name in e["name"] for e in events), reps * n)
+                 for name, n in counts.items()]
+        short = [c for c in short if c[1] != c[2]]
+        if not missing and not short:
             break
         seen = sorted({e["name"][:40] for e in events})[:4]
         print(f"profile attempt {attempt} of {PROFILE_ATTEMPTS}: the trace "
               f"({len(events)} device events, e.g. {seen}) holds "
               + (f"no {', '.join(missing)}" if missing else
-                 f"{held} {launches[0]} launches, not {reps} calls' "
-                 f"{reps * launches[1]}"), flush=True)
-    if not whole:
+                 f"{short[0][1]} {short[0][0]} launches, not {reps} calls' "
+                 f"{short[0][2]}"), flush=True)
+    if short:
         fail(f"no profile of {PROFILE_ATTEMPTS} held the {reps} calls' "
-             f"{reps * launches[1]} {launches[0]} launches (last {held})")
+             f"{short[0][2]} {short[0][0]} launches (last {short[0][1]})")
     return sorted(events, key=lambda e: e["ts"])
 
 
@@ -845,10 +857,10 @@ def kernel_passes(torch, run, names, reps: int = 3,
     that its trace name contains, the longest such name) of ``reps``
     calls of ``run`` under torch.profiler, after one untimed call, taken
     again while a pass of ``want`` (all of ``names`` by default) is
-    missing or, with ``launches`` (a pass, its launches a call), while
-    the trace holds another count of that pass than the ``reps`` calls
-    launched; with ``exclusive`` fails when anything else ran on the
-    device."""
+    missing or, with ``launches`` (a pass and its launches a call, or a
+    dict of such), while the trace holds another count of a pass than the
+    ``reps`` calls launched; with ``exclusive`` fails when anything else
+    ran on the device."""
     times = dict.fromkeys(names, 0.0)
     events = profiled_events(torch, run, reps,
                              names if want is None else want, launches)
@@ -2547,9 +2559,6 @@ SELECT_PASSES = ("select_plan_kernel", "select_gather_kernel",
 # the split route: pass 1 writes the keys and keeps c_l, pass 2 reads it
 KEY_PASSES = (("rows_inverse_kernel", "cols_keys_kernel")
               + SELECT_PASSES + ("cols_kept_kernel", "rows_forward_acc_kernel"))
-BOX_KEY_PASSES = (("box_cols_inverse_kernel", "box_rows_kernel<2>")
-                  + SELECT_PASSES
-                  + ("box_rows_kernel<1>", "box_cols_forward_kernel"))
 # the plain versions the percentile route has on the host; none may run on
 # the card's main path
 PLAIN_NAMES = ("subband_keys_plain", "subband_shrink_plain",
@@ -2671,19 +2680,32 @@ def selection_cases(torch, kp, keys, q):
           flush=True)
 
 
+def box_forms(ksb, index) -> list:
+    """(label, index) of each form of the percentile route's box row pass
+    on a group: the form its indices plan (``index.line``, box_line_plan),
+    and the general form beside it where that is the pruned one."""
+    if index.line is None:
+        return [("general form", index)]
+    o, line = index.line
+    return [(f"pruned form (o={o}, s'={line})", index),
+            ("general form", ksb.BoxIndex(index[0], index[1], None))]
+
+
 def percentile_kernels(torch, ksb, kp, dev) -> dict:
     """Phase 17a: the percentile route's kernels at the main path's shapes
-    (32x512x512, the 48 full-size SHEARLET bands, its 16- and 40-side box
-    groups, the CURVELET plan's 41 bands and 72-side group), q from phase
-    12d's configuration. The selection bit-equal to its plain version on
-    the keys of pass 1 and on edge cases; the split subband_update and
-    box_group_update against their plain versions (soft within SOFT_TOL,
-    hard by iterate SNR within SNR_TOL_DB); the passes timed. Returns the
-    numbers of the kernels line."""
+    (batches 8 and 32 of 512², the 48 full-size SHEARLET bands, its 16-
+    and 40-side box groups, the CURVELET plan's 41 bands and 72-side
+    group), q from phase 12d's configuration. The selection bit-equal to
+    its plain version on the keys of pass 1 and on edge cases; the split
+    subband_update and box_group_update against their plain versions
+    (soft within SOFT_TOL, hard by iterate SNR within SNR_TOL_DB), the box
+    passes in both forms (box_forms); the passes timed at batch 32, the
+    box passes on every group. Returns the numbers of the kernels line
+    (the box wrappers' over the SHEARLET groups, as PERF.md's row 4b)."""
     out = {}
     err_keys = err_box_keys = err_a = err_b = 0.0
     for name, b in (("SHEARLET", 8), ("CURVELET", 8),
-                    ("SHEARLET", MAIN_BATCH)):
+                    ("SHEARLET", MAIN_BATCH), ("CURVELET", MAIN_BATCH)):
         case = SubbandCase(torch, b, N, N, 1700 + b, dev, name)
         q_full, q_boxes = percentiles(torch, case)
         # pass 1 of the first chunk and the selection on its keys
@@ -2701,31 +2723,36 @@ def percentile_kernels(torch, ksb, kp, dev) -> dict:
         del plain
         for k, (_, lg, g) in enumerate(case.boxes):
             _, args, index = case.box_args(k, "hard")
-            work_b = torch.empty(ksb.box_work_floats(b, lg, len(g.idx_w), N),
-                                 device=dev)
-            got, hist_b = ksb.box_keys(args[0], args[1], args[3], N, N,
-                                       index=index, work=work_b)
-            histogram_against_plain(torch, kp, hist_b, got,
-                                    f"box_keys {name} {b}x{lg} bands")
+            box = f"{name} {b}x{len(g.idx_h)}x{len(g.idx_w)}"
             plain = ksb.box_keys_plain(args[0], args[1], args[3], N, N)
-            e = float(torch.max(torch.abs(got - plain)) / torch.max(plain))
-            err_box_keys = max(err_box_keys, e)
-            if e > SOFT_TOL:
-                fail(f"box_keys {name} {b}x{len(g.idx_h)}x{len(g.idx_w)}: "
-                     f"max|d| {e:.2e} of max")
-            selection_against_plain(torch, kp, got, q_boxes[k],
-                                    f"{name} box group of {lg} bands", hist_b)
-            if b == MAIN_BATCH:
-                bin_sizes(torch, kp, hist_b, q_boxes[k],
-                          f"{name} {b}x{lg} box group")
-            del got, plain, work_b
+            for form, idx in box_forms(ksb, index):
+                work_b = torch.empty(
+                    ksb.box_work_floats(b, lg, len(g.idx_w), N), device=dev)
+                got, hist_b = ksb.box_keys(args[0], args[1], args[3], N, N,
+                                           index=idx, work=work_b)
+                histogram_against_plain(torch, kp, hist_b, got,
+                                        f"box_keys {box}, {form}")
+                e = float(torch.max(torch.abs(got - plain))
+                          / torch.max(plain))
+                err_box_keys = max(err_box_keys, e)
+                print(f"box_keys {box} ({lg} bands), {form}: max|d| "
+                      f"{e:.2e} of max", flush=True)
+                if e > SOFT_TOL:
+                    fail(f"box_keys {box}, {form}: max|d| {e:.2e} of max")
+                selection_against_plain(torch, kp, got, q_boxes[k],
+                                        f"{box} box group, {form}", hist_b)
+                if b == MAIN_BATCH and idx is index:
+                    bin_sizes(torch, kp, hist_b, q_boxes[k],
+                              f"{name} {b}x{lg} box group")
+                del got, work_b
+            del plain
         q = q_full[:, l0:l1].contiguous()
         selection_against_plain(torch, kp, keys, q,
                                 f"{name} {b}x{l1 - l0} bands of {N}x{N}",
                                 hist)
         if b == 8 and name == "SHEARLET":
             selection_cases(torch, kp, keys.contiguous(), q)
-        if b == MAIN_BATCH:
+        if b == MAIN_BATCH and name == "SHEARLET":
             bin_sizes(torch, kp, hist, q, f"{name} {b}x{l1 - l0} bands")
             out["select"] = time_selection(torch, kp, keys, q, hist)
         del keys, work, hist
@@ -2733,9 +2760,11 @@ def percentile_kernels(torch, ksb, kp, dev) -> dict:
             ea, eb = percentile_against_plain(torch, ksb, case, op, q_full,
                                               q_boxes)
             err_a, err_b = max(err_a, ea), max(err_b, eb)
-        if b == MAIN_BATCH:
+        if b == MAIN_BATCH and name == "SHEARLET":
             out.update(percentile_passes(torch, ksb, kp, case, q_full,
                                          q_boxes))
+        elif b == MAIN_BATCH:  # CURVELET's 72-side group, printed
+            box_percentile_passes(torch, ksb, kp, case, q_boxes)
         del case
         torch.cuda.empty_cache()
     out.update(err_keys=err_keys, err_box_keys=err_box_keys, err_a=err_a,
@@ -2758,8 +2787,9 @@ def percentile_against_plain(torch, ksb, case, op, q_full, q_boxes):
         args = args[:2] + (q_boxes[k],) + args[3:]
         m = ksb.box_group_update_percentile_plain(*args)
         box_plain.append((sel, cplx(m.re, m.im)))
-        m = ksb.box_group_update_percentile(*args, "high", index=index)
-        box_got.append(cplx(m.re, m.im))
+        for form, idx in box_forms(ksb, index):
+            m = ksb.box_group_update_percentile(*args, "high", index=idx)
+            box_got.append((k, form, cplx(m.re, m.im)))
     want_a, got_a = cplx(want_a.re, want_a.im), cplx(got_a.re, got_a.im)
     label = (f"subband_update[percentile] {c.basis} {c.b}x{c.h}x{c.w} "
              f"({c.psi.shape[0]} bands, {len(c.chunks) - 1} chunks)")
@@ -2767,12 +2797,12 @@ def percentile_against_plain(torch, ksb, case, op, q_full, q_boxes):
                     c.iterate_snr(got_a, box_plain),
                     c.iterate_snr(want_a, box_plain))
     err_b = 0.0
-    for k, got_b in enumerate(box_got):
+    for k, form, got_b in box_got:
         sel, want_b = box_plain[k]
         with_k = [(s, got_b if j == k else m)
                   for j, (s, m) in enumerate(box_plain)]
         label = (f"box_group_update[percentile] {c.basis} {c.b}x"
-                 f"{len(sel[1])}x{sel[2].shape[1]} of {c.h}x{c.w}")
+                 f"{len(sel[1])}x{sel[2].shape[1]} of {c.h}x{c.w}, {form}")
         err_b = max(err_b, compare(torch, label, op, got_b, want_b,
                                    c.iterate_snr(want_a, with_k),
                                    c.iterate_snr(want_a, box_plain)))
@@ -2868,46 +2898,7 @@ def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
     print(f"band_percentile over the {nbands} bands of a call: "
           f"{selt:.3f} ms, bound {out['select_call'][1][0]:.4f} ms",
           flush=True)
-    rows = {"box_keys": [], "box_shrink": []}
-    for k, (_, lg, g) in enumerate(c.boxes):
-        sel_b, args, index = c.box_args(k, "hard")
-        args = args[:2] + (q_boxes[k],) + args[3:]
-        side = len(g.idx_h)
-
-        def run_box():
-            ksb.box_group_update_percentile(*args, "high", index=index)
-        bt = kernel_passes(torch, run_box, BOX_KEY_PASSES,
-                           launches=("select_plan_kernel", 1))
-        field = b * lg * side * h * 8  # the scratch G, bytes
-        col_flops = b * lg * side * lh
-        row_flops = b * lg * h * rl.line_flops(w)
-        keys_b = b * lg * h * w * 4
-        print_passes(f"box_group_update[percentile] {b}x{side}x{side}", bt, {
-            "box_cols_inverse_kernel": (b * side * side * 8 + field,
-                                        col_flops),
-            "box_rows_kernel<2>": (field + keys_b, row_flops),
-            **select_work(rl, kp, b * lg, h * w),
-            "box_rows_kernel<1>": (2 * field, 2 * row_flops),
-            "box_cols_forward_kernel": (field + b * side * side * 8,
-                                        col_flops)})
-        box_tau = kp.band_percentile_plain(ksb.box_keys_plain(*args[:2],
-                                                              *args[3:6]),
-                                           q_boxes[k])
-        p_bk = time_ms(torch, lambda: ksb.box_keys_plain(*args[:2],
-                                                         *args[3:6]), 3)
-        p_bs = time_ms(torch, lambda: ksb.box_group_update_plain(
-            args[0], args[1], box_tau, *args[3:6], "hard"), 3)
-        sc = len(g.idx_w)
-        rows["box_keys"].append((
-            bt["box_cols_inverse_kernel"] + bt["box_rows_kernel<2>"], p_bk,
-            bound(*rl.box_keys_work(b, lg, side, sc, h, w))))
-        rows["box_shrink"].append((
-            bt["box_rows_kernel<1>"] + bt["box_cols_forward_kernel"], p_bs,
-            bound(*rl.box_shrink_work(b, lg, side, sc, h, w))))
-        b_sel = sum(bt[n] for n in SELECT_PASSES)
-        b_bnd = bound(*rl.select_work(b * lg, h * w))
-        print(f"band_percentile over the {lg} bands of the {side}-side box "
-              f"group: {b_sel:.3f} ms, bound {b_bnd[0]:.4f} ms", flush=True)
+    rows = box_percentile_passes(torch, ksb, kp, c, q_boxes)
     for name in ("box_keys", "box_shrink"):
         vals = rows[name]
         out[name] = (sum(v[0] for v in vals) / len(vals),
@@ -2918,6 +2909,86 @@ def percentile_passes(torch, ksb, kp, case, q_full, q_boxes) -> dict:
         print(f"{name} {b}x{h}x{w}: kernel passes {ms:.3f} ms, plain "
               f"{p_ms:.3f} ms, bound {bnd[0]:.4f} ms ({bnd[1]})", flush=True)
     return out
+
+
+def box_row_passes(index) -> tuple:
+    """The trace names of the percentile route's box row passes, keys and
+    shrink, in the form ``index`` plans: the general form's
+    box_rows_kernel (PASS_KEYS = 2, PASS_SHRINK_RN = 1) or the pruned
+    kernels."""
+    if index.line is None:
+        return "box_rows_kernel<2>", "box_rows_kernel<1>"
+    return "box_keys_pruned_kernel", "box_shrink_pruned_kernel"
+
+
+def box_percentile_passes(torch, ksb, kp, case, q_boxes) -> dict:
+    """Time the percentile route's box passes on each box group of a
+    SubbandCase (torch.profiler), in the form its indices plan, with each
+    pass's rates, the plain versions (CUDA events) and each wrapper's
+    bound (its inputs read and its outputs written once, the row pass's
+    transforms in that form, ``roofline.box_row_flops``). Returns
+    {"box_keys": [(ms, plain ms, bound)], "box_shrink": [...]} by
+    group."""
+    c = case
+    b, h, w = c.b, c.h, c.w
+    rl = roofline()
+    lh = rl.line_flops(h)
+    rows = {"box_keys": [], "box_shrink": []}
+    for k, (_, lg, g) in enumerate(c.boxes):
+        sel_b, args, index = c.box_args(k, "hard")
+        args = args[:2] + (q_boxes[k],) + args[3:]
+        side, sc = len(g.idx_h), len(g.idx_w)
+        line = None if index.line is None else index.line[1]
+        keys_pass, shrink_pass = box_row_passes(index)
+        print(f"box group {c.basis} {side}x{sc} ({lg} bands): the "
+              f"percentile route's row pass in the "
+              f"{box_forms(ksb, index)[0][0]}", flush=True)
+
+        def run_box():
+            ksb.box_group_update_percentile(*args, "high", index=index)
+        passes = (("box_cols_inverse_kernel", keys_pass) + SELECT_PASSES
+                  + (shrink_pass, "box_cols_forward_kernel"))
+        # one launch of each pass a call: a trace that dropped some of a
+        # pass's launches is taken again
+        bt = kernel_passes(torch, run_box, passes,
+                           launches=dict.fromkeys(passes, 1))
+        field = b * lg * sc * h * 8  # the scratch G, bytes
+        col_flops = b * lg * sc * lh
+        row_flops = b * lg * h * rl.box_row_flops(w, line)
+        keys_b = b * lg * h * w * 4
+        # the pruned form moves G's box columns once each way; the general
+        # form's row pass gathers and scatters the same values
+        print_passes(f"box_group_update[percentile] {b}x{side}x{sc}", bt, {
+            "box_cols_inverse_kernel": (b * side * sc * 8 + field,
+                                        col_flops),
+            keys_pass: (field + keys_b, row_flops),
+            **select_work(rl, kp, b * lg, h * w),
+            shrink_pass: (2 * field, 2 * row_flops),
+            "box_cols_forward_kernel": (field + b * side * sc * 8,
+                                        col_flops)})
+        box_tau = kp.band_percentile_plain(ksb.box_keys_plain(*args[:2],
+                                                              *args[3:6]),
+                                           q_boxes[k])
+        p_bk = time_ms(torch, lambda: ksb.box_keys_plain(*args[:2],
+                                                         *args[3:6]), 3)
+        p_bs = time_ms(torch, lambda: ksb.box_group_update_plain(
+            args[0], args[1], box_tau, *args[3:6], "hard"), 3)
+        rows["box_keys"].append((
+            bt["box_cols_inverse_kernel"] + bt[keys_pass], p_bk,
+            bound(*rl.box_keys_work(b, lg, side, sc, h, w, line))))
+        rows["box_shrink"].append((
+            bt[shrink_pass] + bt["box_cols_forward_kernel"], p_bs,
+            bound(*rl.box_shrink_work(b, lg, side, sc, h, w, line))))
+        b_sel = sum(bt[n] for n in SELECT_PASSES)
+        b_bnd = bound(*rl.select_work(b * lg, h * w))
+        print(f"band_percentile over the {lg} bands of the {side}-side box "
+              f"group: {b_sel:.3f} ms, bound {b_bnd[0]:.4f} ms", flush=True)
+        for name in ("box_keys", "box_shrink"):
+            ms, p_ms, bnd = rows[name][-1]
+            print(f"{name} {c.basis} {b}x{side}x{sc} ({lg} bands): kernel "
+                  f"passes {ms:.4f} ms, plain {p_ms:.3f} ms, bound "
+                  f"{bnd[0]:.4f} ms ({bnd[1]})", flush=True)
+    return rows
 
 
 @contextlib.contextmanager
@@ -3456,17 +3527,22 @@ def split_plans(torch, ksb, kp, dev, modules) -> dict:
             torch, lambda: ksb.box_group_update_percentile(
                 *args, "high", index=index),
             lambda: ksb.box_group_update_percentile_plain(*args), 3)
-        keys_w = rl.box_keys_work(MAIN_BATCH, lg, sr, sc, N, N)
-        shrink_w = rl.box_shrink_work(MAIN_BATCH, lg, sr, sc, N, N)
+        line = None if index.line is None else index.line[1]
+        keys_w = rl.box_keys_work(MAIN_BATCH, lg, sr, sc, N, N, line)
+        shrink_w = rl.box_shrink_work(MAIN_BATCH, lg, sr, sc, N, N, line)
         sel_w = rl.select_work(MAIN_BATCH * lg, N * N)
         bnd = (bound(*keys_w)[0] + bound(*sel_w)[0] + bound(*shrink_w)[0],
                "bytes and operations")
-        pct_groups.append((lg, sr, sc, t_k, t_p, bnd))
+        form = box_forms(ksb, index)[0][0]
+        pct_groups.append((lg, sr, sc, t_k, t_p, bnd, form))
     print(f"19c percentile box route (box_keys + band_percentile + "
           f"box_shrink) at batch {MAIN_BATCH} on the split groups (bands, sr "
-          "x sc: kernel ms, plain ms, bound ms as the sum of the three): "
-          + "; ".join(f"{lg}, {sr}x{sc}: {t:.3f}, {tp:.3f}, {bd[0]:.4f}"
-                      for lg, sr, sc, t, tp, bd in pct_groups), flush=True)
+          "x sc, the row pass's form: kernel ms, plain ms, bound ms as the "
+          "sum of the three): "
+          + "; ".join(f"{lg}, {sr}x{sc}, {form}: {t:.3f}, {tp:.3f}, "
+                      f"{bd[0]:.4f}"
+                      for lg, sr, sc, t, tp, bd, form in pct_groups),
+          flush=True)
     del box_case, case, split_case
     torch.cuda.empty_cache()
 

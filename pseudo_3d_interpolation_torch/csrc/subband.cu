@@ -112,15 +112,20 @@
 // bytes written and read per (slice, band, pixel) in place of one inverse
 // H-line FFT of every column (1.8 ms less a 32×512² SHEARLET call on an
 // H100 than computing c_l again from pass 1's scratch).
-// For kernel B, pass 2 computes c_l again from G (one more W-line FFT of
-// every field row).
-// What bounds it: the row pass's two N_w-line FFTs of every field row of
-// every band, 2·N_h·5·N_w·log2 N_w flops per (slice, band), at the
-// engine's throughput (about 9 TFLOP/s, 80-90% of a call at batch 32 on
-// 512² on an H100 SXM at 700 W); the column passes add 2·sc·5·N_h·log2 N_h,
-// and G moves about 32·N_h·sc bytes per (slice, band). The row pass and
-// the summing column pass keep two blocks an SM (64 registers a thread),
-// as the subband kernels' heavy passes do.
+// For kernel B, pass 2 computes c_l again from G: keeping c would move 8
+// bytes each way per (slice, band, field pixel), more than a pruned
+// recompute costs. Where the box's W indices are a wrapped range of s
+// frequencies and the host found a power of two s' >= s for it
+// (box_line_plan), the row pass takes its pruned form (below: P = N_w/s'
+// s'-point lines a row in place of one N_w-point line, tiles of 64 rows,
+// one histogram flush a tile); elsewhere (the split plans' narrow groups,
+// a side no such s' divides) the general form, box_rows_kernel, whose
+// two N_w-line FFTs of every field row run at the engine's throughput
+// (about 9 TFLOP/s, 80-90% of a call at batch 32 on 512² on an H100 SXM
+// at 700 W). The column passes add 2·sc·5·N_h·log2 N_h, and G moves
+// about 32·N_h·sc bytes per (slice, band). The general row pass and the
+// summing column pass keep two blocks an SM (64 registers a thread), as
+// the subband kernels' heavy passes do.
 
 #include <cuda_runtime.h>
 
@@ -740,6 +745,403 @@ box_cols_forward_kernel(const float2* __restrict__ g,   // (B, lg, sc, nh)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Kernel B's pruned row pass: the percentile route's form (box_keys,
+// box_shrink) for a box whose W indices are a wrapped range of s
+// frequencies, with s' the power of two the host chose for it
+// (ops/kernels/subband.py :: box_line_plan: s <= s', 16 <= s' <=
+// min(N_w / 4, 256), s' divides N_w). With N_w = P·s' and x_j the row's
+// box value at the signed frequency j,
+//
+//   c[P·q + r] = Σ_j x_j ω^{j·(P·q + r)} = IFFT_s'(y_r)[q],
+//   y_r[j mod s'] = x_j ω^{j·r}                      (ω = exp(2πi/N_w)),
+//
+// so a row's inverse is P s'-point transforms of pre-twiddled classes r,
+// and the s frequencies land on distinct slots j mod s' = idx mod s' of
+// each class's line. A class's line belongs to t = s'/16 threads, thread j
+// holding its elements j + t·e (e < 16): a 16-point DFT of its own
+// elements in registers, the line's twiddles, one exchange through shared
+// memory and t-point DFTs (none for t = 1), after which thread j holds the
+// outputs j + t·e. The N_w/16 threads of a row are numbered i = r + P·j,
+// so thread i holds the row's pixels i + (N_w/16)·e: neighbouring lanes
+// hold neighbouring pixels, and the keys are written coalesced from the
+// registers, their first digits counted as they are (order_keys.cuh).
+// box_shrink runs the transpose: the same lines forward on the shrunk row,
+// class by class, then each box column k sums the P classes' outputs at
+// its slot, twiddled by ω^{-idx_k·r}, in class order (no atomics). At 512
+// a row is one warp (t = 1, 4, 8 for the 16-, 40- and 72-side groups; P =
+// 32, 8, 4), so an exchange syncs the warp alone; a row whose N_w/16
+// threads do not divide 32 syncs the block.
+//
+// A block takes a tile of up to PRUNE_ROWS field rows of one (slice, band)
+// (fewer than 65536 keys, which the packed histogram's counts allow),
+// PRUNE_NT / (N_w/16) rows at a time: it loads the tile's box columns from
+// G once, coalesced along the rows, builds its tables (the classes'
+// twiddles ω^{-idx_k·r}, the line's twiddles, the box column of each
+// slot), and flushes its histogram once. Both kernels compute c with
+// pruned_row_c, the same code on the same inputs, so box_shrink's |c|²
+// (abs2_rn) is the square of box_keys's key bit for bit and the
+// coefficient that sets tau is judged as its key was.
+// What bounds it: box_keys must write 4 bytes a field pixel (the keys),
+// beside 5·log2 s' + 6 flops a pixel of lines and twiddles; box_shrink
+// moves only G's box columns and runs the lines both ways, 2·(P·5·s'·
+// log2 s' + 6·N_w) flops a row. On an H100 both run at several times those
+// bounds (PERF.md §6, row 4b): each key's correctly rounded square root
+// and first-digit count (a shuffle, a ballot and a shared atomic a run)
+// cost about as much as its share of the lines, and the lines wait on
+// shared memory, so the kernels run three blocks an SM.
+
+constexpr int PE = 16;          // elements of a pruned line a thread holds
+constexpr int PRUNE_NT = 256;   // threads of a pruned row block
+constexpr int PRUNE_ROWS = 64;  // field rows of a block's tile, at most
+// The pruned kernels run three blocks an SM (80 registers a thread at
+// most): their lines wait on shared memory, and two blocks leave the
+// schedulers idle. A tile is cut (to 32 rows at least) while its block
+// would take more than a third of the SM's 228 KB of shared memory, 1 KB
+// of each block reserved.
+constexpr int PRUNE_BLOCKS = 3;
+constexpr size_t PRUNE_SMEM = 233472 / PRUNE_BLOCKS - 1024;
+
+// The pruned row pass's shape: a row of n = N_w pixels, lines of sl = s',
+// p = n / sl classes of t = sl / 16 threads, tr = n / 16 threads a row, w
+// rows at a time, tiles of `rows` rows, sc box columns; the places of the
+// block's shared tables in float2 (the tile, stride rs; the classes'
+// twiddles, stride tws; the line's twiddles; nbuf row buffers of buf,
+// the last a spare for the idle threads of a block whose rows leave
+// some), then the ints (each slot's box column, the box indices) and,
+// for box_keys, the packed histogram.
+struct Pruned {
+  int n, sl, p, t, tr, w, rows, sc;
+  int rs, tws, buf, nbuf, o_twc, o_twl, o_buf, n_f2;
+  bool warp;   // a row's threads lie inside one warp
+  size_t smem;
+};
+
+// 0, ERR_SHAPE for a line the pruned pass does not take, or ERR_SMEM.
+inline int pruned_rows(int nw, int line, int sc, bool keys, Pruned* q) {
+  if (line < PE || line > PE * PE || (line & (line - 1)) != 0 ||
+      nw % line != 0 || 4 * line > nw || sc < 1 || sc > line ||
+      nw / PE > PRUNE_NT)
+    return ERR_SHAPE;
+  q->n = nw;
+  q->sl = line;
+  q->p = nw / line;
+  q->t = line / PE;
+  q->tr = nw / PE;
+  q->w = PRUNE_NT / q->tr;
+  q->nbuf = q->w + (PRUNE_NT % q->tr != 0 ? 1 : 0);
+  q->warp = 32 % q->tr == 0;
+  q->sc = sc;
+  q->tws = q->p + 1;
+  const int xbuf = q->t > 1 ? PE * (q->tr + q->p) : 0;  // the exchange
+  const int zbuf = keys ? 0 : line * (q->p + 1);       // the class sums
+  q->buf = xbuf > zbuf ? xbuf : zbuf;
+  for (q->rows = PRUNE_ROWS < 65535 / nw ? PRUNE_ROWS : 65535 / nw;;
+       q->rows -= 8) {
+    q->rs = q->rows + 1;  // the tile's columns padded: a row's gathers
+                          // from neighbouring columns land in other banks
+    q->o_twc = sc * q->rs;
+    q->o_twl = q->o_twc + sc * q->tws;
+    q->o_buf = q->o_twl + line;
+    q->n_f2 = q->o_buf + q->nbuf * q->buf;
+    q->smem = sizeof(float2) * (size_t)q->n_f2 + sizeof(int) * (line + sc) +
+              (keys ? sizeof(unsigned) * HIST_WORDS : 0);
+    if (q->smem <= PRUNE_SMEM || q->rows <= 32) break;
+  }
+  return q->smem > (size_t)MAX_SMEM ? ERR_SMEM : 0;
+}
+
+// 16-point DFT (INV: unscaled inverse) of a thread's elements, in place,
+// in natural order: two 8-point DFTs and the twiddles exp(∓2πi k/16).
+template <bool INV>
+__device__ __forceinline__ void dft16(float2 (&a)[16]) {
+  float2 ev[8], od[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    ev[k] = a[2 * k];
+    od[k] = a[2 * k + 1];
+  }
+  dft8<INV>(ev);
+  dft8<INV>(od);
+  const float c1 = 0.92387953251128674f, s1 = 0.38268343236508977f;
+  const float h = 0.70710678118654752f;
+  const float wr[8] = {1.0f, c1, h, s1, 0.0f, -s1, -h, -c1};
+  const float wi[8] = {0.0f, s1, h, c1, 1.0f, c1, h, s1};  // sin(πk/8)
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    float2 t = od[k];
+    if (k == 4)
+      t = rot90<INV>(t);
+    else if (k != 0)
+      t = cmul(t, make_float2(wr[k], INV ? wi[k] : -wi[k]));
+    a[k] = cadd(ev[k], t);
+    a[k + 8] = csub(ev[k], t);
+  }
+}
+
+// N-point DFT of a small register array, natural order.
+template <int N, bool INV>
+__device__ __forceinline__ void dft_small(float2 (&a)[N]) {
+  if constexpr (N == 2) {
+    dft2<INV>(a[0], a[1]);
+  } else if constexpr (N == 4) {
+    dft4<INV>(a[0], a[1], a[2], a[3]);
+  } else if constexpr (N == 8) {
+    dft8<INV>(a);
+  } else if constexpr (N == 16) {
+    dft16<INV>(a);
+  }
+}
+
+// a uniform branch: every thread of the block calls it
+__device__ __forceinline__ void pruned_sync(bool warp) {
+  if (warp)
+    __syncwarp();
+  else
+    __syncthreads();
+}
+
+// The s'-point DFT (INV: unscaled inverse) of class r's line, thread j of
+// its TT holding elements j + TT·e in u, in place: a 16-point DFT of the
+// thread's elements, the line's twiddles twl[k1·TT + j] =
+// exp(-2πi j·k1/s') (conjugated for INV), an exchange through the row's
+// buffer xb (slot k1·(tr + p) + i) and 16/TT TT-point DFTs; thread j then
+// holds the outputs j + TT·e. Every thread of the block calls it.
+template <int TT, bool INV>
+__device__ __forceinline__ void pruned_line(float2 (&u)[PE],
+                                            const float2* twl, float2* xb,
+                                            const Pruned& q, int r, int j,
+                                            int i) {
+  dft16<INV>(u);
+  if constexpr (TT > 1) {
+    const int stride = q.tr + q.p;  // padded: conflict-free reads
+#pragma unroll
+    for (int k1 = 0; k1 < PE; ++k1) {
+      const float2 w = twl[k1 * TT + j];
+      xb[k1 * stride + i] = INV ? cmul_conj(u[k1], w) : cmul(u[k1], w);
+    }
+    pruned_sync(q.warp);
+    constexpr int F = PE / TT;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      float2 c[TT];
+#pragma unroll
+      for (int jj = 0; jj < TT; ++jj)
+        c[jj] = xb[(j + TT * f) * stride + jj * q.p + r];
+      dft_small<TT, INV>(c);
+#pragma unroll
+      for (int k2 = 0; k2 < TT; ++k2) u[f + F * k2] = c[k2];
+    }
+    pruned_sync(q.warp);
+  }
+}
+
+// c of one field row of the tile, scaled, in thread i = r + p·j's
+// registers: u[e] = c[i + tr·e]. The thread gathers the box columns that
+// land on its slots j + TT·e of class r's line, each times ω^{idx_k·r},
+// and runs the line's inverse. Both pruned kernels call it: the same code
+// on the same inputs rounds alike. An inactive thread gathers zeros.
+template <int TT>
+__device__ __forceinline__ void pruned_row_c(
+    float2 (&u)[PE], const float2* xt, int row, const float2* twc,
+    const float2* twl, const int* kslot, float2* xb, const Pruned& q, int r,
+    int j, int i, bool active, float scale) {
+#pragma unroll
+  for (int e = 0; e < PE; ++e) {
+    const int k = active ? kslot[j + TT * e] : -1;
+    u[e] = k >= 0 ? cmul_conj(xt[k * q.rs + row], twc[k * q.tws + r])
+                  : make_float2(0.0f, 0.0f);
+  }
+  pruned_line<TT, true>(u, twl, xb, q, r, j, i);
+#pragma unroll
+  for (int e = 0; e < PE; ++e)
+    u[e] = make_float2(__fmul_rn(u[e].x, scale), __fmul_rn(u[e].y, scale));
+}
+
+// A pruned row block's prologue: its tables and its tile of G, box column
+// k of field rows n0 + row at xt[k·rs + row] (G's columns from col0). Every
+// thread calls it; it ends with a __syncthreads.
+__device__ __forceinline__ void pruned_prologue(
+    const float2* __restrict__ g, const int* __restrict__ idx_w,
+    const float2* __restrict__ tw_w, const Pruned& q, int nh, int n0,
+    long long col0, float2* xt, float2* twc, float2* twl, int* kslot,
+    int* idxs) {
+  const int nt = blockDim.x;
+  for (int p = threadIdx.x; p < q.sl; p += nt) {
+    kslot[p] = -1;
+    const int k1 = p / q.t, jj = p - k1 * q.t;
+    twl[p] = tw_w[((jj * k1) & (q.sl - 1)) * q.p];  // exp(-2πi jj·k1/s')
+  }
+  for (int k = threadIdx.x; k < q.sc; k += nt) idxs[k] = idx_w[k];
+  for (int e = threadIdx.x; e < q.sc * q.p; e += nt) {
+    const int k = e / q.p, r = e - k * q.p;
+    twc[k * q.tws + r] = tw_w[(int)((long long)idx_w[k] * r % q.n)];
+  }
+  for (int e = threadIdx.x; e < q.sc * q.rows; e += nt) {
+    const int k = e / q.rows, row = e - k * q.rows;
+    if (n0 + row < nh)
+      xt[k * q.rs + row] = g[col0 + (long long)k * nh + n0 + row];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < q.sc; k += nt) kslot[idxs[k] & (q.sl - 1)] = k;
+  __syncthreads();
+}
+
+// The percentile route's pass 1 in the pruned form: |c| of every pixel of
+// the tile's field rows into keys (B, lg, N_h, N_w), their first digits
+// into hist (B, lg, HIST_COLS) once a block; G is only read. grid (row
+// tiles, lg, batch), PRUNE_NT threads.
+template <int TT>
+__global__ void __launch_bounds__(PRUNE_NT, PRUNE_BLOCKS)
+box_keys_pruned_kernel(const float2* __restrict__ g,  // (B, lg, sc, nh)
+                       const int* __restrict__ idx_w,  // (sc,)
+                       const float2* __restrict__ tw_w, Pruned q, int nh,
+                       float scale, float* __restrict__ keys,
+                       unsigned* __restrict__ hist) {
+  extern __shared__ float2 smem[];
+  float2* xt = smem;
+  float2* twc = smem + q.o_twc;
+  float2* twl = smem + q.o_twl;
+  int* kslot = reinterpret_cast<int*>(smem + q.n_f2);
+  int* idxs = kslot + q.sl;
+  unsigned* bins = reinterpret_cast<unsigned*>(idxs + q.sc);
+  const long long seg = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  const int n0 = blockIdx.x * q.rows;
+  hist_zero(bins);
+  pruned_prologue(g, idx_w, tw_w, q, nh, n0, seg * q.sc * nh, xt, twc, twl,
+                  kslot, idxs);
+  const int slot = threadIdx.x / q.tr, i = threadIdx.x - slot * q.tr;
+  const int r = i % q.p, j = i / q.p;
+  float2* xb = smem + q.o_buf + slot * q.buf;  // idle threads: the spare
+  for (int r0 = 0; r0 < q.rows; r0 += q.w) {
+    const int row = r0 + slot;
+    const bool active = slot < q.w && row < q.rows && n0 + row < nh;
+    float2 u[PE];
+    pruned_row_c<TT>(u, xt, row, twc, twl, kslot, xb, q, r, j, i, active,
+                     scale);
+    float* kr = keys + (seg * nh + n0 + row) * q.n + i;
+#pragma unroll
+    for (int e = 0; e < PE; ++e) {
+      const float key = __fsqrt_rn(abs2_rn(u[e]));
+      if (active) kr[e * q.tr] = key;
+      hist_add(bins, key, active, 0xffffffffu, 32);
+    }
+  }
+  __syncthreads();
+  hist_flush(bins, hist + seg * HIST_COLS);
+}
+
+// The percentile route's pass 2 in the pruned form: c of the tile's field
+// rows again (pruned_row_c), shrunk by tau[b, l] with |c|² as abs2_rn
+// rounds it, the lines forward, the classes summed at each box column,
+// and the tile written back into G in place. grid (row tiles, lg, batch),
+// PRUNE_NT threads.
+template <int TT>
+__global__ void __launch_bounds__(PRUNE_NT, PRUNE_BLOCKS)
+box_shrink_pruned_kernel(float2* __restrict__ g,  // (B, lg, sc, nh)
+                         const int* __restrict__ idx_w,
+                         const float* __restrict__ tau,  // (B, lg)
+                         const float2* __restrict__ tw_w, Pruned q, int nh,
+                         float scale, int op) {
+  extern __shared__ float2 smem[];
+  float2* xt = smem;
+  float2* twc = smem + q.o_twc;
+  float2* twl = smem + q.o_twl;
+  int* kslot = reinterpret_cast<int*>(smem + q.n_f2);
+  int* idxs = kslot + q.sl;
+  const long long seg = (long long)blockIdx.z * gridDim.y + blockIdx.y;
+  const int n0 = blockIdx.x * q.rows;
+  const long long col0 = seg * q.sc * nh;
+  pruned_prologue(g, idx_w, tw_w, q, nh, n0, col0, xt, twc, twl, kslot,
+                  idxs);
+  const int slot = threadIdx.x / q.tr, i = threadIdx.x - slot * q.tr;
+  const int r = i % q.p, j = i / q.p;
+  float2* xb = smem + q.o_buf + slot * q.buf;  // idle threads: the spare
+  const float tl = tau[seg];
+  for (int r0 = 0; r0 < q.rows; r0 += q.w) {
+    const int row = r0 + slot;
+    const bool active = slot < q.w && row < q.rows && n0 + row < nh;
+    float2 u[PE];
+    pruned_row_c<TT>(u, xt, row, twc, twl, kslot, xb, q, r, j, i, active,
+                     scale);
+#pragma unroll
+    for (int e = 0; e < PE; ++e) {
+      const float f = shrink_factor(abs2_rn(u[e]), tl, op);
+      u[e] = make_float2(u[e].x * f, u[e].y * f);
+    }
+    pruned_line<TT, false>(u, twl, xb, q, r, j, i);
+    // class r's outputs j + TT·e at (slot, class) of the row's buffer
+#pragma unroll
+    for (int e = 0; e < PE; ++e) xb[(j + TT * e) * (q.p + 1) + r] = u[e];
+    pruned_sync(q.warp);
+    if (active) {
+      for (int k = i; k < q.sc; k += q.tr) {
+        const float2* z = xb + (idxs[k] & (q.sl - 1)) * (q.p + 1);
+        const float2* w = twc + k * q.tws;
+        float2 acc = make_float2(0.0f, 0.0f);
+        for (int c = 0; c < q.p; ++c) acc = cadd(acc, cmul(z[c], w[c]));
+        xt[k * q.rs + row] = acc;
+      }
+    }
+    pruned_sync(q.warp);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < q.sc * q.rows; e += blockDim.x) {
+    const int k = e / q.rows, row = e - k * q.rows;
+    if (n0 + row < nh)
+      g[col0 + (long long)k * nh + n0 + row] = xt[k * q.rs + row];
+  }
+}
+
+// One launch of a pruned kernel for lines of t = TT threads a class.
+template <int TT>
+int pruned_launch(const Pruned& q, bool keys, float2* g, const int* idx_w,
+                  const float* tau, const float2* tww, int batch, int lg,
+                  int nh, float scale, int op, float* kout, unsigned* hist,
+                  cudaStream_t stream) {
+  const dim3 grid(ceil_div(nh, q.rows), lg, batch);
+  int err;
+  if (keys) {
+    if ((err = allow_smem(box_keys_pruned_kernel<TT>, q.smem)) != 0)
+      return err;
+    box_keys_pruned_kernel<TT><<<grid, PRUNE_NT, q.smem, stream>>>(
+        g, idx_w, tww, q, nh, scale, kout, hist);
+  } else {
+    if ((err = allow_smem(box_shrink_pruned_kernel<TT>, q.smem)) != 0)
+      return err;
+    box_shrink_pruned_kernel<TT><<<grid, PRUNE_NT, q.smem, stream>>>(
+        g, idx_w, tau, tww, q, nh, scale, op);
+  }
+  return (int)cudaGetLastError();
+}
+
+// The pruned row pass of box_keys (keys) or box_shrink, by the line's
+// threads a class.
+inline int pruned_pass(const Pruned& q, bool keys, float2* g,
+                       const int* idx_w, const float* tau, const float2* tww,
+                       int batch, int lg, int nh, float scale, int op,
+                       float* kout, unsigned* hist, cudaStream_t stream) {
+  switch (q.t) {
+    case 1:
+      return pruned_launch<1>(q, keys, g, idx_w, tau, tww, batch, lg, nh,
+                              scale, op, kout, hist, stream);
+    case 2:
+      return pruned_launch<2>(q, keys, g, idx_w, tau, tww, batch, lg, nh,
+                              scale, op, kout, hist, stream);
+    case 4:
+      return pruned_launch<4>(q, keys, g, idx_w, tau, tww, batch, lg, nh,
+                              scale, op, kout, hist, stream);
+    case 8:
+      return pruned_launch<8>(q, keys, g, idx_w, tau, tww, batch, lg, nh,
+                              scale, op, kout, hist, stream);
+    case 16:
+      return pruned_launch<16>(q, keys, g, idx_w, tau, tww, batch, lg, nh,
+                               scale, op, kout, hist, stream);
+    default:
+      return ERR_SHAPE;
+  }
+}
+
 // Kernel B's line blocks for a box of sr × sc in an nh × nw grid: the
 // column passes' lines along H, the row pass's along W, the lines of a
 // block and the shared memory (twiddles, the groups' buffers and the
@@ -1063,55 +1465,78 @@ int p3d_subband_shrink(const float* psi, const float* tau, const float* tw_h,
 }
 
 // The percentile route's pass 1 for kernel B: pass (1) into `work`, then
-// the row pass's PASS_KEYS form, which writes |c| of the full N_h × N_w
-// field of every band into keys (batch, lg, nh, nw), adds their first
-// digits to hist (batch, lg, HIST_COLS), zeroed by the caller, and leaves
-// `work` for p3d_box_shrink. Returns and takes its arguments as
-// p3d_box_group_update.
+// the row pass up to c, which writes |c| of the full N_h × N_w field of
+// every band into keys (batch, lg, nh, nw), adds their first digits to
+// hist (batch, lg, HIST_COLS), zeroed by the caller, and leaves `work` for
+// p3d_box_shrink. `line`: the pruned form's s' (box_line_plan; idx_w then
+// a wrapped range of at most s' frequencies), or 0 for the general form
+// (box_rows_kernel's PASS_KEYS). Returns and takes the rest as
+// p3d_box_group_update; ERR_SHAPE also for a line the pruned form does not
+// take.
 int p3d_box_keys(const float* xb_re, const float* xb_im, const float* psi,
                  const int* idx_h, const int* idx_w, const float* tw_h,
                  const float* tw_w, float* keys, unsigned* hist, float* work,
-                 int batch, int lg, int sr, int sc, int nh, int nw,
+                 int batch, int lg, int sr, int sc, int nh, int nw, int line,
                  void* stream_handle) {
   BoxLines s;
+  Pruned q;
   int err;
   if ((err = box_lines(sr, sc, nh, nw, &s)) != 0) return err;
+  if (line != 0 && (err = pruned_rows(nw, line, sc, true, &q)) != 0)
+    return err;
   const size_t smem = s.smem_w + sizeof(unsigned) * HIST_WORDS;
-  if ((err = allow_smem(box_rows_kernel<PASS_KEYS>, smem)) != 0) return err;
+  if (line == 0 &&
+      (err = allow_smem(box_rows_kernel<PASS_KEYS>, smem)) != 0)
+    return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   float2* g = reinterpret_cast<float2*>(work);
+  const float2* tww = reinterpret_cast<const float2*>(tw_w);
   if ((err = box_inverse_columns(s, xb_re, xb_im, psi, idx_h,
                                  reinterpret_cast<const float2*>(tw_h), g,
                                  batch, lg, sr, sc, stream)) != 0)
     return err;
+  if (line != 0)
+    return pruned_pass(q, true, g, idx_w, nullptr, tww, batch, lg, nh,
+                       s.scale, 0, keys, hist, stream);
   box_rows_kernel<PASS_KEYS>
       <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, smem, stream>>>(
-          g, idx_w, nullptr, reinterpret_cast<const float2*>(tw_w), s.lw, nh,
-          sc, s.scale, 0, keys, hist);
+          g, idx_w, nullptr, tww, s.lw, nh, sc, s.scale, 0, keys, hist);
   return (int)cudaGetLastError();
 }
 
 // The percentile route's pass 2 for kernel B on the `work` its pass 1
 // left: the row pass with tau (batch, lg) from p3d_band_percentile, |c|²
-// rounded as the keys were (PASS_SHRINK_RN), then pass (3) into (m_re,
-// m_im). Returns as p3d_box_group_update.
+// rounded as the keys were, in the form pass 1 took (`line` as
+// p3d_box_keys takes it: pruned, or PASS_SHRINK_RN), then pass (3) into
+// (m_re, m_im). Returns as p3d_box_keys.
 int p3d_box_shrink(const float* psi, const float* tau, const int* idx_h,
                    const int* idx_w, const float* tw_h, const float* tw_w,
                    float* m_re, float* m_im, float* work, int batch, int lg,
-                   int sr, int sc, int nh, int nw, int op,
+                   int sr, int sc, int nh, int nw, int op, int line,
                    void* stream_handle) {
   BoxLines s;
+  Pruned q;
   int err;
   if ((err = box_lines(sr, sc, nh, nw, &s)) != 0) return err;
-  if ((err = allow_smem(box_rows_kernel<PASS_SHRINK_RN>, s.smem_w)) != 0)
+  if (line != 0 && (err = pruned_rows(nw, line, sc, false, &q)) != 0)
+    return err;
+  if (line == 0 &&
+      (err = allow_smem(box_rows_kernel<PASS_SHRINK_RN>, s.smem_w)) != 0)
     return err;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_handle);
   float2* g = reinterpret_cast<float2*>(work);
-  box_rows_kernel<PASS_SHRINK_RN>
-      <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, s.smem_w, stream>>>(
-          g, idx_w, tau, reinterpret_cast<const float2*>(tw_w), s.lw, nh, sc,
-          s.scale, op, nullptr, nullptr);
-  if ((err = (int)cudaGetLastError()) != 0) return err;
+  const float2* tww = reinterpret_cast<const float2*>(tw_w);
+  if (line != 0) {
+    err = pruned_pass(q, false, g, idx_w, tau, tww, batch, lg, nh, s.scale,
+                      op, nullptr, nullptr, stream);
+  } else {
+    box_rows_kernel<PASS_SHRINK_RN>
+        <<<dim3(ceil_div(nh, s.per_w), lg, batch), s.nt_w, s.smem_w,
+           stream>>>(g, idx_w, tau, tww, s.lw, nh, sc, s.scale, op, nullptr,
+                     nullptr);
+    err = (int)cudaGetLastError();
+  }
+  if (err != 0) return err;
   return box_forward_columns(s, g, psi, idx_h,
                              reinterpret_cast<const float2*>(tw_h), m_re,
                              m_im, batch, lg, sr, sc, stream);

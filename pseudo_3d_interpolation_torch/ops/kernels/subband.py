@@ -35,9 +35,9 @@ threshold: pass 1 (:func:`subband_keys`, :func:`box_keys`) writes |c_l|
 and the histogram of its first digit, ``percentile.band_percentile``
 selects the thresholds on the card, pass 2 (:func:`subband_shrink`,
 :func:`box_shrink`) shrinks c_l and runs the rest of the kernel. Kernel A
-keeps c_l from pass 1 (the faster design on the card; computing it again
-stays selectable as its bit-for-bit reference); kernel B computes it once
-more from pass 1's scratch.
+keeps c_l from pass 1 (the faster design on the card); kernel B computes
+it once more from pass 1's scratch, with pruned line transforms where the
+box's W indices are a wrapped range (:func:`box_line_plan`).
 
 Each wrapper launches its kernel for CUDA tensors and takes its plain
 version only for CPU tensors; a failed build or launch raises. The
@@ -87,6 +87,64 @@ def box_scratch_bytes(batch: int, lg: int, sr: int, sc: int,
     """Device bytes one :func:`box_group_update` call allocates on the
     card: its scratch and its (B, sr, sc) result pair."""
     return 4 * box_work_floats(batch, lg, sc, n_h) + 8 * batch * sr * sc
+
+
+# the pruned row pass's lines: 16 elements a thread, at most two stages
+PRUNED_LINE_MIN, PRUNED_LINE_MAX = 16, 256
+
+
+def box_line_plan(idx, n: int) -> tuple[int, int] | None:
+    """The form of the percentile route's box row pass for a box whose W
+    indices are ``idx`` into a side of ``n``: (o, s′) when the indices are
+    the wrapped range o, o + 1, …, o + s − 1 (mod n), each once and in any
+    order, and s′, the least power of two at or above both s and 16, is at
+    most min(n/4, 256) and divides n; else None (the general form).
+
+    Each field row's inverse along W then takes n/s′ s′-point lines, one
+    per class r of pixels r, r + n/s′, …, and the frequency j lands on
+    slot j mod s′ = idx mod s′ of each line (``csrc/subband.cu``, the
+    pruned row pass). 16 and 256 are that kernel's: a thread holds 16
+    elements of a line, and a line is two stages of at most 16 points. A
+    pure function of the plan's indices: the standard plans' box groups
+    (``ops/shearlet._box_indices``: 0..b, n−b..n−1, then a padded tail
+    b+1..) take the pruned form; a split plan's group whose indices have a
+    gap, and a side such as 500 that no such s′ divides, the general
+    one."""
+    idx = np.asarray(idx, dtype=np.int64).ravel()
+    s = len(idx)
+    if s == 0 or idx.min() < 0 or idx.max() >= n or len(np.unique(idx)) != s:
+        return None
+    present = np.zeros(n, bool)
+    present[idx] = True
+    starts = np.flatnonzero(present & ~np.roll(present, 1))
+    if len(starts) != 1:  # more than one run, or the whole side
+        return None
+    line = PRUNED_LINE_MIN
+    while line < s:
+        line *= 2
+    if line > min(n // 4, PRUNED_LINE_MAX) or n % line:
+        return None
+    return int(starts[0]), line
+
+
+class BoxIndex(tuple):
+    """A box's (idx_h, idx_w) as int32 on the kernels' device, with
+    ``line``, :func:`box_line_plan` of idx_w: the form the percentile
+    route's row pass takes (None: the general form). What
+    ``_ScaleGroup.box_index_on`` returns; a plain pair takes the general
+    form."""
+
+    def __new__(cls, idx_h: torch.Tensor, idx_w: torch.Tensor, line):
+        self = super().__new__(cls, (idx_h, idx_w))
+        self.line = line
+        return self
+
+
+def _box_line(index) -> int:
+    """The s′ the box kernels take for ``index``: the pruned row pass's
+    line, 0 for the general form."""
+    line = index.line if isinstance(index, BoxIndex) else None
+    return 0 if line is None else line[1]
 
 
 class RowSupport:
@@ -202,9 +260,9 @@ def _lib() -> ctypes.CDLL:
     lib.p3d_subband_keys.restype = i
     lib.p3d_subband_shrink.argtypes = [p] * 6 + [i] * 2 + [p] * 4 + [i] * 6 + [p]
     lib.p3d_subband_shrink.restype = i
-    lib.p3d_box_keys.argtypes = [p] * 10 + [i] * 6 + [p]
+    lib.p3d_box_keys.argtypes = [p] * 10 + [i] * 7 + [p]
     lib.p3d_box_keys.restype = i
-    lib.p3d_box_shrink.argtypes = [p] * 9 + [i] * 7 + [p]
+    lib.p3d_box_shrink.argtypes = [p] * 9 + [i] * 8 + [p]
     lib.p3d_box_shrink.restype = i
     return lib
 
@@ -747,8 +805,9 @@ def box_keys(xbox: Cplx, psi: torch.Tensor, mats, n_h: int, n_w: int, *,
     each band's full N_h × N_w field, (B, lg, N_h, N_w), their first-digit
     histogram (B, lg, HIST_COLS) int32). On the card the box kernel's pass
     (1) into ``work`` (``box_work_floats`` floats, which pass 2 reads) and
-    its row pass up to the scale; CPU tensors run :func:`box_keys_plain`
-    and the plain histogram. Arguments as :func:`box_group_update`."""
+    its row pass up to the scale, pruned where ``index``'s W indices allow
+    (:func:`box_line_plan`); CPU tensors run :func:`box_keys_plain` and the
+    plain histogram. Arguments as :func:`box_group_update`."""
     from .percentile import key_histogram_plain
 
     b, sr, sc = xbox.re.shape
@@ -766,6 +825,7 @@ def box_keys(xbox: Cplx, psi: torch.Tensor, mats, n_h: int, n_w: int, *,
             twiddles_on(n_h, str(device)).data_ptr(),
             twiddles_on(n_w, str(device)).data_ptr(), keys.data_ptr(),
             hist.data_ptr(), work.data_ptr(), b, lg, sr, sc, n_h, n_w,
+            _box_line(index),
             torch.cuda.current_stream(device).cuda_stream)
     raise_on(rc, "box_keys", (b, sr, sc, n_h, n_w))
     box_keys.launches += 1
@@ -779,10 +839,10 @@ def box_shrink(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor, mats,
                n_h: int, n_w: int, thresh_op: str, *, index=None,
                work: torch.Tensor | None = None) -> Cplx:
     """Pass 2 of the percentile route for one box group: each band's field
-    once more from pass 1's ``work``, shrunk by ``tau`` (B, lg) with |c|²
-    rounded as the keys were, back to the box, weighted and summed in band
-    order: the window-weighted summed box (B, sr, sc). CPU tensors run
-    :func:`box_group_update_plain`."""
+    once more from pass 1's ``work`` (in pass 1's form, so that |c|² is
+    its key squared bit for bit), shrunk by ``tau`` (B, lg), back to the
+    box, weighted and summed in band order: the window-weighted summed box
+    (B, sr, sc). CPU tensors run :func:`box_group_update_plain`."""
     op = _split_op(thresh_op, "highest")
     device = _check_box(xbox, psi, tau, mats, n_h, n_w, index)
     if device.type == "cpu":
@@ -796,7 +856,7 @@ def box_shrink(xbox: Cplx, psi: torch.Tensor, tau: torch.Tensor, mats,
             index[1].data_ptr(), twiddles_on(n_h, str(device)).data_ptr(),
             twiddles_on(n_w, str(device)).data_ptr(), m_re.data_ptr(),
             m_im.data_ptr(), work.data_ptr(), b, psi.shape[0], sr, sc, n_h,
-            n_w, THRESH_OPS[op],
+            n_w, THRESH_OPS[op], _box_line(index),
             torch.cuda.current_stream(device).cuda_stream)
     raise_on(rc, "box_shrink", (b, sr, sc, n_h, n_w))
     box_shrink.launches += 1

@@ -225,9 +225,13 @@ class _ScaleGroup:
 
     def box_index_on(self, h: int, w: int, device
                      ) -> tuple[torch.Tensor, torch.Tensor]:
-        """(idx_h, idx_w) as int32 on ``device``: the box kernel scatters
-        and gathers each box line at these, so they are checked once to be
+        """(idx_h, idx_w) as int32 on ``device`` (a
+        ``kernels.subband.BoxIndex``, with the percentile route's row-pass
+        form for idx_w, ``box_line_plan``): the box kernel scatters and
+        gathers each box line at these, so they are checked once to be
         distinct and inside the h × w grid."""
+        from .kernels.subband import BoxIndex, box_line_plan
+
         device = torch.device(device)
 
         def make():
@@ -236,8 +240,10 @@ class _ScaleGroup:
                         or idx.max() >= n):
                     raise ValueError(f"box indices {idx} are not distinct "
                                      f"indices into a side of {n}")
-            return (torch.from_numpy(self.idx_h.astype(np.int32)).to(device),
-                    torch.from_numpy(self.idx_w.astype(np.int32)).to(device))
+            return BoxIndex(
+                torch.from_numpy(self.idx_h.astype(np.int32)).to(device),
+                torch.from_numpy(self.idx_w.astype(np.int32)).to(device),
+                box_line_plan(self.idx_w, w))
         return self._cached(("idx32", h, w, str(device)), make)
 
     def box_mats_on(self, h: int, w: int, device):

@@ -198,22 +198,38 @@ def box_work(batch: int, lg: int, sr: int, sc: int, nh: int,
     return flops, nbytes
 
 
+def pruned_line_flops(n: int, line: int) -> float:
+    """Flops of one pruned line transform of the percentile route's box
+    row pass (``csrc/subband.cu``): n/s′ s′-point line FFTs, one a class,
+    and 6·n for the twiddles of the classes' inputs or outputs."""
+    return (n // line) * line_flops(line) + 6.0 * n
+
+
+def box_row_flops(n: int, line: int | None) -> float:
+    """Flops of one field row's transform along W in the box row pass: a
+    pruned line (``line`` = s′, ``kernels.subband.box_line_plan``) or, in
+    the general form (None), a full n-point line FFT."""
+    return line_flops(n) if line is None else pruned_line_flops(n, line)
+
+
 def box_keys_work(batch: int, lg: int, sr: int, sc: int, nh: int,
-                  nw: int) -> tuple[float, int]:
+                  nw: int, line: int | None = None) -> tuple[float, int]:
     """(flops, bytes) of ``box_keys``: pass (1) and the row pass's inverse
-    half, the keys of every field pixel written."""
+    half in the form it takes (``line``: s′ of the pruned form, None for
+    the general form), the keys of every field pixel written."""
     col = batch * lg * sc * line_flops(nh)
-    row = batch * lg * nh * line_flops(nw)
+    row = batch * lg * nh * box_row_flops(nw, line)
     return (col + row, batch * sr * sc * 8 + lg * sr * sc * 4
             + batch * lg * nh * nw * 4)
 
 
 def box_shrink_work(batch: int, lg: int, sr: int, sc: int, nh: int,
-                    nw: int) -> tuple[float, int]:
-    """(flops, bytes) of ``box_shrink``: the row pass both ways and pass
+                    nw: int, line: int | None = None) -> tuple[float, int]:
+    """(flops, bytes) of ``box_shrink``: the row pass both ways in the
+    form it takes (``line`` as :func:`box_keys_work` takes it) and pass
     (3)."""
     col = batch * lg * sc * line_flops(nh)
-    row = batch * lg * nh * line_flops(nw)
+    row = batch * lg * nh * box_row_flops(nw, line)
     return (col + 2 * row, batch * sr * sc * 8 + lg * sr * sc * 4
             + batch * lg * 4 + batch * sr * sc * 8)
 
@@ -231,16 +247,19 @@ def select_work(segments: int, n: int) -> tuple[float, int]:
 
 def plan_support(plan, h: int, w: int, batch: int) -> dict:
     """The kernel packing of a SHEARLET or CURVELET plan at a batch: the
-    full-size bands' support rows, their count and band chunks, and the
-    box groups as (lg, sr, sc)."""
-    from ..ops.kernels.subband import band_chunks, row_support
+    full-size bands' support rows, their count and band chunks, the box
+    groups as (lg, sr, sc), and the s′ of each box group's pruned row pass
+    in the percentile route (None: the general form)."""
+    from ..ops.kernels.subband import band_chunks, box_line_plan, row_support
     from ..ops.shearlet import _plan_kernel_pack
 
     full, _, boxes = _plan_kernel_pack(plan, h, w)
     offsets = row_support(full.psi)[0]
+    lines = [box_line_plan(g.idx_w, w) for _, _, g in boxes]
     return {"support_rows": int(offsets[-1]), "nbands": len(offsets) - 1,
             "nchunks": len(band_chunks(offsets, batch, h, w)) - 1,
-            "boxes": [(lg, len(g.idx_h), len(g.idx_w)) for _, lg, g in boxes]}
+            "boxes": [(lg, len(g.idx_h), len(g.idx_w)) for _, lg, g in boxes],
+            "box_lines": [None if p is None else p[1] for p in lines]}
 
 
 def plan_iteration_flops(plan, h: int, w: int, batch: int = 1) -> dict:

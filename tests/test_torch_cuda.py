@@ -1034,6 +1034,104 @@ def test_split_passes_match_plain(device, kind, h, w, op):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind,h,w,k,line", [
+    ("SHEARLET", 512, 512, 0, 16), ("SHEARLET", 512, 512, 1, 64),
+    ("CURVELET", 512, 512, 0, 128), ("SHEARLET", 256, 256, 1, 64),
+    ("CURVELET", 384, 384, 0, 64)])
+@pytest.mark.parametrize("op", ["soft", "garrote", "hard"])
+def test_pruned_box_passes_match_plain_and_general(device, kind, h, w, k,
+                                                   line, op):
+    """box_keys and box_shrink on the standard groups, in the pruned form
+    their indices plan (at 384 a row of 24 threads, which syncs the block)
+    and in the general form: each form's keys within SOFT_TOL·max of the
+    plain keys and the two forms' within 1e-5·max of each other, its
+    histogram the plain one of its keys, the selection on them bit-equal,
+    and box_shrink at those thresholds (hard: thresholds in a gap of the
+    keys, which no rounding crosses) against box_group_update_plain within
+    SOFT_TOL·max."""
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
+
+    b = 4
+    _, _, _, xf, _, _, boxes, q = _percentile_case(kind, b, h, w, device)
+    l0, lg, g = boxes[k]
+    index = g.box_index_on(h, w, device)
+    assert index.line is not None and index.line[1] == line
+    ih, iw = g.index_on(device)
+    box = xf[:, ih[:, None], iw[None, :]]
+    xb = Cplx(box.real.contiguous(), box.imag.contiguous())
+    psi, mats = g.psi_on(device), g.box_mats_on(h, w, device)
+    qb = q[:, l0:l0 + lg].contiguous()
+    plain_keys = ksb.box_keys_plain(xb, psi, mats, h, w)
+    keys_of = {}
+    for form, idx in (("pruned", index),
+                      ("general", ksb.BoxIndex(index[0], index[1], None))):
+        work = torch.empty(ksb.box_work_floats(b, lg, len(g.idx_w), h),
+                           device=device)
+        launches = ksb.box_keys.launches, ksb.box_shrink.launches
+        keys, hist = ksb.box_keys(xb, psi, None, h, w, index=idx, work=work)
+        torch.cuda.synchronize()
+        assert (keys - plain_keys).abs().max() <= SOFT_TOL * plain_keys.max()
+        assert torch.equal(hist, kp.key_histogram_plain(keys))
+        t = kp.band_percentile(keys, qb, hist)
+        assert torch.equal(t.view(torch.int32), kp.band_percentile_plain(
+            keys, qb).view(torch.int32))
+        if op == "hard":
+            t = torch.from_numpy(gap_taus(
+                keys.reshape(b, lg, -1).cpu().numpy())).to(device)
+        got = _host(ksb.box_shrink(xb, psi, t, None, h, w, op, index=idx,
+                                   work=work))
+        assert (ksb.box_keys.launches, ksb.box_shrink.launches) == (
+            launches[0] + 1, launches[1] + 1)
+        want = _host(ksb.box_group_update_plain(xb, psi, t, mats, h, w, op))
+        assert np.isfinite(got).all()
+        assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+        keys_of[form] = keys
+    assert (keys_of["pruned"] - keys_of["general"]).abs().max() <= \
+        1e-5 * plain_keys.max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,s,o,line", [
+    (512, 20, 500, 32), (1024, 200, 900, 256), (384, 40, 370, 64),
+    (128, 9, 0, 16)])
+@pytest.mark.parametrize("op", ["soft", "hard"])
+def test_pruned_box_passes_on_wrapped_ranges(device, n, s, o, line, op):
+    """The pruned row pass at the line lengths the plans do not reach
+    (s' = 32 and 256: two and sixteen threads a class) and on a 384 side
+    (24 threads a row, which sync the block), on boxes of s rows and the
+    wrapped column range o.. (mod n), random windows and spectra: box_keys
+    and box_shrink against their plain versions within SOFT_TOL·max, hard
+    thresholds in a gap of the keys."""
+    from pseudo_3d_interpolation_torch.ops.kernels import percentile as kp
+
+    b, lg = 3, 2
+    rng = np.random.default_rng(n + s)
+    idx_w = ((o + np.arange(s)) % n).astype(np.int32)
+    rng.shuffle(idx_w)
+    g = sh._ScaleGroup(np.arange(s, dtype=np.int32), idx_w,
+                       rng.uniform(0, 1, size=(lg, s, s)).astype(np.float32))
+    index = g.box_index_on(n, n, device)
+    assert index.line == (o, line)
+    xb = Cplx(*(torch.from_numpy(rng.normal(size=(b, s, s)).astype(
+        np.float32)).to(device) for _ in range(2)))
+    psi, mats = g.psi_on(device), g.box_mats_on(n, n, device)
+    work = torch.empty(ksb.box_work_floats(b, lg, s, n), device=device)
+    keys, hist = ksb.box_keys(xb, psi, None, n, n, index=index, work=work)
+    plain_keys = ksb.box_keys_plain(xb, psi, mats, n, n)
+    torch.cuda.synchronize()
+    assert (keys - plain_keys).abs().max() <= SOFT_TOL * plain_keys.max()
+    assert torch.equal(hist, kp.key_histogram_plain(keys))
+    t = (torch.from_numpy(gap_taus(keys.reshape(b, lg, -1).cpu().numpy()))
+         if op == "hard" else 0.3 * keys.reshape(b, lg, -1).mean(-1).cpu())
+    t = t.to(device).contiguous()
+    got = _host(ksb.box_shrink(xb, psi, t, None, n, n, op, index=index,
+                               work=work))
+    want = _host(ksb.box_group_update_plain(xb, psi, t, mats, n, n, op))
+    assert np.isfinite(got).all()
+    assert np.abs(got - want).max() <= SOFT_TOL * np.abs(want).max()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind", ["SHEARLET", "CURVELET"])
 def test_percentile_solve_on_the_card_matches_the_host(device, kind):
     """The directional solve with a percentile threshold through the split

@@ -91,13 +91,38 @@ def test_percentile_bounds():
     args = (B, N, N, s["support_rows"], s["nbands"], s["nchunks"])
     _near(_ms(rl.subband_keys_work(*args)), 1.790)
     _near(_ms(rl.subband_shrink_work(*args)), 1.893)
-    keys = [_ms(rl.box_keys_work(B, lg, sr, sc, N, N))
-            for lg, sr, sc in s["boxes"]]
-    shrink = [_ms(rl.box_shrink_work(B, lg, sr, sc, N, N))
-              for lg, sr, sc in s["boxes"]]
+    assert s["box_lines"] == [16, 64]  # both groups' row passes pruned
+    keys = [_ms(rl.box_keys_work(B, lg, sr, sc, N, N, line))
+            for (lg, sr, sc), line in zip(s["boxes"], s["box_lines"])]
+    shrink = [_ms(rl.box_shrink_work(B, lg, sr, sc, N, N, line))
+              for (lg, sr, sc), line in zip(s["boxes"], s["box_lines"])]
     _near(sum(keys) / len(keys), 0.06518)
-    _near(sum(shrink) / len(shrink), 0.07544)
+    _near(sum(shrink) / len(shrink), 0.05453)
+    # the general form's full W-lines (the split plan's narrow groups)
+    general = [_ms(rl.box_shrink_work(B, lg, sr, sc, N, N))
+               for lg, sr, sc in s["boxes"]]
+    _near(sum(general) / len(general), 0.07544)
     _near(_ms(rl.select_work(B * 34, N * N)), 0.3406)
+
+
+@pytest.mark.parametrize("basis,k,line,keys,shrink", [
+    ("SHEARLET", 0, 16, (0.05010, "bytes"), (0.03343, "operations")),
+    ("SHEARLET", 1, 64, (0.08027, "bytes"), (0.07564, "operations")),
+    ("CURVELET", 0, 128, (0.09060, "bytes"), (0.09953, "operations"))])
+def test_percentile_box_bounds_per_group(basis, k, line, keys, shrink):
+    """Row 4b group by group: the keys' bytes set box_keys's bound; the
+    pruned lines, n/s′ s′-point FFTs and 6·n twiddle flops a row each way,
+    box_shrink's."""
+    s = _support(basis)
+    lg, sr, sc = s["boxes"][k]
+    assert s["box_lines"][k] == line
+    assert rl.pruned_line_flops(N, line) == \
+        (N // line) * 5 * line * math.log2(line) + 6 * N
+    for work, (want, by) in ((rl.box_keys_work, keys),
+                             (rl.box_shrink_work, shrink)):
+        got = rl.bound(*work(B, lg, sr, sc, N, N, line))
+        _near(got[0], want)
+        assert got[1] == by
 
 
 def test_split_plan_boxes_are_counted_by_their_sides():
