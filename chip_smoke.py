@@ -298,9 +298,23 @@ Phases, each of which exits non-zero on failure:
    ``shearlet_transform`` and ``inverse_shearlet_transform`` on the card
    against ``device="cpu"`` within 1e-5·max, and the pair's
    reconstruction.
+20. the north-star runner (``examples/northstar_run_torch.py``, BASELINE
+   config 5) on the card at full size: its synthetic 512x512x1024 cube
+   with half the bins kept, built once, through the runner's ``run``
+   (``interpolate_time_cube_sharded`` on a mesh of this one process:
+   rfft, POCS on the 513 slices at batch 32, irfft, one upload and one
+   download) with its defaults, 50 iterations, on SHEARLET (the
+   production basis: 850 launches of ``subband_update`` and 1700 of
+   ``box_group_update``, 17 batches × 50 iterations, two box groups a
+   batch-iteration) and then the FFT basis (17 of ``pocs_solve[fft]``);
+   asserts those launches and no other kernel, the output's shape and
+   finiteness, and a reconstructed SNR above the sparse one (the
+   runner's own SNR, on magnitudes for SHEARLET as the JAX runner takes
+   it); prints the solver stage's wall, slice-iterations/s, the upload
+   and download walls, the device peak and the SNRs.
 Phases 4 to 10 and 12 print the wall time, slice-iterations/s and device
 peak memory. Before each, and before phase 11's and 13c's chains, 13a's
-binning and phase 15's steps, every kernel's
+binning, phase 15's steps and phase 20's runs, every kernel's
 launch count is set to 0; after it, the counts of every kernel must
 be the path's own (zero for the others, and for every kernel on phase
 12's paths, 13a's binning and phase 15).
@@ -3361,6 +3375,76 @@ def mesh_on_one_card(torch, dev, modules, production, truth, mask, cube):
         dist.destroy_process_group()
 
 
+# phase 20: the north-star runner on the card
+NORTHSTAR = "examples/northstar_run_torch.py"
+# a batch's launches on a 512² cube at the runner's 50 iterations: the
+# SHEARLET solve's subband update once and its two box groups an
+# iteration, the folded FFT solve once
+NORTHSTAR_LAUNCHES = {"SHEARLET": {"subband_update": NITER,
+                                   "box_group_update": 2 * NITER},
+                      "FFT": {"pocs_solve[fft]": 1}}
+
+
+def northstar(torch, modules):
+    """Phase 20: the runner's cube built once (its wall printed), then
+    ``run`` with the runner's defaults (512x512x1024, 50 iterations, keep
+    0.5, batch 32) on SHEARLET and on FFT, every launch count set to 0
+    just before each and read just after: the SHEARLET solve launches
+    ``subband_update`` once and ``box_group_update`` twice a
+    batch-iteration, the FFT solve ``pocs_solve[fft]`` once a batch, and
+    no other kernel runs. The output must be finite, of the cube's shape,
+    and beat the sparse cube's SNR. Returns {basis: the runner's
+    report without its output}."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("northstar_torch",
+                                                  NORTHSTAR)
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    args = runner.parse_args([])
+    t0 = time.perf_counter()
+    cube = runner.synthetic_cube(*args.size, keep=args.keep)
+    print(f"phase 20: the {'x'.join(map(str, args.size))} synthetic cube "
+          f"built in {time.perf_counter() - t0:.2f} s on the host",
+          flush=True)
+    mesh = runner.make_mesh_for(None)
+    batches = math.ceil((args.size[2] // 2 + 1) / args.batch)
+    reports = {}
+    for basis, per in NORTHSTAR_LAUNCHES.items():
+        args = runner.parse_args(["--basis", basis])
+        if args.niter != NITER:
+            fail(f"phase 20: the runner's default niter is {args.niter}")
+        want = dict.fromkeys(KERNELS, 0)
+        want.update({k: batches * n for k, n in per.items()})
+        torch.cuda.synchronize()
+        reset_counts(*modules)
+        t0 = time.perf_counter()
+        report = runner.run(args, mesh, cube=cube, log=lambda line: print(
+            f"phase 20 {basis}: {line}", flush=True))
+        wall = time.perf_counter() - t0
+        counts = launch_counts(*modules)
+        out = report.pop("out")
+        if counts != want:
+            fail(f"phase 20 {basis}: kernel launches {counts} != {want}")
+        if out.shape != tuple(args.size) or not np.isfinite(out).all():
+            fail(f"phase 20 {basis}: output of shape {out.shape}, finite "
+                 f"{bool(np.isfinite(out).all())}")
+        del out
+        if not report["snr_out"] > report["snr_in"]:
+            fail(f"phase 20 {basis} did not improve SNR "
+                 f"({report['snr_in']:.3f} -> {report['snr_out']:.3f} dB)")
+        path = {k: v for k, v in counts.items() if v}
+        print(f"phase 20 {basis}: launches {path}; solver stage "
+              f"{report['solve_s']:.3f} s, {report['rate']:.1f} "
+              f"slice-iterations/s; upload {report['upload_s']:.3f} s, "
+              f"download {report['download_s']:.3f} s; device peak "
+              f"{report['peak_gb']:.2f} GB; SNR {report['snr_in']:.3f} dB "
+              f"sparse -> {report['snr_out']:.3f} dB; the call "
+              f"{wall:.2f} s", flush=True)
+        reports[basis] = report
+    return reports
+
+
 # phase 19: the SHEARLET split plan on the box kernel
 SPLIT_THRESHOLD = 200  # 512²: only the finest scale (a 512 side) splits
 SPLIT_GROUPS = [(2, 447, 126), (2, 126, 447), (1, 447, 63), (1, 63, 447)]
@@ -4031,6 +4115,12 @@ def main():
     t19 = time.perf_counter()
     split_plans(torch, ksb, kp, dev, modules)
     print(f"phase 19: {time.perf_counter() - t19:.1f} s", flush=True)
+    torch.cuda.empty_cache()
+
+    # phase 20: the north-star runner on the card
+    t20 = time.perf_counter()
+    northstar(torch, modules)
+    print(f"phase 20: {time.perf_counter() - t20:.1f} s", flush=True)
     print(f"all phases: {time.perf_counter() - t_start:.1f} s", flush=True)
 
     def entry(name, replaces, launches, err, ms, plain_ms, bnd,

@@ -5,7 +5,7 @@ Run from the root of a checkout, one process per card:
 
     torchrun --nproc-per-node=4 mesh_check.py [--only-2d]
 
-(``--only-2d`` runs the last call alone.)
+(``--only-2d`` runs the 2 x 2 mesh's calls alone.)
 
 Every rank joins the NCCL group (``parallel.mesh.initialize_distributed``
 reads the variables ``torchrun`` sets), builds the same seeded inputs as
@@ -26,7 +26,12 @@ space mesh (``make_mesh_2d(2, 2)``): the FFT cube's first 65 slices
 through ``interpolate(mesh=...)``, each rank holding half the slices of
 a batch and half the ilines of each, solved as a distributed line FFT
 (PyTorch ops, one ``all_to_all_single`` over the space pair each way an
-iteration), against the single-card folded solve by SNR. Each call runs once
+iteration), against the single-card folded solve by SNR; the same 65
+slices as a SHEARLET and as a DCT cube, and the time cube through
+``interpolate_time_cube_sharded``, which spread whole slices over the
+mesh's four ranks: each against one card by the rule above and bit for
+bit against ``make_mesh(4)``, the 1-D mesh of the same ranks, which runs
+the same call last. Each call runs once
 untimed first (kernel loading, the windows' plans). Rank 0 prints the
 card's name and power limit, each call's walls, its own launches, the
 difference and the SNRs; any failure exits non-zero on every rank.
@@ -53,7 +58,8 @@ SHEARLET_SLICES = 2 * cs.MAIN_BATCH + 1
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--only-2d", action="store_true",
-                        help="run the 2 x 2 slice x space mesh's call alone")
+                        help="run the 2 x 2 slice x space mesh's calls "
+                        "alone")
     args = parser.parse_args()
     import torch
     import torch.distributed as dist
@@ -90,12 +96,14 @@ def main() -> int:
     def launches():
         return {k: v for k, v in cs.launch_counts(*modules).items() if v}
 
-    def check(label, single, sharded, arrays, truth=None):
+    def check(label, single, sharded, arrays, truth=None, line=None):
         """Run both calls (the single one once untimed first), compare
-        them, print rank 0's line."""
+        them, print rank 0's line. With ``line``, the same call on the
+        1-D mesh of the same ranks runs last and must equal ``sharded``'s
+        bit for bit."""
         single()
         walls, outs, counts = [], [], []
-        for run in (single, sharded):
+        for run in (single, sharded) + ((line,) if line else ()):
             torch.cuda.synchronize()
             dist.barrier()
             cs.reset_counts(*modules)
@@ -104,21 +112,28 @@ def main() -> int:
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             counts.append(launches())
-        a, b = (np.asarray(arrays(o)) for o in outs)
+        a, b = (np.asarray(arrays(o)) for o in outs[:2])
         err = float(np.abs(a - b).max() / np.abs(a).max())
         snrs = ([cs.snr_db(torch, truth, torch.from_numpy(
             np.moveaxis(x, -1, 0)).to(dev)) for x in (a, b)]
                 if truth is not None else None)
+        same = line is None or np.array_equal(b, np.asarray(arrays(outs[2])))
         if rank0:
             print(f"{label}: max|d| {err:.2e} of max"
                   + (f", SNR {snrs[0]:.3f} / {snrs[1]:.3f} dB" if snrs
                      else "")
                   + f"; one card {walls[0]:.2f} s (launches {counts[0]}), "
                   f"mesh of {mesh.size} {walls[1]:.2f} s (rank 0's "
-                  f"launches {counts[1]})", flush=True)
+                  f"launches {counts[1]})"
+                  + (f"; the 1-D mesh of its ranks {walls[2]:.2f} s "
+                     f"(launches {counts[2]}), "
+                     + ("bit-equal" if same else "DIFFERENT")
+                     if line else ""), flush=True)
         if not (err <= TOL or (snrs is not None
                                and abs(snrs[0] - snrs[1]) <= SNR_TOL_DB)):
             failures.append(f"{label}: {err:.2e} of max")
+        if not same:
+            failures.append(f"{label}: differs from the 1-D mesh")
 
     truth, mask = cs.plane_waves(torch, cs.SLICES, cs.N, cs.N, 0, dev)
     truth_fft = truth[:SHEARLET_SLICES].clone()
@@ -136,7 +151,20 @@ def main() -> int:
           lambda: interpolate(part, config=production, device=dev),
           lambda: interpolate(part, config=production, mesh=mesh2,
                               batch=cs.MAIN_BATCH), amp, truth_fft)
+    line = mesh_lib.make_mesh(mesh2.size)
+    for kind in ("SHEARLET", "DCT"):
+        config = dataclasses.replace(production, transform_kind=kind)
+        check(f"interpolate on a 2x2 slice x space mesh, {kind} cube of "
+              f"{SHEARLET_SLICES} (whole slices over its grid)",
+              lambda: interpolate(part, config=config, device=dev),
+              lambda: interpolate(part, config=config, mesh=mesh2,
+                                  batch=cs.MAIN_BATCH), amp, truth_fft,
+              lambda: interpolate(part, config=config, mesh=line,
+                                  batch=cs.MAIN_BATCH))
     del part, truth_fft
+    pre = preprocessed_time_cube(torch, dev)
+    stage2_check(pre, production, mesh2, check, line)
+    del pre
 
     flags = torch.tensor([len(failures)], device=dev)
     dist.all_reduce(flags)
@@ -156,12 +184,7 @@ def one_d_calls(torch, dev, mesh, production, truth, mask, check, amp):
     from pseudo_3d_interpolation_torch.ops.cplx import Cplx
     from pseudo_3d_interpolation_torch.parallel.solver import (
         pocs_interpolate_sharded)
-    from pseudo_3d_interpolation_torch.pipeline.fft import apply_fft
-    from pseudo_3d_interpolation_torch.pipeline.ifft import apply_ifft
     from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
-    from pseudo_3d_interpolation_torch.pipeline.preprocess import preprocess
-    from pseudo_3d_interpolation_torch.pipeline.stage2 import (
-        interpolate_time_cube_sharded)
 
     obs = truth[:cs.MAIN_BATCH] * mask
     z = Cplx(obs.real.contiguous(), obs.imag.contiguous())
@@ -184,21 +207,48 @@ def one_d_calls(torch, dev, mesh, production, truth, mask, check, amp):
           truth[:SHEARLET_SLICES])
     del z, cube, part
 
+    stage2_check(preprocessed_time_cube(torch, dev), production, mesh,
+                 check)
+
+
+def preprocessed_time_cube(torch, dev):
+    """Phase 11's 512x512x1024 time cube, masked and preprocessed on the
+    card."""
+    from pseudo_3d_interpolation_torch.io.cube import Cube
+    from pseudo_3d_interpolation_torch.pipeline.preprocess import preprocess
+
     truth_t, twt = cs.chain_truth(torch, dev)
     fold = cs.chain_fold()
     masked = (truth_t * torch.from_numpy(fold).to(dev)[..., None]).cpu(
         ).numpy()
     del truth_t
-    pre = preprocess(cs.time_cube(Cube, masked, fold, twt), balance="rms",
-                     filter_type="bandpass", filter_freqs=cs.CHAIN_BANDPASS,
-                     device=dev)
-    check(f"interpolate_time_cube_sharded, {cs.N}x{cs.N}x{cs.CHAIN_NS} "
-          "time cube",
+    return preprocess(cs.time_cube(Cube, masked, fold, twt), balance="rms",
+                      filter_type="bandpass", filter_freqs=cs.CHAIN_BANDPASS,
+                      device=dev)
+
+
+def stage2_check(pre, production, mesh, check, line=None):
+    """``interpolate_time_cube_sharded`` on ``mesh`` against
+    ``apply_fft`` -> ``interpolate`` -> ``apply_ifft`` on one card (and,
+    with ``line``, bit for bit against the 1-D mesh of its ranks)."""
+    from pseudo_3d_interpolation_torch.pipeline.fft import apply_fft
+    from pseudo_3d_interpolation_torch.pipeline.ifft import apply_ifft
+    from pseudo_3d_interpolation_torch.pipeline.pocs import interpolate
+    from pseudo_3d_interpolation_torch.pipeline.stage2 import (
+        interpolate_time_cube_sharded)
+
+    dev = mesh.device
+    shape = "2x2 slice x space mesh, " if line is not None else ""
+    check(f"interpolate_time_cube_sharded, {shape}{cs.N}x{cs.N}x"
+          f"{cs.CHAIN_NS} time cube",
           lambda: apply_ifft(interpolate(
               apply_fft(cs.fresh(pre), device=dev), device=dev), device=dev),
           lambda: interpolate_time_cube_sharded(cs.fresh(pre), production,
                                                 mesh=mesh),
-          lambda c: c.data_vars["amp"][1])
+          lambda c: c.data_vars["amp"][1], None,
+          None if line is None else
+          lambda: interpolate_time_cube_sharded(cs.fresh(pre), production,
+                                                mesh=line))
 
 
 if __name__ == "__main__":

@@ -26,7 +26,14 @@ slice axis shards the batch of slices, the space axis the ilines of every
 slice. Each rank belongs to one 1-D mesh along each axis, so the
 collectives of one axis run over that axis' group only; the barriers and
 broadcasts of the drivers above the solve run over the whole grid
-(:func:`whole`).
+(:func:`whole`). What a split space axis (n_space > 1) does depends on
+the basis: the FFT basis splits every slice's ilines over it and solves
+a distributed line FFT (``parallel.solver.SpaceShardedFFT``); DCT,
+WAVELET, SHEARLET and CURVELET, and stage 2
+(``pipeline.stage2.interpolate_time_cube_sharded``) for every basis,
+spread whole slices over the grid, on the single-device routes and their
+kernels. The drivers pad a batch to the slice axis (``slice_shards``);
+the solver pads it on to the grid where it needs to.
 """
 
 from __future__ import annotations
@@ -156,7 +163,10 @@ def make_mesh_2d(n_slices: int, n_space: int,
     n_slices·n_space ranks, rank ``i·n_space + j`` at slice block i and
     iline block j; every rank must call it (the groups are made
     collectively). With no process group it is the 1 × 1 mesh of this
-    process. ``device`` as :func:`make_mesh`'s."""
+    process. ``device`` as :func:`make_mesh`'s. With n_space > 1 the FFT
+    basis splits each slice's ilines over the space axis; every other
+    basis, and stage 2, solve whole slices over the grid of all
+    n_slices·n_space ranks."""
     n_slices, n_space = int(n_slices), int(n_space)
     if n_slices < 1 or n_space < 1:
         raise ValueError(f"mesh {n_slices}x{n_space} has no devices")

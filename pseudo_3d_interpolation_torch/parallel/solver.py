@@ -20,14 +20,16 @@ gathered; the batch is padded with zero slices to a multiple of the mesh
 (they short-circuit, so padding is free). ``mesh=None`` keeps the
 single-device drivers.
 
-On a 2-D slice × space mesh (``mesh.make_mesh_2d``) the FFT basis also
-spreads the ilines of every slice over the space axis: the solve is a
-distributed line FFT (:class:`SpaceShardedFFT`), each iteration's
-per-slice sums ``all_reduce``d over the space group. The JAX package gets
-the same from XLA partitioning its DFT matmuls; no kernel runs there
-(the folded solve needs a whole slice). The other bases raise on a 2-D
-mesh whose space axis is split; a 2-D mesh of one space rank is the 1-D
-path over its slice axis.
+On a 2-D slice × space mesh (``mesh.make_mesh_2d``) whose space axis is
+split, the FFT basis also spreads the ilines of every slice over the
+space axis: the solve is a distributed line FFT (:class:`SpaceShardedFFT`),
+each iteration's per-slice sums ``all_reduce``d over the space group. The
+JAX package gets the same from XLA partitioning its DFT matmuls; no
+kernel runs there (the folded solve needs a whole slice). Every other
+basis spreads whole slices over all the mesh's ranks (its ``grid``) and
+solves them on the single-device routes and their kernels, with no
+collective in the solve. A 2-D mesh of one space rank is the 1-D path
+over its slice axis.
 """
 
 from __future__ import annotations
@@ -48,12 +50,6 @@ from . import mesh as mesh_lib
 __all__ = ["resolve_device", "fits_resident", "interpolate_cube_resident",
            "interpolate_cube", "pocs_interpolate_scanned",
            "pocs_interpolate_sharded", "SpaceShardedFFT"]
-
-# where the bases a 2-D mesh does not run are listed
-MESH_2D_TODO = ("the other bases on a slice x space mesh are not built "
-                "(ROADMAP queue 1, 'the other bases on a 2-D mesh'); use a "
-                "1-D mesh (parallel.mesh.make_mesh)")
-
 
 def fits_resident(device, n_slices: int, batch: int, h: int, w: int,
                   expansion: int = 1, extra_bytes: int = 0) -> bool:
@@ -214,15 +210,11 @@ class SpaceShardedFFT:
         return threshold_ops.threshold_pair(coeffs, t, kind=base)
 
 
-def _sharded_2d(z: Cplx, mask, mesh: mesh_lib.Mesh2D, transform,
-                config: POCSConfig) -> POCSResult:
-    """:func:`pocs_interpolate_sharded` on a slice × space mesh: this
-    rank's slice block and iline block, the distributed FFT solve through
-    the scan, the result gathered over both axes."""
-    if not isinstance(transform, FFTTransform):
-        kind = getattr(transform, "kind", type(transform).__name__)
-        raise NotImplementedError(f"basis {kind!r} on a 2-D mesh: "
-                                  + MESH_2D_TODO)
+def _space_sharded_fft(z: Cplx, mask, mesh: mesh_lib.Mesh2D,
+                       config: POCSConfig) -> POCSResult:
+    """The FFT basis on a split slice × space mesh: this rank's slice
+    block and iline block, the distributed FFT solve through the scan,
+    the result gathered over both axes."""
     b, h, w = z.shape
     n_space = mesh.shape[1]
     if h % n_space or w % n_space:
@@ -249,6 +241,43 @@ def _sharded_2d(z: Cplx, mask, mesh: mesh_lib.Mesh2D, transform,
                       mesh_lib.gather(mesh.slices, res.cost), history)
 
 
+def _slice_sharded(z: Cplx, mask, mesh: mesh_lib.Mesh, transform,
+                   config: POCSConfig) -> POCSResult:
+    """The 1-D path: this rank's block of the batch solved on its device,
+    the results gathered."""
+    local = Cplx(mesh_lib.slice_sharding(mesh, z.re),
+                 mesh_lib.slice_sharding(mesh, z.im))
+    m = mesh_lib.replicated_sharding(
+        mesh, torch.as_tensor(mask, dtype=torch.float32))
+    res = pocs_interpolate(local, m, transform, config)
+    history = res.cost_history
+    if history is not None:
+        history = mesh_lib.gather(mesh, history, axis=1)
+    return POCSResult(Cplx(mesh_lib.gather(mesh, res.data.re),
+                           mesh_lib.gather(mesh, res.data.im)),
+                      mesh_lib.gather(mesh, res.n_iterations),
+                      mesh_lib.gather(mesh, res.cost), history)
+
+
+def _whole_slices(z: Cplx, mask, mesh: mesh_lib.Mesh, transform,
+                  config: POCSConfig) -> POCSResult:
+    """Every other basis on a split slice × space mesh: whole slices over
+    the 1-D mesh of all its ranks (``mesh.grid``), the batch padded on
+    inside with zero slices to a multiple of it and cropped again."""
+    b = z.shape[0]
+    pad = mesh_lib.pad_to_multiple(b, mesh.size) - b
+    if pad:
+        z = Cplx(*(torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+                   for t in (z.re, z.im)))
+    res = _slice_sharded(z, mask, mesh, transform, config)
+    if not pad:
+        return res
+    history = res.cost_history
+    return POCSResult(Cplx(res.data.re[:b], res.data.im[:b]),
+                      res.n_iterations[:b], res.cost[:b],
+                      None if history is None else history[:, :b])
+
+
 def pocs_interpolate_sharded(z: Cplx, mask, mesh=None, transform=None,
                              config: POCSConfig = POCSConfig()
                              ) -> POCSResult:
@@ -263,14 +292,23 @@ def pocs_interpolate_sharded(z: Cplx, mask, mesh=None, transform=None,
     ``mesh`` defaults to :func:`mesh.make_mesh`. ``config.pad_to_tile`` is
     not read at this layer (the cube drivers pad before calling in).
 
-    On a 2-D mesh (:func:`mesh.make_mesh_2d`) the slices go over its slice
-    axis and the ilines over its space axis (both sides of a slice must
-    divide by it), and the FFT basis is solved as a distributed line FFT
+    On a 2-D mesh (:func:`mesh.make_mesh_2d`) whose space axis is split,
+    the basis picks the path. The FFT basis puts the slices over the
+    slice axis and the ilines over the space axis (both sides of a slice
+    must divide by it) and is solved as a distributed line FFT
     (:class:`SpaceShardedFFT`) through the plain scan: regular, fast and
-    adaptive, with early stopping and cost history. Any other basis
-    raises ``NotImplementedError`` there. A 2-D mesh with one space rank
-    splits nothing but slices: it takes the 1-D path over its slice axis,
-    every basis and the folded kernels included."""
+    adaptive, with early stopping and cost history. DCT, WAVELET,
+    SHEARLET and CURVELET spread whole slices over all the mesh's ranks
+    (``mesh.grid``, row-major) and take the routes ``solver_route`` picks
+    on one device: the folded DCT and WAVELET solves, ``streamed-subband``
+    for SHEARLET and CURVELET (the split percentile passes under a
+    ``*-percentile`` threshold), ``xla-scan`` where the route says so. A
+    batch that divides by the slice axis but not by the grid is padded on
+    inside with zero slices, which are cropped off again. The JAX package
+    repeats each slice block over the space axis instead; each slice is
+    solved whole either way. A 2-D mesh with one space rank splits
+    nothing but slices: it takes the 1-D path over its slice axis, every
+    basis and the folded kernels included."""
     if mesh is None:
         mesh = mesh_lib.make_mesh()
     if transform is None:
@@ -280,21 +318,12 @@ def pocs_interpolate_sharded(z: Cplx, mask, mesh=None, transform=None,
         raise ValueError(f"batch {b} not divisible by mesh size "
                          f"{mesh.slice_shards} (its slice axis); pad first")
     if isinstance(mesh, mesh_lib.Mesh2D):
-        if mesh.shape[1] > 1:
-            return _sharded_2d(z, mask, mesh, transform, config)
-        mesh = mesh.slices  # no space split: the 1-D path, every basis
-    local = Cplx(mesh_lib.slice_sharding(mesh, z.re),
-                 mesh_lib.slice_sharding(mesh, z.im))
-    m = mesh_lib.replicated_sharding(
-        mesh, torch.as_tensor(mask, dtype=torch.float32))
-    res = pocs_interpolate(local, m, transform, config)
-    history = res.cost_history
-    if history is not None:
-        history = mesh_lib.gather(mesh, history, axis=1)
-    return POCSResult(Cplx(mesh_lib.gather(mesh, res.data.re),
-                           mesh_lib.gather(mesh, res.data.im)),
-                      mesh_lib.gather(mesh, res.n_iterations),
-                      mesh_lib.gather(mesh, res.cost), history)
+        if mesh.shape[1] == 1:  # no space split: the 1-D path, every basis
+            return _slice_sharded(z, mask, mesh.slices, transform, config)
+        if isinstance(transform, FFTTransform):
+            return _space_sharded_fft(z, mask, mesh, config)
+        return _whole_slices(z, mask, mesh.grid, transform, config)
+    return _slice_sharded(z, mask, mesh, transform, config)
 
 
 def interpolate_cube(data, mask, config: POCSConfig = POCSConfig(),

@@ -232,7 +232,10 @@ def interpolate(
 
     ``mesh`` (``parallel/mesh.py``, 1-D or 2-D) splits every batch of
     ``batch`` slices (padded to a multiple of its slice axis) over its
-    processes: every rank passes the same cube, solves its block on
+    processes (on a 2-D mesh with a split space axis, the FFT basis also
+    splits each slice's ilines, and the other bases spread whole slices
+    over all its ranks: ``parallel.solver.pocs_interpolate_sharded``):
+    every rank passes the same cube, solves its block on
     ``mesh.device`` (``device`` is not read) and gets the whole result;
     only the first rank writes
     ``out_path``, ``runtime_csv`` and the profile. Without a mesh the

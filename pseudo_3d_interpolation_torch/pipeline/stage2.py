@@ -1,4 +1,4 @@
-"""Sharded stage-2 core: FFT -> POCS -> IFFT over a 1-D mesh of processes.
+"""Sharded stage-2 core: FFT -> POCS -> IFFT over a mesh of processes.
 
 Counterpart of ``pseudo_3d_interpolation_tpu/pipeline/stage2.py``
 (replaces the reference running its whole stage 2 under one dask
@@ -15,11 +15,13 @@ and export after) runs on the mesh's devices in three stages:
 3. frequency -> time, trace-parallel: the mirror of (1), the
    ``all_to_all`` first, then the inverse along time.
 
-Every rank is given the same full host cube and returns the full result,
-gathered (``parallel/mesh.py``'s contract); nothing goes back to the host
-between the upload of the time cube and the download of the
-reconstruction. There is no compilation cache to warm: the kernels are
-built once per source (``ops/kernels/_build``).
+A 2-D slice × space mesh runs the three stages over all its ranks
+(``mesh.whole``): each rank solves whole frequency slices. Every rank is
+given the same full host cube and returns the full result, gathered
+(``parallel/mesh.py``'s contract); nothing goes back to the host between
+the upload of the time cube and the download of the reconstruction.
+There is no compilation cache to warm: the kernels are built once per
+source (``ops/kernels/_build``).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from __future__ import annotations
 import logging
 import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -104,11 +107,13 @@ def interpolate_time_cube_sharded(
     out_path: str | None = None,
     verbose: int = 0,
     batch: int = 32,
+    timings: dict | None = None,
 ) -> Cube:
     """Run steps 12-14 (FFT, POCS, IFFT) over ``mesh`` (default
     :func:`parallel.mesh.make_mesh`), each rank on ``mesh.device``. A 2-D
-    mesh is taken only with one space rank, as the 1-D mesh of its slice
-    axis; a split space axis raises ``NotImplementedError``.
+    mesh runs the three stages over all its ranks (``mesh.grid``, row-
+    major), as the JAX function shares the frequency slices among all
+    the devices of any mesh: each rank solves whole slices, every basis.
 
     Equivalent to ``apply_ifft(interpolate(apply_fft(cube)))`` with the
     same options (the same operations, scaling and solver; the frequency
@@ -123,7 +128,12 @@ def interpolate_time_cube_sharded(
     after the ``all_to_all``, so the solver sees the unpadded problem.
     Returns, on every rank, the time-domain cube with the interpolated
     variable named like ``var`` and ``fold``, its history and the
-    ``pocs_mean_*`` attributes; the first rank writes ``out_path``."""
+    ``pocs_mean_*`` attributes; the first rank writes ``out_path``.
+    ``timings``, when given, receives this rank's walls in seconds, each
+    ended by a device synchronisation: ``upload`` (its block of ilines
+    to the device), ``solve`` (FFT, POCS and IFFT with their
+    all_to_alls) and ``download`` (the gather and the copy to the
+    host)."""
     from .pocs import _production_transform, config_from_yaml
 
     if isinstance(cube, (str, os.PathLike)):
@@ -145,13 +155,7 @@ def interpolate_time_cube_sharded(
     mask = (np.asarray(cube.data_vars["fold"][1]) > 0).astype(np.float32)
     if mesh is None:
         mesh = mesh_lib.make_mesh()
-    if isinstance(mesh, mesh_lib.Mesh2D):
-        if mesh.shape[1] > 1:
-            raise NotImplementedError(
-                "stage 2 on a slice x space mesh is not built (ROADMAP "
-                "queue 1, 'the other bases on a 2-D mesh'); use a 1-D mesh "
-                "(parallel.mesh.make_mesh)")
-        mesh = mesh.slices  # no space split: the 1-D mesh of its slices
+    mesh = mesh_lib.whole(mesh)  # a 2-D mesh: the 1-D mesh of its ranks
     n_dev, device = mesh.size, mesh.device
     transform = _production_transform(config, transform_kwargs or {})
 
@@ -195,9 +199,20 @@ def interpolate_time_cube_sharded(
             "over a mesh of %d, %s/%s, niter=%d", data.shape, f_kept, f_pad,
             n_dev, config.transform_kind, config.version, config.niter)
 
+    start = [time.perf_counter()]
+
+    def lap(key: str) -> None:
+        if timings is None:
+            return
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        now = time.perf_counter()
+        timings[key], start[0] = now - start[0], now
+
     # stage 1: this rank's ilines, time -> frequency, then all_to_all
     x = mesh_lib.slice_sharding(mesh, _pad_axis(
         torch.from_numpy(data[..., :n]), 0, il_pad))
+    lap("upload")
     spec = spectral.forward_fft(x, twt, real=real, upsample=upsample)
     del x
     z = spec.data
@@ -239,7 +254,9 @@ def interpolate_time_cube_sharded(
         lo, hi = _global_range(mesh, valid)
         x = rescale(x, rescale_minmax[0], rescale_minmax[1], amin=lo,
                     amax=hi)
+    lap("solve")
     x_host = mesh_lib.gather(mesh, x).cpu().numpy()[:il0, :xl0]
+    lap("download")
 
     coords = {k: v for k, v in cube.coords.items() if k != "twt"}
     coords["twt"] = twt

@@ -23,10 +23,18 @@ cut at a percentile lies on a coefficient's own value, so a rounding
 flips it); soft also at the tolerances above, hard by SNR against the
 one-process port.
 
-The drivers above the solve (``interpolate``, ``interpolate_checkpointed``
-with its resume, ``warmup``) run on the 4 × 2 mesh; stage 2 raises there;
-and a 2-D mesh of one space rank (``make_mesh_2d(8, 1)``) is the 1-D
-path bit for bit, FFT, DCT and stage 2.
+DCT, WAVELET, SHEARLET and CURVELET (SHEARLET also with
+``hard-percentile``) spread whole slices over the mesh's 8 ranks: each is
+bit-equal to ``make_mesh(8)`` and held to the JAX package's solve at the
+same per-rank batch by SNR within 0.1 dB (hard thresholds); a batch of 4
+pads on to the grid. Stage 2 on the 4 × 2 mesh runs over the grid:
+bit-equal to ``make_mesh(8)``, and within ``test_torch_sharding.py``'s
+tolerance of the JAX package's sharded stage 2 (soft threshold).
+
+The drivers above the solve (``interpolate``, on FFT and SHEARLET,
+``interpolate_checkpointed`` with its resume, ``warmup``) run on the
+4 × 2 mesh; and a 2-D mesh of one space rank (``make_mesh_2d(8, 1)``) is
+the 1-D path bit for bit, FFT, DCT and stage 2.
 """
 
 import importlib
@@ -73,6 +81,22 @@ VARIANTS = {
 }
 PERCENTILE_SOFT_TOL = 1e-4  # of max|JAX|, test_torch_percentile.py's
 HARD_SNR_DB = 0.1  # hard-percentile by SNR, test_torch_percentile.py's
+# the bases that spread whole slices over the grid of a split 2-D mesh,
+# in the production hard threshold, and SHEARLET with a percentile one
+BASES = {
+    "DCT": dict(transform_kind="DCT"),
+    "WAVELET": dict(transform_kind="WAVELET"),
+    "SHEARLET": dict(transform_kind="SHEARLET"),
+    "CURVELET": dict(transform_kind="CURVELET"),
+    "SHEARLET hard-percentile": dict(transform_kind="SHEARLET",
+                                     **VARIANTS["hard-percentile"]),
+}
+# stage 2 on the split mesh: test_torch_sharding.py's configuration and
+# tolerance against the JAX package's sharded stage 2
+STAGE2_CFG = dict(niter=10, thresh_op="soft", thresh_model="exponential",
+                  p_min=1e-3, version="fast", alpha=0.75, eps=0.0)
+STAGE2_ATOL, STAGE2_RTOL = 2e-5, 1e-4  # of max|JAX|, and relative
+TWT = np.arange(16) * 0.25e-3
 
 WORKER = r"""
 import os, sys
@@ -82,7 +106,8 @@ import torch
 import torch.distributed as dist
 
 torch.set_num_threads(1)
-from pseudo_3d_interpolation_torch.models.pocs import POCSConfig
+from pseudo_3d_interpolation_torch.models.pocs import (POCSConfig,
+                                                       pocs_interpolate)
 from pseudo_3d_interpolation_torch.ops.cplx import Cplx
 from pseudo_3d_interpolation_torch.parallel import mesh as M
 from pseudo_3d_interpolation_torch.parallel import solver as S
@@ -110,13 +135,30 @@ for name, cfg_kw in variants.items():
     out[name + " cost"] = res.cost.numpy()
     if res.cost_history is not None:
         out[name + " history"] = res.cost_history.numpy()
-for kind in ("DCT", "SHEARLET"):
-    try:
-        S.pocs_interpolate_sharded(z, mask, mesh,
-                                   config=POCSConfig(transform_kind=kind))
-        out[kind] = "no error"
-    except NotImplementedError as e:
-        out[kind] = str(e)
+# every other basis spreads whole slices over the grid: the 1-D mesh of
+# the same ranks, slice for slice
+flat, line = M.make_mesh_2d(world, 1), M.make_mesh(world)
+for name, cfg_kw in inputs["bases"].item().items():
+    for mname, m in (("grid", mesh), ("1-D", line)):
+        res = S.pocs_interpolate_sharded(z, mask, m,
+                                         config=POCSConfig(**cfg_kw))
+        out[f"{name} {mname}"] = np.stack([res.data.re.numpy(),
+                                           res.data.im.numpy()])
+        out[f"{name} {mname} iters"] = res.n_iterations.numpy()
+        out[f"{name} {mname} cost"] = res.cost.numpy()
+# a batch of the slice axis (4) but not of the grid (8): padded on to the
+# grid inside, each slice solved alone
+dct = POCSConfig(**inputs["bases"].item()["DCT"])
+res = S.pocs_interpolate_sharded(Cplx(z.re[:4], z.im[:4]), mask, mesh,
+                                 config=dct)
+out["DCT 4"] = np.stack([res.data.re.numpy(), res.data.im.numpy()])
+alone = [pocs_interpolate(Cplx(z.re[i:i + 1], z.im[i:i + 1]),
+                            torch.from_numpy(mask), config=dct)
+         for i in range(4)]
+out["DCT 4 alone"] = np.stack([np.concatenate([r.data.re.numpy()
+                                               for r in alone]),
+                               np.concatenate([r.data.im.numpy()
+                                               for r in alone])])
 cfg = POCSConfig(**variants["fast"])
 rec, it, cost = S.interpolate_cube(obs[:5], mask, cfg, batch=3, mesh=mesh)
 out["cube"], out["cube iters"] = rec, it
@@ -137,6 +179,9 @@ cube = Cube(coords=dict(grid, freq=np.arange(5.0)),
                        "fold": fold})
 out["interpolate"] = P.interpolate(cube, cfg, mesh=mesh,
                                    batch=3).data_vars["amp_interp"][1]
+shearlet = POCSConfig(**inputs["bases"].item()["SHEARLET"])
+out["interpolate SHEARLET"] = P.interpolate(
+    cube, shearlet, mesh=mesh, batch=3).data_vars["amp_interp"][1]
 ck = os.path.join(work, "checkpoints")
 out["checkpointed"] = P.interpolate_checkpointed(
     cube, cfg, ck, mesh=mesh, batch=3).data_vars["amp_interp"][1]
@@ -145,22 +190,17 @@ out["resumed"] = P.interpolate_checkpointed(
 out["warmup ran"] = np.array(P.warmup(cfg, (h, w), batch=3, mesh=mesh,
                                       n_slices=5) > 0)
 
-# stage 2 on the split mesh raises
-rng = np.random.default_rng(5)
-tcube = Cube(coords=dict(grid, twt=np.arange(16.0)),
-             data_vars={"amp": (("iline", "xline", "twt"),
-                                (rng.normal(size=(h, w, 16)) * mask[..., None]
-                                 ).astype(np.float32)),
+# stage 2 on the split mesh: the three stages over the grid
+tcube = Cube(coords=dict(grid, twt=inputs["twt"]),
+             data_vars={"amp": (("iline", "xline", "twt"), inputs["tamp"]),
                         "fold": fold})
-try:
-    interpolate_time_cube_sharded(tcube, cfg, mesh=mesh)
-    out["stage2"] = "no error"
-except NotImplementedError as e:
-    out["stage2"] = str(e)
+stage2 = POCSConfig(**inputs["stage2"].item())
+for name, m in (("grid", mesh), ("1-D", line)):
+    out[f"stage2 soft {name}"] = interpolate_time_cube_sharded(
+        tcube, stage2, mesh=m).data_vars["amp"][1]
 
 # a 2-D mesh of one space rank is the 1-D slice path: every basis, and
 # stage 2, as on the 1-D mesh of the same ranks
-flat, line = M.make_mesh_2d(world, 1), M.make_mesh(world)
 for kind in ("FFT", "DCT"):
     kcfg = POCSConfig(transform_kind=kind, **variants["fast"])
     for name, m in (("flat", flat), ("1-D", line)):
@@ -189,16 +229,33 @@ def _inputs():
     return (obs * mask).astype(np.complex64), np.ascontiguousarray(mask)
 
 
-def _snr(x) -> float:
-    """dB of the plane waves ``_inputs`` observes against their gap to
-    ``x``."""
-    truth = np.stack([synthetic_slice(seed=s) for s in range(8)])
+def _snr_of(truth, x) -> float:
     return 10 * np.log10(np.sum(np.abs(truth) ** 2)
                          / np.sum(np.abs(truth - x) ** 2))
 
 
+def _snr(x) -> float:
+    """dB of the plane waves ``_inputs`` observes against their gap to
+    ``x``."""
+    return _snr_of(np.stack([synthetic_slice(seed=s) for s in range(8)]), x)
+
+
 def _config(name: str) -> POCSConfig:
     return POCSConfig(**dict(BASE_CFG, **VARIANTS[name]))
+
+
+def _time_amp(mask):
+    """The stage-2 time cube: seeded noise on the observed bins, 16
+    samples a trace."""
+    rng = np.random.default_rng(5)
+    return (rng.normal(size=mask.shape + (16,)) * mask[..., None]
+            ).astype(np.float32)
+
+
+def _obj(value):
+    box = np.empty((), dtype=object)
+    box[()] = value
+    return box
 
 
 @pytest.fixture(scope="module")
@@ -207,10 +264,11 @@ def group(tmp_path_factory):
     results."""
     work = tmp_path_factory.mktemp("mesh2d")
     obs, mask = _inputs()
-    variants = np.empty((), dtype=object)
-    variants[()] = {k: dict(BASE_CFG, **v) for k, v in VARIANTS.items()}
     np.savez(os.path.join(work, "inputs.npz"), obs=obs, mask=mask,
-             variants=variants)
+             variants=_obj({k: dict(BASE_CFG, **v)
+                            for k, v in VARIANTS.items()}),
+             bases=_obj({k: dict(BASE_CFG, **v) for k, v in BASES.items()}),
+             stage2=_obj(STAGE2_CFG), twt=TWT, tamp=_time_amp(mask))
     world = N_SLICES * N_SPACE
     port = _free_port()
     env = dict(os.environ, OMP_NUM_THREADS="1")
@@ -319,11 +377,65 @@ def test_percentile_solve_matches_jax(group, op):
                                   np.asarray(jres.n_iterations))
 
 
-@pytest.mark.parametrize("kind", ["DCT", "SHEARLET"])
-def test_other_bases_raise_on_a_2d_mesh(group, kind):
-    msg = str(group[0][kind])
-    assert msg.startswith(f"basis {kind!r} on a 2-D mesh")
-    assert "ROADMAP" in msg
+@pytest.mark.parametrize("name", list(BASES))
+def test_other_bases_on_a_2d_mesh_are_the_1d_mesh(group, name):
+    """DCT, WAVELET, SHEARLET and CURVELET (and SHEARLET with a
+    percentile threshold) spread whole slices over the 4 x 2 mesh's grid:
+    bit-equal to ``make_mesh(8)`` over the same ranks, result, iterations
+    and cost."""
+    for key in ("", " iters", " cost"):
+        np.testing.assert_array_equal(group[0][f"{name} grid{key}"],
+                                      group[0][f"{name} 1-D{key}"])
+
+
+def _jax_solve(obs, mask, cfg_kw, per_call):
+    """The JAX package's ``pocs_interpolate`` (its plain reference, as its
+    own CPU tests run it) on ``obs``, ``per_call`` slices a call: the
+    results and the iteration counts."""
+    jnp = pytest.importorskip("jax.numpy")
+    jpocs = importlib.import_module("pseudo_3d_interpolation_tpu.models.pocs")
+    from pseudo_3d_interpolation_tpu.models.transforms import (
+        get_transform as jget)
+    from pseudo_3d_interpolation_tpu.ops.cplx import Cplx as JCplx
+
+    jax = pytest.importorskip("jax")
+    cfg = jpocs.POCSConfig(**cfg_kw)
+    transform = jget(cfg.transform_kind)
+    solve = jax.jit(lambda re, im, m: jpocs.pocs_interpolate(
+        JCplx(re, im), m, transform, cfg))
+    recs, iters = [], []
+    for i in range(0, obs.shape[0], per_call):
+        part = obs[i:i + per_call]
+        res = solve(jnp.asarray(part.real), jnp.asarray(part.imag),
+                    jnp.asarray(mask))
+        recs.append(np.asarray(res.data.re) + 1j * np.asarray(res.data.im))
+        iters.append(np.asarray(res.n_iterations))
+    return np.concatenate(recs), np.concatenate(iters)
+
+
+@pytest.mark.parametrize("name", list(BASES))
+def test_other_bases_on_a_2d_mesh_match_jax(group, name):
+    """The same solves against the JAX package's ``pocs_interpolate`` at
+    the same per-rank batch (one slice): a hard threshold flips a
+    coefficient at it when the transforms round otherwise, so the
+    results are held by SNR against the plane waves within
+    HARD_SNR_DB, the iterations equal."""
+    obs, mask = _inputs()
+    want, iters = _jax_solve(obs, mask, dict(BASE_CFG, **BASES[name]), 1)
+    got = group[0][f"{name} grid"]
+    got = got[0] + 1j * got[1]
+    assert np.isfinite(got).all()
+    assert abs(_snr(got) - _snr(want)) < HARD_SNR_DB
+    np.testing.assert_array_equal(group[0][f"{name} grid iters"], iters)
+
+
+def test_a_batch_of_the_slice_axis_pads_to_the_grid(group):
+    """4 DCT slices on the 4 x 2 mesh (a multiple of its slice axis, not
+    of its 8 ranks): padded on with zero slices to the grid and cropped,
+    each rank solves one slice, bit-equal to each slice solved alone."""
+    got = group[0]["DCT 4"]
+    assert got.shape == (2, 4, 64, 64)
+    np.testing.assert_array_equal(got, group[0]["DCT 4 alone"])
 
 
 def test_interpolate_cube_on_a_2d_mesh(group):
@@ -356,12 +468,55 @@ def test_drivers_on_a_2d_mesh(group):
     np.testing.assert_array_equal(group[0]["resumed"],
                                   group[0]["checkpointed"])
     assert bool(group[0]["warmup ran"])
+    # a directional basis: whole slices over the grid, held to the
+    # single-device driver within 1e-5 of max, or by SNR (a hard
+    # threshold flips where the batch's sums round otherwise)
+    shearlet = POCSConfig(**dict(BASE_CFG, **BASES["SHEARLET"]))
+    rec, _, _ = solver.interpolate_cube(obs[:5], mask, shearlet, batch=3,
+                                        device="cpu")
+    want = np.moveaxis(rec, 0, -1)
+    got = group[0]["interpolate SHEARLET"]
+    assert got.shape == want.shape
+    truth = np.moveaxis(np.stack([synthetic_slice(seed=s)
+                                  for s in range(5)]), 0, -1)
+    assert (np.abs(got - want).max() <= ONE_PROCESS_TOL * np.abs(want).max()
+            or abs(_snr_of(truth, got) - _snr_of(truth, want))
+            < HARD_SNR_DB)
 
 
-def test_stage2_raises_on_a_split_2d_mesh(group):
-    msg = str(group[0]["stage2"])
-    assert msg.startswith("stage 2 on a slice x space mesh")
-    assert "ROADMAP" in msg
+def test_stage2_on_a_split_2d_mesh_is_the_1d_mesh(group):
+    """``interpolate_time_cube_sharded`` on the 4 x 2 mesh runs its three
+    stages over the grid: bit-equal to ``make_mesh(8)``."""
+    got = group[0]["stage2 soft grid"]
+    assert got.shape == (64, 64, 16) and np.isfinite(got).all()
+    np.testing.assert_array_equal(got, group[0]["stage2 soft 1-D"])
+
+
+def test_stage2_on_a_split_2d_mesh_matches_jax(group):
+    """The same call against the JAX package's sharded stage 2 on its
+    8-device mesh, at ``test_torch_sharding.py``'s tolerance."""
+    pytest.importorskip("jax")
+    from pseudo_3d_interpolation_tpu.io.ncio import Cube as JCube
+    from pseudo_3d_interpolation_tpu.models.pocs import POCSConfig as JConfig
+    from pseudo_3d_interpolation_tpu.parallel import make_mesh as jmake_mesh
+    from pseudo_3d_interpolation_tpu.pipeline.stage2 import \
+        interpolate_time_cube_sharded as jsharded
+
+    _, mask = _inputs()
+    h, w = mask.shape
+    cube = JCube(coords={"iline": np.arange(h), "xline": np.arange(w),
+                         "twt": TWT},
+                 data_vars={"amp": (("iline", "xline", "twt"),
+                                    _time_amp(mask)),
+                            "fold": (("iline", "xline"),
+                                     mask.astype(np.int32))})
+    want = np.asarray(jsharded(cube, JConfig(**STAGE2_CFG),
+                               mesh=jmake_mesh()).data_vars["amp"][1])
+    got = group[0]["stage2 soft grid"]
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want,
+                               atol=STAGE2_ATOL * np.abs(want).max(),
+                               rtol=STAGE2_RTOL)
 
 
 @pytest.mark.parametrize("kind", ["FFT", "DCT", "stage2"])
