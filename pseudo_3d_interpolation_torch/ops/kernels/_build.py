@@ -21,6 +21,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+from ...utils import timing
+
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -81,24 +83,26 @@ def build() -> dict[str, Path]:
         return libs
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for src in todo:
-        out = libs[src.stem]
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        proc = subprocess.Popen(nvcc_command(nvcc, src, tmp),
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((src, out, tmp, proc))
     failures = []
-    for src, out, tmp, proc in jobs:
-        log, _ = proc.communicate()
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failures.append(f"nvcc exited {proc.returncode} on {src.name}:"
-                            f"\n{log}")
-            continue
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)
+    with timing.build_span("kernels.build",
+                           sources=[src.stem for src in todo]):
+        jobs = []
+        for src in todo:
+            out = libs[src.stem]
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(nvcc_command(nvcc, src, tmp),
+                                    stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs.append((src, out, tmp, proc))
+        for src, out, tmp, proc in jobs:
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failures.append(f"nvcc exited {proc.returncode} on "
+                                f"{src.name}:\n{log}")
+                continue
+            out.with_suffix(".log").write_text(log)
+            os.replace(tmp, out)
     if failures:
         raise KernelBuildError("\n".join(failures))
     return libs
@@ -108,7 +112,9 @@ def build() -> dict[str, Path]:
 def load(name: str) -> ctypes.CDLL:
     """Build if needed and load the library of ``csrc/<name>.cu`` (once per
     process)."""
-    libs = build()
-    if name not in libs:
-        raise KernelBuildError(f"no CUDA source {name}.cu under {CSRC_DIR}")
-    return ctypes.CDLL(str(libs[name]))
+    with timing.build_span("kernels.load"):
+        libs = build()
+        if name not in libs:
+            raise KernelBuildError(f"no CUDA source {name}.cu under "
+                                   f"{CSRC_DIR}")
+        return ctypes.CDLL(str(libs[name]))

@@ -30,6 +30,7 @@ import os
 import numpy as np
 import torch
 
+from ..utils import timing
 from . import dft
 from .cplx import Cplx
 from .threshold import threshold_pair
@@ -88,6 +89,7 @@ def default_scales(h: int, w: int) -> int:
 
 
 @functools.lru_cache(maxsize=8)
+@timing.builds("transform.plan")
 def shearlet_spectra(h: int, w: int, n_scales: int | None = None
                      ) -> np.ndarray:
     """The (L, H, W) shearlet windows (numpy float32, fft layout), real,
@@ -197,7 +199,8 @@ class _ScaleGroup:
 
     def _cached(self, key, make):
         if key not in self._dev:
-            self._dev[key] = make()
+            with timing.build_span("transform.plan", what=key[0]):
+                self._dev[key] = make()
         return self._dev[key]
 
     def psi_on(self, device) -> torch.Tensor:
@@ -367,6 +370,7 @@ def build_plan(psi: np.ndarray, counts, bounds,
 
 
 @functools.lru_cache(maxsize=8)
+@timing.builds("transform.plan")
 def shearlet_plan(h: int, w: int, n_scales: int | None = None,
                   split_threshold: int | None = None) -> Plan:
     """Per-scale support-cropped window groups (host, cached);

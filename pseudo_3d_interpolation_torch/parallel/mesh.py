@@ -38,11 +38,14 @@ the solver pads it on to the grid where it needs to.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
 import torch
 import torch.distributed as dist
+
+from ..utils import timing
 
 SLICE_AXIS = "slices"
 SPACE_AXIS = "space"
@@ -60,11 +63,13 @@ def initialize_distributed(coordinator: str | None = None,
     process before :func:`make_mesh`; a run of one process skips it."""
     if backend is None:
         backend = "nccl" if torch.cuda.is_available() else "gloo"
-    if coordinator is None:
-        dist.init_process_group(backend, init_method="env://")
-        return
-    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
-                            world_size=num_processes, rank=process_id)
+    with timing.build_span("mesh.init"):
+        if coordinator is None:
+            dist.init_process_group(backend, init_method="env://")
+        else:
+            dist.init_process_group(
+                backend, init_method=f"tcp://{coordinator}",
+                world_size=num_processes, rank=process_id)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -244,19 +249,47 @@ def block(mesh: Mesh, n: int) -> slice:
     return slice(i * k, (i + 1) * k)
 
 
+# the process groups that have run a collective here (id: group, held so
+# that the id stays this group's): NCCL connects a group at its first
+_CONNECTED: dict = {}
+
+
+@contextlib.contextmanager
+def _collective(name: str, mesh: Mesh, x: torch.Tensor):
+    """The span ``name`` over one collective of the mesh's group, with the
+    ``bytes`` of this rank's input ``x``; the group's first collective in
+    this process is also the build span ``mesh.connect``."""
+    group = dist.group.WORLD if mesh.group is None else mesh.group
+    with timing.span(name, bytes=x.nbytes):
+        if id(group) in _CONNECTED:
+            yield
+            return
+        _CONNECTED[id(group)] = group
+        with timing.build_span("mesh.connect"):
+            yield
+
+
+def _copy_in(x: torch.Tensor, device) -> torch.Tensor:
+    """``x`` on ``device``, contiguous: the span ``stage2.h2d`` with its
+    ``bytes`` and whether it is ``pinned``."""
+    with timing.span("stage2.h2d", bytes=x.nbytes, pinned=x.is_pinned()):
+        return x.to(device).contiguous()
+
+
 def slice_sharding(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """This rank's block of ``x``'s leading axis on its device (the
     counterpart of the leading-axis ``NamedSharding``)."""
-    return x[block(mesh, x.shape[0])].to(mesh.device).contiguous()
+    return _copy_in(x[block(mesh, x.shape[0])], mesh.device)
 
 
 def replicated_sharding(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:
     """``x`` on this rank's device as the mesh's first rank holds it (the
     counterpart of the replicated ``NamedSharding``): one broadcast."""
-    x = x.to(mesh.device).contiguous()
+    x = _copy_in(x, mesh.device)
     if mesh.size > 1:
         _member(mesh)
-        dist.broadcast(x, src=mesh.ranks[0], group=mesh.group)
+        with _collective("mesh.broadcast", mesh, x):
+            dist.broadcast(x, src=mesh.ranks[0], group=mesh.group)
     return x
 
 
@@ -268,8 +301,19 @@ def gather(mesh: Mesh, x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     _member(mesh)
     x = x.contiguous()
     parts = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(parts, x, group=mesh.group)
+    with _collective("mesh.all_gather", mesh, x):
+        dist.all_gather(parts, x, group=mesh.group)
     return torch.cat(parts, dim=axis)
+
+
+def all_reduce(mesh: Mesh, x: torch.Tensor, op) -> torch.Tensor:
+    """``x`` reduced by ``op`` over the mesh's ranks, in place (nothing on
+    a mesh of one); ``x`` must be contiguous."""
+    if mesh.size > 1:
+        _member(mesh)
+        with _collective("mesh.all_reduce", mesh, x):
+            dist.all_reduce(x, op, group=mesh.group)
+    return x
 
 
 def reshard_axis(x: torch.Tensor, mesh: Mesh, axis: int,
@@ -292,7 +336,8 @@ def reshard_axis(x: torch.Tensor, mesh: Mesh, axis: int,
     send = x.movedim(axis, 0).reshape((p, n // p) + tuple(
         s for d, s in enumerate(x.shape) if d != axis)).contiguous()
     recv = torch.empty_like(send)
-    dist.all_to_all_single(recv, send, group=mesh.group)
+    with _collective("mesh.all_to_all", mesh, send):
+        dist.all_to_all_single(recv, send, group=mesh.group)
     # recv[i]: rank i's block along src_axis of this rank's block along axis
     return torch.cat(list(recv.movedim(1, axis + 1)), dim=src_axis)
 

@@ -22,6 +22,7 @@ package's own test (tests/test_stage2_sharded.py): 2e-5·max absolute,
 coefficients between the two packages' arithmetic).
 """
 
+import json
 import os
 import socket
 import subprocess
@@ -68,8 +69,10 @@ STAGE2_VARIANTS = {
                                   rescale_minmax=(-1.0, 1.0))),
 }
 
+TIMED = "rescale and clip"  # the variant run again with timings={}: every
+# collective of stage 2, the all_reduces of the rescale's range included
 WORKER = r"""
-import os, sys
+import json, os, sys
 sys.path.insert(0, os.getcwd())
 import numpy as np
 import torch
@@ -86,6 +89,7 @@ from pseudo_3d_interpolation_torch.pipeline.stage2 import (
     interpolate_time_cube_sharded)
 
 port, rank, world, task, work = sys.argv[1:6]
+TIMED = %r
 rank, world = int(rank), int(world)
 M.initialize_distributed(coordinator=f"127.0.0.1:{port}",
                          num_processes=world, process_id=rank,
@@ -162,9 +166,17 @@ else:
         out[name] = res.data_vars["amp"][1]
         out[name + " iters"] = res.attrs["pocs_mean_iterations"]
         out[name + " twt"] = res.coords["twt"]
+        if name == TIMED:
+            timings = {}
+            res = interpolate_time_cube_sharded(
+                cube_of(amp, fold, dims, coords), cfg, mesh=mesh, batch=4,
+                timings=timings, **kw)
+            out[name + " timed"] = res.data_vars["amp"][1]
+            out["timings"] = np.array(json.dumps(timings))
+            out["world"] = world
 np.savez(os.path.join(work, f"rank{rank}.npz"), **out)
 dist.destroy_process_group()
-"""
+""" % TIMED
 
 
 def _free_port() -> int:
@@ -212,7 +224,8 @@ def _obj(value) -> np.ndarray:
 def _same_on_every_rank(results):
     for other in results[1:]:
         for k, v in results[0].items():
-            if k not in ("warmup", "submesh"):  # a wall time, the rank
+            # a wall time, the rank, each rank's spans
+            if k not in ("warmup", "submesh", "timings"):
                 np.testing.assert_array_equal(other[k], v, err_msg=k)
 
 
@@ -408,6 +421,44 @@ def test_stage2_matches_the_single_device_chain(stage2_group, stage2_input,
             == interp.attrs["pocs_mean_iterations"])
     np.testing.assert_array_equal(stage2_group[name + " twt"],
                                   back.coords["twt"])
+
+
+def test_stage2_spans_on_the_ranks(stage2_group, stage2_input):
+    """Rank 0's spans of the timed cube: the output bit-equal to the
+    untimed cube's, each collective's bytes counted from the shapes, the
+    copies' bytes, one batch span a launch, and no build span, the
+    process group being joined and connected before the cube."""
+    _, _, amp, fold = stage2_input
+    world = int(stage2_group["world"])
+    np.testing.assert_array_equal(stage2_group[TIMED + " timed"],
+                                  stage2_group[TIMED])
+    timings = json.loads(str(stage2_group["timings"]))
+    spans = timings["spans"]
+    il, xl, nt = amp.shape
+    n = nt - nt % 2
+    f = n // 2 + 1
+    f_pad, il_pad = -(-f // world) * world, -(-il // world) * world
+    f_rank, il_rank = f_pad // world, il_pad // world
+    want = [("mesh.all_to_all", f_pad * il_rank * xl * 4)] * 2 + [
+        ("mesh.broadcast", il * xl * 4),
+        ("mesh.all_gather", f_rank * 4), ("mesh.all_gather", f_rank * 4),
+    ] + [("mesh.all_to_all", il_pad * f_rank * xl * 4)] * 2 + [
+        ("mesh.all_reduce", 4), ("mesh.all_reduce", 4),
+        ("mesh.all_gather", il_rank * xl * n * 4)]
+    assert [(s["name"], s["attrs"]["bytes"]) for s in spans
+            if s["name"].startswith("mesh.")] == want
+    assert [s["attrs"]["bytes"] for s in spans
+            if s["name"] == "stage2.h2d"] == [il_rank * xl * n * 4,
+                                              il * xl * 4]
+    assert [s["attrs"]["bytes"] for s in spans
+            if s["name"] == "stage2.d2h"] == [il_pad * xl * n * 4]
+    batches = [s["attrs"]["slices"] for s in spans
+               if s["name"] == "solver.batch"]
+    assert len(batches) == -(-f_rank // 4) and sum(batches) == f_rank
+    assert not [s for s in spans if s["build"]]
+    assert timings["process"]["mesh.init"]["count"] == 1
+    assert timings["process"]["mesh.connect"]["count"] == 1
+    assert all(s["device_s"] is None for s in spans)
 
 
 @pytest.mark.parametrize("name", sorted(STAGE2_VARIANTS))
