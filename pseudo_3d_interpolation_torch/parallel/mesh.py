@@ -46,6 +46,7 @@ import torch
 import torch.distributed as dist
 
 from ..utils import timing
+from . import transfer
 
 SLICE_AXIS = "slices"
 SPACE_AXIS = "space"
@@ -270,10 +271,14 @@ def _collective(name: str, mesh: Mesh, x: torch.Tensor):
 
 
 def _copy_in(x: torch.Tensor, device) -> torch.Tensor:
-    """``x`` on ``device``, contiguous: the span ``stage2.h2d`` with its
-    ``bytes`` and whether it is ``pinned``."""
-    with timing.span("stage2.h2d", bytes=x.nbytes, pinned=x.is_pinned()):
-        return x.to(device).contiguous()
+    """``x`` on ``device``, contiguous (``transfer.to_device``): the span
+    ``stage2.h2d`` with its ``bytes``, whether ``x`` is ``pinned``, and
+    whether it went through the staging ring (``staged``) in how many
+    ``chunks`` (0 on the plain path)."""
+    chunks = transfer.upload_chunks(x, device)
+    with timing.span("stage2.h2d", bytes=x.nbytes, pinned=x.is_pinned(),
+                     staged=chunks > 0, chunks=chunks):
+        return transfer.to_device(x, device).contiguous()
 
 
 def slice_sharding(mesh: Mesh, x: torch.Tensor) -> torch.Tensor:

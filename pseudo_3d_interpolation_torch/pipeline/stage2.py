@@ -19,7 +19,8 @@ A 2-D slice × space mesh runs the three stages over all its ranks
 (``mesh.whole``): each rank solves whole frequency slices. Every rank is
 given the same full host cube and returns the full result, gathered
 (``parallel/mesh.py``'s contract); nothing goes back to the host between
-the upload of the time cube and the download of the reconstruction.
+the upload of the time cube and the download of the reconstruction, and
+on a card both go through ``parallel/transfer.py``'s pinned staging ring.
 There is no compilation cache to warm: the kernels are built once per
 source (``ops/kernels/_build``).
 """
@@ -38,6 +39,7 @@ from ..models.pocs import POCSConfig, pocs_interpolate
 from ..ops import spectral
 from ..ops.cplx import Cplx
 from ..parallel import mesh as mesh_lib
+from ..parallel import transfer
 from ..utils import timing
 from ..utils.pad import auto_pad_to_tile, next_multiple
 from ..utils.rescale import rescale
@@ -267,8 +269,10 @@ def interpolate_time_cube_sharded(
                                 amin=lo, amax=hi)
         with laps.lap("stage2.download", "download"):
             x = mesh_lib.gather(mesh, x)
-            with timing.span("stage2.d2h", bytes=x.nbytes):
-                x_host = x.cpu()
+            chunks = transfer.download_chunks(x)
+            with timing.span("stage2.d2h", bytes=x.nbytes, staged=chunks > 0,
+                             chunks=chunks):
+                x_host = transfer.to_host(x)
             x_host = x_host.numpy()[:il0, :xl0]
 
         with timing.span("stage2.host_out"):

@@ -13,10 +13,13 @@ quartiles of each); then one cube under torch.profiler with
 ``timings={}``: its device idle gaps over 1 ms, each put down to the
 innermost program span (a user annotation) that holds the gap's
 midpoint, the device synchronisations inside the cube, each span's
-device seconds beside its ``gpu_user_annotation`` ranges, and the checks
-that the spans' readings hold together. Prints one JSON report last, and
-writes it with the gzipped Chrome traces to ``--out``. ``--tiny``
-rehearses the script on the CPU at 32x32x64 (no device numbers).
+device seconds beside its ``gpu_user_annotation`` ranges, each copy
+span's bytes, whether it went through the staging ring (``staged``) and
+in how many ``chunks``, and the checks that the spans' readings hold
+together; and the process's ``stage2.staging`` builds. Prints one JSON
+report last, and writes it with the gzipped Chrome traces to ``--out``.
+``--tiny`` rehearses the script on the CPU at 32x32x64 (no device
+numbers).
 """
 
 import argparse
@@ -134,6 +137,10 @@ def traced(run, device, name, out):
         "gaps": listed,
         "span_device_s": {k: [sum(v), len(v)] for k, v in span_dev.items()},
         "span_count": {k: sum(s["name"] == k for s in spans) for k in names},
+        # each copy: name, bytes, staged, chunks, device seconds
+        "copies": [[s["name"], s["attrs"]["bytes"], s["attrs"]["staged"],
+                    s["attrs"]["chunks"], s["device_s"]] for s in spans
+                   if s["name"] in ("stage2.h2d", "stage2.d2h")],
         "gpu_annotation_s": {k: [sum(v), len(v)] for k, v in ann_dev.items()},
         "checks": {
             "h2d_under_upload_le_upload": dsum("stage2.h2d", "stage2.upload")
@@ -178,6 +185,8 @@ def main(argv=None):
         got = {"timings_none": off, "timings_dict": on,
                "none": quartiles(off), "dict": quartiles(on),
                "process": timing.BUILDS.snapshot()}
+        got["staging_builds"] = got["process"].get(
+            "stage2.staging", {}).get("count", 0)
         got["trace"] = traced(run, device, name, out)
         report[name] = got
         print(json.dumps({name: {k: got[k] for k in ("none", "dict")}}),
@@ -191,7 +200,8 @@ def main(argv=None):
     print(json.dumps({k: (v if k in ("card", "torch") else
                           {"trace": {kk: vv for kk, vv in v["trace"].items()
                                      if kk not in ("gaps",)},
-                           "process": v["process"]})
+                           "process": v["process"],
+                           "staging_builds": v["staging_builds"]})
                       for k, v in report.items()}, indent=1))
 
 

@@ -116,10 +116,14 @@ def test_copies_count_the_arrays_bytes(traced):
     spans = traced[3]["spans"]
     il, xl, n = 16, 12, 32
     up, mask = by_name(spans, "stage2.h2d")
-    assert up["attrs"] == {"bytes": il * xl * n * 4, "pinned": False}
-    assert mask["attrs"] == {"bytes": il * xl * 4, "pinned": False}
+    # on the CPU every copy takes the plain path: not staged, no chunks
+    assert up["attrs"] == {"bytes": il * xl * n * 4, "pinned": False,
+                           "staged": False, "chunks": 0}
+    assert mask["attrs"] == {"bytes": il * xl * 4, "pinned": False,
+                             "staged": False, "chunks": 0}
     (down,) = by_name(spans, "stage2.d2h")
-    assert down["attrs"] == {"bytes": il * xl * n * 4}
+    assert down["attrs"] == {"bytes": il * xl * n * 4, "staged": False,
+                             "chunks": 0}
     assert traced[4].nbytes == il * xl * n * 4
 
 
@@ -312,4 +316,10 @@ def test_stage2_spans_script_rehearses_on_the_cpu(tmp_path, capsys):
     assert trace["device_synchronize"] == 0  # the laps sync on a card only
     assert all(trace["checks"].values())
     assert trace["span_count"]["solver.batch"] == 5  # 33 bins, batch 8
+    # the CPU's copies take the plain path: no ring built
+    assert [c[:4] for c in trace["copies"]] == [
+        ["stage2.h2d", 32 * 32 * 64 * 4, False, 0],
+        ["stage2.h2d", 32 * 32 * 4, False, 0],
+        ["stage2.d2h", 32 * 32 * 64 * 4, False, 0]]
+    assert got["staging_builds"] == 0
     assert (tmp_path / "fft_eps_cube_1chip.trace.json.gz").is_file()
