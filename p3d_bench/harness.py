@@ -4,9 +4,12 @@ check against the plain reference, and the result line.
 Everything that belongs to one cell, configuration, traffic mix or
 per-layer metric is a file of its own, found by name:
 ``workloads/<cell>.json`` (its configuration, traffic, chips and the
-limits of its check), ``configs/<config>.json``, ``traffic/<mix>.json``
-and ``metrics/<metric>.py`` (a ``read(ctx)`` that returns the metric's
-value, or None where the run has nothing for it to read).
+limits of its check), ``configs/<config>.json``, ``traffic/<mix>.json``,
+``metrics/<metric>.py`` (a ``read(ctx)`` that returns the metric's
+value, or None where the run has nothing for it to read) and
+``reference/bases/<basis>.py`` (the configuration's basis: its reference,
+its work count and the transform keys a configuration may give it in
+``"transform"``).
 
 The timed entry is ``pipeline.stage2.interpolate_time_cube_sharded`` of
 ``pseudo_3d_interpolation_torch``, called as the north-star runner calls
@@ -31,6 +34,7 @@ import numpy as np
 import torch
 
 from . import work
+from .reference import bases as ref_bases
 from .reference import cube as ref_cube
 from .reference import pocs as ref_pocs
 
@@ -69,9 +73,16 @@ class Cell(NamedTuple):
 
 def load_cell(name: str) -> Cell:
     """The cell ``workloads/<name>.json`` with its configuration and
-    traffic mix."""
+    traffic mix. A configuration whose basis the reference and the work
+    count cannot take is refused here, before any card work."""
     cell = load_json("workloads", name)
     config = load_json("configs", cell["config"])
+    try:
+        ref_bases.shape_keys(config)
+    except ref_bases.BasisError as exc:
+        path = BENCH / "configs" / f"{cell['config']}.json"
+        raise BenchError(f"configuration {path.relative_to(ROOT)}: {exc}"
+                         ) from None
     traffic = load_json("traffic", cell["traffic"])
     if traffic.get("loop") != "closed" or traffic.get("clients") != 1:
         raise BenchError(f"traffic {cell['traffic']}: the harness drives "
@@ -205,13 +216,15 @@ def port_config(config: dict, niter: int | None = None):
 
 
 def cube_runner(config: dict, inputs: Inputs, mesh, niter=None):
-    """A function that sends the host cube through the timed entry once:
-    (the result's Cube, its walls: ``cube`` host to host, and stage 2's
-    ``upload``, ``solve`` and ``download``)."""
+    """A function that sends the host cube through the timed entry once,
+    with the configuration's ``"transform"`` keys and ``precision`` as
+    the transform's keys: (the result's Cube, its walls: ``cube`` host to
+    host, stage 2's ``upload``, ``solve`` and ``download``, and its
+    ``spans`` and ``process``)."""
     from pseudo_3d_interpolation_torch.pipeline import stage2
 
     pc = port_config(config, niter)
-    tkw = {"precision": config["precision"]}
+    tkw = dict(config.get("transform", {}), precision=config["precision"])
 
     def run():
         walls: dict = {}

@@ -13,9 +13,9 @@ reinsertion ``x = x_rec * (1 - alpha * mask) + alpha * x_obs``; with
 after the third iteration keeps its state from then on. A slice that is
 all zero is returned as it is.
 
-Two bases: FFT (the 2-D DFT of the slice) and SHEARLET (the windows of
-``reference/shearlet.py``, materialised: every band's coefficients
-``ifft2(fft2(x) * psi_l)``, the inverse ``ifft2(sum_l fft2(c_l) * psi_l)``).
+The basis is the configuration's ``basis``, found by name in
+``reference/bases/`` (one module a basis; ``bases/__init__.py`` says
+what each gives).
 
 ``precision`` "float64" computes everything in float64. "tf32" is the
 control: float32 with the input of every 2-D transform rounded to TF32's
@@ -29,7 +29,7 @@ import math
 import numpy as np
 import torch
 
-from . import shearlet as sh
+from . import bases
 
 PRECISIONS = ("float64", "tf32")
 
@@ -85,7 +85,9 @@ def exponential_schedule(tau_max: torch.Tensor, tau_min: torch.Tensor,
     return torch.where(tau_max == 0, torch.zeros_like(out), out)
 
 
-def _p_min(config: dict) -> float | None:
+def fixed_p_min(config: dict) -> float | None:
+    """The configuration's numeric ``p_min``; None where it is
+    "adaptive"."""
     p = config["p_min"]
     if isinstance(p, str):
         if p != "adaptive":
@@ -94,79 +96,11 @@ def _p_min(config: dict) -> float | None:
     return float(p)
 
 
-class FFTBasis:
-    """The 2-D DFT; one threshold per slice."""
-
-    def __init__(self, h: int, w: int, tr: Transforms, device):
-        self.tr = tr
-
-    def decay(self, z: torch.Tensor, config: dict) -> torch.Tensor:
-        mag = self.tr.fft2(z).abs()
-        amax = mag.amax(dim=(-2, -1))
-        p_min = _p_min(config)
-        if p_min is None:
-            size = mag.shape[-2] * mag.shape[-1]
-            tau_min = 0.01 * torch.sqrt((mag * mag).sum(dim=(-2, -1)) / size)
-        else:
-            tau_min = p_min * amax
-        return exponential_schedule(config["p_max"] * amax, tau_min,
-                                    config["niter"])
-
-    def shrink(self, x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-        c = self.tr.fft2(x)
-        c = torch.where(c.abs() < tau[:, None, None], 0, c)
-        return self.tr.ifft2(c)
-
-
-class ShearletBasis:
-    """The SHEARLET windows of ``reference/shearlet.py`` at the slice's
-    size; one threshold per slice and band."""
-
-    def __init__(self, h: int, w: int, tr: Transforms, device,
-                 n_scales: int | None = None):
-        self.tr = tr
-        if n_scales is None:
-            n_scales = sh.default_scales(h, w)
-        self.psi = torch.from_numpy(sh.shearlet_spectra(h, w, n_scales)).to(
-            device=device, dtype=tr.real)
-        scale = [0] + sum(([j + 1] * 2 ** (j + 2) for j in range(n_scales)),
-                          [])
-        self.log_scale = torch.log10(torch.tensor(
-            scale, dtype=tr.real, device=device) + 1.0)
-
-    def coefficients(self, x: torch.Tensor) -> torch.Tensor:
-        return self.tr.ifft2(self.tr.fft2(x)[:, None] * self.psi)
-
-    def decay(self, z: torch.Tensor, config: dict) -> torch.Tensor:
-        mag = self.coefficients(z).abs()
-        amax = mag.amax(dim=(-2, -1))  # (B, L)
-        p_min = _p_min(config)
-        if p_min is None:
-            l, h, w = mag.shape[-3:]
-            norms = torch.sqrt((mag * mag).sum(dim=(-2, -1)) / (l * h * w))
-            # Zhao et al. (2021): a third of the median of the scale-weighted
-            # band norms, one value a slice (L is odd: one middle value)
-            med = torch.median(self.log_scale * norms, dim=-1).values
-            tau_min = (med / 3.0)[:, None].expand_as(amax)
-        else:
-            tau_min = p_min * amax
-        return exponential_schedule(config["p_max"] * amax, tau_min,
-                                    config["niter"])
-
-    def shrink(self, x: torch.Tensor, tau: torch.Tensor) -> torch.Tensor:
-        c = self.coefficients(x)
-        c = torch.where(c.abs() < tau[:, :, None, None], 0, c)
-        return self.tr.ifft2((self.tr.fft2(c) * self.psi).sum(dim=1))
-
-
-BASES = {"FFT": FFTBasis, "SHEARLET": ShearletBasis}
-
-
 def basis_for(config: dict, h: int, w: int, tr: Transforms, device):
-    kind = config["basis"]
-    if kind not in BASES:
-        raise ValueError(f"the reference has no {kind!r} basis")
-    return BASES[kind](h, w, tr, device)
+    """The reference basis of ``config["basis"]`` (its module in
+    ``bases/``) at h x w, built with the transform keys that shape it."""
+    return bases.module(config["basis"]).Basis(h, w, tr, device,
+                                               **bases.shape_keys(config))
 
 
 def fpocs(z: torch.Tensor, mask: torch.Tensor, basis, config: dict

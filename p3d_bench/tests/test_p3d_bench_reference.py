@@ -14,6 +14,7 @@ import bench_tiny
 from p3d_bench import harness
 from p3d_bench.reference import cube as ref_cube
 from p3d_bench.reference import pocs as ref_pocs
+from p3d_bench.reference import shearlet as sh
 
 
 def _runner():
@@ -109,10 +110,42 @@ def test_check_reads_the_ports_cube_as_the_reference(cell):
     numbers = harness.check_numbers(c.config, c.check, inputs, out, 3, "cpu")
     assert numbers["rel_l2"] < 1e-5
     assert len(numbers["bins"]) == bench_tiny.SLICES
-    assert set(walls) == {"upload", "solve", "download", "cube"}
+    # the laps' walls, the harness's host-to-host wall, and stage 2's
+    # spans and build counters
+    assert set(walls) == {"upload", "solve", "download", "cube", "spans",
+                          "process"}
     snr, snr_mag = ref_pocs.snr_db(inputs.truth, out)
     assert snr > ref_pocs.snr_db(inputs.truth, inputs.obs)[0] + 10
     assert np.isfinite(snr_mag)
+
+
+def test_transform_keys_reach_the_program_and_the_reference():
+    """A tiny ``shearlet_cube_1chip`` whose configuration states its
+    default ``n_scales`` as a transform key: the program's cube and the
+    reference's solve are bit-equal to the same cell's without it."""
+    c = bench_tiny.tiny_cell("shearlet_cube_1chip")
+    h, w, _ = c.config["shape"]
+    keyed = dict(c.config, transform={"n_scales": sh.default_scales(h, w)})
+    inputs = harness.make_inputs(c.config, 11, "cpu")
+    mesh = harness.make_mesh(harness.Ranks(), "cpu")
+    spec = harness.obs_spectrum(inputs.obs, c.config["dt_s"], "cpu")
+    z = spec[torch.argsort((spec.abs() ** 2).sum(dim=(-2, -1)),
+                           descending=True)[:4]]
+    mask = torch.from_numpy(inputs.mask)
+    cubes, solves = [], []
+    for cfg in (c.config, keyed):
+        res, _ = harness.cube_runner(cfg, inputs, mesh)()
+        cubes.append(res.data_vars["amp"][1])
+        solves.append(ref_pocs.solve_slices(z, mask, cfg, "float64"))
+    assert np.array_equal(cubes[0], cubes[1])
+    assert torch.equal(solves[0][0], solves[1][0])
+    assert torch.equal(solves[0][1], solves[1][1])
+    # and the key reaches both sides: another scale count moves each
+    other = dict(c.config, transform={"n_scales": sh.default_scales(h, w) - 1})
+    res, _ = harness.cube_runner(other, inputs, mesh)()
+    assert not np.array_equal(res.data_vars["amp"][1], cubes[0])
+    assert not torch.equal(ref_pocs.solve_slices(z, mask, other)[0],
+                           solves[0][0])
 
 
 def test_eps_freezes_converged_slices():
@@ -123,7 +156,8 @@ def test_eps_freezes_converged_slices():
     z[1] = torch.randn(16, 16, dtype=torch.complex128)
     mask = (torch.rand(16, 16) < 0.5).to(torch.float64)
     tr = ref_pocs.Transforms("float64")
-    out, iters = ref_pocs.fpocs(z, mask, ref_pocs.FFTBasis(16, 16, tr, "cpu"),
+    out, iters = ref_pocs.fpocs(z, mask,
+                                ref_pocs.basis_for(cfg, 16, 16, tr, "cpu"),
                                 cfg)
     assert int(iters[2]) == 0 and torch.equal(out[2], z[2])  # zero slice
     assert 4 <= int(iters[0]) < 20  # a single spike converges early

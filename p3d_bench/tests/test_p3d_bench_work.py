@@ -4,6 +4,7 @@ worked by hand."""
 from __future__ import annotations
 
 import ast
+import json
 import math
 
 import numpy as np
@@ -63,9 +64,37 @@ def test_shearlet_count_is_the_sum_of_its_support_lines():
     assert got["bound_s"] == pytest.approx(0.76723, rel=1e-4)
 
 
+@pytest.mark.parametrize("name,flops,nbytes,bound_s", [
+    ("northstar_shearlet", 51404091937280.0, 2212495360, 0.7672252527952239),
+    ("northstar_fft_eps", 1235843809280.0, 2148532224, 0.01844542998925373),
+])
+def test_committed_configs_count_as_pinned(name, flops, nbytes, bound_s):
+    """The committed configurations, read from their files, to the last
+    digit: the count a basis's module gives is the one the benchmark's
+    readings were taken with."""
+    cfg = json.loads((bench_tiny.ROOT / "p3d_bench" / "configs"
+                      / f"{name}.json").read_text())
+    assert work.solve_work(cfg) == {"flops": flops, "bytes": nbytes,
+                                    "bound_s": bound_s,
+                                    "bound_by": "operations"}
+
+
+def test_shape_keys_reach_the_count():
+    cfg = {"shape": [64, 64, 32], "niter": 3, "basis": "SHEARLET"}
+    default = dict(cfg, transform={"n_scales": sh.default_scales(64, 64)})
+    fewer = dict(cfg, transform={"n_scales": 1})
+    assert work.solve_work(default) == work.solve_work(cfg)
+    assert work.window_bytes("SHEARLET", 64, 64, n_scales=1) == 5 * 64 * 64 * 4
+    assert work.solve_work(fewer)["flops"] < work.solve_work(cfg)["flops"]
+    assert work.solve_work(fewer)["bytes"] < work.solve_work(cfg)["bytes"]
+
+
 def test_unknown_basis_has_no_count():
-    with pytest.raises(ValueError):
-        work.forward_flops("CURVELET", 64, 64)
+    """A name no basis module will have: the count is refused, not 0."""
+    with pytest.raises(ValueError, match="no_such_basis.py"):
+        work.forward_flops("NO_SUCH_BASIS", 64, 64)
+    with pytest.raises(ValueError, match="no_such_basis.py"):
+        work.window_bytes("NO_SUCH_BASIS", 64, 64)
 
 
 def test_the_count_takes_nothing_from_the_program():

@@ -12,11 +12,12 @@ that neither a kernel's name nor a design's passes change it:
   spectrum that is zero outside some rows and columns (or whose output is
   needed only there) takes the cheaper order: the support's rows along W
   and then every column along H, or the support's columns along H and
-  then every row along W. The FFT basis transforms every line. SHEARLET
-  takes the slice's spectrum once each way and each band's support lines
-  each way. Thresholds and reinsertion are not counted.
+  then every row along W. Each basis's module in ``reference/bases/``
+  counts one forward transform of one slice from these lines (the
+  configuration's transform keys that shape the basis with it).
+  Thresholds and reinsertion are not counted.
 - bytes: each input read once and each output written once: the time
-  cube in and out, the mask, and SHEARLET's windows. No scratch.
+  cube in and out, the mask, and the basis's own tables. No scratch.
 
 The least time is the larger of the operations over the fp32 peak and the
 bytes over the memory rate.
@@ -24,10 +25,9 @@ bytes over the memory rate.
 
 from __future__ import annotations
 
-import functools
 import math
 
-from .reference import shearlet as sh
+from .reference import bases
 
 # NVIDIA H100 SXM data sheet, 700 W: fp32 on the CUDA cores, HBM3
 FP32_FLOPS = 67e12
@@ -56,41 +56,26 @@ def support_fft2_flops(h: int, w: int, rows: int, cols: int) -> float:
                cols * line_flops(h) + h * line_flops(w))
 
 
-@functools.lru_cache(maxsize=4)
-def shearlet_supports(h: int, w: int) -> tuple[tuple[int, int], ...]:
-    """(rows, columns) on which each SHEARLET window is nonzero."""
-    psi = sh.shearlet_spectra(h, w, sh.default_scales(h, w))
-    nz = psi != 0
-    return tuple((int(b.any(axis=1).sum()), int(b.any(axis=0).sum()))
-                 for b in nz)
-
-
-def forward_flops(basis: str, h: int, w: int) -> float:
+def forward_flops(basis: str, h: int, w: int, **keys) -> float:
     """One forward (or inverse) transform of one slice."""
-    if basis == "FFT":
-        return fft2_flops(h, w)
-    if basis == "SHEARLET":
-        return fft2_flops(h, w) + sum(
-            support_fft2_flops(h, w, r, c) for r, c in shearlet_supports(h, w))
-    raise ValueError(f"no work count for basis {basis!r}")
+    return bases.module(basis).forward_flops(h, w, **keys)
 
 
-def window_bytes(basis: str, h: int, w: int) -> int:
-    """The basis's own table read once: SHEARLET's float32 windows."""
-    if basis == "SHEARLET":
-        return len(shearlet_supports(h, w)) * h * w * 4
-    return 0
+def window_bytes(basis: str, h: int, w: int, **keys) -> int:
+    """The basis's own tables, read once."""
+    return bases.module(basis).window_bytes(h, w, **keys)
 
 
 def solve_work(config: dict) -> dict:
     """The operations, bytes and least time of one cube's solve stage."""
     h, w, t = config["shape"]
+    basis, keys = config["basis"], bases.shape_keys(config)
     slices = t // 2 + 1
-    per_slice = (2 * config["niter"] + 1) * forward_flops(config["basis"],
-                                                          h, w)
+    per_slice = (2 * config["niter"] + 1) * forward_flops(basis, h, w,
+                                                          **keys)
     flops = 2 * h * w * real_line_flops(t) + slices * per_slice
-    nbytes = 2 * h * w * t * 4 + h * w * 4 + window_bytes(config["basis"],
-                                                          h, w)
+    nbytes = 2 * h * w * t * 4 + h * w * 4 + window_bytes(basis, h, w,
+                                                          **keys)
     t_ops, t_bytes = flops / FP32_FLOPS, nbytes / HBM_BYTES_PER_S
     return {"flops": flops, "bytes": nbytes,
             "bound_s": max(t_ops, t_bytes),
